@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the ``slcl_torch`` port (one CUDA card).
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. build: compile every kernel of the main path from ``slcl_torch/csrc``
+     with nvcc for sm_90a, one nvcc per source, all started together;
+  2. kernels: hold each kernel against its plain PyTorch version on the
+     card at the main path's shapes (M = 16*224*224 rows, F = 32, C = 4;
+     bf16 and f32 features): values and gradients within the stated
+     tolerances, pseudo-labels exact apart from counted near-tie rows, two
+     launches bit-identical; then time kernel, plain version and, where one
+     PyTorch call computes the same function, that call;
+  3. small slice: two ``slcl`` multilvl+CNR steps on the card (kernels)
+     against the same two steps on the CPU (plain versions), from the same
+     weights and batches, at a small size in f32;
+  4. train: the full-width ``method=slcl model.multilvl=true
+     data.dataset=synthetic`` recipe at bs16 224x224 through the port's
+     ``Trainer`` for one epoch (launch counts set to 0 just before and read
+     just after: each kernel must have run its per-step count every step,
+     and every loss must be finite), then twenty timed steps, then three
+     steps traced with torch.profiler for the device's busy time and the
+     kernels that take most of it.
+
+Prints the kernel table as one JSON line, the step timing as one JSON line,
+the card's name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+M, F, C = 16 * 224 * 224, 32, 4
+PER_STEP = {"mpcl_fwd": 2, "mpcl_bwd": 2, "pseudo_label": 1,
+            "soft_centroids_fwd": 1, "soft_centroids_bwd": 1}
+# published peaks: (HBM bytes/s, f32 non-tensor FLOP/s)
+PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12),
+         "H200": (4.8e12, 67e12)}
+# (source, symbol part) of each kernel's main-path instantiation: bf16, F=32
+# (and P=1 for the centroids)
+SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
+           "mpcl_bwd": ("mpcl", "mpcl_bwdI13__nv_bfloat16Li32E"),
+           "pseudo_label": ("pseudo_label", "pseudo_label_kernelI13__nv_bfloat16Li32E"),
+           "soft_centroids_fwd": ("soft_centroids",
+                                  "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E"),
+           "soft_centroids_bwd": ("soft_centroids",
+                                  "centroids_bwdI13__nv_bfloat16Li32ELi1E")}
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def peaks_for(name: str):
+    for key, val in PEAKS.items():
+        if all(part in name for part in key.split()):
+            return val
+    raise RuntimeError(f"no published peak for card {name!r}")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # keep the card busy (~30 ms) while the host queues every launch, so the
+    # events time the device's work and not the host's dispatch
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, peaks) -> tuple:
+    t_b, t_o = nbytes / peaks[0], flops / peaks[1]
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def close(got, want, rtol: float, atol: float, what: str) -> float:
+    """Assert |got - want| <= atol + rtol*|want| elementwise; return max abs err."""
+    import torch
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    lim = atol + rtol * want.abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    if bool((err > lim).any()):
+        i = int(torch.argmax(err - lim))
+        raise AssertionError(f"{what}: max excess at {i}: got {got.flatten()[i].item()} "
+                             f"want {want.flatten()[i].item()} (rtol {rtol}, atol {atol})")
+    return float(err.max())
+
+
+def check_kernels(peaks) -> list:
+    """Phase 2: every kernel against its plain version; returns the table."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    T, base_T, margin = 0.1, 1.0, 0.4
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        # bf16 rounds dfeats to 8 mantissa bits in both versions: allow two ulps
+        g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 2e-3
+        feats = torch.randn(M, F, generator=g, device=dev).to(dtype)
+        labels = torch.randint(0, C, (M,), generator=g, device=dev, dtype=torch.int32)
+        sel = torch.randint(0, 2, (M,), generator=g, device=dev).float()
+        centers = torch.randn(C, F, generator=g, device=dev)
+        centers = centers / centers.norm(dim=1, keepdim=True)
+        logits = torch.randn(M, C, generator=g, device=dev)
+        probs = torch.softmax(logits, dim=-1)
+        assign = torch.randint(0, 2, (M,), generator=g, device=dev, dtype=torch.int32)
+        dcents = {P: torch.randn(P, C, F, generator=g, device=dev) for P in (1, 2)}
+
+        # ---- MPCL: value (rel 1e-4) and feats-grad (rtol 2e-3 f32) ----
+        for use_sel, easy in ((True, False), (False, False), (True, True)):
+            s = sel if use_sel else None
+            scale = T / base_T
+            stats = K_mpcl.mpcl_fwd_cuda(feats, labels, centers, s, T, margin, easy, scale)
+            stats2 = K_mpcl.mpcl_fwd_cuda(feats, labels, centers, s, T, margin, easy, scale)
+            if not torch.equal(stats, stats2):
+                raise AssertionError("mpcl_fwd: two launches differ")
+            x = feats.detach().requires_grad_(True)
+            want = K_mpcl.mpcl_plain(x, labels, centers, s, temperature=T,
+                                     base_temperature=base_T, margin=margin,
+                                     easy_margin=easy)
+            (g_want,) = torch.autograd.grad(want, x)
+            err_f = close(stats[0], want.detach(), 1e-4, 0.0,
+                          f"mpcl fwd {tag} sel={use_sel} easy={easy}")
+            grad = torch.ones(1, device=dev)
+            d1 = K_mpcl.mpcl_bwd_cuda(feats, labels, centers, s, T, margin, easy, scale,
+                                      grad, stats)
+            d2 = K_mpcl.mpcl_bwd_cuda(feats, labels, centers, s, T, margin, easy, scale,
+                                      grad, stats)
+            if not torch.equal(d1, d2):
+                raise AssertionError("mpcl_bwd: two launches differ")
+            err_b = close(d1, g_want, g_rtol, 1e-3 * float(g_want.abs().max()),
+                          f"mpcl bwd {tag} sel={use_sel} easy={easy}")
+            if tag == "bf16" and use_sel and not easy:   # the target call's shape
+                rows["mpcl_fwd"] = {"max_abs_err": err_f}
+                rows["mpcl_bwd"] = {"max_abs_err": err_b}
+                t_fwd = time_ms(lambda: K_mpcl.mpcl_fwd_cuda(
+                    feats, labels, centers, s, T, margin, easy, scale))
+                t_bwd = time_ms(lambda: K_mpcl.mpcl_bwd_cuda(
+                    feats, labels, centers, s, T, margin, easy, scale, grad, stats))
+                plain_fwd = time_ms(lambda: K_mpcl.mpcl_plain(
+                    feats, labels, centers, s, temperature=T, base_temperature=base_T,
+                    margin=margin, easy_margin=easy))
+                y = K_mpcl.mpcl_plain(x, labels, centers, s, temperature=T,
+                                      base_temperature=base_T, margin=margin,
+                                      easy_margin=easy)
+                plain_bwd = time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True))
+                es = feats.element_size()
+                fl_row = 2 * F + 2 * C * F + 12 * C
+                rows["mpcl_fwd"].update(ms=t_fwd, plain_ms=plain_fwd, library_ms=None,
+                                        bound=bound(M * (F * es + 4 + 4), M * fl_row, peaks))
+                rows["mpcl_bwd"].update(ms=t_bwd, plain_ms=plain_bwd, library_ms=None,
+                                        bound=bound(M * (2 * F * es + 4 + 4),
+                                                    M * (fl_row + 2 * C * F + 4 * F), peaks))
+                del y
+        log(f"mpcl {tag}: ok")
+
+        # ---- pseudo-labels: exact apart from near-tie rows ----
+        lab_k, mask_k = K_pl.pseudo_label_cuda(feats, centers, 0.25)
+        lab_k2, mask_k2 = K_pl.pseudo_label_cuda(feats, centers, 0.25)
+        if not (torch.equal(lab_k, lab_k2) and torch.equal(mask_k, mask_k2)):
+            raise AssertionError("pseudo_label: two launches differ")
+        lab_p, mask_p = K_pl.pseudo_label_plain(feats, centers, 0.25)
+        cos64 = (K_pl.normalize_rows(feats.double()).double()
+                 @ (centers.double() / centers.double().norm(dim=1, keepdim=True)).T)
+        top2 = torch.topk(cos64, 2, dim=1).values
+        gap = top2[:, 0] - top2[:, 1]
+        near = (gap.abs() < 1e-6) | ((gap - 0.25).abs() < 1e-6)
+        differ = (lab_k != lab_p) | (mask_k != mask_p)
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"pseudo_label {tag}: {int((differ & ~near).sum())} "
+                                 "rows differ away from a tie")
+        n_near = int(near.sum())
+        log(f"pseudo_label {tag}: ok ({int(differ.sum())} differing rows, "
+            f"{n_near} near-tie rows)")
+        if tag == "bf16":
+            es = feats.element_size()
+            rows["pseudo_label"] = {
+                "max_abs_err": float((differ & ~near).any()),
+                "near_tie_rows": n_near,
+                "ms": time_ms(lambda: K_pl.pseudo_label_cuda(feats, centers, 0.25)),
+                "plain_ms": time_ms(lambda: K_pl.pseudo_label_plain(feats, centers, 0.25)),
+                "library_ms": None,
+                "bound": bound(M * (F * es + 4 + 4), M * (2 * F + 2 * C * F), peaks)}
+
+        # ---- soft centroids: rtol 1e-4 atol 1e-5, ratio rel 1e-5, grads ----
+        for P in (1, 2):
+            for weighted in (False, True):
+                for thd in (0.0, 0.4):
+                    a = assign if P > 1 else None
+                    cents, counts, ratio = K_sc.soft_centroids_fwd_cuda(
+                        feats, probs, a, P, thd, weighted)
+                    c2, _, r2 = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, thd,
+                                                             weighted)
+                    if not (torch.equal(cents, c2) and torch.equal(ratio, r2)):
+                        raise AssertionError("soft_centroids_fwd: two launches differ")
+                    x = feats.detach().requires_grad_(True)
+                    pr = probs.detach().requires_grad_(True)
+                    want, want_ratio = K_sc.soft_centroids_plain(
+                        x, pr, a, partition=P, threshold=thd, weighted=weighted)
+                    what = f"soft_centroids {tag} P={P} soft={weighted} thd={thd}"
+                    err_f = close(cents, want.detach(), 1e-4, 1e-5, what + " fwd")
+                    close(ratio, want_ratio, 1e-5, 0.0, what + " ratio")
+                    grads = torch.autograd.grad(want, [x, pr] if weighted else [x],
+                                                dcents[P])
+                    dfeats, dprobs = K_sc.soft_centroids_bwd_cuda(
+                        feats, probs, a, P, thd, weighted, dcents[P], cents, counts,
+                        weighted)
+                    dfeats2, _ = K_sc.soft_centroids_bwd_cuda(
+                        feats, probs, a, P, thd, weighted, dcents[P], cents, counts,
+                        weighted)
+                    if not torch.equal(dfeats, dfeats2):
+                        raise AssertionError("soft_centroids_bwd: two launches differ")
+                    err_b = close(dfeats, grads[0], g_rtol,
+                                  1e-3 * float(grads[0].abs().max()), what + " dfeats")
+                    if weighted:
+                        close(dprobs, grads[1], 2e-3, 1e-3 * float(grads[1].abs().max()),
+                              what + " dprobs")
+                    if tag == "bf16" and P == 1 and not weighted and thd == 0.0:
+                        es = feats.element_size()
+                        labels_hard = probs.argmax(dim=1)
+                        sums = torch.zeros(C, F, device=dev, dtype=feats.dtype)
+                        y, _ = K_sc.soft_centroids_plain(x, pr, None, partition=1)
+                        rows["soft_centroids_fwd"] = {
+                            "max_abs_err": err_f,
+                            "ms": time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
+                                feats, probs, None, 1, 0.0, False)),
+                            "plain_ms": time_ms(lambda: K_sc.soft_centroids_plain(
+                                feats, probs, None, partition=1, weighted=False)),
+                            # index_add_ takes the same per-class row sums
+                            "library_ms": time_ms(lambda: sums.index_add_(
+                                0, labels_hard, feats)),
+                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks)}
+                        # hard weights: dfeats[m] = dsums[argmax probs[m]]
+                        dsums = (dcents[1][0] / (counts[:, None] + 1e-7)).to(feats.dtype)
+                        rows["soft_centroids_bwd"] = {
+                            "max_abs_err": err_b,
+                            "ms": time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
+                                feats, probs, None, 1, 0.0, False, dcents[1], cents,
+                                counts, False)),
+                            "plain_ms": time_ms(lambda: torch.autograd.grad(
+                                y, x, dcents[1], retain_graph=True)),
+                            # the same gather, given the argmax labels
+                            "library_ms": time_ms(lambda: dsums.index_select(
+                                0, labels_hard)),
+                            # probs read, dfeats written (no feats read)
+                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks)}
+                        del y
+        log(f"soft_centroids {tag}: ok")
+        torch.cuda.synchronize()
+    return rows
+
+
+def small_config(multilvl: bool = True):
+    from slcl_torch.config import Config, apply_recipe
+    cfg = Config()
+    cfg.method = "slcl"
+    cfg = apply_recipe(cfg)
+    cfg.model.multilvl = multilvl
+    cfg.data.dataset = "synthetic"
+    cfg.data.bs, cfg.data.crop = 2, 32
+    cfg.data.num_workers = 1
+    cfg.model.filters, cfg.model.n_block, cfg.model.bottleneck_depth = 8, 2, 2
+    cfg.model.dtype = "float32"
+    return cfg
+
+
+def check_small_slice() -> None:
+    """Phase 3: two steps on the card vs two on the CPU, same start."""
+    import torch
+    from slcl_torch.data import to_device
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.trainer import Trainer
+
+    cfg = small_config()
+    cpu = Trainer(cfg, device="cpu")
+    gpu = Trainer(cfg, device="cuda")
+    batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
+    sched = cpu._sched(0)
+    reset_launch_counts()
+    for i, b in enumerate(batches):
+        m_cpu = cpu.step_fn(cpu.state, to_device(b, torch.device("cpu")), sched)
+        m_gpu = gpu.step_fn(gpu.state, to_device(b, torch.device("cuda")), sched)
+        for k, v in m_cpu.items():
+            # cuDNN vs CPU f32 convolution sums; one pseudo-label flip at a
+            # near-tie would move loss_mpscl_tg by O(1/M)
+            close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small slice step {i} {k}")
+    counts = launch_counts()
+    for name, per in PER_STEP.items():
+        if counts[name] != 2 * per:
+            raise AssertionError(f"small slice: {name} launched {counts[name]} times, "
+                                 f"expected {2 * per}")
+    torch.cuda.synchronize()
+    log("small slice: card matches CPU over two steps")
+
+
+def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
+    """Device time of ``n`` steps by kernel, from torch.profiler's CUDA
+    events: busy share of the wall time, and the kernels that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    # first matching category wins; the rest is elementwise/copy/reduce
+    cats = (("port_kernels", ("mpcl_fwd_", "mpcl_bwd<", "pseudo_label_kernel",
+                              "centroids_fwd_", "centroids_bwd<")),
+            ("convolution", ("xmma", "conv", "implicit_gemm", "cudnn", "gemm")),
+            ("batch_norm", ("batch_norm",)),
+            ("reduce", ("reduce_kernel",)),
+            ("copy_cast", ("copy_kernel", "direct_copy")))
+    by_cat: dict = {}
+    for k, v in by_name.items():
+        cat = next((c for c, keys in cats if any(p in k for p in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_ms_per_step": busy_us / n / 1e3,
+            "idle_share": 1.0 - busy_us / wall_us,
+            "by_category_ms_per_step": {c: v / n / 1e3 for c, v in by_cat.items()},
+            "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top]}
+
+
+def train_full_width() -> dict:
+    """Phase 4: the full-width recipe through the port's Trainer."""
+    import torch
+    from slcl_torch.config import Config, apply_recipe
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.method = "slcl"
+    cfg = apply_recipe(cfg)
+    cfg.model.multilvl = True
+    cfg.data.dataset = "synthetic"
+    cfg.optim.epochs = 1
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg)
+    n_params = sum(p.numel() for p in trainer.state.seg.parameters())
+    if n_params != 13_484_104:
+        raise AssertionError(f"DRUNet multilvl has {n_params} parameters")
+    steps_per_epoch = len(trainer.datasets["train_s"]) // cfg.data.bs
+
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    means = trainer.train()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    counts = launch_counts()
+    for name, per in PER_STEP.items():
+        if counts[name] != steps_per_epoch * per:
+            raise AssertionError(f"train: {name} launched {counts[name]} times in "
+                                 f"{steps_per_epoch} steps, expected "
+                                 f"{steps_per_epoch * per}")
+    bad = {k: v for k, v in means.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"train: non-finite losses {bad}")
+    log(f"train epoch: {steps_per_epoch} steps in {epoch_s:.2f} s, means {means}")
+
+    batches = list(device_prefetch(trainer._epoch_batches(), trainer.device))
+    sched = trainer._sched(0)
+    n_timed = 20
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(n_timed):
+        metrics = trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t2) / n_timed * 1e3
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError("timed steps: non-finite losses")
+    # each step alone, synchronised: its spread (no overlap with the next)
+    each = []
+    for i in range(n_timed):
+        t3 = time.perf_counter()
+        trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - t3) * 1e3)
+    each.sort()
+    prof = profile_steps(trainer, batches, sched)
+    return {"step_ms": step_ms, "timed_steps": n_timed,
+            "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
+            "profile": prof,
+            "src_img_per_s": cfg.data.bs / step_ms * 1e3,
+            "epoch_s": epoch_s, "steps_per_epoch": steps_per_epoch,
+            "setup_s": t1 - t0, "bs": cfg.data.bs, "crop": cfg.data.crop,
+            "params": n_params, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts,
+            "means": means}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        log("no CUDA device: this script runs only on a card")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from slcl_torch.ops.cuda import KERNELS, build
+        from slcl_torch.ops.cuda import mpcl, pseudo_label, soft_centroids  # noqa: F401
+    except ImportError as e:
+        log(f"slcl_torch not found next to this script ({e}): run from a checkout")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    peaks = peaks_for(name)
+    log(f"{name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"built {len(build.SOURCES)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+
+    rows = check_kernels(peaks)
+    check_small_slice()
+    train = train_full_width()
+
+    table = []
+    for kname, rec in rows.items():
+        k = KERNELS[kname]
+        bound_ms, bound_by = rec["bound"]
+        entry = {"name": kname, "route": "cuda", "source": k.source,
+                 "replaces": k.replaces, "launches": train["launches"][kname],
+                 "launches_per_step": train["launches"][kname] / train["steps_per_epoch"],
+                 "max_abs_err": rec["max_abs_err"],
+                 "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": rec["library_ms"]}
+        if "near_tie_rows" in rec:
+            entry["near_tie_rows"] = rec["near_tie_rows"]
+        src, sym = SYMBOLS[kname]
+        ((regs, spill),) = [(r, sp) for fn, r, sp in build.ptxas_report(src) if sym in fn]
+        entry.update(registers=regs, spill_store_bytes=spill)
+        table.append(entry)
+    if {e["name"] for e in table} != set(PER_STEP):
+        raise AssertionError("kernel table incomplete")
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"train": train}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,257 @@
+// Margin-preserving pixel-vs-prototype contrastive loss (MPCL), forward and
+// backward, for Hopper (sm_90a).
+//
+// Replaces slcl_tpu/ops/pallas/mpcl_kernel.py::mpcl_loss_fused (_fwd_kernel,
+// _bwd_kernel and the custom VJP _fused_fwd/_fused_bwd).
+//
+// Per row m of feats (M, F): L2-normalise (rsqrt(sum x^2 + 1e-24)); cosine
+// against the (C, F) normalised prototypes; logits = cos/T minus the row
+// max; ArcFace margin phi on the label column (hard: phi if cos > cos(pi-m)
+// else cos - sin(pi-m)*m; easy: phi if cos > 0 else cos), also minus its row
+// max; log-softmax with +1e-4 in the partition sum; mlpp = log-prob of the
+// label column. Loss = -(T/T_base) * sum(sel*mlpp) / den, den = sum(sel)+1e-4
+// with sel, else M. Backward recomputes the row and returns dfeats through
+// the normalisation Jacobian; the prototypes are detached (dcenters = 0).
+//
+// Bound on this card: bytes. At the slice's shapes (M = 16*224*224 =
+// 802,816, F = 32, C = 4, bf16 feats) the forward reads 51.4 MB of features
+// plus 3.2 MB of labels and 3.2 MB of sel (~58 MB, ~17 us at 3.35 TB/s); the
+// backward also writes 51.4 MB of dfeats (~109 MB, ~33 us). The arithmetic
+// is ~128 FMAs per 64 bytes, far under the card's ratio, and too narrow for
+// tensor cores.
+//
+// Design: one thread per row, C = slcl::kC fixed at compile time. A thread reads its row as 16-byte vectors, so
+// a warp has 2 KB of loads in flight per row step; the prototypes sit in
+// shared memory and are read as broadcasts. All per-row math is f32 in
+// registers. The forward sums sel*mlpp and sel per thread over a
+// grid-stride loop, then per block in a fixed tree; a second one-block
+// kernel adds the block partials in a fixed order and writes the loss, so
+// two runs on the same inputs give bit-identical results (no float atomics).
+#include "common.cuh"
+
+namespace {
+
+using slcl::kC;
+using slcl::kThreads;
+
+struct Margin {
+  float T, cos_m, sin_m, th, mm;
+  int easy;
+};
+
+// Row math shared by forward and backward. Returns mlpp; fills cosv[c],
+// e[c] = exp(mixed[c]), z = sum(e) + 1e-4 and inv = 1/||x||.
+template <int F, int C>
+__device__ __forceinline__ float mpcl_row(const float (&x)[F], const float* cent,
+                                          int lab, const Margin& mg,
+                                          float* cosv, float* e, float& z,
+                                          float& inv) {
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < F; ++k) ss = fmaf(x[k], x[k], ss);
+  inv = rsqrtf(ss + 1e-24f);
+  float logit[C], phil[C];
+  float lmax = -INFINITY, pmax = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) d = fmaf(x[k], cent[c * F + k], d);
+    const float cs = d * inv;
+    cosv[c] = cs;
+    const float sine = sqrtf(fminf(fmaxf(1.f - cs * cs, 1e-4f), 1.f));
+    float phi = cs * mg.cos_m - sine * mg.sin_m;
+    if (mg.easy) phi = cs > 0.f ? phi : cs;
+    else phi = cs > mg.th ? phi : cs - mg.mm;
+    logit[c] = cs / mg.T;
+    phil[c] = phi / mg.T;
+    lmax = fmaxf(lmax, logit[c]);
+    pmax = fmaxf(pmax, phil[c]);
+  }
+  float mixed_lab = 0.f;
+  z = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float mixed = (c == lab) ? phil[c] - pmax : logit[c] - lmax;
+    if (c == lab) mixed_lab = mixed;
+    e[c] = expf(mixed);
+    z += e[c];
+  }
+  z += 1e-4f;
+  // a label outside [0, C) selects no column: mlpp = 0, as one_hot gives
+  return (lab >= 0 && lab < C) ? mixed_lab - logf(z) : 0.f;
+}
+
+template <typename T, int F, int C>
+__global__ void __launch_bounds__(kThreads)
+mpcl_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
+                 const float* __restrict__ sel, const float* __restrict__ centers,
+                 int M, Margin mg, float* __restrict__ part) {
+  __shared__ float s_cent[C * F];
+  __shared__ float s_red[kThreads];
+  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
+  __syncthreads();
+  float num = 0.f, den = 0.f;
+  const int stride = gridDim.x * blockDim.x;
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
+    float x[F];
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
+    const float s = sel ? sel[row] : 1.f;
+    float cosv[C], e[C], z, inv;
+    const float mlpp = mpcl_row<F, C>(x, s_cent, labels[row], mg, cosv, e, z, inv);
+    num = fmaf(s, mlpp, num);
+    den += s;
+  }
+  num = slcl::block_sum(num, s_red);
+  den = slcl::block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = num;
+    part[2 * blockIdx.x + 1] = den;
+  }
+}
+
+// out = [loss, sum(sel*mlpp), den]
+__global__ void __launch_bounds__(kThreads)
+mpcl_fwd_final(const float* __restrict__ part, int nparts, int M, int use_sel,
+               float scale, float* __restrict__ out) {
+  __shared__ float s_red[kThreads];
+  float num = 0.f, den = 0.f;
+  for (int i = threadIdx.x; i < nparts; i += blockDim.x) {
+    num += part[2 * i];
+    den += part[2 * i + 1];
+  }
+  num = slcl::block_sum(num, s_red);
+  den = slcl::block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    const float d = use_sel ? den + 1e-4f : static_cast<float>(M);
+    out[0] = -scale * num / d;
+    out[1] = num;
+    out[2] = d;
+  }
+}
+
+template <typename T, int F, int C>
+__global__ void __launch_bounds__(kThreads)
+mpcl_bwd(const T* __restrict__ feats, const int* __restrict__ labels,
+         const float* __restrict__ sel, const float* __restrict__ centers, int M,
+         Margin mg, float scale, const float* __restrict__ grad_out,
+         const float* __restrict__ stats, T* __restrict__ dfeats) {
+  __shared__ float s_cent[C * F];
+  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
+  __syncthreads();
+  // dL/dmlpp_m = coef * sel_m
+  const float coef = -scale * grad_out[0] / stats[2];
+  const int stride = gridDim.x * blockDim.x;
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
+    float x[F];
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
+    const float s = sel ? sel[row] : 1.f;
+    const int lab = labels[row];
+    const bool valid = lab >= 0 && lab < C;
+    float cosv[C], e[C], z, inv;
+    mpcl_row<F, C>(x, s_cent, lab, mg, cosv, e, z, inv);
+    float gcos[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float cs = cosv[c];
+      const float one_m = 1.f - cs * cs;
+      // clamped sine is constant: dphi/dcos = cos_m there
+      const bool sat = one_m <= 1e-4f || one_m >= 1.f;
+      const float sine = sqrtf(fminf(fmaxf(one_m, 1e-4f), 1.f));
+      const float dphi_on = sat ? mg.cos_m : mg.cos_m + mg.sin_m * cs / sine;
+      const bool branch = cs > (mg.easy ? 0.f : mg.th);
+      const float dphi = branch ? dphi_on : 1.f;
+      const bool is_lab = (c == lab);
+      // d mlpp / d mixed = onehot - p * sum(onehot); sum is 0 off [0, C)
+      const float dmixed = (is_lab ? 1.f : 0.f) - (valid ? e[c] / z : 0.f);
+      gcos[c] = coef * s * dmixed * (is_lab ? dphi : 1.f) / mg.T;
+    }
+    // back through cos = (x * inv) @ centers^T and the row normalisation
+    float dfn[F];
+    float proj = 0.f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) v = fmaf(gcos[c], s_cent[c * F + k], v);
+      dfn[k] = v;
+      proj = fmaf(v, x[k] * inv, proj);
+    }
+#pragma unroll
+    for (int k = 0; k < F; ++k) dfn[k] = (dfn[k] - x[k] * inv * proj) * inv;
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dfn + k);
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* feats, const int* labels, const float* sel,
+               const float* centers, int M, int F, Margin mg, float scale,
+               float* part, float* out, cudaStream_t st) {
+  const int grid = slcl::grid_for(M, kThreads);
+  SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC><<<grid, kThreads, 0, st>>>(
+                         static_cast<const T*>(feats), labels, sel, centers, M, mg,
+                         part));
+  mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, sel != nullptr, scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* feats, const int* labels, const float* sel,
+               const float* centers, int M, int F, Margin mg, float scale,
+               const float* grad_out, const float* stats, void* dfeats,
+               cudaStream_t st) {
+  const int grid = slcl::grid_for(M, kThreads);
+  SLCL_DISPATCH_F(F, mpcl_bwd<T, kF, kC><<<grid, kThreads, 0, st>>>(
+                         static_cast<const T*>(feats), labels, sel, centers, M, mg,
+                         scale, grad_out, stats, static_cast<T*>(dfeats)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of float pairs the forward's partial buffer must hold.
+int mpcl_num_partials(int M) { return slcl::grid_for(M, kThreads); }
+
+// Returns cudaGetLastError() after the launches; -1 for an unsupported F or
+// a C other than slcl::kC. sel may be null (plain mean over M).
+int mpcl_fwd(const void* feats, int feats_bf16, const void* labels,
+             const void* sel, const void* centers, int M, int F, int C, float T,
+             float cos_m, float sin_m, float th, float mm, int easy, float scale,
+             void* partials, void* out, void* stream) {
+  if (C != kC) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const int*>(labels);
+  auto s = static_cast<const float*>(sel);
+  auto cen = static_cast<const float*>(centers);
+  auto part = static_cast<float*>(partials);
+  auto o = static_cast<float*>(out);
+  return feats_bf16
+             ? launch_fwd<__nv_bfloat16>(feats, lab, s, cen, M, F, mg, scale, part, o, st)
+             : launch_fwd<float>(feats, lab, s, cen, M, F, mg, scale, part, o, st);
+}
+
+// stats is the forward's out (stats[2] = den); grad_out one float.
+int mpcl_bwd(const void* feats, int feats_bf16, const void* labels,
+             const void* sel, const void* centers, int M, int F, int C, float T,
+             float cos_m, float sin_m, float th, float mm, int easy, float scale,
+             const void* grad_out, const void* stats, void* dfeats, void* stream) {
+  if (C != kC) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const int*>(labels);
+  auto s = static_cast<const float*>(sel);
+  auto cen = static_cast<const float*>(centers);
+  auto g = static_cast<const float*>(grad_out);
+  auto stt = static_cast<const float*>(stats);
+  return feats_bf16
+             ? launch_bwd<__nv_bfloat16>(feats, lab, s, cen, M, F, mg, scale, g, stt, dfeats, st)
+             : launch_bwd<float>(feats, lab, s, cen, M, F, mg, scale, g, stt, dfeats, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,326 @@
+// Soft (or hard) class centroids per partition, forward and backward, for
+// Hopper (sm_90a).
+//
+// Replaces slcl_tpu/ops/pallas/centroid_kernel.py::soft_centroids_fused
+// (_kernel). The TPU kernel is forward-only; CNR backpropagates through the
+// target centroids, so this file adds the backward.
+//
+// Forward, per row m of feats (M, F), probs (M, C) and a partition id
+// assign[m] in [0, P): certain = (max prob >= thd) when 0 < thd < 1, else 1;
+// weights w = probs * certain (soft) or onehot(first argmax) * certain
+// (hard). Per partition p it sums w[c] * feats (P*C, F), w[c] (P*C) and
+// certain (1); cents = sums / (counts + 1e-7), ratio = sum(certain) / M.
+// Backward, from dcents: dsums = dcents / (counts + 1e-7), dcounts =
+// -sum_f dcents * cents / (counts + 1e-7); dfeats[m] = sum_c w[m,c] *
+// dsums[p(m), c]; with soft weights dprobs[m,c] = (sum_f dsums[p(m),c,f] *
+// feats[m,f] + dcounts[p(m),c]) * certain[m]. Hard weights pass no gradient
+// to probs.
+//
+// Bound on this card: bytes. At the slice's shapes (M = 802,816, F = 32,
+// C = 4, P = 1, bf16 feats, f32 probs) the forward reads 51.4 MB of
+// features and 12.8 MB of probs (~64 MB, ~19 us at 3.35 TB/s). The hard-
+// weight backward reads the probs and writes 51.4 MB of dfeats (~64 MB,
+// ~19 us): it reads the features only for dprobs, so soft weights also read
+// 51.4 MB of features and write 12.8 MB of dprobs.
+//
+// Design: F/8 threads per row, each owning 8 features read as one 16-byte
+// vector (bf16), so a warp reads 32/(F/8) whole rows in one coalesced
+// sweep. In the forward each thread keeps its P*C x 8 partial sums in
+// registers over a grid-stride loop; the warp folds them with shuffles in a
+// fixed order, the block adds its warps in a fixed order into one partial
+// per block, and a second one-block kernel adds the block partials in a
+// fixed order and divides. No float atomics: two runs on the same inputs
+// give bit-identical centroids. The backward first forms dsums/dcounts for
+// the block in shared memory, then writes each row's dfeats as 16-byte
+// stores. C is fixed at compile time (slcl::kC).
+#include "common.cuh"
+
+namespace {
+
+using slcl::kThreads;
+constexpr int kWarps = kThreads / 32;
+
+template <int P, int C>
+__device__ __forceinline__ void row_weights(const float* __restrict__ probs,
+                                            const int* __restrict__ assign, int row,
+                                            float thd, int use_thd, int weighted,
+                                            float (&w)[C], float& cert,
+                                            float& in_part, int& part) {
+  float p[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) p[c] = probs[(size_t)row * C + c];
+  float mx = p[0];
+  int am = 0;
+#pragma unroll
+  for (int c = 1; c < C; ++c)
+    if (p[c] > mx) {
+      mx = p[c];
+      am = c;
+    }
+  cert = (!use_thd || mx >= thd) ? 1.f : 0.f;
+  part = (P > 1) ? assign[row] : 0;
+  // a row outside [0, P) belongs to no partition and gets no weight (it
+  // still counts in the certain ratio)
+  in_part = (part >= 0 && part < P) ? 1.f : 0.f;
+  if (in_part == 0.f) part = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    w[c] = (weighted ? p[c] : (c == am ? 1.f : 0.f)) * cert * in_part;
+}
+
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads)
+centroids_fwd_partial(const T* __restrict__ feats, const float* __restrict__ probs,
+                      const int* __restrict__ assign, int M, float thd, int use_thd,
+                      int weighted, float* __restrict__ part_out) {
+  constexpr int TPR = F / 8;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int NPC = P * C;
+  constexpr int NV = NPC * F + NPC + 1;
+  __shared__ float s_acc[kWarps][NV];
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  float acc[NPC][8];
+  float cnt[NPC];
+#pragma unroll
+  for (int i = 0; i < NPC; ++i) {
+    cnt[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  float n_cert = 0.f;
+  for (long long base = (long long)blockIdx.x * RPB; base < M;
+       base += (long long)gridDim.x * RPB) {
+    const int row = static_cast<int>(base) + r;
+    if (row < M) {
+      float x[8], w[C], cert, in_part;
+      int part;
+      slcl::load8(feats + (size_t)row * F + sub * 8, x);
+      row_weights<P, C>(probs, assign, row, thd, use_thd, weighted, w, cert, in_part, part);
+#pragma unroll
+      for (int pp = 0; pp < P; ++pp) {
+        if (pp == part) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[pp * C + c][j] = fmaf(w[c], x[j], acc[pp * C + c][j]);
+            if (sub == 0) cnt[pp * C + c] += w[c];
+          }
+        }
+      }
+      if (sub == 0) n_cert += cert;
+    }
+  }
+  // fold the rows of the warp: lanes with the same sub hold the same features
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < NPC; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = acc[i][j];
+#pragma unroll
+      for (int off = TPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < TPR) s_acc[warp][i * F + lane * 8 + j] = v;
+    }
+    float v = cnt[i];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) s_acc[warp][NPC * F + i] = v;
+  }
+  float v = n_cert;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) s_acc[warp][NPC * F + NPC] = v;
+  __syncthreads();
+  for (int i = threadIdx.x; i < NV; i += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int wq = 0; wq < kWarps; ++wq) s += s_acc[wq][i];
+    part_out[(size_t)blockIdx.x * NV + i] = s;
+  }
+}
+
+template <int F, int P, int C>
+__global__ void __launch_bounds__(kThreads)
+centroids_fwd_final(const float* __restrict__ part_in, int nparts, int M,
+                    float* __restrict__ cents, float* __restrict__ counts,
+                    float* __restrict__ ratio) {
+  constexpr int NPC = P * C;
+  constexpr int NV = NPC * F + NPC + 1;
+  __shared__ float s[NV];
+  for (int i = threadIdx.x; i < NV; i += kThreads) {
+    float v = 0.f;
+    for (int b = 0; b < nparts; ++b) v += part_in[(size_t)b * NV + i];
+    s[i] = v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < NPC * F; i += kThreads)
+    cents[i] = s[i] / (s[NPC * F + i / F] + 1e-7f);
+  for (int i = threadIdx.x; i < NPC; i += kThreads) counts[i] = s[NPC * F + i];
+  if (threadIdx.x == 0) ratio[0] = s[NPC * F + NPC] / static_cast<float>(M);
+}
+
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads)
+centroids_bwd(const T* __restrict__ feats, const float* __restrict__ probs,
+              const int* __restrict__ assign, int M, float thd, int use_thd,
+              int weighted, const float* __restrict__ dcents,
+              const float* __restrict__ cents, const float* __restrict__ counts,
+              T* __restrict__ dfeats, float* __restrict__ dprobs) {
+  constexpr int TPR = F / 8;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int NPC = P * C;
+  __shared__ float s_dsum[NPC * F];
+  __shared__ float s_dcnt[NPC];
+  for (int i = threadIdx.x; i < NPC * F; i += kThreads)
+    s_dsum[i] = dcents[i] / (counts[i / F] + 1e-7f);
+  for (int i = threadIdx.x; i < NPC; i += kThreads) {
+    float v = 0.f;
+    for (int f = 0; f < F; ++f) v = fmaf(dcents[i * F + f], cents[i * F + f], v);
+    s_dcnt[i] = -v / (counts[i] + 1e-7f);
+  }
+  __syncthreads();
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  // every thread of the block runs the same number of iterations, so the
+  // shuffles below always see the whole warp
+  for (long long base = (long long)blockIdx.x * RPB; base < M;
+       base += (long long)gridDim.x * RPB) {
+    const int row = static_cast<int>(base) + r;
+    const bool valid = row < M;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float w[C], cert = 0.f, in_part = 0.f;
+    int part = 0;
+    if (valid) {
+      // the features enter only dprobs: dfeats needs just the weights
+      if (dprobs != nullptr) slcl::load8(feats + (size_t)row * F + sub * 8, x);
+      row_weights<P, C>(probs, assign, row, thd, use_thd, weighted, w, cert, in_part, part);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) w[c] = 0.f;
+    }
+    const float* ds = s_dsum + part * C * F + sub * 8;
+    float dx[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) v = fmaf(w[c], ds[c * F + j], v);
+      dx[j] = v;
+    }
+    if (valid) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
+    if (dprobs != nullptr) {
+      float dw[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v = fmaf(ds[c * F + j], x[j], v);
+#pragma unroll
+        for (int off = 1; off < TPR; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        dw[c] = v;
+      }
+      if (valid && sub == 0) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          dprobs[(size_t)row * C + c] = (dw[c] + s_dcnt[part * C + c]) * cert * in_part;
+      }
+    }
+  }
+}
+
+#define SLCL_DISPATCH_P(P, ...)                                 \
+  switch (P) {                                                  \
+    case 1: { constexpr int kP = 1; __VA_ARGS__; } break;       \
+    case 2: { constexpr int kP = 2; __VA_ARGS__; } break;       \
+    default: return -1;                                         \
+  }
+
+using slcl::kC;
+
+template <typename T>
+int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
+               int F, int P, float thd, int use_thd, int weighted, float* partials,
+               float* cents, float* counts, float* ratio, cudaStream_t st) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, {
+    const int grid = slcl::grid_for(M, kThreads / (kF / 8));
+    centroids_fwd_partial<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
+        partials);
+    centroids_fwd_final<kF, kP, kC><<<1, kThreads, 0, st>>>(partials, grid, M, cents,
+                                                            counts, ratio);
+  }));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* feats, const float* probs, const int* assign, int M,
+               int F, int P, float thd, int use_thd, int weighted,
+               const float* dcents, const float* cents, const float* counts,
+               void* dfeats, float* dprobs, cudaStream_t st) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, {
+    const int grid = slcl::grid_for(M, kThreads / (kF / 8));
+    centroids_bwd<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
+        dcents, cents, counts, static_cast<T*>(dfeats), dprobs);
+  }));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats the forward's partial buffer must hold (blocks x values per block).
+long long soft_centroids_partials_size(int M, int F, int P, int C) {
+  if (F % 8 != 0 || F < 8) return -1;
+  const long long nv = (long long)P * C * F + P * C + 1;
+  return nv * slcl::grid_for(M, kThreads / (F / 8));
+}
+
+// Returns cudaGetLastError() after the launches; -1 for an unsupported
+// shape (F in {8, 16, 32, 64}, P in {1, 2}, C = 4). assign may be null when
+// P = 1.
+int soft_centroids_fwd(const void* feats, int feats_bf16, const void* probs,
+                       const void* assign, int M, int F, int C, int P,
+                       float threshold, int weighted, void* partials, void* cents,
+                       void* counts, void* ratio, void* stream) {
+  if (C != kC) return -1;
+  const int use_thd = threshold > 0.f && threshold < 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pr = static_cast<const float*>(probs);
+  auto as = static_cast<const int*>(assign);
+  auto pt = static_cast<float*>(partials);
+  auto ce = static_cast<float*>(cents);
+  auto co = static_cast<float*>(counts);
+  auto ra = static_cast<float*>(ratio);
+  return feats_bf16
+             ? launch_fwd<__nv_bfloat16>(feats, pr, as, M, F, P, threshold, use_thd,
+                                         weighted, pt, ce, co, ra, st)
+             : launch_fwd<float>(feats, pr, as, M, F, P, threshold, use_thd, weighted,
+                                 pt, ce, co, ra, st);
+}
+
+// dprobs may be null (hard weights, or probs needs no gradient).
+int soft_centroids_bwd(const void* feats, int feats_bf16, const void* probs,
+                       const void* assign, int M, int F, int C, int P,
+                       float threshold, int weighted, const void* dcents,
+                       const void* cents, const void* counts, void* dfeats,
+                       void* dprobs, void* stream) {
+  if (C != kC) return -1;
+  const int use_thd = threshold > 0.f && threshold < 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pr = static_cast<const float*>(probs);
+  auto as = static_cast<const int*>(assign);
+  auto dc = static_cast<const float*>(dcents);
+  auto ce = static_cast<const float*>(cents);
+  auto co = static_cast<const float*>(counts);
+  auto dp = static_cast<float*>(dprobs);
+  return feats_bf16
+             ? launch_bwd<__nv_bfloat16>(feats, pr, as, M, F, P, threshold, use_thd,
+                                         weighted, dc, ce, co, dfeats, dp, st)
+             : launch_bwd<float>(feats, pr, as, M, F, P, threshold, use_thd, weighted,
+                                 dc, ce, co, dfeats, dp, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,176 @@
+"""MPCL (margin-preserving contrastive loss): CUDA kernel wrapper and plain
+version.
+
+The kernel (``slcl_torch/csrc/mpcl.cu``) replaces
+``slcl_tpu/ops/pallas/mpcl_kernel.py::mpcl_loss_fused``: it takes RAW
+(M, F) features, normalises them per row, and returns the scalar loss; its
+backward is a second kernel that recomputes each row and returns dfeats
+(zero for the detached prototypes).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import F32, I32, VP, build, check, ptr, raise_on_error, register, stream_of
+
+FWD = register("mpcl_fwd", "slcl_torch/csrc/mpcl.cu",
+               "slcl_tpu/ops/pallas/mpcl_kernel.py:134")
+BWD = register("mpcl_bwd", "slcl_torch/csrc/mpcl.cu",
+               "slcl_tpu/ops/pallas/mpcl_kernel.py:195")
+
+_MARGIN = [F32, F32, F32, F32, F32, I32, F32]  # T, cos_m, sin_m, th, mm, easy, scale
+_SIGS = {
+    "mpcl_num_partials": (I32, [I32]),
+    "mpcl_fwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP]),
+    "mpcl_bwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP, VP]),
+}
+
+
+def margin_consts(margin: float):
+    """(cos m, sin m, th = cos(pi - m), mm = sin(pi - m) * m)."""
+    return (math.cos(margin), math.sin(margin), math.cos(math.pi - margin),
+            math.sin(math.pi - margin) * margin)
+
+
+# ---------------------------------------------------------------------------
+# plain version (follows slcl_tpu/ops/losses.py:225-320)
+# ---------------------------------------------------------------------------
+def mpcl_loss_normalized(features: torch.Tensor, labels: torch.Tensor,
+                         class_centers: torch.Tensor, *, temperature: float = 0.07,
+                         base_temperature: float = 0.07, margin: float = 0.5,
+                         easy_margin: bool = False,
+                         pixel_sel_loc: Optional[torch.Tensor] = None,
+                         num_classes: int = 4) -> torch.Tensor:
+    """MPCL over already L2-normalised (N, F) features and (C, F) prototypes
+    (``losses.py::mpcl_loss``). Both row maxima are detached, as in jnp."""
+    features = features.float()
+    class_centers = class_centers.float()
+    cos_m, sin_m, th, mm = margin_consts(margin)
+    cosine = features @ class_centers.T
+    logits = cosine / temperature
+    logits = logits - logits.max(dim=1, keepdim=True).values.detach()
+    sine = torch.sqrt(torch.clamp(1.0 - cosine ** 2, 1e-4, 1.0))
+    phi = cosine * cos_m - sine * sin_m
+    if easy_margin:
+        phi = torch.where(cosine > 0, phi, cosine)
+    else:
+        phi = torch.where(cosine > th, phi, cosine - mm)
+    phi_logits = phi / temperature
+    phi_logits = phi_logits - phi_logits.max(dim=1, keepdim=True).values.detach()
+    lab = labels.reshape(-1).long()
+    valid = (lab >= 0) & (lab < num_classes)
+    mask = F.one_hot(torch.where(valid, lab, 0), num_classes).float()
+    mask = mask * valid[:, None].float()
+    mixed = logits * (1.0 - mask) + phi_logits * mask
+    log_prob = mixed - torch.log(torch.exp(mixed).sum(dim=1, keepdim=True) + 1e-4)
+    mean_log_prob_pos = (mask * log_prob).sum(dim=1)
+    scale = temperature / base_temperature
+    if pixel_sel_loc is not None:
+        sel = pixel_sel_loc.float().reshape(-1)
+        return -scale * (sel * mean_log_prob_pos).sum() / (sel.sum() + 1e-4)
+    return -scale * mean_log_prob_pos.mean()
+
+
+def mpcl_plain(feats: torch.Tensor, labels: torch.Tensor, centers: torch.Tensor,
+               sel: Optional[torch.Tensor] = None, *, temperature: float = 0.1,
+               base_temperature: float = 1.0, margin: float = 0.4,
+               easy_margin: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: raw (M, F) feats are
+    normalised as ``x / (||x|| + 1e-12)``, then :func:`mpcl_loss_normalized`."""
+    f = feats.float()
+    fn = f / (torch.linalg.vector_norm(f, dim=1, keepdim=True) + 1e-12)
+    return mpcl_loss_normalized(fn, labels, centers, temperature=temperature,
+                                base_temperature=base_temperature, margin=margin,
+                                easy_margin=easy_margin, pixel_sel_loc=sel,
+                                num_classes=centers.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# kernel
+# ---------------------------------------------------------------------------
+def _check_inputs(feats, labels, centers, sel):
+    if feats.dim() != 2:
+        raise ValueError(f"feats: expected (M, F), got {tuple(feats.shape)}")
+    m, f = feats.shape
+    dev = feats.device
+    check(feats, "feats", (torch.bfloat16, torch.float32))
+    check(labels, "labels", (torch.int32,), (m,), dev)
+    check(centers, "centers", (torch.float32,), (centers.shape[0], f), dev)
+    check(sel, "sel", (torch.float32,), (m,), dev)
+
+
+def _args(feats, labels, centers, sel, T, margin, easy, scale):
+    m, f = feats.shape
+    return (ptr(feats), int(feats.dtype == torch.bfloat16), ptr(labels), ptr(sel),
+            ptr(centers), m, f, centers.shape[0], T, *margin_consts(margin),
+            int(easy), scale)
+
+
+def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale) -> torch.Tensor:
+    """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
+    _check_inputs(feats, labels, centers, sel)
+    lib = build.load("mpcl", _SIGS)
+    parts = torch.empty(2 * lib.mpcl_num_partials(feats.shape[0]),
+                        dtype=torch.float32, device=feats.device)
+    stats = torch.empty(3, dtype=torch.float32, device=feats.device)
+    with torch.cuda.device(feats.device):
+        rc = lib.mpcl_fwd(*_args(feats, labels, centers, sel, T, margin, easy, scale),
+                          ptr(parts), ptr(stats), stream_of(feats))
+    raise_on_error(rc, "mpcl_fwd")
+    FWD.launches += 1
+    return stats
+
+
+def mpcl_bwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
+                  grad_out, stats) -> torch.Tensor:
+    """Launch the backward; returns dfeats in feats' dtype."""
+    _check_inputs(feats, labels, centers, sel)
+    check(grad_out, "grad_out", (torch.float32,), (1,), feats.device)
+    check(stats, "stats", (torch.float32,), (3,), feats.device)
+    lib = build.load("mpcl", _SIGS)
+    dfeats = torch.empty_like(feats)
+    with torch.cuda.device(feats.device):
+        rc = lib.mpcl_bwd(*_args(feats, labels, centers, sel, T, margin, easy, scale),
+                          ptr(grad_out), ptr(stats), ptr(dfeats), stream_of(feats))
+    raise_on_error(rc, "mpcl_bwd")
+    BWD.launches += 1
+    return dfeats
+
+
+class _MPCLFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, labels, centers, sel, T, base_T, margin, easy):
+        scale = T / base_T
+        stats = mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale)
+        ctx.save_for_backward(feats, labels, centers, sel, stats)
+        ctx.consts = (T, margin, easy, scale)
+        return stats[0].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, labels, centers, sel, stats = ctx.saved_tensors
+        T, margin, easy, scale = ctx.consts
+        dfeats = mpcl_bwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
+                               grad.float().reshape(1).contiguous(), stats)
+        dcenters = torch.zeros_like(centers) if ctx.needs_input_grad[2] else None
+        return dfeats, None, dcenters, None, None, None, None, None
+
+
+def mpcl(feats: torch.Tensor, labels: torch.Tensor, centers: torch.Tensor,
+         sel: Optional[torch.Tensor] = None, *, temperature: float = 0.1,
+         base_temperature: float = 1.0, margin: float = 0.4,
+         easy_margin: bool = False) -> torch.Tensor:
+    """MPCL over raw (M, F) ``feats``, (M,) ``labels`` and (C, F) normalised
+    ``centers``; ``sel`` (M,) weights the rows (loss / (sum(sel) + 1e-4)),
+    else the mean over M. CUDA tensors go to the kernel (labels int32, sel
+    float32, centers float32), CPU tensors to :func:`mpcl_plain`."""
+    if feats.is_cuda:
+        return _MPCLFn.apply(feats, labels, centers, sel, temperature,
+                             base_temperature, margin, easy_margin)
+    return mpcl_plain(feats, labels, centers, sel, temperature=temperature,
+                      base_temperature=base_temperature, margin=margin,
+                      easy_margin=easy_margin)

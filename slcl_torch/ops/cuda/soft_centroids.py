@@ -1,0 +1,166 @@
+"""Soft (or hard) class centroids per partition: CUDA kernel wrapper, its
+backward, and plain version.
+
+The forward kernel (``slcl_torch/csrc/soft_centroids.cu``) replaces
+``slcl_tpu/ops/pallas/centroid_kernel.py::soft_centroids_fused``. That TPU
+kernel is forward-only; CNR backpropagates through the target centroids
+into the features (and, with soft weights, into the probabilities), which
+jnp autodiff does on the JAX main path, so the port adds a backward kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import F32, I32, I64, VP, build, check, ptr, raise_on_error, register, stream_of
+
+FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
+               "slcl_tpu/ops/pallas/centroid_kernel.py:64")
+BWD = register("soft_centroids_bwd", "slcl_torch/csrc/soft_centroids.cu",
+               "slcl_tpu/ops/centroids.py:76 (jnp autodiff; the Pallas kernel has no bwd)")
+
+_EPS = 1e-7
+_SIGS = {
+    "soft_centroids_partials_size": (I64, [I32, I32, I32, I32]),
+    "soft_centroids_fwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
+                                 VP, VP, VP, VP, VP]),
+    "soft_centroids_bwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
+                                 VP, VP, VP, VP, VP, VP]),
+}
+
+
+def certain_mask(probs: torch.Tensor, threshold: float) -> torch.Tensor:
+    """1 where max prob >= threshold (only when 0 < threshold < 1), else 1."""
+    if 0.0 < threshold < 1.0:
+        return (probs.max(dim=-1).values >= threshold).float()
+    return torch.ones(probs.shape[0], dtype=torch.float32, device=probs.device)
+
+
+def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
+                         assign: Optional[torch.Tensor] = None, *, partition: int = 1,
+                         threshold: float = 0.0, weighted: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, F) feats, (M, C) probs, (M,) partition ids -> (centroids (P, C, F),
+    ratio). Differentiable by autograd. Follows
+    ``slcl_tpu/ops/centroids.py::target_soft_centroids`` with the partition
+    assignment given."""
+    feats = feats.float()
+    probs = probs.float()
+    C = probs.shape[1]
+    certain = certain_mask(probs, threshold)
+    ratio = certain.mean()
+    if weighted:
+        weights = probs * certain[:, None]
+    else:
+        hard = F.one_hot(torch.argmax(probs, dim=-1), C).float()
+        weights = hard * certain[:, None]
+    if partition > 1:
+        if assign is None:
+            raise ValueError("assign is required when partition > 1 (rMC)")
+        a = assign.long()
+        ok = (a >= 0) & (a < partition)
+        part = F.one_hot(torch.where(ok, a, 0), partition).float() * ok[:, None].float()
+        w_flat = (weights[:, None, :] * part[:, :, None]).reshape(-1, partition * C)
+        sums = (w_flat.T @ feats).reshape(partition, C, -1)
+        counts = w_flat.sum(dim=0).reshape(partition, C, 1)
+        return sums / (counts + _EPS), ratio
+    sums = weights.T @ feats
+    counts = weights.sum(dim=0)[:, None]
+    return (sums / (counts + _EPS))[None], ratio
+
+
+def _check_inputs(feats, probs, assign, partition):
+    if feats.dim() != 2 or probs.dim() != 2 or probs.shape[0] != feats.shape[0]:
+        raise ValueError(f"feats (M, F) / probs (M, C) expected, got "
+                         f"{tuple(feats.shape)} / {tuple(probs.shape)}")
+    m = feats.shape[0]
+    check(feats, "feats", (torch.bfloat16, torch.float32))
+    check(probs, "probs", (torch.float32,), None, feats.device)
+    if partition > 1:
+        if assign is None:
+            raise ValueError("assign is required when partition > 1 (rMC)")
+        check(assign, "assign", (torch.int32,), (m,), feats.device)
+
+
+def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted):
+    """Launch the forward; returns (centroids (P, C, F), counts (P*C,), ratio)."""
+    _check_inputs(feats, probs, assign, partition)
+    m, f = feats.shape
+    C = probs.shape[1]
+    lib = build.load("soft_centroids", _SIGS)
+    n_part = lib.soft_centroids_partials_size(m, f, partition, C)
+    if n_part < 0:
+        raise ValueError(f"soft_centroids: F={f} not supported")
+    dev = feats.device
+    parts = torch.empty(n_part, dtype=torch.float32, device=dev)
+    cents = torch.empty((partition, C, f), dtype=torch.float32, device=dev)
+    counts = torch.empty(partition * C, dtype=torch.float32, device=dev)
+    ratio = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.soft_centroids_fwd(
+            ptr(feats), int(feats.dtype == torch.bfloat16), ptr(probs),
+            ptr(assign) if partition > 1 else None, m, f, C, partition,
+            float(threshold), int(weighted), ptr(parts), ptr(cents), ptr(counts),
+            ptr(ratio), stream_of(feats))
+    raise_on_error(rc, "soft_centroids_fwd")
+    FWD.launches += 1
+    return cents, counts, ratio
+
+
+def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted,
+                            dcents, cents, counts, need_dprobs: bool):
+    """Launch the backward; returns (dfeats in feats' dtype, dprobs or None)."""
+    _check_inputs(feats, probs, assign, partition)
+    m, f = feats.shape
+    C = probs.shape[1]
+    dev = feats.device
+    check(dcents, "dcents", (torch.float32,), (partition, C, f), dev)
+    check(cents, "cents", (torch.float32,), (partition, C, f), dev)
+    check(counts, "counts", (torch.float32,), (partition * C,), dev)
+    lib = build.load("soft_centroids", _SIGS)
+    dfeats = torch.empty_like(feats)
+    dprobs = (torch.empty_like(probs) if (need_dprobs and weighted) else None)
+    with torch.cuda.device(dev):
+        rc = lib.soft_centroids_bwd(
+            ptr(feats), int(feats.dtype == torch.bfloat16), ptr(probs),
+            ptr(assign) if partition > 1 else None, m, f, C, partition,
+            float(threshold), int(weighted), ptr(dcents), ptr(cents), ptr(counts),
+            ptr(dfeats), ptr(dprobs), stream_of(feats))
+    raise_on_error(rc, "soft_centroids_bwd")
+    BWD.launches += 1
+    return dfeats, dprobs          # hard weights: None, no gradient to probs
+
+
+class _SoftCentroidsFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, probs, assign, partition, threshold, weighted):
+        cents, counts, ratio = soft_centroids_fwd_cuda(feats, probs, assign, partition,
+                                                       threshold, weighted)
+        ctx.save_for_backward(feats, probs, assign, cents, counts)
+        ctx.consts = (partition, threshold, weighted)
+        ctx.mark_non_differentiable(ratio)
+        return cents, ratio
+
+    @staticmethod
+    def backward(ctx, dcents, _dratio):
+        feats, probs, assign, cents, counts = ctx.saved_tensors
+        partition, threshold, weighted = ctx.consts
+        dfeats, dprobs = soft_centroids_bwd_cuda(
+            feats, probs, assign, partition, threshold, weighted,
+            dcents.float().contiguous(), cents, counts, ctx.needs_input_grad[1])
+        return dfeats, dprobs, None, None, None, None
+
+
+def soft_centroids(feats: torch.Tensor, probs: torch.Tensor,
+                   assign: Optional[torch.Tensor] = None, *, partition: int = 1,
+                   threshold: float = 0.0, weighted: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(centroids (P, C, F), ratio). CUDA tensors go to the kernels (probs
+    float32, assign int32), CPU tensors to :func:`soft_centroids_plain`."""
+    if feats.is_cuda:
+        return _SoftCentroidsFn.apply(feats, probs, assign, partition,
+                                      float(threshold), bool(weighted))
+    return soft_centroids_plain(feats, probs, assign, partition=partition,
+                                threshold=threshold, weighted=weighted)

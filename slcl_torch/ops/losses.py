@@ -1,0 +1,115 @@
+"""Segmentation / adversarial / contrastive losses, main-path subset.
+
+Counterpart of ``slcl_tpu/ops/losses.py``: logits and features NHWC, labels
+NHW, class centres (C, F); every loss accumulates in float32 whatever the
+activation dtype. ``mpcl_loss_calc`` sends CUDA tensors to the MPCL kernel
+and CPU tensors to its plain version.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .cuda.mpcl import mpcl, mpcl_loss_normalized as mpcl_loss  # noqa: F401
+
+_EPS = 1e-7
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean pixel-wise CE; logits NHWC, labels NHW int."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None].long()).mean()
+
+
+def jaccard_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """Soft IoU over softmax probs vs one-hot labels, per class over (B,H,W)."""
+    num_classes = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    onehot = F.one_hot(labels.long(), num_classes).float()
+    dims = tuple(range(labels.dim()))
+    intersection = (probs * onehot).sum(dim=dims)
+    union = (probs + onehot).sum(dim=dims) - intersection
+    return 1.0 - (intersection / (union + eps)).mean()
+
+
+def loss_calc(logits: torch.Tensor, labels: torch.Tensor, jaccard: bool = False) -> torch.Tensor:
+    """CE (+ optional Jaccard)."""
+    loss = cross_entropy_loss(logits, labels)
+    if jaccard:
+        loss = loss + jaccard_loss(logits, labels)
+    return loss
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Soft squared-denominator Dice: per-(batch, class) 2*sum(p*g) /
+    (sum(p^2) + sum(g^2) + eps), summed over classes, averaged over batch,
+    then ``1 - total/C``."""
+    num_classes = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    onehot = F.one_hot(labels.long(), num_classes).float()
+    spatial = tuple(range(1, labels.dim()))
+    num = (probs * onehot).sum(dim=spatial)
+    den1 = (probs * probs).sum(dim=spatial)
+    den2 = (onehot * onehot).sum(dim=spatial)
+    dice = 2.0 * num / (den1 + den2 + eps)
+    return 1.0 - dice.sum() / dice.shape[0] / num_classes
+
+
+def prob_2_entropy(probs: torch.Tensor) -> torch.Tensor:
+    """Per-pixel weighted self-information ``-p * log2(p+eps) / log2(C)``."""
+    probs = probs.float()
+    return -probs * torch.log2(probs + _EPS) / math.log2(probs.shape[-1])
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean binary cross entropy with logits against a constant target."""
+    x = logits.float()
+    return (torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def _safe_norm(x: torch.Tensor, dim: int = 1, tiny: float = 1e-12) -> torch.Tensor:
+    """L2 norm with a finite gradient at exactly-zero vectors."""
+    sq = (x * x).sum(dim=dim, keepdim=True)
+    return torch.sqrt(torch.clamp(sq, min=tiny * tiny))
+
+
+def cnr_loss(centroid_s: torch.Tensor, centroid_t: torch.Tensor) -> torch.Tensor:
+    """Centroid-Norm Regulariser: MSE between per-class centroid L2 norms."""
+    norm_s = _safe_norm(centroid_s.float())[:, 0]
+    norm_t = _safe_norm(centroid_t.float())[:, 0]
+    return ((norm_t - norm_s) ** 2).mean()
+
+
+def nearest_resize_labels(labels: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHW integer labels; samples input
+    floor((i + 0.5) * in / out), as ``jax.image.resize(..., 'nearest')``."""
+    out = F.interpolate(labels[:, None].float(), size=tuple(size), mode="nearest-exact")
+    return out[:, 0].to(labels.dtype)
+
+
+def mpcl_loss_calc(feats: torch.Tensor, labels: torch.Tensor,
+                   class_centers: torch.Tensor, *, temperature: float = 0.1,
+                   base_temperature: float = 1.0, margin: float = 0.4,
+                   easy_margin: bool = False,
+                   pixel_sel_loc: Optional[torch.Tensor] = None,
+                   resize_labels: bool = True) -> torch.Tensor:
+    """Normalise + flatten wrapper around MPCL. feats NHWC; labels NHW (hard)
+    or already flat (N,); centres (C, F), normalised here as in jnp. The row
+    normalisation happens inside :func:`mpcl` (kernel or plain version)."""
+    n, h, w, c = feats.shape
+    if resize_labels and labels.dim() == 3 and tuple(labels.shape[1:]) != (h, w):
+        labels = nearest_resize_labels(labels, (h, w))
+    flat = feats.reshape(n * h * w, c).contiguous()
+    lab = labels.reshape(-1)
+    sel = None if pixel_sel_loc is None else pixel_sel_loc.float().reshape(-1).contiguous()
+    centers = class_centers.float()
+    centers = centers / (torch.linalg.vector_norm(centers, dim=-1, keepdim=True) + 1e-12)
+    if flat.is_cuda:
+        lab = lab.to(torch.int32).contiguous()
+        centers = centers.contiguous()
+    return mpcl(flat, lab, centers, sel, temperature=temperature,
+                base_temperature=base_temperature, margin=margin,
+                easy_margin=easy_margin)

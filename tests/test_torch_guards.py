@@ -1,0 +1,79 @@
+"""Guards of the port: it imports nothing of JAX or ``slcl_tpu``, it never
+falls back to the CPU on its own, and its CLI trains on the CPU when asked.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from slcl_torch import resolve_device
+from slcl_torch.config import Config
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+
+
+def test_port_imports_no_jax_and_no_slcl_tpu():
+    code = (
+        "import importlib, pkgutil, sys, slcl_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(slcl_torch.__path__, 'slcl_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'slcl_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_trainer_without_device_raises_when_no_cuda():
+    from slcl_torch.train.trainer import Trainer
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = Config()
+    cfg.method = "slcl"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_on_cpu_run_the_plain_version_only():
+    """The CUDA launch raises for CPU tensors; the dispatching wrapper
+    never reaches it for them."""
+    from slcl_torch.ops.cuda import KERNELS, launch_counts, reset_launch_counts
+    from slcl_torch.ops.cuda.pseudo_label import pseudo_label, pseudo_label_cuda
+    feats = torch.randn(64, 32)
+    centers = torch.randn(4, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pseudo_label_cuda(feats, centers)
+    reset_launch_counts()
+    pseudo_label(feats, centers)
+    assert set(KERNELS) == {"mpcl_fwd", "mpcl_bwd", "pseudo_label",
+                            "soft_centroids_fwd", "soft_centroids_bwd"}
+    assert all(v == 0 for v in launch_counts().values())
+
+
+def test_cli_trains_one_epoch_on_cpu():
+    args = [sys.executable, "-m", "slcl_torch.train", "method=slcl",
+            "model.multilvl=true", "data.dataset=synthetic", "optim.epochs=1",
+            "data.bs=2", "data.crop=32", "model.filters=8", "model.n_block=2",
+            "model.bottleneck_depth=2", "model.dtype=float32", "data.num_workers=1",
+            "--device", "cpu"]
+    out = subprocess.run(args, cwd=ROOT, env=ENV, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["device"] == "cpu" and rec["epoch"] == 0
+    for k in ("seg_s", "loss_mpscl_tr", "loss_mpscl_tg", "loss_cnr", "loss_adv",
+              "loss_adv_aux", "loss_dis", "loss_dis_aux"):
+        assert k in rec and rec[k] == rec[k] and abs(rec[k]) < float("inf"), k
