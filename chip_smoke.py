@@ -4,43 +4,58 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. build: compile every kernel of the main path from ``slcl_torch/csrc``
-     with nvcc for sm_90a, one nvcc per source, all started together;
+  1. build: compile the four kernel libraries from ``slcl_torch/csrc`` with
+     nvcc for sm_90a, one nvcc per source, all started together;
   2. kernels: hold each kernel against its plain PyTorch version on the
      card at the main path's shapes (M = 16*224*224 rows, F = 32, C = 4;
      bf16 and f32 features): values and gradients within the stated
-     tolerances, pseudo-labels exact apart from counted near-tie rows, two
-     launches bit-identical; then time kernel, plain version and, where one
-     PyTorch call computes the same function, that call;
-  3. small slice: two ``slcl`` multilvl+CNR steps on the card (kernels)
-     against the same two steps on the CPU (plain versions), from the same
-     weights and batches, at a small size in f32;
+     tolerances, pseudo-labels and the fused target loss exact apart from
+     counted near-tie rows, two launches bit-identical; then time kernel,
+     plain version and, where one PyTorch call computes the same function,
+     that call; and the fused target branch against the two-op route
+     (pseudo-label kernel, then the MPCL kernels) on the same features;
+  3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
+     steps and two ``baseline`` steps on the card (kernels) against the same
+     steps on the CPU (plain versions), from the same weights and batches,
+     at a small size in f32;
   4. train: the full-width ``method=slcl model.multilvl=true
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
      just after: each kernel must have run its per-step count every step,
      and every loss must be finite), then twenty timed steps, then three
      steps traced with torch.profiler for the device's busy time and the
-     kernels that take most of it.
+     kernels that take most of it;
+  5. protocol: the SLCL protocol at the same width through the port's entry
+     points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
+     epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
+     warm-started from both for two epochs (launch counts set to 0 just
+     before and read just after), its final test with HD95/ASSD and KLC;
+     the warm start's epoch -1 validation must equal AdvEnt's best, and a
+     saved and restored state must continue as the uninterrupted one.
 
-Prints the kernel table as one JSON line, the step timing as one JSON line,
-the card's name and power limit as nvidia-smi gives them, and last
-``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN.
+Prints the kernel table as one JSON line, the step timing and the protocol
+as one JSON line each, the card's name and power limit as nvidia-smi gives
+them, and last ``{"ok": true, "device": {...}}``. TF32 is off for matmuls
+and cuDNN. Run directories go to ``runs/`` in the checkout and are removed.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 M, F, C = 16 * 224 * 224, 32, 4
-PER_STEP = {"mpcl_fwd": 2, "mpcl_bwd": 2, "pseudo_label": 1,
-            "soft_centroids_fwd": 1, "soft_centroids_bwd": 1}
+# launches per slcl step; the fused target kernel takes pseudo_label's work
+PER_STEP = {"mpcl_fwd": 1, "mpcl_bwd": 1, "mpcl_pseudo_fwd": 1, "mpcl_pseudo_bwd": 1,
+            "pseudo_label": 0, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1}
 # published peaks: (HBM bytes/s, f32 non-tensor FLOP/s)
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12),
          "H200": (4.8e12, 67e12)}
@@ -48,6 +63,9 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12),
 # (and P=1 for the centroids)
 SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "mpcl_bwd": ("mpcl", "mpcl_bwdI13__nv_bfloat16Li32E"),
+           "mpcl_pseudo_fwd": ("mpcl_pseudo",
+                               "mpcl_pseudo_fwd_partialI13__nv_bfloat16Li32E"),
+           "mpcl_pseudo_bwd": ("mpcl_pseudo", "mpcl_pseudo_bwdI13__nv_bfloat16Li32E"),
            "pseudo_label": ("pseudo_label", "pseudo_label_kernelI13__nv_bfloat16Li32E"),
            "soft_centroids_fwd": ("soft_centroids",
                                   "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E"),
@@ -108,6 +126,7 @@ def check_kernels(peaks) -> list:
     """Phase 2: every kernel against its plain version; returns the table."""
     import torch
     from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
     from slcl_torch.ops.cuda import pseudo_label as K_pl
     from slcl_torch.ops.cuda import soft_centroids as K_sc
 
@@ -205,6 +224,72 @@ def check_kernels(peaks) -> list:
                 "library_ms": None,
                 "bound": bound(M * (F * es + 4 + 4), M * (2 * F + 2 * C * F), peaks)}
 
+        # ---- fused target branch: loss rel 1e-4 beyond the near-tie rows,
+        # dfeats at mpcl_bwd's tolerance away from them, all-masked = 0 ----
+        tm, th, scale = 0.2, 0.25, T / base_T
+        grad = torch.ones(1, device=dev)
+        for easy in (False, True):
+            def fused_fwd(sel_th=th):
+                return K_mp.mpcl_pseudo_fwd_cuda(feats, centers, T, tm, easy, scale, sel_th)
+
+            def fused_bwd(stats, sel_th=th):
+                return K_mp.mpcl_pseudo_bwd_cuda(feats, centers, T, tm, easy, scale, sel_th,
+                                                 grad, stats)
+            what = f"mpcl_pseudo {tag} easy={easy}"
+            stats = fused_fwd()
+            if not torch.equal(stats, fused_fwd()):
+                raise AssertionError(f"{what}: two forward launches differ")
+            x = feats.detach().requires_grad_(True)
+            want = K_mp.mpcl_pseudo_plain(x, centers, temperature=T, base_temperature=base_T,
+                                          margin=tm, easy_margin=easy, pixel_sel_th=th)
+            (g_want,) = torch.autograd.grad(want, x)
+            # a near-tie row may take another label or mask in the kernel: that
+            # moves sum(sel*mlpp) by at most 2*max|mlpp| (|mlpp| <= 3/T + 10:
+            # margin logits span (2 + mm)/T, and -log z <= -log 1e-4) and den by 1
+            num, den = float(stats[1]), float(stats[2])
+            slack = scale * n_near * (2 * (3.0 / T + 10.0) / den + abs(num) / den ** 2)
+            err_f = close(stats[0], want.detach(), 1e-4, slack, what + " loss")
+            d1 = fused_bwd(stats)
+            if not torch.equal(d1, fused_bwd(stats)):
+                raise AssertionError(f"{what}: two backward launches differ")
+            err_b = close(d1[~near], g_want[~near], g_rtol, 1e-3 * float(g_want.abs().max()),
+                          what + " dfeats")
+            # no row passes the gap test: den = 1e-4 alone, loss and dfeats 0
+            zero = fused_fwd(2.0)
+            if float(zero[0]) != 0.0 or bool(fused_bwd(zero, 2.0).any()):
+                raise AssertionError(f"{what}: an all-masked input gives a non-zero result")
+            if tag == "bf16" and not easy:   # the slcl step's call
+                es = feats.element_size()
+                fl_row = 2 * F + 2 * C * F + 16 * C
+                y = K_mp.mpcl_pseudo_plain(x, centers, temperature=T,
+                                           base_temperature=base_T, margin=tm,
+                                           pixel_sel_th=th)
+
+                def two_op():
+                    lab, msk = K_pl.pseudo_label_cuda(feats, centers, th)
+                    st = K_mpcl.mpcl_fwd_cuda(feats, lab, centers, msk, T, tm, False, scale)
+                    K_mpcl.mpcl_bwd_cuda(feats, lab, centers, msk, T, tm, False, scale,
+                                         grad, st)
+                rows["mpcl_pseudo_fwd"] = {
+                    "max_abs_err": err_f, "near_tie_rows": n_near,
+                    "ms": time_ms(fused_fwd),
+                    "plain_ms": time_ms(lambda: K_mp.mpcl_pseudo_plain(
+                        feats, centers, temperature=T, base_temperature=base_T,
+                        margin=tm, pixel_sel_th=th)),
+                    "library_ms": None,
+                    "bound": bound(M * F * es, M * fl_row, peaks),
+                    # the same function (fwd + bwd) by both routes
+                    "fused_route_ms": time_ms(lambda: fused_bwd(fused_fwd())),
+                    "two_op_route_ms": time_ms(two_op)}
+                rows["mpcl_pseudo_bwd"] = {
+                    "max_abs_err": err_b, "near_tie_rows": n_near,
+                    "ms": time_ms(lambda: fused_bwd(stats)),
+                    "plain_ms": time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True)),
+                    "library_ms": None,
+                    "bound": bound(2 * M * F * es, M * (fl_row + 2 * C * F + 4 * F), peaks)}
+                del y
+        log(f"mpcl_pseudo {tag}: ok")
+
         # ---- soft centroids: rtol 1e-4 atol 1e-5, ratio rel 1e-5, grads ----
         for P in (1, 2):
             for weighted in (False, True):
@@ -273,12 +358,12 @@ def check_kernels(peaks) -> list:
     return rows
 
 
-def small_config(multilvl: bool = True):
+def small_config(method: str = "slcl"):
     from slcl_torch.config import Config, apply_recipe
     cfg = Config()
-    cfg.method = "slcl"
+    cfg.method = method
     cfg = apply_recipe(cfg)
-    cfg.model.multilvl = multilvl
+    cfg.model.multilvl = True
     cfg.data.dataset = "synthetic"
     cfg.data.bs, cfg.data.crop = 2, 32
     cfg.data.num_workers = 1
@@ -287,33 +372,38 @@ def small_config(multilvl: bool = True):
     return cfg
 
 
-def check_small_slice() -> None:
-    """Phase 3: two steps on the card vs two on the CPU, same start."""
+def check_small_steps() -> None:
+    """Phase 3: for each method, two steps on the card vs two on the CPU,
+    same start."""
     import torch
     from slcl_torch.data import to_device
     from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
     from slcl_torch.train.trainer import Trainer
 
-    cfg = small_config()
-    cpu = Trainer(cfg, device="cpu")
-    gpu = Trainer(cfg, device="cuda")
-    batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
-    sched = cpu._sched(0)
-    reset_launch_counts()
-    for i, b in enumerate(batches):
-        m_cpu = cpu.step_fn(cpu.state, to_device(b, torch.device("cpu")), sched)
-        m_gpu = gpu.step_fn(gpu.state, to_device(b, torch.device("cuda")), sched)
-        for k, v in m_cpu.items():
-            # cuDNN vs CPU f32 convolution sums; one pseudo-label flip at a
-            # near-tie would move loss_mpscl_tg by O(1/M)
-            close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small slice step {i} {k}")
-    counts = launch_counts()
-    for name, per in PER_STEP.items():
-        if counts[name] != 2 * per:
-            raise AssertionError(f"small slice: {name} launched {counts[name]} times, "
-                                 f"expected {2 * per}")
-    torch.cuda.synchronize()
-    log("small slice: card matches CPU over two steps")
+    for method in ("slcl", "advent", "baseline"):
+        cfg = small_config(method)
+        cpu = Trainer(cfg, device="cpu")
+        gpu = Trainer(cfg, device="cuda")
+        batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
+        sched = cpu._sched(0)
+        reset_launch_counts()
+        for i, b in enumerate(batches):
+            m_cpu = cpu.step_fn(cpu.state, to_device(b, torch.device("cpu")), sched)
+            m_gpu = gpu.step_fn(gpu.state, to_device(b, torch.device("cuda")), sched)
+            if set(m_cpu) != set(m_gpu):
+                raise AssertionError(f"small {method} step {i}: metric keys differ")
+            for k, v in m_cpu.items():
+                # cuDNN vs CPU f32 convolution sums; one pseudo-label flip at a
+                # near-tie would move loss_mpscl_tg by O(1/M)
+                close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {method} step {i} {k}")
+        counts = launch_counts()
+        for name, per in PER_STEP.items():
+            want = 2 * per if method == "slcl" else 0
+            if counts[name] != want:
+                raise AssertionError(f"small {method}: {name} launched {counts[name]} "
+                                     f"times, expected {want}")
+        torch.cuda.synchronize()
+        log(f"small {method}: card matches CPU over two steps")
 
 
 def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
@@ -335,8 +425,8 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     # first matching category wins; the rest is elementwise/copy/reduce
-    cats = (("port_kernels", ("mpcl_fwd_", "mpcl_bwd<", "pseudo_label_kernel",
-                              "centroids_fwd_", "centroids_bwd<")),
+    cats = (("port_kernels", ("mpcl_fwd_", "mpcl_bwd<", "mpcl_pseudo_",
+                              "pseudo_label_kernel", "centroids_fwd_", "centroids_bwd<")),
             ("convolution", ("xmma", "conv", "implicit_gemm", "cudnn", "gemm")),
             ("batch_norm", ("batch_norm",)),
             ("reduce", ("reduce_kernel",)),
@@ -353,7 +443,7 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
             "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top]}
 
 
-def train_full_width() -> dict:
+def train_full_width(work: Path) -> dict:
     """Phase 4: the full-width recipe through the port's Trainer."""
     import torch
     from slcl_torch.config import Config, apply_recipe
@@ -367,6 +457,7 @@ def train_full_width() -> dict:
     cfg.model.multilvl = True
     cfg.data.dataset = "synthetic"
     cfg.optim.epochs = 1
+    cfg.run.out_dir = str(work)
     t0 = time.perf_counter()
     trainer = Trainer(cfg)
     n_params = sum(p.numel() for p in trainer.state.seg.parameters())
@@ -376,7 +467,7 @@ def train_full_width() -> dict:
 
     reset_launch_counts()
     t1 = time.perf_counter()
-    means = trainer.train()
+    means = trainer.train_epoch(0)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t1
     counts = launch_counts()
@@ -421,6 +512,91 @@ def train_full_width() -> dict:
             "means": means}
 
 
+def _same_state(a, b) -> None:
+    """Raise unless two trainers hold bit-identical networks, centres, step."""
+    import torch
+    for net in ("seg", "d_main", "d_aux"):
+        sa, sb = getattr(a.state, net).state_dict(), getattr(b.state, net).state_dict()
+        bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        if bad:
+            raise AssertionError(f"restore: {net} differs in {bad[:4]}")
+    if not torch.equal(a.state.centroids, b.state.centroids) or a.state.step != b.state.step:
+        raise AssertionError("restore: centres or step differ")
+
+
+def protocol_full_width(work: Path) -> dict:
+    """Phase 5: AdvEnt -> class centres -> slcl fine-tune -> final test,
+    through the port's entry points at full width."""
+    import numpy as np
+    import torch
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.scripts import gen_class_centers
+    from slcl_torch.train import __main__ as train_cli
+    from slcl_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    base = ["data.dataset=synthetic", "data.gap=0.5", "optim.optimizer=adam",
+            "model.multilvl=true", "run.eval_frequency=1", "optim.epochs=2",
+            f"run.out_dir={work}"]
+    adv = train_cli.main(["method=advent", *base, "optim.lr=2e-3", "adv.w_dis=2e-4"])
+    best = Path(adv["out_dir"]) / "ckpt_best.pt"
+    centres_path = work / "centers.npy"
+    centres = gen_class_centers.main(["method=baseline", *base, f"run.restore_from={best}",
+                                      f"out={centres_path}"])
+    if centres.shape != (C, F) or not np.isfinite(centres).all() or not centres.any():
+        raise AssertionError(f"protocol: bad centre file {centres.shape}")
+    slcl_args = ["method=slcl", *base, "optim.lr=2e-4", "optim.lr_warmup_epochs=5",
+                 "adv.w_dis=2e-4", f"run.init_from={best}",
+                 f"contrastive.init_centers={centres_path}"]
+    reset_launch_counts()
+    fine = train_cli.main(slcl_args)
+    counts = launch_counts()
+    steps = 2 * 8   # two epochs of the synthetic train_s (8 * bs images)
+    for name, per in PER_STEP.items():
+        if counts[name] != steps * per:
+            raise AssertionError(f"protocol: {name} launched {counts[name]} times in "
+                                 f"{steps} steps, expected {steps * per}")
+    init = fine["history"][0]
+    if init["epoch"] != -1 or abs(init["val_dice"] - adv["best_val_dice"]) > 1e-3:
+        raise AssertionError(f"protocol: epoch -1 val dice {init} is not AdvEnt's best "
+                             f"{adv['best_val_dice']}")
+    for split in ("test", "test_s"):
+        vals = [v for k in ("dc", "hd", "asd") for v in fine[split][k]]
+        if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"protocol: {split} metrics {fine[split]}")
+
+    # save -> restore -> one more step, against the uninterrupted step
+    cfg, _, _ = train_cli.parse_args(slcl_args, "slcl")
+    a = Trainer(cfg)
+    a.restore_checkpoint("last")
+    batches = [b for _, b in zip(range(2), device_prefetch(a._epoch_batches(), a.device))]
+    sched = a._sched(1)
+    a.step_fn(a.state, batches[0], sched)
+    a.save_checkpoint("resume")
+    b = Trainer(cfg)
+    b.restore_checkpoint("resume")
+    _same_state(a, b)
+    ma = a.step_fn(a.state, batches[1], sched)
+    mb = b.step_fn(b.state, batches[1], sched)
+    for k in ma:
+        close(mb[k], ma[k], 1e-5, 0.0, f"resumed step {k}")
+    # the backward's atomics (bilinear upsampling, cuDNN) sum in no fixed
+    # order, so the two updates may differ in the last bits
+    diff = max(float((pa - pb).abs().max()) for pa, pb in
+               zip(a.state.seg.state_dict().values(), b.state.seg.state_dict().values()))
+    if diff > 1e-6:
+        raise AssertionError(f"resumed step: parameters differ by {diff}")
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "advent_val_dice": [r["val_dice"] for r in adv["history"]],
+            "slcl_val_dice": {r["epoch"]: r["val_dice"] for r in fine["history"]},
+            "slcl_best_epoch": fine["best_epoch"],
+            "test_dice_hd95_assd": [fine["test"][k][0::2] for k in ("dc", "hd", "asd")],
+            "centre_norms": np.linalg.norm(centres, axis=1).tolist(),
+            "resume_max_param_diff": diff, "launches": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -429,7 +605,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from slcl_torch.ops.cuda import KERNELS, build
-        from slcl_torch.ops.cuda import mpcl, pseudo_label, soft_centroids  # noqa: F401
+        from slcl_torch.ops.cuda import (mpcl, mpcl_pseudo, pseudo_label,  # noqa: F401
+                                         soft_centroids)
     except ImportError as e:
         log(f"slcl_torch not found next to this script ({e}): run from a checkout")
         return 2
@@ -443,9 +620,18 @@ def main() -> int:
     build.build_all()
     log(f"built {len(build.SOURCES)} kernel libraries in {time.perf_counter() - t0:.1f} s")
 
-    rows = check_kernels(peaks)
-    check_small_slice()
-    train = train_full_width()
+    # the phases' own prints (the trainer's epoch lines and test tables) go
+    # to stderr: stdout carries the result lines only
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = check_kernels(peaks)
+        check_small_steps()
+        (ROOT / "runs").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
+        try:
+            train = train_full_width(work)
+            protocol = protocol_full_width(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
     table = []
     for kname, rec in rows.items():
@@ -454,11 +640,13 @@ def main() -> int:
         entry = {"name": kname, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": train["launches"][kname],
                  "launches_per_step": train["launches"][kname] / train["steps_per_epoch"],
+                 "launches_protocol": protocol["launches"][kname],
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
-        if "near_tie_rows" in rec:
-            entry["near_tie_rows"] = rec["near_tie_rows"]
+        for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms"):
+            if extra in rec:
+                entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
         ((regs, spill),) = [(r, sp) for fn, r, sp in build.ptxas_report(src) if sym in fn]
         entry.update(registers=regs, spill_store_bytes=spill)
@@ -467,6 +655,7 @@ def main() -> int:
         raise AssertionError("kernel table incomplete")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"protocol": protocol}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

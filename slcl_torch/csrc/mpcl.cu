@@ -27,60 +27,14 @@
 // grid-stride loop, then per block in a fixed tree; a second one-block
 // kernel adds the block partials in a fixed order and writes the loss, so
 // two runs on the same inputs give bit-identical results (no float atomics).
-#include "common.cuh"
+// The per-row arithmetic lives in mpcl_row.cuh, shared with mpcl_pseudo.cu.
+#include "mpcl_row.cuh"
 
 namespace {
 
 using slcl::kC;
 using slcl::kThreads;
-
-struct Margin {
-  float T, cos_m, sin_m, th, mm;
-  int easy;
-};
-
-// Row math shared by forward and backward. Returns mlpp; fills cosv[c],
-// e[c] = exp(mixed[c]), z = sum(e) + 1e-4 and inv = 1/||x||.
-template <int F, int C>
-__device__ __forceinline__ float mpcl_row(const float (&x)[F], const float* cent,
-                                          int lab, const Margin& mg,
-                                          float* cosv, float* e, float& z,
-                                          float& inv) {
-  float ss = 0.f;
-#pragma unroll
-  for (int k = 0; k < F; ++k) ss = fmaf(x[k], x[k], ss);
-  inv = rsqrtf(ss + 1e-24f);
-  float logit[C], phil[C];
-  float lmax = -INFINITY, pmax = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float d = 0.f;
-#pragma unroll
-    for (int k = 0; k < F; ++k) d = fmaf(x[k], cent[c * F + k], d);
-    const float cs = d * inv;
-    cosv[c] = cs;
-    const float sine = sqrtf(fminf(fmaxf(1.f - cs * cs, 1e-4f), 1.f));
-    float phi = cs * mg.cos_m - sine * mg.sin_m;
-    if (mg.easy) phi = cs > 0.f ? phi : cs;
-    else phi = cs > mg.th ? phi : cs - mg.mm;
-    logit[c] = cs / mg.T;
-    phil[c] = phi / mg.T;
-    lmax = fmaxf(lmax, logit[c]);
-    pmax = fmaxf(pmax, phil[c]);
-  }
-  float mixed_lab = 0.f;
-  z = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float mixed = (c == lab) ? phil[c] - pmax : logit[c] - lmax;
-    if (c == lab) mixed_lab = mixed;
-    e[c] = expf(mixed);
-    z += e[c];
-  }
-  z += 1e-4f;
-  // a label outside [0, C) selects no column: mlpp = 0, as one_hot gives
-  return (lab >= 0 && lab < C) ? mixed_lab - logf(z) : 0.f;
-}
+using slcl::Margin;
 
 template <typename T, int F, int C>
 __global__ void __launch_bounds__(kThreads)
@@ -99,7 +53,8 @@ mpcl_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
     for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
     const float s = sel ? sel[row] : 1.f;
     float cosv[C], e[C], z, inv;
-    const float mlpp = mpcl_row<F, C>(x, s_cent, labels[row], mg, cosv, e, z, inv);
+    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
+    const float mlpp = slcl::margin_softmax<C>(cosv, labels[row], mg, e, z);
     num = fmaf(s, mlpp, num);
     den += s;
   }
@@ -108,26 +63,6 @@ mpcl_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
   if (threadIdx.x == 0) {
     part[2 * blockIdx.x] = num;
     part[2 * blockIdx.x + 1] = den;
-  }
-}
-
-// out = [loss, sum(sel*mlpp), den]
-__global__ void __launch_bounds__(kThreads)
-mpcl_fwd_final(const float* __restrict__ part, int nparts, int M, int use_sel,
-               float scale, float* __restrict__ out) {
-  __shared__ float s_red[kThreads];
-  float num = 0.f, den = 0.f;
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x) {
-    num += part[2 * i];
-    den += part[2 * i + 1];
-  }
-  num = slcl::block_sum(num, s_red);
-  den = slcl::block_sum(den, s_red);
-  if (threadIdx.x == 0) {
-    const float d = use_sel ? den + 1e-4f : static_cast<float>(M);
-    out[0] = -scale * num / d;
-    out[1] = num;
-    out[2] = d;
   }
 }
 
@@ -149,40 +84,13 @@ mpcl_bwd(const T* __restrict__ feats, const int* __restrict__ labels,
     for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
     const float s = sel ? sel[row] : 1.f;
     const int lab = labels[row];
-    const bool valid = lab >= 0 && lab < C;
-    float cosv[C], e[C], z, inv;
-    mpcl_row<F, C>(x, s_cent, lab, mg, cosv, e, z, inv);
-    float gcos[C];
+    float cosv[C], e[C], z, inv, gcos[C], dx[F];
+    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
+    slcl::margin_softmax<C>(cosv, lab, mg, e, z);
+    slcl::margin_softmax_grad<C>(cosv, e, z, lab, mg, coef * s, gcos);
+    slcl::cosines_grad<F, C>(x, inv, s_cent, gcos, dx);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float cs = cosv[c];
-      const float one_m = 1.f - cs * cs;
-      // clamped sine is constant: dphi/dcos = cos_m there
-      const bool sat = one_m <= 1e-4f || one_m >= 1.f;
-      const float sine = sqrtf(fminf(fmaxf(one_m, 1e-4f), 1.f));
-      const float dphi_on = sat ? mg.cos_m : mg.cos_m + mg.sin_m * cs / sine;
-      const bool branch = cs > (mg.easy ? 0.f : mg.th);
-      const float dphi = branch ? dphi_on : 1.f;
-      const bool is_lab = (c == lab);
-      // d mlpp / d mixed = onehot - p * sum(onehot); sum is 0 off [0, C)
-      const float dmixed = (is_lab ? 1.f : 0.f) - (valid ? e[c] / z : 0.f);
-      gcos[c] = coef * s * dmixed * (is_lab ? dphi : 1.f) / mg.T;
-    }
-    // back through cos = (x * inv) @ centers^T and the row normalisation
-    float dfn[F];
-    float proj = 0.f;
-#pragma unroll
-    for (int k = 0; k < F; ++k) {
-      float v = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) v = fmaf(gcos[c], s_cent[c * F + k], v);
-      dfn[k] = v;
-      proj = fmaf(v, x[k] * inv, proj);
-    }
-#pragma unroll
-    for (int k = 0; k < F; ++k) dfn[k] = (dfn[k] - x[k] * inv * proj) * inv;
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dfn + k);
+    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dx + k);
   }
 }
 
@@ -194,7 +102,7 @@ int launch_fwd(const void* feats, const int* labels, const float* sel,
   SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC><<<grid, kThreads, 0, st>>>(
                          static_cast<const T*>(feats), labels, sel, centers, M, mg,
                          part));
-  mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, sel != nullptr, scale, out);
+  slcl::mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, sel != nullptr, scale, out);
   return static_cast<int>(cudaGetLastError());
 }
 

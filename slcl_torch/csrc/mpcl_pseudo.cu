@@ -1,0 +1,187 @@
+// Fused target branch of the SLCL step: cosine pseudo-labels, the top1-top2
+// gap mask and the margin-preserving contrastive loss (MPCL) in one pass,
+// forward and backward, for Hopper (sm_90a).
+//
+// Replaces slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py::mpcl_pseudo_fused
+// (_tile_terms, _fwd_kernel, _bwd_kernel and the custom VJP _f_fwd/_f_bwd).
+//
+// Per row m of feats (M, F): L2-normalise (rsqrt(sum x^2 + 1e-24)); cosine
+// against the (C, F) normalised prototypes; label = first-occurrence argmax;
+// sel = 1 where top1 - second > pixel_sel_th, second being the largest
+// cosine among the other columns (a tie gives a gap of 0, as lax.top_k);
+// then the MPCL margin softmax of mpcl.cu on that label. Loss =
+// -(T/T_base) * sum(sel*mlpp) / (sum(sel) + 1e-4). Only the two sums leave
+// the forward; labels and sel never reach memory. The backward recomputes
+// each row, treats label and sel as constants (they are selections) and
+// returns dfeats through the normalisation Jacobian; dcenters = 0.
+//
+// Bound on this card: bytes. At the slice's shapes (M = 16*224*224 =
+// 802,816, F = 32, C = 4, bf16 feats) the forward reads 51.4 MB of
+// features (~15 us at 3.35 TB/s); the backward reads them again and writes
+// 51.4 MB of dfeats (~31 us). The two-op route it replaces (pseudo_label.cu
+// then mpcl.cu) also writes and reads labels and mask (4 x 3.2 MB). The
+// arithmetic is ~150 FMAs per 64 bytes, far under the card's ratio.
+//
+// Design: mpcl.cu's: one thread per row, C = slcl::kC fixed at compile
+// time, the row read as 16-byte vectors, prototypes in shared memory, f32
+// math in registers, the per-row arithmetic from mpcl_row.cuh. The forward
+// sums per thread over a grid-stride loop, per block in a fixed tree, and a
+// one-block kernel adds the block partials in a fixed order: two runs give
+// bit-identical results (no float atomics). Rows that fail the gap test
+// skip the softmax (forward) and write zeros (backward).
+#include "mpcl_row.cuh"
+
+namespace {
+
+using slcl::kC;
+using slcl::kThreads;
+using slcl::Margin;
+
+// Label and sel of one row from its cosines (pseudo_label.cu's rule).
+template <int C>
+__device__ __forceinline__ int pseudo_label(const float* cosv, float sel_th, float& sel) {
+  float best = -INFINITY, second = -INFINITY;
+  int arg = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float cs = cosv[c];
+    if (cs > best) {
+      second = best;
+      best = cs;
+      arg = c;
+    } else if (cs > second) {
+      second = cs;
+    }
+  }
+  sel = (best - second > sel_th) ? 1.f : 0.f;
+  return arg;
+}
+
+template <typename T, int F, int C>
+__global__ void __launch_bounds__(kThreads)
+mpcl_pseudo_fwd_partial(const T* __restrict__ feats, const float* __restrict__ centers,
+                        int M, Margin mg, float sel_th, float* __restrict__ part) {
+  __shared__ float s_cent[C * F];
+  __shared__ float s_red[kThreads];
+  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
+  __syncthreads();
+  float num = 0.f, den = 0.f;
+  const int stride = gridDim.x * blockDim.x;
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
+    float x[F];
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
+    float cosv[C], inv, s;
+    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
+    const int lab = pseudo_label<C>(cosv, sel_th, s);
+    if (s != 0.f) {
+      float e[C], z;
+      num += slcl::margin_softmax<C>(cosv, lab, mg, e, z);
+      den += 1.f;
+    }
+  }
+  num = slcl::block_sum(num, s_red);
+  den = slcl::block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = num;
+    part[2 * blockIdx.x + 1] = den;
+  }
+}
+
+template <typename T, int F, int C>
+__global__ void __launch_bounds__(kThreads)
+mpcl_pseudo_bwd(const T* __restrict__ feats, const float* __restrict__ centers, int M,
+                Margin mg, float sel_th, float scale, const float* __restrict__ grad_out,
+                const float* __restrict__ stats, T* __restrict__ dfeats) {
+  __shared__ float s_cent[C * F];
+  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
+  __syncthreads();
+  // dL/dmlpp_m = coef * sel_m
+  const float coef = -scale * grad_out[0] / stats[2];
+  const int stride = gridDim.x * blockDim.x;
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
+    float x[F];
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
+    float cosv[C], inv, s, dx[F];
+    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
+    const int lab = pseudo_label<C>(cosv, sel_th, s);
+    if (s != 0.f) {
+      float e[C], z, gcos[C];
+      slcl::margin_softmax<C>(cosv, lab, mg, e, z);
+      slcl::margin_softmax_grad<C>(cosv, e, z, lab, mg, coef, gcos);
+      slcl::cosines_grad<F, C>(x, inv, s_cent, gcos, dx);
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; ++k) dx[k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dx + k);
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* feats, const float* centers, int M, int F, Margin mg,
+               float sel_th, float scale, float* part, float* out, cudaStream_t st) {
+  const int grid = slcl::grid_for(M, kThreads);
+  SLCL_DISPATCH_F(F, mpcl_pseudo_fwd_partial<T, kF, kC><<<grid, kThreads, 0, st>>>(
+                         static_cast<const T*>(feats), centers, M, mg, sel_th, part));
+  slcl::mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, 1, scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* feats, const float* centers, int M, int F, Margin mg,
+               float sel_th, float scale, const float* grad_out, const float* stats,
+               void* dfeats, cudaStream_t st) {
+  const int grid = slcl::grid_for(M, kThreads);
+  SLCL_DISPATCH_F(F, mpcl_pseudo_bwd<T, kF, kC><<<grid, kThreads, 0, st>>>(
+                         static_cast<const T*>(feats), centers, M, mg, sel_th, scale,
+                         grad_out, stats, static_cast<T*>(dfeats)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of float pairs the forward's partial buffer must hold.
+int mpcl_pseudo_num_partials(int M) { return slcl::grid_for(M, kThreads); }
+
+// out = [loss, sum(sel*mlpp), sum(sel) + 1e-4]. Returns cudaGetLastError()
+// after the launches; -1 for an unsupported F or a C other than slcl::kC.
+int mpcl_pseudo_fwd(const void* feats, int feats_bf16, const void* centers, int M,
+                    int F, int C, float T, float cos_m, float sin_m, float th,
+                    float mm, int easy, float scale, float sel_th, void* partials,
+                    void* out, void* stream) {
+  if (C != kC) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cen = static_cast<const float*>(centers);
+  auto part = static_cast<float*>(partials);
+  auto o = static_cast<float*>(out);
+  return feats_bf16
+             ? launch_fwd<__nv_bfloat16>(feats, cen, M, F, mg, sel_th, scale, part, o, st)
+             : launch_fwd<float>(feats, cen, M, F, mg, sel_th, scale, part, o, st);
+}
+
+// stats is the forward's out (stats[2] = den); grad_out one float.
+int mpcl_pseudo_bwd(const void* feats, int feats_bf16, const void* centers, int M,
+                    int F, int C, float T, float cos_m, float sin_m, float th,
+                    float mm, int easy, float scale, float sel_th,
+                    const void* grad_out, const void* stats, void* dfeats,
+                    void* stream) {
+  if (C != kC) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cen = static_cast<const float*>(centers);
+  auto g = static_cast<const float*>(grad_out);
+  auto stt = static_cast<const float*>(stats);
+  return feats_bf16
+             ? launch_bwd<__nv_bfloat16>(feats, cen, M, F, mg, sel_th, scale, g, stt,
+                                         dfeats, st)
+             : launch_bwd<float>(feats, cen, M, F, mg, sel_th, scale, g, stt, dfeats,
+                                 st);
+}
+
+}  // extern "C"

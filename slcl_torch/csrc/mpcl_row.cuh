@@ -1,0 +1,130 @@
+// Per-row MPCL arithmetic shared by mpcl.cu and mpcl_pseudo.cu, so both
+// kernels run the same math: L2 normalisation (rsqrt(sum x^2 + 1e-24)),
+// cosines against the (C, F) normalised prototypes, the ArcFace margin
+// softmax on the label column, its gradient with respect to the cosines,
+// and the way back through the row normalisation to the raw features.
+#pragma once
+
+#include "common.cuh"
+
+namespace slcl {
+
+struct Margin {
+  float T, cos_m, sin_m, th, mm;
+  int easy;
+};
+
+// cosv[c] = <x, cent[c]> / ||x||; inv = 1/||x||.
+template <int F, int C>
+__device__ __forceinline__ void row_cosines(const float (&x)[F], const float* cent,
+                                            float* cosv, float& inv) {
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < F; ++k) ss = fmaf(x[k], x[k], ss);
+  inv = rsqrtf(ss + 1e-24f);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float d = 0.f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) d = fmaf(x[k], cent[c * F + k], d);
+    cosv[c] = d * inv;
+  }
+}
+
+// Margin softmax of one row from its cosines. Returns mlpp (the log-prob of
+// the label column); fills e[c] = exp(mixed[c]) and z = sum(e) + 1e-4.
+template <int C>
+__device__ __forceinline__ float margin_softmax(const float* cosv, int lab,
+                                                const Margin& mg, float* e, float& z) {
+  float logit[C], phil[C];
+  float lmax = -INFINITY, pmax = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float cs = cosv[c];
+    const float sine = sqrtf(fminf(fmaxf(1.f - cs * cs, 1e-4f), 1.f));
+    float phi = cs * mg.cos_m - sine * mg.sin_m;
+    if (mg.easy) phi = cs > 0.f ? phi : cs;
+    else phi = cs > mg.th ? phi : cs - mg.mm;
+    logit[c] = cs / mg.T;
+    phil[c] = phi / mg.T;
+    lmax = fmaxf(lmax, logit[c]);
+    pmax = fmaxf(pmax, phil[c]);
+  }
+  float mixed_lab = 0.f;
+  z = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float mixed = (c == lab) ? phil[c] - pmax : logit[c] - lmax;
+    if (c == lab) mixed_lab = mixed;
+    e[c] = expf(mixed);
+    z += e[c];
+  }
+  z += 1e-4f;
+  // a label outside [0, C) selects no column: mlpp = 0, as one_hot gives
+  return (lab >= 0 && lab < C) ? mixed_lab - logf(z) : 0.f;
+}
+
+// gcos[c] = g * d mlpp / d cos[c], with g = dL/dmlpp of this row.
+template <int C>
+__device__ __forceinline__ void margin_softmax_grad(const float* cosv, const float* e,
+                                                    float z, int lab, const Margin& mg,
+                                                    float g, float* gcos) {
+  const bool valid = lab >= 0 && lab < C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float cs = cosv[c];
+    const float one_m = 1.f - cs * cs;
+    // clamped sine is constant: dphi/dcos = cos_m there
+    const bool sat = one_m <= 1e-4f || one_m >= 1.f;
+    const float sine = sqrtf(fminf(fmaxf(one_m, 1e-4f), 1.f));
+    const float dphi_on = sat ? mg.cos_m : mg.cos_m + mg.sin_m * cs / sine;
+    const bool branch = cs > (mg.easy ? 0.f : mg.th);
+    const float dphi = branch ? dphi_on : 1.f;
+    const bool is_lab = (c == lab);
+    // d mlpp / d mixed = onehot - p * sum(onehot); sum is 0 off [0, C)
+    const float dmixed = (is_lab ? 1.f : 0.f) - (valid ? e[c] / z : 0.f);
+    gcos[c] = g * dmixed * (is_lab ? dphi : 1.f) / mg.T;
+  }
+}
+
+// Back through cos = (x * inv) @ cent^T and the row normalisation:
+// dx = (dfn - fn * <dfn, fn>) * inv with dfn = gcos @ cent.
+template <int F, int C>
+__device__ __forceinline__ void cosines_grad(const float (&x)[F], float inv,
+                                             const float* cent, const float* gcos,
+                                             float* dx) {
+  float proj = 0.f;
+#pragma unroll
+  for (int k = 0; k < F; ++k) {
+    float v = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) v = fmaf(gcos[c], cent[c * F + k], v);
+    dx[k] = v;
+    proj = fmaf(v, x[k] * inv, proj);
+  }
+#pragma unroll
+  for (int k = 0; k < F; ++k) dx[k] = (dx[k] - x[k] * inv * proj) * inv;
+}
+
+// out = [loss, sum(sel*mlpp), den] from per-block (num, den) pairs, added
+// in a fixed order; den = sum(sel) + 1e-4 when use_sel, else M.
+__global__ void __launch_bounds__(kThreads)
+mpcl_fwd_final(const float* __restrict__ part, int nparts, int M, int use_sel,
+               float scale, float* __restrict__ out) {
+  __shared__ float s_red[kThreads];
+  float num = 0.f, den = 0.f;
+  for (int i = threadIdx.x; i < nparts; i += blockDim.x) {
+    num += part[2 * i];
+    den += part[2 * i + 1];
+  }
+  num = block_sum(num, s_red);
+  den = block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    const float d = use_sel ? den + 1e-4f : static_cast<float>(M);
+    out[0] = -scale * num / d;
+    out[1] = num;
+    out[2] = d;
+  }
+}
+
+}  // namespace slcl

@@ -27,7 +27,7 @@ BUILD_DIR = PKG / "_build"
 # -Xptxas -v: ptxas reports registers and spills per kernel into the log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
-SOURCES = ("mpcl", "pseudo_label", "soft_centroids")
+SOURCES = ("mpcl", "mpcl_pseudo", "pseudo_label", "soft_centroids")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,123 @@
+"""Fused target branch (pseudo-labels + gap mask + MPCL): CUDA kernel
+wrapper and plain version.
+
+The kernel (``slcl_torch/csrc/mpcl_pseudo.cu``) replaces
+``slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py::mpcl_pseudo_fused``: it takes
+RAW (M, F) target features and (C, F) normalised prototypes, derives each
+row's first-occurrence argmax label and top1-top2 gap mask from its own
+cosines, and returns the scalar MPCL loss weighted by that mask. Its
+backward is a second kernel that recomputes each row and returns dfeats;
+labels and mask are selections and get no gradient, nor do the prototypes.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import F32, I32, VP, build, check, ptr, raise_on_error, register, stream_of
+from .mpcl import _MARGIN, margin_consts, mpcl_plain
+from .pseudo_label import pseudo_label_plain
+
+FWD = register("mpcl_pseudo_fwd", "slcl_torch/csrc/mpcl_pseudo.cu",
+               "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:156")
+BWD = register("mpcl_pseudo_bwd", "slcl_torch/csrc/mpcl_pseudo.cu",
+               "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:179")
+
+_SIGS = {
+    "mpcl_pseudo_num_partials": (I32, [I32]),
+    "mpcl_pseudo_fwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP]),
+    "mpcl_pseudo_bwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP,
+                              VP]),
+}
+
+
+def mpcl_pseudo_plain(feats: torch.Tensor, centers: torch.Tensor, *,
+                      temperature: float = 0.1, base_temperature: float = 1.0,
+                      margin: float = 0.2, easy_margin: bool = False,
+                      pixel_sel_th: float = 0.25) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, the two-op composition that
+    ``mpcl_pseudo_kernel.py:163-166`` names: pseudo-labels and gap mask from
+    the detached features, then :func:`mpcl_plain` weighted by the mask."""
+    labels, sel = pseudo_label_plain(feats, centers, pixel_sel_th)
+    return mpcl_plain(feats, labels, centers, sel, temperature=temperature,
+                      base_temperature=base_temperature, margin=margin,
+                      easy_margin=easy_margin)
+
+
+def _check_inputs(feats, centers):
+    if feats.dim() != 2:
+        raise ValueError(f"feats: expected (M, F), got {tuple(feats.shape)}")
+    check(feats, "feats", (torch.bfloat16, torch.float32))
+    check(centers, "centers", (torch.float32,), (centers.shape[0], feats.shape[1]),
+          feats.device)
+
+
+def _args(feats, centers, T, margin, easy, scale, sel_th):
+    m, f = feats.shape
+    return (ptr(feats), int(feats.dtype == torch.bfloat16), ptr(centers), m, f,
+            centers.shape[0], T, *margin_consts(margin), int(easy), scale,
+            float(sel_th))
+
+
+def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th) -> torch.Tensor:
+    """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
+    _check_inputs(feats, centers)
+    lib = build.load("mpcl_pseudo", _SIGS)
+    parts = torch.empty(2 * lib.mpcl_pseudo_num_partials(feats.shape[0]),
+                        dtype=torch.float32, device=feats.device)
+    stats = torch.empty(3, dtype=torch.float32, device=feats.device)
+    with torch.cuda.device(feats.device):
+        rc = lib.mpcl_pseudo_fwd(*_args(feats, centers, T, margin, easy, scale, sel_th),
+                                 ptr(parts), ptr(stats), stream_of(feats))
+    raise_on_error(rc, "mpcl_pseudo_fwd")
+    FWD.launches += 1
+    return stats
+
+
+def mpcl_pseudo_bwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
+                         grad_out, stats) -> torch.Tensor:
+    """Launch the backward; returns dfeats in feats' dtype."""
+    _check_inputs(feats, centers)
+    check(grad_out, "grad_out", (torch.float32,), (1,), feats.device)
+    check(stats, "stats", (torch.float32,), (3,), feats.device)
+    lib = build.load("mpcl_pseudo", _SIGS)
+    dfeats = torch.empty_like(feats)
+    with torch.cuda.device(feats.device):
+        rc = lib.mpcl_pseudo_bwd(*_args(feats, centers, T, margin, easy, scale, sel_th),
+                                 ptr(grad_out), ptr(stats), ptr(dfeats), stream_of(feats))
+    raise_on_error(rc, "mpcl_pseudo_bwd")
+    BWD.launches += 1
+    return dfeats
+
+
+class _MPCLPseudoFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, centers, T, base_T, margin, easy, sel_th):
+        scale = T / base_T
+        stats = mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th)
+        ctx.save_for_backward(feats, centers, stats)
+        ctx.consts = (T, margin, easy, scale, sel_th)
+        return stats[0].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, centers, stats = ctx.saved_tensors
+        T, margin, easy, scale, sel_th = ctx.consts
+        dfeats = mpcl_pseudo_bwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
+                                      grad.float().reshape(1).contiguous(), stats)
+        dcenters = torch.zeros_like(centers) if ctx.needs_input_grad[1] else None
+        return dfeats, dcenters, None, None, None, None, None
+
+
+def mpcl_pseudo(feats: torch.Tensor, centers: torch.Tensor, *,
+                temperature: float = 0.1, base_temperature: float = 1.0,
+                margin: float = 0.2, easy_margin: bool = False,
+                pixel_sel_th: float = 0.25) -> torch.Tensor:
+    """Target-branch MPCL over raw (M, F) ``feats`` and (C, F) normalised
+    float32 ``centers``, with labels and mask derived from the features.
+    CUDA tensors go to the kernel, CPU tensors to :func:`mpcl_pseudo_plain`."""
+    if feats.is_cuda:
+        return _MPCLPseudoFn.apply(feats, centers, temperature, base_temperature,
+                                   margin, easy_margin, pixel_sel_th)
+    return mpcl_pseudo_plain(feats, centers, temperature=temperature,
+                             base_temperature=base_temperature, margin=margin,
+                             easy_margin=easy_margin, pixel_sel_th=pixel_sel_th)

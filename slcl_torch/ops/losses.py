@@ -2,8 +2,8 @@
 
 Counterpart of ``slcl_tpu/ops/losses.py``: logits and features NHWC, labels
 NHW, class centres (C, F); every loss accumulates in float32 whatever the
-activation dtype. ``mpcl_loss_calc`` sends CUDA tensors to the MPCL kernel
-and CPU tensors to its plain version.
+activation dtype. ``mpcl_loss_calc`` and ``mpcl_pseudo_loss`` send CUDA
+tensors to their kernels and CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda.mpcl import mpcl, mpcl_loss_normalized as mpcl_loss  # noqa: F401
+from .cuda.mpcl_pseudo import mpcl_pseudo
 
 _EPS = 1e-7
 
@@ -58,6 +59,28 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-5) -> 
     return 1.0 - dice.sum() / dice.shape[0] / num_classes
 
 
+def loss_entropy(probs: torch.Tensor, smooth: float = 1e-7, mode: str = "mean") -> torch.Tensor:
+    """Normalised entropy minimisation (the AdvEnt direct term):
+    ``-1/log(C) * sum_c p log(p + smooth)`` per pixel, averaged over all
+    pixels ('mean') or summed per sample then averaged ('sum'). probs NHWC."""
+    probs = probs.float()
+    pix = (-1.0 / math.log(probs.shape[-1])) * (probs * torch.log(probs + smooth)).sum(dim=-1)
+    if mode == "mean":
+        return pix.mean()
+    if mode == "sum":
+        return pix.sum(dim=tuple(range(1, pix.dim()))).mean()
+    raise NotImplementedError(mode)
+
+
+def loss_class_prior(probs: torch.Tensor, prior, w: float) -> torch.Tensor:
+    """Hinge on the predicted class marginals: ``sum(relu(w*prior - mean))``,
+    the mean over every axis but the class one. probs NHWC."""
+    probs = probs.float()
+    marginal = probs.mean(dim=tuple(range(probs.dim() - 1)))
+    prior = torch.as_tensor(prior, dtype=torch.float32, device=probs.device)
+    return torch.relu(w * prior - marginal).sum()
+
+
 def prob_2_entropy(probs: torch.Tensor) -> torch.Tensor:
     """Per-pixel weighted self-information ``-p * log2(p+eps) / log2(C)``."""
     probs = probs.float()
@@ -90,6 +113,12 @@ def nearest_resize_labels(labels: torch.Tensor, size: Tuple[int, int]) -> torch.
     return out[:, 0].to(labels.dtype)
 
 
+def _unit_centers(class_centers: torch.Tensor) -> torch.Tensor:
+    """(C, F) centres over ``||c|| + 1e-12``, in f32, as jnp normalises them."""
+    centers = class_centers.float()
+    return centers / (torch.linalg.vector_norm(centers, dim=-1, keepdim=True) + 1e-12)
+
+
 def mpcl_loss_calc(feats: torch.Tensor, labels: torch.Tensor,
                    class_centers: torch.Tensor, *, temperature: float = 0.1,
                    base_temperature: float = 1.0, margin: float = 0.4,
@@ -105,11 +134,25 @@ def mpcl_loss_calc(feats: torch.Tensor, labels: torch.Tensor,
     flat = feats.reshape(n * h * w, c).contiguous()
     lab = labels.reshape(-1)
     sel = None if pixel_sel_loc is None else pixel_sel_loc.float().reshape(-1).contiguous()
-    centers = class_centers.float()
-    centers = centers / (torch.linalg.vector_norm(centers, dim=-1, keepdim=True) + 1e-12)
+    centers = _unit_centers(class_centers)
     if flat.is_cuda:
         lab = lab.to(torch.int32).contiguous()
         centers = centers.contiguous()
     return mpcl(flat, lab, centers, sel, temperature=temperature,
                 base_temperature=base_temperature, margin=margin,
                 easy_margin=easy_margin)
+
+
+def mpcl_pseudo_loss(feats: torch.Tensor, class_centers: torch.Tensor, *,
+                     temperature: float = 0.1, base_temperature: float = 1.0,
+                     margin: float = 0.2, easy_margin: bool = False,
+                     pixel_sel_th: float = 0.25) -> torch.Tensor:
+    """The target branch in one call: cosine pseudo-labels and top1-top2 gap
+    mask from ``feats`` (NHWC) against the centres, then MPCL on those labels
+    weighted by the mask (``generate_pseudo_label`` + ``mpcl_loss_calc(...,
+    pixel_sel_loc=mask, resize_labels=False)``). Centres (C, F) are
+    normalised here as in :func:`mpcl_loss_calc`."""
+    flat = feats.reshape(-1, feats.shape[-1]).contiguous()
+    return mpcl_pseudo(flat, _unit_centers(class_centers).contiguous(),
+                       temperature=temperature, base_temperature=base_temperature,
+                       margin=margin, easy_margin=easy_margin, pixel_sel_th=pixel_sel_th)

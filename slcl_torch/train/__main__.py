@@ -1,45 +1,59 @@
 """Training CLI of the port (counterpart of ``scripts/train.py``).
 
 Usage:
-  python -m slcl_torch.train method=slcl model.multilvl=true \\
-      data.dataset=synthetic optim.epochs=1 [--device cpu]
+  python -m slcl_torch.train method=advent model.multilvl=true \\
+      data.dataset=synthetic optim.epochs=30 run.out_dir=runs [--device cpu]
 
 Recipe presets are applied first (``apply_recipe``), then the
-``section.key=value`` overrides. Runs on CUDA unless ``--device`` names
-another device. Prints one JSON line of mean metrics per epoch.
+``section.key=value`` overrides. Runs ``Trainer.train()`` on CUDA unless
+``--device`` names another device: checkpoints, ``log.jsonl`` and
+``summary.json`` go to ``<run.out_dir>/<apdx>/``. Prints the summary, with
+the device and that directory, as one JSON line last.
 """
 from __future__ import annotations
 
 import json
 import sys
+from typing import List, Optional, Tuple
 
 from ..config import Config, apply_recipe
 
 
-def main(argv):
+def parse_args(argv, default_method: str, extra_keys: Tuple[str, ...] = ()
+               ) -> Tuple[Config, Optional[str], List[str]]:
+    """(config, device, the ``key=value`` arguments whose key is one of
+    ``extra_keys``) from a CLI's arguments; ``--device`` and ``--help`` are read here.
+    The recipe of ``method=`` is applied before the overrides, as every
+    entry point must (presets change the parameter tree)."""
     argv = list(argv)
-    if any(a in ("--help", "-h", "help") for a in argv):
-        print(__doc__)
-        return {}
     device = None
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
         del argv[i:i + 2]
+    extra = [a for a in argv if a.split("=", 1)[0] in extra_keys]
+    argv = [a for a in argv if a not in extra]
     method = next((a.split("=", 1)[1] for a in argv if a.startswith("method=")),
-                  "slcl")
+                  default_method)
     cfg = Config()
     cfg.method = method
     cfg = apply_recipe(cfg)
     cfg = Config.from_cli(argv, base=cfg)
     cfg.method = method
+    return cfg, device, extra
 
+
+def main(argv):
+    if any(a in ("--help", "-h", "help") for a in argv):
+        print(__doc__)
+        return {}
+    cfg, device, _ = parse_args(argv, "slcl")
     from .trainer import Trainer
     trainer = Trainer(cfg, device=device)
-    means = trainer.train()
-    for record in trainer.history:
-        print(json.dumps({"device": str(trainer.device), **record}), flush=True)
-    return means
+    result = {"device": str(trainer.device), "out_dir": str(trainer.out_dir),
+              **trainer.train()}
+    print(json.dumps(result), flush=True)
+    return result
 
 
 if __name__ == "__main__":

@@ -1,24 +1,27 @@
-"""The SLCL (MPSCL-path) train step: generator phase, then discriminators.
+"""Per-method train steps: baseline, AdvEnt and SLCL (MPSCL path).
 
-Counterpart of ``slcl_tpu/train/steps.py`` ``_gan_step`` +
-``make_mpscl_step`` + ``build_step`` for ``method`` in ``mpscl``/``slcl``.
+Counterpart of ``slcl_tpu/train/steps.py`` ``make_baseline_step``,
+``_gan_step``, ``make_advent_step``, ``make_mpscl_step`` and ``build_step``
+for ``method`` in ``baseline``/``advent``/``mpscl``/``slcl``.
 ``step(state, batch, sched) -> metrics`` updates ``state`` in place and
 returns 0-d float32 tensors on the device (no host sync); the trainer
 reduces them once per epoch.
 
-Generator phase: source then target forward in train mode (BatchNorm
-running statistics carry over from the source pass to the target pass),
-CE + Dice on source, EMA class centres from detached source features,
-cosine pseudo-labels on target, MPCL on both domains, CNR on the target
-soft centroids, and the entropy-map adversarial terms; gradients go to the
-segmentor only (``backward(inputs=...)``), which takes one SGD step.
-Discriminator phase: each discriminator sees predictions detached from the
-generator forward with halved BCE and takes one Adam step.
+Adversarial methods share :func:`_gan_step`. Generator phase: source then
+target forward in train mode (BatchNorm running statistics carry over from
+the source pass to the target pass) and the method's generator loss;
+gradients go to the segmentor only (``backward(inputs=...)``), which takes
+one optimizer step. Discriminator phase: each discriminator sees
+predictions detached from the generator forward with halved BCE and takes
+one Adam step. The SLCL generator loss adds CE + Dice on source, EMA class
+centres from detached source features, MPCL on source, the fused target
+branch (pseudo-labels, gap mask and MPCL in one kernel), CNR on the target
+soft centroids, and the entropy-map adversarial terms.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -29,30 +32,44 @@ from .state import TrainState, set_lr
 Metrics = Dict[str, torch.Tensor]
 
 
+def autocast(dtype: str, device: torch.device):
+    """bf16 activations with fp32 parameters when ``model.dtype`` is bf16."""
+    if dtype == "bfloat16":
+        return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
+    return contextlib.nullcontext()
+
+
 def _d_acc(logits: torch.Tensor, is_source: bool) -> torch.Tensor:
     """Discriminator accuracy bookkeeping (Trainer_AdaptSeg.py:196-228)."""
     m = (torch.sigmoid(logits.float()) >= 0.5).float().mean()
     return m if is_source else 1.0 - m
 
 
-def _entropy_map(logits: torch.Tensor) -> torch.Tensor:
-    """Weighted self-information map of the softmax (Trainer_MPSCL.py:171-173)."""
-    return L.prob_2_entropy(torch.softmax(logits.float(), dim=-1))
+def _entropy_map(logits: torch.Tensor, kind: str) -> torch.Tensor:
+    """Discriminator input map. 'advent' = raw -p*log(p+eps)
+    (Trainer_Advent.py:86-88); 'weighted' = prob_2_entropy with log2/log2C
+    (Trainer_MPSCL.py:171-173)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    if kind == "advent":
+        return -probs * torch.log(probs + 1e-7)
+    return L.prob_2_entropy(probs)
 
 
-def _autocast(cfg, device: torch.device):
-    """bf16 activations with fp32 parameters when ``model.dtype`` is bf16."""
-    if cfg.model.dtype == "bfloat16":
-        return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
-    return contextlib.nullcontext()
+def _seg_update(state: TrainState, total: torch.Tensor, lr: float) -> None:
+    """One optimizer step of the segmentor on ``total``'s gradient."""
+    params = [p for p in state.seg.parameters() if p.requires_grad]
+    state.opt_seg.zero_grad(set_to_none=True)
+    total.backward(inputs=params)
+    set_lr(state.opt_seg, lr)
+    state.opt_seg.step()
 
 
 def _d_update(disc, opt, lr: float, pred_s: torch.Tensor, pred_t: torch.Tensor,
-              amp) -> Metrics:
+              kind: str, amp) -> Metrics:
     """One Adam step of a discriminator on detached predictions."""
     with amp:
-        o_s = disc(_entropy_map(pred_s))
-        o_t = disc(_entropy_map(pred_t))
+        o_s = disc(_entropy_map(pred_s, kind))
+        o_t = disc(_entropy_map(pred_t, kind))
     loss = 0.5 * L.bce_with_logits(o_s, 1.0) + 0.5 * L.bce_with_logits(o_t, 0.0)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -62,22 +79,124 @@ def _d_update(disc, opt, lr: float, pred_s: torch.Tensor, pred_t: torch.Tensor,
             "acc_t": _d_acc(o_t.detach(), False)}
 
 
+def _adv_terms(cfg, state: TrainState, out_t, kind: str, amp, metrics: Metrics):
+    """Generator-side adversarial loss, main head plus aux when multilvl,
+    already weighted by ``adv.w_dis`` / ``adv.w_dis_aux``."""
+    with amp:
+        d_out = state.d_main(_entropy_map(out_t.pred, kind))
+    loss_adv = L.bce_with_logits(d_out, 1.0)
+    metrics["loss_adv"] = loss_adv
+    total = cfg.adv.w_dis * loss_adv
+    if cfg.model.multilvl and out_t.aux is not None:
+        with amp:
+            d_out_aux = state.d_aux(_entropy_map(out_t.aux, kind))
+        loss_adv_aux = L.bce_with_logits(d_out_aux, 1.0)
+        metrics["loss_adv_aux"] = loss_adv_aux
+        total = total + cfg.adv.w_dis_aux * loss_adv_aux
+    return total
+
+
+GenLoss = Callable[[TrainState, Dict[str, torch.Tensor], Dict[str, float], object],
+                   Tuple[torch.Tensor, object, object, Metrics]]
+
+
+def _gan_step(cfg, gen_loss: GenLoss, kind: str) -> Callable:
+    """An adversarial step from a method's generator loss.
+    ``gen_loss(state, batch, sched, amp)`` returns ``(total, out_s, out_t,
+    metrics)``; ``kind`` names the discriminator input map."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             sched: Dict[str, float]) -> Metrics:
+        amp = autocast(cfg.model.dtype, batch["img_s"].device)
+        state.seg.train()
+        total, out_s, out_t, metrics = gen_loss(state, batch, sched, amp)
+        _seg_update(state, total, sched["lr"])
+
+        d = _d_update(state.d_main, state.opt_d_main, sched["lr_dis"],
+                      out_s.pred.detach(), out_t.pred.detach(), kind, amp)
+        metrics.update({"loss_dis": d["loss"], "dis_acc_s": d["acc_s"],
+                        "dis_acc_t": d["acc_t"]})
+        if cfg.model.multilvl and out_t.aux is not None and state.d_aux is not None:
+            d = _d_update(state.d_aux, state.opt_d_aux, sched["lr_dis"],
+                          out_s.aux.detach(), out_t.aux.detach(), kind, amp)
+            metrics.update({"loss_dis_aux": d["loss"], "dis_aux_acc_s": d["acc_s"],
+                            "dis_aux_acc_t": d["acc_t"]})
+        state.step += 1
+        return {k: v.detach().float() for k, v in metrics.items()}
+
+    return step
+
+
+def _seg_loss_jaccard(cfg, out, labels, key: str, metrics: Metrics) -> torch.Tensor:
+    """CE + Jaccard on the main head, plus ``adv.w_seg_aux`` times the same
+    on the aux head when there is one."""
+    loss = L.loss_calc(out.pred, labels, jaccard=True)
+    metrics[key] = loss
+    if out.aux is not None:
+        laux = L.loss_calc(out.aux, labels, jaccard=True)
+        metrics[key + "_aux"] = laux
+        loss = loss + cfg.adv.w_seg_aux * laux
+    return loss
+
+
+def make_baseline_step(cfg) -> Callable:
+    """Supervised segmentation on source labels, or on target labels for the
+    ``train_with_t`` oracle (Trainer_baseline.py:221-227)."""
+    on_target = cfg.data.train_with_t and not cfg.data.train_with_s
+    img_key, lab_key = ("img_t", "lab_t") if on_target else ("img_s", "lab_s")
+    loss_key = "seg_t" if on_target else "seg_s"
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             sched: Dict[str, float]) -> Metrics:
+        state.seg.train()
+        with autocast(cfg.model.dtype, batch[img_key].device):
+            out = state.seg(batch[img_key])
+        metrics: Metrics = {}
+        loss = _seg_loss_jaccard(cfg, out, batch[lab_key], loss_key, metrics)
+        _seg_update(state, loss, sched["lr"])
+        state.step += 1
+        return {k: v.detach().float() for k, v in metrics.items()}
+
+    return step
+
+
+def make_advent_step(cfg) -> Callable:
+    """Entropy-map adversarial adaptation, with the optional direct entropy
+    and class-prior terms (Trainer_Advent.py:55-180)."""
+
+    def gen_loss(state, batch, sched, amp):
+        with amp:
+            out_s = state.seg(batch["img_s"])
+            out_t = state.seg(batch["img_t"])
+        metrics: Metrics = {}
+        total = _seg_loss_jaccard(cfg, out_s, batch["lab_s"], "seg_s", metrics)
+        total = total + _adv_terms(cfg, state, out_t, "advent", amp, metrics)
+        if cfg.adv.w_ent or cfg.adv.w_prior:
+            probs_t = torch.softmax(out_t.pred.float(), dim=-1)
+        if cfg.adv.w_ent:
+            # entropy of the main target prediction
+            loss_ent = L.loss_entropy(probs_t, 1e-7)
+            metrics["loss_ent"] = loss_ent
+            total = total + cfg.adv.w_ent * loss_ent
+        if cfg.adv.w_prior:
+            loss_prior = L.loss_class_prior(probs_t, cfg.adv.class_prior,
+                                            cfg.adv.prior_slack)
+            metrics["loss_prior"] = loss_prior
+            total = total + loss_prior
+        return total, out_s, out_t, metrics
+
+    return _gan_step(cfg, gen_loss, "advent")
+
+
 def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
     c = cfg.contrastive
     n_class = cfg.model.num_classes
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             sched: Dict[str, float]) -> Metrics:
-        seg = state.seg
-        dev = batch["img_s"].device
-        amp = _autocast(cfg, dev)
-        seg.train()
-        labels_s = batch["lab_s"]
-
-        # ---- generator phase ----
+    def gen_loss(state, batch, sched, amp):
         with amp:
-            out_s = seg(batch["img_s"])
-            out_t = seg(batch["img_t"])
+            out_s = state.seg(batch["img_s"])
+            out_t = state.seg(batch["img_t"])
+        labels_s = batch["lab_s"]
 
         # seg loss: CE + dice (Trainer_MPSCL.py:125)
         loss_seg = (L.loss_calc(out_s.pred, labels_s, jaccard=False)
@@ -86,28 +205,25 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
 
         # EMA class centres from detached source features; zero-init
         # centres adopt the first batch means outright
-        new_centroids = cen.update_class_center_iter(
+        centers = cen.update_class_center_iter(
             out_s.dcdr_ft, labels_s, state.centroids, momentum=c.class_center_m,
             num_classes=n_class,
-            bootstrap=None if centroids_loaded else (state.step == 0))
-        plab_t, pmask_t = cen.generate_pseudo_label(
-            out_t.dcdr_ft, new_centroids, pixel_sel_th=c.pixel_sel_th)
-
-        centers = new_centroids.detach()
+            bootstrap=None if centroids_loaded else (state.step == 0)).detach()
         mpcl_src = L.mpcl_loss_calc(
             out_s.dcdr_ft, labels_s, centers, temperature=c.src_temp,
             base_temperature=c.src_base_temp, margin=c.src_margin,
             easy_margin=c.easy_margin)
-        mpcl_trg = L.mpcl_loss_calc(
-            out_t.dcdr_ft, plab_t, centers, temperature=c.trg_temp,
+        # target: pseudo-labels, gap mask and MPCL in one pass
+        mpcl_trg = L.mpcl_pseudo_loss(
+            out_t.dcdr_ft, centers, temperature=c.trg_temp,
             base_temperature=c.trg_base_temp, margin=c.trg_margin,
-            pixel_sel_loc=pmask_t, resize_labels=False, easy_margin=c.easy_margin)
+            easy_margin=c.easy_margin, pixel_sel_th=c.pixel_sel_th)
         metrics["loss_mpscl_tr"] = mpcl_src
         metrics["loss_mpscl_tg"] = mpcl_trg
 
         # CNR: match target centroid norms to source (MCCL formula,
         # Trainer_MCCL.py:303-315), P = 1
-        loss_cnr = torch.zeros((), dtype=torch.float32, device=dev)
+        loss_cnr = torch.zeros((), dtype=torch.float32, device=centers.device)
         if c.CNR and c.CNR_w > 0:
             probs_t = torch.softmax(out_t.pred.float(), dim=-1)
             res = cen.target_soft_centroids(
@@ -116,49 +232,23 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
             loss_cnr = L.cnr_loss(centers, res.centroids[0])
         metrics["loss_cnr"] = loss_cnr
 
-        # adversarial branch on weighted self-information maps
-        with amp:
-            d_out = state.d_main(_entropy_map(out_t.pred))
-        loss_adv = L.bce_with_logits(d_out, 1.0)
-        metrics["loss_adv"] = loss_adv
         warm = sched["warm"]
-        total = (loss_seg + cfg.adv.w_dis * loss_adv
+        total = (loss_seg + _adv_terms(cfg, state, out_t, "weighted", amp, metrics)
                  + warm * (c.w_mpcl_s * mpcl_src + c.w_mpcl_t * mpcl_trg
                            + c.CNR_w * loss_cnr))
-        multilvl = cfg.model.multilvl and out_t.aux is not None
-        if multilvl:
-            with amp:
-                d_out_aux = state.d_aux(_entropy_map(out_t.aux))
-            loss_adv_aux = L.bce_with_logits(d_out_aux, 1.0)
-            metrics["loss_adv_aux"] = loss_adv_aux
-            total = total + cfg.adv.w_dis_aux * loss_adv_aux
-
-        seg_params = [p for p in seg.parameters() if p.requires_grad]
-        state.opt_seg.zero_grad(set_to_none=True)
-        total.backward(inputs=seg_params)
-        set_lr(state.opt_seg, sched["lr"])
-        state.opt_seg.step()
-
-        # ---- discriminator phase (detached preds, halved BCE) ----
-        d = _d_update(state.d_main, state.opt_d_main, sched["lr_dis"],
-                      out_s.pred.detach(), out_t.pred.detach(), amp)
-        metrics.update({"loss_dis": d["loss"], "dis_acc_s": d["acc_s"],
-                        "dis_acc_t": d["acc_t"]})
-        if multilvl and state.d_aux is not None:
-            d = _d_update(state.d_aux, state.opt_d_aux, sched["lr_dis"],
-                          out_s.aux.detach(), out_t.aux.detach(), amp)
-            metrics.update({"loss_dis_aux": d["loss"], "dis_aux_acc_s": d["acc_s"],
-                            "dis_aux_acc_t": d["acc_t"]})
-
         state.centroids = centers
-        state.step += 1
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return total, out_s, out_t, metrics
 
-    return step
+    return _gan_step(cfg, gen_loss, "weighted")
 
 
 def build_step(cfg, centroids_loaded: bool = False) -> Callable:
-    if cfg.method in ("mpscl", "slcl"):
+    m = cfg.method
+    if m == "baseline":
+        return make_baseline_step(cfg)
+    if m == "advent":
+        return make_advent_step(cfg)
+    if m in ("mpscl", "slcl"):
         return make_mpscl_step(cfg, centroids_loaded=centroids_loaded)
     raise NotImplementedError(
-        f"method {cfg.method!r}: slcl_torch ports the mpscl/slcl step only")
+        f"method {m!r}: slcl_torch ports baseline, advent, mpscl and slcl only")

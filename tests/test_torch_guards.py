@@ -1,5 +1,6 @@
-"""Guards of the port: it imports nothing of JAX or ``slcl_tpu``, it never
-falls back to the CPU on its own, and its CLI trains on the CPU when asked.
+"""Guards of the port: it imports nothing of JAX or ``slcl_tpu`` (the
+``scripts`` entry points included), it never falls back to the CPU on its
+own, and its CLI trains, validates and tests on the CPU when asked.
 """
 import json
 import os
@@ -27,6 +28,9 @@ def test_port_imports_no_jax_and_no_slcl_tpu():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'slcl_tpu'))\n"
         "assert not bad, bad\n"
+        "assert {'slcl_torch.scripts.gen_class_centers', 'slcl_torch.scripts.evaluate',\n"
+        "        'slcl_torch.eval.evaluator', 'slcl_torch.ops.metrics',\n"
+        "        'slcl_torch.utils.callbacks', 'slcl_torch.ops.cuda.mpcl_pseudo'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -58,22 +62,27 @@ def test_kernel_wrappers_on_cpu_run_the_plain_version_only():
         pseudo_label_cuda(feats, centers)
     reset_launch_counts()
     pseudo_label(feats, centers)
-    assert set(KERNELS) == {"mpcl_fwd", "mpcl_bwd", "pseudo_label",
-                            "soft_centroids_fwd", "soft_centroids_bwd"}
+    assert set(KERNELS) == {"mpcl_fwd", "mpcl_bwd", "mpcl_pseudo_fwd", "mpcl_pseudo_bwd",
+                            "pseudo_label", "soft_centroids_fwd", "soft_centroids_bwd"}
     assert all(v == 0 for v in launch_counts().values())
 
 
-def test_cli_trains_one_epoch_on_cpu():
+def test_cli_trains_one_epoch_on_cpu(tmp_path):
     args = [sys.executable, "-m", "slcl_torch.train", "method=slcl",
             "model.multilvl=true", "data.dataset=synthetic", "optim.epochs=1",
             "data.bs=2", "data.crop=32", "model.filters=8", "model.n_block=2",
             "model.bottleneck_depth=2", "model.dtype=float32", "data.num_workers=1",
-            "--device", "cpu"]
+            f"run.out_dir={tmp_path}", "--device", "cpu"]
     out = subprocess.run(args, cwd=ROOT, env=ENV, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["device"] == "cpu" and rec["epoch"] == 0
+    assert rec["device"] == "cpu" and Path(rec["out_dir"]).parent == tmp_path
+    (epoch,) = rec["history"]
+    assert epoch["epoch"] == 0 and 0.0 <= epoch["val_dice"] <= 1.0
     for k in ("seg_s", "loss_mpscl_tr", "loss_mpscl_tg", "loss_cnr", "loss_adv",
               "loss_adv_aux", "loss_dis", "loss_dis_aux"):
-        assert k in rec and rec[k] == rec[k] and abs(rec[k]) < float("inf"), k
+        assert k in epoch and epoch[k] == epoch[k] and abs(epoch[k]) < float("inf"), k
+    assert len(rec["test"]["dc"]) == 6 and len(rec["test"]["hd"]) == 6
+    for name in ("ckpt_best.pt", "ckpt_last.pt", "log.jsonl", "summary.json"):
+        assert (Path(rec["out_dir"]) / name).is_file(), name
