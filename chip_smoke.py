@@ -13,7 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      counted near-tie rows, two launches bit-identical; then time kernel,
      plain version and, where one PyTorch call computes the same function,
      that call; and the fused target branch against the two-op route
-     (pseudo-label kernel, then the MPCL kernels) on the same features;
+     (pseudo-label kernel, then the MPCL kernels) on the same features.
+     The two backward kernels also run where the main shape cannot take
+     them: a ragged M (a partial last tile, labels and sel read from
+     memory past the last whole group of four), F = 16 and F = 64, and out-
+     of-range labels; the fused backward must equal the two-op backward
+     bit for bit, and zero exactly the rows that pseudo_label masks;
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps and two ``baseline`` steps on the card (kernels) against the same
      steps on the CPU (plain versions), from the same weights and batches,
@@ -33,14 +38,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      the warm start's epoch -1 validation must equal AdvEnt's best, and a
      saved and restored state must continue as the uninterrupted one.
 
-Prints the kernel table as one JSON line, the step timing and the protocol
-as one JSON line each, the card's name and power limit as nvidia-smi gives
-them, and last ``{"ok": true, "device": {...}}``. TF32 is off for matmuls
+Prints the kernel table (with registers, spills, blocks per SM and shared
+memory per block of each kernel) as one JSON line, the step timing and the
+protocol as one JSON line each, the card's name and power limit as
+nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``. TF32 is off for matmuls
 and cuDNN. Run directories go to ``runs/`` in the checkout and are removed.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import shutil
@@ -71,6 +78,20 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
                                   "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E"),
            "soft_centroids_bwd": ("soft_centroids",
                                   "centroids_bwdI13__nv_bfloat16Li32ELi1E")}
+# (C query, its arguments) for each kernel's blocks per SM and shared memory
+# at the main path's instantiation; the query lives in SYMBOLS' source
+OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
+             "mpcl_bwd": ("mpcl_occupancy", (1, 1, F)),
+             "mpcl_pseudo_fwd": ("mpcl_pseudo_occupancy", (0, 1, F)),
+             "mpcl_pseudo_bwd": ("mpcl_pseudo_occupancy", (1, 1, F)),
+             "pseudo_label": ("pseudo_label_occupancy", (1, F)),
+             "soft_centroids_fwd": ("soft_centroids_occupancy", (0, 1, F, 1)),
+             "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1))}
+# parts of a CUDA kernel's name by which the profiler counts it as the
+# port's, per source ("name<" for one kernel, "name_" for a family)
+PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<"), "mpcl_pseudo": ("mpcl_pseudo_",),
+                "pseudo_label": ("pseudo_label_kernel",),
+                "soft_centroids": ("centroids_fwd_", "centroids_bwd<")}
 
 
 def log(msg: str) -> None:
@@ -120,6 +141,97 @@ def close(got, want, rtol: float, atol: float, what: str) -> float:
         raise AssertionError(f"{what}: max excess at {i}: got {got.flatten()[i].item()} "
                              f"want {want.flatten()[i].item()} (rtol {rtol}, atol {atol})")
     return float(err.max())
+
+
+def near_tie_rows(feats, centers, th: float):
+    """Rows whose cosine top1 - top2 gap (in f64) lies within 1e-6 of 0 or
+    of th: there the kernel's f32 cosines may take another label or mask."""
+    import torch
+    from slcl_torch.ops.cuda.pseudo_label import normalize_rows
+    cos64 = (normalize_rows(feats.double()).double()
+             @ (centers.double() / centers.double().norm(dim=1, keepdim=True)).T)
+    top2 = torch.topk(cos64, 2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    return (gap.abs() < 1e-6) | ((gap - th).abs() < 1e-6)
+
+
+def check_bwd_ring(g) -> None:
+    """Phase 2, the two backward kernels where the main shape cannot reach
+    them, then the fused backward against the two-op backward."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+
+    dev = torch.device("cuda")
+    T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
+    grad = torch.ones(1, device=dev)
+    # a ragged M leaves a partial last tile whose last 1-3 labels and sel
+    # are read from memory; F = 16 and 64 take other vector widths
+    for m, f, dtype in ((M - 37, F, torch.bfloat16), (M - 37, F, torch.float32),
+                        (65_536 - 5, 16, torch.bfloat16), (65_536 - 5, 64, torch.float32)):
+        what = f"ring M={m} F={f} {str(dtype)[6:]}"
+        g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 2e-3
+        feats = torch.randn(m, f, generator=g, device=dev).to(dtype)
+        labels = torch.randint(0, C, (m,), generator=g, device=dev, dtype=torch.int32)
+        labels[::1009] = C          # out of range: zero gradient, as one_hot gives
+        labels[m - 1] = -1          # ... in the tail read from memory
+        sel = torch.randint(0, 2, (m,), generator=g, device=dev).float()
+        centers = torch.randn(C, f, generator=g, device=dev)
+        centers = centers / centers.norm(dim=1, keepdim=True)
+        x = feats.detach().requires_grad_(True)
+        for s in (sel, None):
+            stats = K_mpcl.mpcl_fwd_cuda(feats, labels, centers, s, T, 0.4, False, scale)
+            want = K_mpcl.mpcl_plain(x, labels, centers, s, temperature=T,
+                                     base_temperature=base_T, margin=0.4)
+            (g_want,) = torch.autograd.grad(want, x)
+            d1 = K_mpcl.mpcl_bwd_cuda(feats, labels, centers, s, T, 0.4, False, scale,
+                                      grad, stats)
+            if not torch.equal(d1, K_mpcl.mpcl_bwd_cuda(feats, labels, centers, s, T, 0.4,
+                                                         False, scale, grad, stats)):
+                raise AssertionError(f"{what}: mpcl_bwd's two launches differ")
+            close(d1, g_want, g_rtol, 1e-3 * float(g_want.abs().max()),
+                  f"{what} mpcl_bwd sel={s is not None}")
+        near = near_tie_rows(feats, centers, th)
+        stats = K_mp.mpcl_pseudo_fwd_cuda(feats, centers, T, tm, False, scale, th)
+        want = K_mp.mpcl_pseudo_plain(x, centers, temperature=T, base_temperature=base_T,
+                                      margin=tm, pixel_sel_th=th)
+        (g_want,) = torch.autograd.grad(want, x)
+        d1 = K_mp.mpcl_pseudo_bwd_cuda(feats, centers, T, tm, False, scale, th, grad, stats)
+        if not torch.equal(d1, K_mp.mpcl_pseudo_bwd_cuda(feats, centers, T, tm, False, scale,
+                                                         th, grad, stats)):
+            raise AssertionError(f"{what}: mpcl_pseudo_bwd's two launches differ")
+        close(d1[~near], g_want[~near], g_rtol, 1e-3 * float(g_want.abs().max()),
+              f"{what} mpcl_pseudo_bwd")
+        log(f"{what}: ok")
+
+    # the fused backward and the two-op backward on the same f32 prototypes:
+    # pseudo_label_cuda normalises the centres it is given, so it gets the
+    # raw ones and both MPCL kernels the normalised ones it computes
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = torch.randn(M, F, generator=g, device=dev).to(dtype)
+        centers = torch.randn(C, F, generator=g, device=dev)
+        cen = K_pl.normalize_rows(centers).contiguous()
+        lab, msk = K_pl.pseudo_label_cuda(feats, centers, th)
+        st_two = K_mpcl.mpcl_fwd_cuda(feats, lab, cen, msk, T, tm, False, scale)
+        st_fused = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
+        # den is an exact integer sum (+ 1e-4) in both
+        if float(st_two[2]) != float(st_fused[2]):
+            raise AssertionError(f"cross-route {dtype}: den {float(st_two[2])} vs "
+                                 f"{float(st_fused[2])}")
+        d_two = K_mpcl.mpcl_bwd_cuda(feats, lab, cen, msk, T, tm, False, scale, grad, st_two)
+        d_fused = K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad,
+                                            st_fused)
+        if not torch.equal(d_two, d_fused):
+            n = int((d_two != d_fused).any(dim=1).sum())
+            raise AssertionError(f"cross-route {dtype}: {n} rows of dfeats differ")
+        zero = (d_fused == 0).all(dim=1)
+        if not torch.equal(zero, msk == 0):
+            n = int((zero != (msk == 0)).sum())
+            raise AssertionError(f"cross-route {dtype}: {n} rows where the fused backward's "
+                                 "zero rows and pseudo_label's mask disagree")
+        log(f"cross-route {dtype}: fused backward == two-op backward bit for bit, "
+            f"{int(zero.sum())} zero rows == masked rows")
 
 
 def check_kernels(peaks) -> list:
@@ -202,11 +314,7 @@ def check_kernels(peaks) -> list:
         if not (torch.equal(lab_k, lab_k2) and torch.equal(mask_k, mask_k2)):
             raise AssertionError("pseudo_label: two launches differ")
         lab_p, mask_p = K_pl.pseudo_label_plain(feats, centers, 0.25)
-        cos64 = (K_pl.normalize_rows(feats.double()).double()
-                 @ (centers.double() / centers.double().norm(dim=1, keepdim=True)).T)
-        top2 = torch.topk(cos64, 2, dim=1).values
-        gap = top2[:, 0] - top2[:, 1]
-        near = (gap.abs() < 1e-6) | ((gap - 0.25).abs() < 1e-6)
+        near = near_tie_rows(feats, centers, 0.25)
         differ = (lab_k != lab_p) | (mask_k != mask_p)
         if bool((differ & ~near).any()):
             raise AssertionError(f"pseudo_label {tag}: {int((differ & ~near).sum())} "
@@ -355,6 +463,8 @@ def check_kernels(peaks) -> list:
                         del y
         log(f"soft_centroids {tag}: ok")
         torch.cuda.synchronize()
+    check_bwd_ring(g)
+    torch.cuda.synchronize()
     return rows
 
 
@@ -425,8 +535,7 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     # first matching category wins; the rest is elementwise/copy/reduce
-    cats = (("port_kernels", ("mpcl_fwd_", "mpcl_bwd<", "mpcl_pseudo_",
-                              "pseudo_label_kernel", "centroids_fwd_", "centroids_bwd<")),
+    cats = (("port_kernels", sum(PORT_KERNELS.values(), ())),
             ("convolution", ("xmma", "conv", "implicit_gemm", "cudnn", "gemm")),
             ("batch_norm", ("batch_norm",)),
             ("reduce", ("reduce_kernel",)),
@@ -604,7 +713,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from slcl_torch.ops.cuda import KERNELS, build
+        from slcl_torch.ops.cuda import KERNELS, build, occupancy
         from slcl_torch.ops.cuda import (mpcl, mpcl_pseudo, pseudo_label,  # noqa: F401
                                          soft_centroids)
     except ImportError as e:
@@ -649,7 +758,11 @@ def main() -> int:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
         ((regs, spill),) = [(r, sp) for fn, r, sp in build.ptxas_report(src) if sym in fn]
-        entry.update(registers=regs, spill_store_bytes=spill)
+        query, args = OCCUPANCY[kname]
+        lib = build.load(src, importlib.import_module(f"slcl_torch.ops.cuda.{src}")._SIGS)
+        blocks, smem = occupancy(getattr(lib, query), *args)
+        entry.update(registers=regs, spill_store_bytes=spill, blocks_per_sm=blocks,
+                     smem_bytes=smem)
         table.append(entry)
     if {e["name"] for e in table} != set(PER_STEP):
         raise AssertionError("kernel table incomplete")

@@ -52,6 +52,21 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// Blocks per SM and shared memory per block (static + dyn_smem bytes) of a
+// kernel launched with kThreads threads, from the CUDA runtime. Returns a
+// cudaError_t.
+template <typename Kern>
+int occupancy(Kern kern, int dyn_smem, int* blocks_per_sm, int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e == cudaSuccess && dyn_smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, kThreads, dyn_smem);
+  if (e == cudaSuccess) *smem_bytes = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
+  return static_cast<int>(e);
+}
+
 // Sum of v over the block in a fixed tree order (deterministic).
 // s must hold kThreads floats; every thread of the block must call it.
 __device__ __forceinline__ float block_sum(float v, float* s) {

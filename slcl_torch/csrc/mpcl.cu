@@ -20,15 +20,30 @@
 // is ~128 FMAs per 64 bytes, far under the card's ratio, and too narrow for
 // tensor cores.
 //
-// Design: one thread per row, C = slcl::kC fixed at compile time. A thread reads its row as 16-byte vectors, so
-// a warp has 2 KB of loads in flight per row step; the prototypes sit in
-// shared memory and are read as broadcasts. All per-row math is f32 in
-// registers. The forward sums sel*mlpp and sel per thread over a
-// grid-stride loop, then per block in a fixed tree; a second one-block
-// kernel adds the block partials in a fixed order and writes the loss, so
-// two runs on the same inputs give bit-identical results (no float atomics).
-// The per-row arithmetic lives in mpcl_row.cuh, shared with mpcl_pseudo.cu.
-#include "mpcl_row.cuh"
+// Forward design: one thread per row, C = slcl::kC fixed at compile time. A
+// thread reads its row as 16-byte vectors, so a warp has 2 KB of loads in
+// flight per row step; the prototypes sit in shared memory and are read as
+// broadcasts. All per-row math is f32 in registers. The forward sums
+// sel*mlpp and sel per thread over a grid-stride loop, then per block in a
+// fixed tree; a second one-block kernel adds the block partials in a fixed
+// order and writes the loss, so two runs on the same inputs give
+// bit-identical results (no float atomics). Its per-row arithmetic lives in
+// mpcl_row.cuh, shared with mpcl_pseudo.cu.
+//
+// Backward design (mpcl_bwd_tile.cuh, shared with mpcl_pseudo.cu). The
+// thread-per-row backward that loaded its rows itself ran at 35% of its
+// bound: 236 registers let one block of 8 warps run per SM; at most 16 KB
+// of loads were in flight per SM, and only between math phases; a
+// 1024-block grid cap left a tail of 7.76 waves; a warp's 16-byte loads sat
+// 64 B apart. Now a persistent grid (one block per resident slot) streams
+// tiles of 256 rows, with their labels and sel, through a 2-stage
+// shared-memory ring filled by 1D bulk copies, so loads stay in flight
+// while the warps compute. A thread still takes one row, but streams it
+// from shared memory in 8-value chunks, so at most 80 registers give 3
+// blocks (24 warps) per SM; each warp stores 512 contiguous bytes of
+// dfeats an instruction. Four lanes a row (one per class) measured slower:
+// each lane repeats the row's norm and unpacks the whole row.
+#include "mpcl_bwd_tile.cuh"
 
 namespace {
 
@@ -67,31 +82,15 @@ mpcl_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
 }
 
 template <typename T, int F, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, slcl::kRingBlocksPerSM)
 mpcl_bwd(const T* __restrict__ feats, const int* __restrict__ labels,
          const float* __restrict__ sel, const float* __restrict__ centers, int M,
          Margin mg, float scale, const float* __restrict__ grad_out,
          const float* __restrict__ stats, T* __restrict__ dfeats) {
-  __shared__ float s_cent[C * F];
-  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
-  __syncthreads();
+  static_assert(C == kC, "the ring is built for kC classes");
   // dL/dmlpp_m = coef * sel_m
   const float coef = -scale * grad_out[0] / stats[2];
-  const int stride = gridDim.x * blockDim.x;
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
-    float x[F];
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
-    const float s = sel ? sel[row] : 1.f;
-    const int lab = labels[row];
-    float cosv[C], e[C], z, inv, gcos[C], dx[F];
-    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
-    slcl::margin_softmax<C>(cosv, lab, mg, e, z);
-    slcl::margin_softmax_grad<C>(cosv, e, z, lab, mg, coef * s, gcos);
-    slcl::cosines_grad<F, C>(x, inv, s_cent, gcos, dx);
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dx + k);
-  }
+  slcl::mpcl_bwd_tiles<T, F, false>(feats, labels, sel, centers, M, mg, 0.f, coef, dfeats);
 }
 
 template <typename T>
@@ -111,11 +110,26 @@ int launch_bwd(const void* feats, const int* labels, const float* sel,
                const float* centers, int M, int F, Margin mg, float scale,
                const float* grad_out, const float* stats, void* dfeats,
                cudaStream_t st) {
-  const int grid = slcl::grid_for(M, kThreads);
-  SLCL_DISPATCH_F(F, mpcl_bwd<T, kF, kC><<<grid, kThreads, 0, st>>>(
-                         static_cast<const T*>(feats), labels, sel, centers, M, mg,
-                         scale, grad_out, stats, static_cast<T*>(dfeats)));
+  SLCL_DISPATCH_F(F, {
+    using G = slcl::BwdRing<T, kF, false>;
+    int grid = 0;
+    const int rc = slcl::ring_grid<G>(mpcl_bwd<T, kF, kC>, M, &grid);
+    if (rc != 0) return rc;
+    mpcl_bwd<T, kF, kC><<<grid, kThreads, G::kSmemBytes, st>>>(
+        static_cast<const T*>(feats), labels, sel, centers, M, mg, scale, grad_out, stats,
+        static_cast<T*>(dfeats));
+  });
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
+  SLCL_DISPATCH_F(F, {
+    return bwd ? slcl::occupancy(mpcl_bwd<T, kF, kC>, slcl::BwdRing<T, kF, false>::kSmemBytes,
+                                 blocks_per_sm, smem_bytes)
+               : slcl::occupancy(mpcl_fwd_partial<T, kF, kC>, 0, blocks_per_sm, smem_bytes);
+  });
+  return -1;
 }
 
 }  // namespace
@@ -160,6 +174,14 @@ int mpcl_bwd(const void* feats, int feats_bf16, const void* labels,
   return feats_bf16
              ? launch_bwd<__nv_bfloat16>(feats, lab, s, cen, M, F, mg, scale, g, stt, dfeats, st)
              : launch_bwd<float>(feats, lab, s, cen, M, F, mg, scale, g, stt, dfeats, st);
+}
+
+// Blocks per SM and shared memory per block (static + dynamic) of the
+// forward's partial kernel (bwd = 0) or of the backward (bwd = 1), from the
+// CUDA runtime. Returns a cudaError_t; -1 for an unsupported F.
+int mpcl_occupancy(int bwd, int feats_bf16, int F, int* blocks_per_sm, int* smem_bytes) {
+  return feats_bf16 ? occupancy_of<__nv_bfloat16>(bwd, F, blocks_per_sm, smem_bytes)
+                    : occupancy_of<float>(bwd, F, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

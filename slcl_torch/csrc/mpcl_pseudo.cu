@@ -22,40 +22,32 @@
 // then mpcl.cu) also writes and reads labels and mask (4 x 3.2 MB). The
 // arithmetic is ~150 FMAs per 64 bytes, far under the card's ratio.
 //
-// Design: mpcl.cu's: one thread per row, C = slcl::kC fixed at compile
-// time, the row read as 16-byte vectors, prototypes in shared memory, f32
-// math in registers, the per-row arithmetic from mpcl_row.cuh. The forward
-// sums per thread over a grid-stride loop, per block in a fixed tree, and a
-// one-block kernel adds the block partials in a fixed order: two runs give
-// bit-identical results (no float atomics). Rows that fail the gap test
-// skip the softmax (forward) and write zeros (backward).
-#include "mpcl_row.cuh"
+// Forward design: mpcl.cu's: one thread per row, C = slcl::kC fixed at
+// compile time, the row read as 16-byte vectors, prototypes in shared
+// memory, f32 math in registers, the per-row arithmetic from mpcl_row.cuh.
+// It sums per thread over a grid-stride loop, per block in a fixed tree,
+// and a one-block kernel adds the block partials in a fixed order: two runs
+// give bit-identical results (no float atomics). Rows that fail the gap
+// test skip the softmax.
+//
+// Backward design: mpcl.cu's backward, from mpcl_bwd_tile.cuh, with label
+// and sel recomputed from the staged row's cosines. The thread-per-row
+// backward that loaded its rows itself ran at 38% of its bound (236
+// registers, one block of 8 warps per SM, at most 16 KB of loads in flight
+// per SM and only between math phases, a grid tail, strided loads). Now a
+// persistent grid streams tiles of 256 rows through a 2-stage shared-memory
+// ring filled by 1D bulk copies; a thread streams its row from shared
+// memory in chunks within 80 registers (3 blocks, 24 warps per SM), rows
+// that fail the gap test write zeros, and each warp stores 512 contiguous
+// bytes an instruction. The cosines are taken in row_cosines' order, so
+// every row gets the forward's label and sel.
+#include "mpcl_bwd_tile.cuh"
 
 namespace {
 
 using slcl::kC;
 using slcl::kThreads;
 using slcl::Margin;
-
-// Label and sel of one row from its cosines (pseudo_label.cu's rule).
-template <int C>
-__device__ __forceinline__ int pseudo_label(const float* cosv, float sel_th, float& sel) {
-  float best = -INFINITY, second = -INFINITY;
-  int arg = 0;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float cs = cosv[c];
-    if (cs > best) {
-      second = best;
-      best = cs;
-      arg = c;
-    } else if (cs > second) {
-      second = cs;
-    }
-  }
-  sel = (best - second > sel_th) ? 1.f : 0.f;
-  return arg;
-}
 
 template <typename T, int F, int C>
 __global__ void __launch_bounds__(kThreads)
@@ -73,7 +65,7 @@ mpcl_pseudo_fwd_partial(const T* __restrict__ feats, const float* __restrict__ c
     for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
     float cosv[C], inv, s;
     slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
-    const int lab = pseudo_label<C>(cosv, sel_th, s);
+    const int lab = slcl::row_pseudo_label<C>(cosv, sel_th, s);
     if (s != 0.f) {
       float e[C], z;
       num += slcl::margin_softmax<C>(cosv, lab, mg, e, z);
@@ -89,35 +81,15 @@ mpcl_pseudo_fwd_partial(const T* __restrict__ feats, const float* __restrict__ c
 }
 
 template <typename T, int F, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, slcl::kRingBlocksPerSM)
 mpcl_pseudo_bwd(const T* __restrict__ feats, const float* __restrict__ centers, int M,
                 Margin mg, float sel_th, float scale, const float* __restrict__ grad_out,
                 const float* __restrict__ stats, T* __restrict__ dfeats) {
-  __shared__ float s_cent[C * F];
-  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
-  __syncthreads();
+  static_assert(C == kC, "the ring is built for kC classes");
   // dL/dmlpp_m = coef * sel_m
   const float coef = -scale * grad_out[0] / stats[2];
-  const int stride = gridDim.x * blockDim.x;
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
-    float x[F];
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
-    float cosv[C], inv, s, dx[F];
-    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
-    const int lab = pseudo_label<C>(cosv, sel_th, s);
-    if (s != 0.f) {
-      float e[C], z, gcos[C];
-      slcl::margin_softmax<C>(cosv, lab, mg, e, z);
-      slcl::margin_softmax_grad<C>(cosv, e, z, lab, mg, coef, gcos);
-      slcl::cosines_grad<F, C>(x, inv, s_cent, gcos, dx);
-    } else {
-#pragma unroll
-      for (int k = 0; k < F; ++k) dx[k] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::store8(dfeats + (size_t)row * F + k, dx + k);
-  }
+  slcl::mpcl_bwd_tiles<T, F, true>(feats, nullptr, nullptr, centers, M, mg, sel_th, coef,
+                                   dfeats);
 }
 
 template <typename T>
@@ -134,11 +106,28 @@ template <typename T>
 int launch_bwd(const void* feats, const float* centers, int M, int F, Margin mg,
                float sel_th, float scale, const float* grad_out, const float* stats,
                void* dfeats, cudaStream_t st) {
-  const int grid = slcl::grid_for(M, kThreads);
-  SLCL_DISPATCH_F(F, mpcl_pseudo_bwd<T, kF, kC><<<grid, kThreads, 0, st>>>(
-                         static_cast<const T*>(feats), centers, M, mg, sel_th, scale,
-                         grad_out, stats, static_cast<T*>(dfeats)));
+  SLCL_DISPATCH_F(F, {
+    using G = slcl::BwdRing<T, kF, true>;
+    int grid = 0;
+    const int rc = slcl::ring_grid<G>(mpcl_pseudo_bwd<T, kF, kC>, M, &grid);
+    if (rc != 0) return rc;
+    mpcl_pseudo_bwd<T, kF, kC><<<grid, kThreads, G::kSmemBytes, st>>>(
+        static_cast<const T*>(feats), centers, M, mg, sel_th, scale, grad_out, stats,
+        static_cast<T*>(dfeats));
+  });
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
+  SLCL_DISPATCH_F(F, {
+    return bwd ? slcl::occupancy(mpcl_pseudo_bwd<T, kF, kC>,
+                                 slcl::BwdRing<T, kF, true>::kSmemBytes, blocks_per_sm,
+                                 smem_bytes)
+               : slcl::occupancy(mpcl_pseudo_fwd_partial<T, kF, kC>, 0, blocks_per_sm,
+                                 smem_bytes);
+  });
+  return -1;
 }
 
 }  // namespace
@@ -182,6 +171,15 @@ int mpcl_pseudo_bwd(const void* feats, int feats_bf16, const void* centers, int 
                                          dfeats, st)
              : launch_bwd<float>(feats, cen, M, F, mg, sel_th, scale, g, stt, dfeats,
                                  st);
+}
+
+// Blocks per SM and shared memory per block (static + dynamic) of the
+// forward's partial kernel (bwd = 0) or of the backward (bwd = 1), from the
+// CUDA runtime. Returns a cudaError_t; -1 for an unsupported F.
+int mpcl_pseudo_occupancy(int bwd, int feats_bf16, int F, int* blocks_per_sm,
+                          int* smem_bytes) {
+  return feats_bf16 ? occupancy_of<__nv_bfloat16>(bwd, F, blocks_per_sm, smem_bytes)
+                    : occupancy_of<float>(bwd, F, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

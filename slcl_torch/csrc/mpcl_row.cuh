@@ -1,8 +1,10 @@
-// Per-row MPCL arithmetic shared by mpcl.cu and mpcl_pseudo.cu, so both
-// kernels run the same math: L2 normalisation (rsqrt(sum x^2 + 1e-24)),
-// cosines against the (C, F) normalised prototypes, the ArcFace margin
-// softmax on the label column, its gradient with respect to the cosines,
-// and the way back through the row normalisation to the raw features.
+// Per-row MPCL arithmetic of the forward kernels, shared by mpcl.cu and
+// mpcl_pseudo.cu so both run the same math: L2 normalisation
+// (rsqrt(sum x^2 + 1e-24)), cosines against the (C, F) normalised
+// prototypes, the pseudo-label rule, and the ArcFace margin softmax on the
+// label column. The backward kernels (mpcl_bwd_tile.cuh) stream each row
+// from shared memory instead, taking the cosines in the same order and
+// sharing the pseudo-label rule.
 #pragma once
 
 #include "common.cuh"
@@ -64,46 +66,25 @@ __device__ __forceinline__ float margin_softmax(const float* cosv, int lab,
   return (lab >= 0 && lab < C) ? mixed_lab - logf(z) : 0.f;
 }
 
-// gcos[c] = g * d mlpp / d cos[c], with g = dL/dmlpp of this row.
+// Label and sel of one row from its cosines (pseudo_label.cu's rule):
+// first-occurrence argmax; sel = 1 where top1 - second > sel_th.
 template <int C>
-__device__ __forceinline__ void margin_softmax_grad(const float* cosv, const float* e,
-                                                    float z, int lab, const Margin& mg,
-                                                    float g, float* gcos) {
-  const bool valid = lab >= 0 && lab < C;
+__device__ __forceinline__ int row_pseudo_label(const float* cosv, float sel_th, float& sel) {
+  float best = -INFINITY, second = -INFINITY;
+  int arg = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const float cs = cosv[c];
-    const float one_m = 1.f - cs * cs;
-    // clamped sine is constant: dphi/dcos = cos_m there
-    const bool sat = one_m <= 1e-4f || one_m >= 1.f;
-    const float sine = sqrtf(fminf(fmaxf(one_m, 1e-4f), 1.f));
-    const float dphi_on = sat ? mg.cos_m : mg.cos_m + mg.sin_m * cs / sine;
-    const bool branch = cs > (mg.easy ? 0.f : mg.th);
-    const float dphi = branch ? dphi_on : 1.f;
-    const bool is_lab = (c == lab);
-    // d mlpp / d mixed = onehot - p * sum(onehot); sum is 0 off [0, C)
-    const float dmixed = (is_lab ? 1.f : 0.f) - (valid ? e[c] / z : 0.f);
-    gcos[c] = g * dmixed * (is_lab ? dphi : 1.f) / mg.T;
+    if (cs > best) {
+      second = best;
+      best = cs;
+      arg = c;
+    } else if (cs > second) {
+      second = cs;
+    }
   }
-}
-
-// Back through cos = (x * inv) @ cent^T and the row normalisation:
-// dx = (dfn - fn * <dfn, fn>) * inv with dfn = gcos @ cent.
-template <int F, int C>
-__device__ __forceinline__ void cosines_grad(const float (&x)[F], float inv,
-                                             const float* cent, const float* gcos,
-                                             float* dx) {
-  float proj = 0.f;
-#pragma unroll
-  for (int k = 0; k < F; ++k) {
-    float v = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) v = fmaf(gcos[c], cent[c * F + k], v);
-    dx[k] = v;
-    proj = fmaf(v, x[k] * inv, proj);
-  }
-#pragma unroll
-  for (int k = 0; k < F; ++k) dx[k] = (dx[k] - x[k] * inv * proj) * inv;
+  sel = (best - second > sel_th) ? 1.f : 0.f;
+  return arg;
 }
 
 // out = [loss, sum(sel*mlpp), den] from per-block (num, den) pairs, added

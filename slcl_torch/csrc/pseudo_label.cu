@@ -70,6 +70,13 @@ int launch(const void* feats, const float* centers, int M, int F, float th,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int occupancy_of(int F, int* blocks_per_sm, int* smem_bytes) {
+  SLCL_DISPATCH_F(F, return slcl::occupancy(pseudo_label_kernel<T, kF, kC>, 0, blocks_per_sm,
+                                            smem_bytes));
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -85,6 +92,13 @@ int pseudo_label(const void* feats, int feats_bf16, const void* centers, int M,
   auto msk = static_cast<float*>(mask);
   return feats_bf16 ? launch<__nv_bfloat16>(feats, cen, M, F, th, lab, msk, st)
                     : launch<float>(feats, cen, M, F, th, lab, msk, st);
+}
+
+// Blocks per SM and shared memory per block of the kernel, from the CUDA
+// runtime. Returns a cudaError_t; -1 for an unsupported F.
+int pseudo_label_occupancy(int feats_bf16, int F, int* blocks_per_sm, int* smem_bytes) {
+  return feats_bf16 ? occupancy_of<__nv_bfloat16>(F, blocks_per_sm, smem_bytes)
+                    : occupancy_of<float>(F, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

@@ -267,6 +267,16 @@ int launch_bwd(const void* feats, const float* probs, const int* assign, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int occupancy_of(int bwd, int F, int P, int* blocks_per_sm, int* smem_bytes) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, {
+    return bwd ? slcl::occupancy(centroids_bwd<T, kF, kP, kC>, 0, blocks_per_sm, smem_bytes)
+               : slcl::occupancy(centroids_fwd_partial<T, kF, kP, kC>, 0, blocks_per_sm,
+                                 smem_bytes);
+  }));
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,6 +331,15 @@ int soft_centroids_bwd(const void* feats, int feats_bf16, const void* probs,
                                          weighted, dc, ce, co, dfeats, dp, st)
              : launch_bwd<float>(feats, pr, as, M, F, P, threshold, use_thd, weighted,
                                  dc, ce, co, dfeats, dp, st);
+}
+
+// Blocks per SM and shared memory per block of the forward's partial kernel
+// (bwd = 0) or of the backward (bwd = 1), from the CUDA runtime. Returns a
+// cudaError_t; -1 for an unsupported F or P.
+int soft_centroids_occupancy(int bwd, int feats_bf16, int F, int P, int* blocks_per_sm,
+                             int* smem_bytes) {
+  return feats_bf16 ? occupancy_of<__nv_bfloat16>(bwd, F, P, blocks_per_sm, smem_bytes)
+                    : occupancy_of<float>(bwd, F, P, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -86,3 +86,12 @@ def raise_on_error(rc: int, what: str) -> None:
 
 
 VP, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+IP = ctypes.POINTER(ctypes.c_int)
+
+
+def occupancy(fn, *args) -> Tuple[int, int]:
+    """(blocks per SM, shared memory bytes per block) of one kernel from a
+    library's ``<name>_occupancy(*args, int*, int*)`` query."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    raise_on_error(fn(*args, ctypes.byref(blocks), ctypes.byref(smem)), fn.__name__)
+    return blocks.value, smem.value

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import F32, I32, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
 
 FWD = register("mpcl_fwd", "slcl_torch/csrc/mpcl.cu",
                "slcl_tpu/ops/pallas/mpcl_kernel.py:134")
@@ -27,6 +27,7 @@ _SIGS = {
     "mpcl_num_partials": (I32, [I32]),
     "mpcl_fwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP]),
     "mpcl_bwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP, VP]),
+    "mpcl_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import F32, I32, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
 from .mpcl import _MARGIN, margin_consts, mpcl_plain
 from .pseudo_label import pseudo_label_plain
 
@@ -27,6 +27,7 @@ _SIGS = {
     "mpcl_pseudo_fwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP]),
     "mpcl_pseudo_bwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP,
                               VP]),
+    "mpcl_pseudo_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
 
 

@@ -11,12 +11,13 @@ from typing import Tuple
 
 import torch
 
-from . import F32, I32, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
 
 KERNEL = register("pseudo_label", "slcl_torch/csrc/pseudo_label.cu",
                   "slcl_tpu/ops/pallas/pseudo_label_kernel.py:31")
 
-_SIGS = {"pseudo_label": (I32, [VP, I32, VP, I32, I32, I32, F32, VP, VP, VP])}
+_SIGS = {"pseudo_label": (I32, [VP, I32, VP, I32, I32, I32, F32, VP, VP, VP]),
+         "pseudo_label_occupancy": (I32, [I32, I32, IP, IP])}
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:

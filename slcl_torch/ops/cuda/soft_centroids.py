@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import F32, I32, I64, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import F32, I32, IP, I64, VP, build, check, ptr, raise_on_error, register, stream_of
 
 FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
                "slcl_tpu/ops/pallas/centroid_kernel.py:64")
@@ -28,6 +28,7 @@ _SIGS = {
                                  VP, VP, VP, VP, VP]),
     "soft_centroids_bwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
                                  VP, VP, VP, VP, VP, VP]),
+    "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, IP, IP]),
 }
 
 
