@@ -18,7 +18,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      them: a ragged M (a partial last tile, labels and sel read from
      memory past the last whole group of four), F = 16 and F = 64, and out-
      of-range labels; the fused backward must equal the two-op backward
-     bit for bit, and zero exactly the rows that pseudo_label masks;
+     bit for bit, and zero exactly the rows that pseudo_label masks. The two
+     streaming forwards (soft centroids, fused target loss) run at the same
+     shapes and at M = 100 and M = 1, the centroids with one and two
+     partitions and partition ids out of range; the fused forward's count
+     of selected rows must equal the two-op route's and the number of
+     non-zero rows of the fused backward. Each forward's streaming pass and
+     final pass are timed apart, and one torch.sum over the features is the
+     yardstick of a kernel that only reads;
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps and two ``baseline`` steps on the card (kernels) against the same
      steps on the CPU (plain versions), from the same weights and batches,
@@ -123,6 +130,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_split(fn, iters: int = 20) -> dict:
+    """Device ms per call of a forward's streaming kernel (*_fwd_partial*) and
+    of its final kernel (*_fwd_final), apart: torch.profiler's CUDA events
+    over ``iters`` calls, summed by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"partial_ms": "_fwd_partial", "final_ms": "_fwd_final"}
+    us = dict.fromkeys(parts, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for key, part in parts.items():
+                if part in e.name:
+                    us[key] += e.time_range.elapsed_us()
+    if not all(us.values()):
+        raise AssertionError(f"launch_split: the profiler saw {us}")
+    return {k: v / iters / 1e3 for k, v in us.items()}
+
+
 def bound(nbytes: float, flops: float, peaks) -> tuple:
     t_b, t_o = nbytes / peaks[0], flops / peaks[1]
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
@@ -161,7 +193,6 @@ def check_bwd_ring(g) -> None:
     import torch
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
-    from slcl_torch.ops.cuda import pseudo_label as K_pl
 
     dev = torch.device("cuda")
     T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
@@ -205,33 +236,112 @@ def check_bwd_ring(g) -> None:
               f"{what} mpcl_pseudo_bwd")
         log(f"{what}: ok")
 
-    # the fused backward and the two-op backward on the same f32 prototypes:
-    # pseudo_label_cuda normalises the centres it is given, so it gets the
-    # raw ones and both MPCL kernels the normalised ones it computes
     for dtype in (torch.bfloat16, torch.float32):
         feats = torch.randn(M, F, generator=g, device=dev).to(dtype)
-        centers = torch.randn(C, F, generator=g, device=dev)
+        cross_route(feats, torch.randn(C, F, generator=g, device=dev), th,
+                    f"cross-route M={M} F={F} {str(dtype)[6:]}")
+
+
+def cross_route(feats, centers, th: float, what: str) -> None:
+    """The fused target branch against the two-op route on the same f32
+    prototypes: the forwards' den equal, the backwards equal bit for bit,
+    the fused backward's zero rows pseudo_label's masked rows, and its
+    non-zero rows as many as the fused forward counted. pseudo_label_cuda
+    normalises the centres it is given, so it gets the raw ones and the MPCL
+    kernels the normalised ones it computes."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+
+    T, scale, tm = 0.1, 0.1, 0.2
+    grad = torch.ones(1, device=feats.device)
+    cen = K_pl.normalize_rows(centers).contiguous()
+    lab, msk = K_pl.pseudo_label_cuda(feats, centers, th)
+    st_two = K_mpcl.mpcl_fwd_cuda(feats, lab, cen, msk, T, tm, False, scale)
+    st_fused = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
+    # den is an exact integer sum (+ 1e-4) in both
+    if float(st_two[2]) != float(st_fused[2]):
+        raise AssertionError(f"{what}: den {float(st_two[2])} vs {float(st_fused[2])}")
+    d_two = K_mpcl.mpcl_bwd_cuda(feats, lab, cen, msk, T, tm, False, scale, grad, st_two)
+    d_fused = K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad, st_fused)
+    if not torch.equal(d_two, d_fused):
+        n = int((d_two != d_fused).any(dim=1).sum())
+        raise AssertionError(f"{what}: {n} rows of dfeats differ")
+    zero = (d_fused == 0).all(dim=1)
+    if not torch.equal(zero, msk == 0):
+        n = int((zero != (msk == 0)).sum())
+        raise AssertionError(f"{what}: {n} rows where the fused backward's zero rows and "
+                             "pseudo_label's mask disagree")
+    # forward and backward chose the same rows: den = count + 1e-4
+    n_sel = int((~zero).sum())
+    if n_sel != round(float(st_fused[2])):
+        raise AssertionError(f"{what}: the fused backward has {n_sel} non-zero rows, the "
+                             f"forward counted {float(st_fused[2])}")
+    log(f"{what}: fused den == two-op den, fused backward == two-op backward bit for "
+        f"bit, {n_sel} non-zero rows == rows the forward counted")
+
+
+def check_fwd_shapes(g) -> None:
+    """Phase 2, the two streaming forwards where the main shape cannot reach
+    them: a ragged last tile (the fused loss's bulk copy of a part tile, the
+    centroids' rows past M), F = 16 and F = 64, fewer rows than a tile, one
+    row. Each against its plain version at the main shape's tolerances and
+    launched twice for bit-identity."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
+    for m, f, dtype in ((M - 37, F, torch.bfloat16), (M - 37, F, torch.float32),
+                        (65_536 - 5, 16, torch.bfloat16), (65_536 - 5, 64, torch.float32),
+                        (100, F, torch.bfloat16), (1, F, torch.bfloat16)):
+        what = f"fwd M={m} F={f} {str(dtype)[6:]}"
+        feats = torch.randn(m, f, generator=g, device=dev).to(dtype)
+        centers = torch.randn(C, f, generator=g, device=dev)
+        probs = torch.softmax(torch.randn(m, C, generator=g, device=dev), dim=-1)
+        assign = torch.randint(0, 2, (m,), generator=g, device=dev, dtype=torch.int32)
+        # ids outside [0, P) get no weight and count in the ratio: in the
+        # last three rows and elsewhere
+        assign[::1013] = 2
+        assign[5::2027] = -1
+        assign[-3:] = torch.tensor([-1, 2, -1], dtype=torch.int32, device=dev)[-min(3, m):]
+        for P in (1, 2):
+            for weighted in (False, True):
+                for thd in (0.0, 0.4):
+                    a = assign if P > 1 else None
+                    one = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, thd, weighted)
+                    two = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, thd, weighted)
+                    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+                        raise AssertionError(f"{what}: soft_centroids_fwd's two launches "
+                                             "differ")
+                    want, want_ratio = K_sc.soft_centroids_plain(
+                        feats, probs, a, partition=P, threshold=thd, weighted=weighted)
+                    tag = f"{what} soft_centroids P={P} soft={weighted} thd={thd}"
+                    close(one[0], want, 1e-4, 1e-5, tag)
+                    close(one[2], want_ratio, 1e-5, 0.0, tag + " ratio")
+
         cen = K_pl.normalize_rows(centers).contiguous()
-        lab, msk = K_pl.pseudo_label_cuda(feats, centers, th)
-        st_two = K_mpcl.mpcl_fwd_cuda(feats, lab, cen, msk, T, tm, False, scale)
-        st_fused = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
-        # den is an exact integer sum (+ 1e-4) in both
-        if float(st_two[2]) != float(st_fused[2]):
-            raise AssertionError(f"cross-route {dtype}: den {float(st_two[2])} vs "
-                                 f"{float(st_fused[2])}")
-        d_two = K_mpcl.mpcl_bwd_cuda(feats, lab, cen, msk, T, tm, False, scale, grad, st_two)
-        d_fused = K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad,
-                                            st_fused)
-        if not torch.equal(d_two, d_fused):
-            n = int((d_two != d_fused).any(dim=1).sum())
-            raise AssertionError(f"cross-route {dtype}: {n} rows of dfeats differ")
-        zero = (d_fused == 0).all(dim=1)
-        if not torch.equal(zero, msk == 0):
-            n = int((zero != (msk == 0)).sum())
-            raise AssertionError(f"cross-route {dtype}: {n} rows where the fused backward's "
-                                 "zero rows and pseudo_label's mask disagree")
-        log(f"cross-route {dtype}: fused backward == two-op backward bit for bit, "
-            f"{int(zero.sum())} zero rows == masked rows")
+        stats = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
+        if not torch.equal(stats, K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale,
+                                                            th)):
+            raise AssertionError(f"{what}: mpcl_pseudo_fwd's two launches differ")
+        want = K_mp.mpcl_pseudo_plain(feats, cen, temperature=T, base_temperature=base_T,
+                                      margin=tm, pixel_sel_th=th)
+        # the near-tie slack of the main shape's check
+        n_near = int(near_tie_rows(feats, cen, th).sum())
+        num, den = float(stats[1]), float(stats[2])
+        slack = scale * n_near * (2 * (3.0 / T + 10.0) / den + abs(num) / den ** 2)
+        close(stats[0], want, 1e-4, slack, what + " mpcl_pseudo_fwd loss")
+        # no row passes the gap test: loss 0, den = 1e-4 alone
+        zero = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, 2.0)
+        if float(zero[0]) != 0.0 or float(zero[2]) != float(torch.tensor(1e-4)):
+            raise AssertionError(f"{what}: an all-masked input gives loss {float(zero[0])}, "
+                                 f"den {float(zero[2])}")
+        cross_route(feats, centers, th, what)
+        log(f"{what}: ok")
 
 
 def check_kernels(peaks) -> list:
@@ -300,6 +410,8 @@ def check_kernels(peaks) -> list:
                 plain_bwd = time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True))
                 es = feats.element_size()
                 fl_row = 2 * F + 2 * C * F + 12 * C
+                rows["mpcl_fwd"].update(launch_split(lambda: K_mpcl.mpcl_fwd_cuda(
+                    feats, labels, centers, s, T, margin, easy, scale)))
                 rows["mpcl_fwd"].update(ms=t_fwd, plain_ms=plain_fwd, library_ms=None,
                                         bound=bound(M * (F * es + 4 + 4), M * fl_row, peaks))
                 rows["mpcl_bwd"].update(ms=t_bwd, plain_ms=plain_bwd, library_ms=None,
@@ -388,7 +500,8 @@ def check_kernels(peaks) -> list:
                     "bound": bound(M * F * es, M * fl_row, peaks),
                     # the same function (fwd + bwd) by both routes
                     "fused_route_ms": time_ms(lambda: fused_bwd(fused_fwd())),
-                    "two_op_route_ms": time_ms(two_op)}
+                    "two_op_route_ms": time_ms(two_op),
+                    **launch_split(fused_fwd)}
                 rows["mpcl_pseudo_bwd"] = {
                     "max_abs_err": err_b, "near_tie_rows": n_near,
                     "ms": time_ms(lambda: fused_bwd(stats)),
@@ -445,7 +558,9 @@ def check_kernels(peaks) -> list:
                             # index_add_ takes the same per-class row sums
                             "library_ms": time_ms(lambda: sums.index_add_(
                                 0, labels_hard, feats)),
-                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks)}
+                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks),
+                            **launch_split(lambda: K_sc.soft_centroids_fwd_cuda(
+                                feats, probs, None, 1, 0.0, False))}
                         # hard weights: dfeats[m] = dsums[argmax probs[m]]
                         dsums = (dcents[1][0] / (counts[:, None] + 1e-7)).to(feats.dtype)
                         rows["soft_centroids_bwd"] = {
@@ -461,11 +576,20 @@ def check_kernels(peaks) -> list:
                             # probs read, dfeats written (no feats read)
                             "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks)}
                         del y
+                    if tag == "bf16" and P == 2 and not weighted and thd == 0.0:
+                        # two partitions (rMC): 64 partial sums a thread
+                        rows["soft_centroids_fwd"]["p2_ms"] = time_ms(
+                            lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, assign, 2,
+                                                                 0.0, False))
         log(f"soft_centroids {tag}: ok")
         torch.cuda.synchronize()
+    # what the card's memory gives one PyTorch call that only reads the
+    # (bf16) features
+    read_only_ms = time_ms(lambda: torch.sum(feats, dtype=torch.float32))
     check_bwd_ring(g)
+    check_fwd_shapes(g)
     torch.cuda.synchronize()
-    return rows
+    return rows, read_only_ms
 
 
 def small_config(method: str = "slcl"):
@@ -732,7 +856,7 @@ def main() -> int:
     # the phases' own prints (the trainer's epoch lines and test tables) go
     # to stderr: stdout carries the result lines only
     with contextlib.redirect_stdout(sys.stderr):
-        rows = check_kernels(peaks)
+        rows, read_only_ms = check_kernels(peaks)
         check_small_steps()
         (ROOT / "runs").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
@@ -753,7 +877,8 @@ def main() -> int:
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
-        for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms"):
+        for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms", "partial_ms",
+                      "final_ms", "p2_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -763,10 +888,18 @@ def main() -> int:
         blocks, smem = occupancy(getattr(lib, query), *args)
         entry.update(registers=regs, spill_store_bytes=spill, blocks_per_sm=blocks,
                      smem_bytes=smem)
+        if kname == "soft_centroids_fwd":   # the same with two partitions
+            ((regs, spill),) = [(r, sp) for fn, r, sp in build.ptxas_report(src)
+                                if sym.replace("Li1E", "Li2E") in fn]
+            blocks, smem = occupancy(getattr(lib, query), *args[:-1], 2)
+            entry.update(p2_registers=regs, p2_spill_store_bytes=spill,
+                         p2_blocks_per_sm=blocks, p2_smem_bytes=smem)
+        if entry["spill_store_bytes"] or entry.get("p2_spill_store_bytes"):
+            raise AssertionError(f"{kname} spills registers: {entry}")
         table.append(entry)
     if {e["name"] for e in table} != set(PER_STEP):
         raise AssertionError("kernel table incomplete")
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": table, "read_only_ms": read_only_ms}))
     print(json.dumps({"train": train}))
     print(json.dumps({"protocol": protocol}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

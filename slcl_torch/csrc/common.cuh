@@ -59,7 +59,8 @@ template <typename Kern>
 int occupancy(Kern kern, int dyn_smem, int* blocks_per_sm, int* smem_bytes) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kern);
-  if (e == cudaSuccess && dyn_smem > 48 * 1024)
+  // above 48 KB in all, shared memory must be asked for
+  if (e == cudaSuccess && static_cast<int>(a.sharedSizeBytes) + dyn_smem > 48 * 1024)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, kThreads, dyn_smem);

@@ -113,7 +113,7 @@ int launch_bwd(const void* feats, const int* labels, const float* sel,
   SLCL_DISPATCH_F(F, {
     using G = slcl::BwdRing<T, kF, false>;
     int grid = 0;
-    const int rc = slcl::ring_grid<G>(mpcl_bwd<T, kF, kC>, M, &grid);
+    const int rc = slcl::ring_grid<G, mpcl_bwd<T, kF, kC>>(M, &grid);
     if (rc != 0) return rc;
     mpcl_bwd<T, kF, kC><<<grid, kThreads, G::kSmemBytes, st>>>(
         static_cast<const T*>(feats), labels, sel, centers, M, mg, scale, grad_out, stats,

@@ -13,9 +13,9 @@
 //   queried once per kernel and device and cached). Each block walks tiles
 //   of kRows = kThreads rows at a fixed stride. There is no reduction
 //   across rows, so dfeats does not depend on the launch shape.
-// - A ring of kStages shared-memory stages, filled by 1D bulk copies
-//   (cp.async.bulk) that one elected thread issues. Each stage has a "full"
-//   mbarrier, which the copies complete, and an "empty" one, which every
+// - A ring of kStages shared-memory stages (ring.cuh), filled by 1D bulk
+//   copies (cp.async.bulk) that one elected thread starts. Each stage has a
+//   "full" mbarrier, which the copies complete, and an "empty" one, which every
 //   warp arrives on when it is done with the stage. At the main shape
 //   (bf16, F = 32) a block has two stages of 16 KB of features and 2 KB of
 //   labels and sel: one is computed on while the other fills, ~54 KB in
@@ -34,59 +34,13 @@
 #pragma once
 
 #include "mpcl_row.cuh"
+#include "ring.cuh"
 
 namespace slcl {
 
 // blocks per SM the register budget allows: at most 80 registers a thread;
 // measured faster than 4 blocks at 64 registers
 constexpr int kRingBlocksPerSM = 3;
-
-// ---- mbarrier and 1D bulk copy (PTX, sm_90) ----
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrive, and expect `bytes` of copies before the phase completes.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of this parity to complete. A phase that never
-// completes (a lost copy) traps after 2^26 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// global -> shared, `bytes` (a multiple of 16) completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Shape of the ring for one instantiation.
 template <typename T, int F, bool kPseudo>
@@ -150,30 +104,10 @@ template <typename T, int F, bool kPseudo>
 __device__ __forceinline__ void bwd_row(T* row, const float* s_cent, int lab, float s,
                                         const Margin& mg, float invT, float sel_th,
                                         float coef) {
-  // the cosines as row_cosines takes them
-  float ss = 0.f, d[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) d[c] = 0.f;
   // one chunk at a time, and the row and prototypes read again below: held
   // across the phases they would not fit in the register budget
-#pragma unroll 1
-  for (int k = 0; k < F; k += 8) {
-    float x[8];
-    load8(row + k, x);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      float cc[8];
-      load8(s_cent + c * F + k, cc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) d[c] = fmaf(x[i], cc[i], d[c]);
-    }
-  }
-  const float inv = rsqrtf(ss + 1e-24f);
-  float cosv[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) cosv[c] = d[c] * inv;
+  float cosv[kC], inv;
+  stream_cosines<T, F>(row, s_cent, cosv, inv);
   if constexpr (kPseudo) lab = row_pseudo_label<kC>(cosv, sel_th, s);
   if (s == 0.f) {
     const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -305,31 +239,6 @@ __device__ __forceinline__ void mpcl_bwd_tiles(const T* __restrict__ feats,
       }
     }
   }
-}
-
-// Blocks of a persistent launch of `kern` with ring G: one per resident
-// slot (SMs x blocks per SM), at most one per tile. The slot count is
-// queried once per kernel and device, then cached. Static, so that every
-// library keeps its own cache.
-template <typename G, typename Kern>
-static int ring_grid(Kern kern, int M, int* grid) {
-  constexpr int kMaxDevices = 64;
-  static int slots[kMaxDevices];
-  int dev = 0;
-  int e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (slots[dev] == 0) {
-    int sms = 0, per = 0, smem = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = occupancy(kern, G::kSmemBytes, &per, &smem);
-    if (e != cudaSuccess) return e;
-    if (per < 1) return cudaErrorInvalidConfiguration;
-    slots[dev] = sms * per;
-  }
-  const int tiles = (M + G::kRows - 1) / G::kRows;
-  *grid = tiles < 1 ? 1 : (tiles < slots[dev] ? tiles : slots[dev]);
-  return cudaSuccess;
 }
 
 }  // namespace slcl

@@ -2,9 +2,9 @@
 // mpcl_pseudo.cu so both run the same math: L2 normalisation
 // (rsqrt(sum x^2 + 1e-24)), cosines against the (C, F) normalised
 // prototypes, the pseudo-label rule, and the ArcFace margin softmax on the
-// label column. The backward kernels (mpcl_bwd_tile.cuh) stream each row
-// from shared memory instead, taking the cosines in the same order and
-// sharing the pseudo-label rule.
+// label column. The ring kernels (mpcl_fwd_tile.cuh, mpcl_bwd_tile.cuh)
+// stream each row from shared memory instead, taking the cosines in the
+// same order (stream_cosines) and sharing the pseudo-label rule.
 #pragma once
 
 #include "common.cuh"
@@ -31,6 +31,38 @@ __device__ __forceinline__ void row_cosines(const float (&x)[F], const float* ce
     for (int k = 0; k < F; ++k) d = fmaf(x[k], cent[c * F + k], d);
     cosv[c] = d * inv;
   }
+}
+
+// The same cosines of a row that lies in shared memory (a stage of a ring),
+// taken in 8-value chunks within a few registers: ss and each class's dot
+// product are one sequential fmaf chain over k, row_cosines' order, so the
+// results are equal bit for bit. Every kernel that derives a label or a
+// mask from a staged row must take its cosines here: the fused forward's
+// count of selected rows and the fused backward's zero rows agree only
+// because both do.
+template <typename T, int F>
+__device__ __forceinline__ void stream_cosines(const T* row, const float* s_cent,
+                                               float* cosv, float& inv) {
+  float ss = 0.f, d[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) d[c] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < F; k += 8) {
+    float x[8];
+    load8(row + k, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float cc[8];
+      load8(s_cent + c * F + k, cc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[c] = fmaf(x[i], cc[i], d[c]);
+    }
+  }
+  inv = rsqrtf(ss + 1e-24f);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) cosv[c] = d[c] * inv;
 }
 
 // Margin softmax of one row from its cosines. Returns mlpp (the log-prob of

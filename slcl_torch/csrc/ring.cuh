@@ -1,0 +1,91 @@
+// Primitives of the shared-memory rings that feed the port's streaming
+// kernels on Hopper (sm_90): mbarriers, the 1D bulk copy (cp.async.bulk)
+// that completes on one, and the size of a persistent grid.
+//
+// A ring kernel runs one block per resident slot. Each block walks tiles of
+// G::kRows rows at a fixed stride; one elected thread fills a stage with
+// bulk copies that complete on the stage's "full" barrier, and every warp
+// arrives on the stage's "empty" barrier when it has read its rows, after
+// which the elected thread may fill the stage again. Bulk copies need sizes
+// and both addresses in multiples of 16 bytes, and mbar_expect_tx must name
+// exactly the bytes the copies bring.
+#pragma once
+
+#include "common.cuh"
+
+namespace slcl {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive, and expect `bytes` of copies before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of this parity to complete. A phase that never
+// completes (a lost copy) traps after 2^26 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// global -> shared, `bytes` (a multiple of 16) completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Blocks of a persistent launch of the kernel kKern over tiles of G::kRows
+// rows with G::kSmemBytes of dynamic shared memory: one per resident slot
+// (SMs x blocks per SM), at most one per tile. The slot count is queried
+// once per device and cached per kernel: the kernel itself is the template
+// argument, so two kernels never share an entry, whatever their signatures
+// and tile types. Static, so that every library keeps its own cache.
+template <typename G, auto kKern>
+static int ring_grid(int M, int* grid) {
+  constexpr int kMaxDevices = 64;
+  static int slots[kMaxDevices];
+  int dev = 0;
+  int e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    int sms = 0, per = 0, smem = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = occupancy(kKern, G::kSmemBytes, &per, &smem);
+    if (e != cudaSuccess) return e;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    slots[dev] = sms * per;
+  }
+  const int tiles = (M + G::kRows - 1) / G::kRows;
+  *grid = tiles < 1 ? 1 : (tiles < slots[dev] ? tiles : slots[dev]);
+  return cudaSuccess;
+}
+
+}  // namespace slcl

@@ -24,31 +24,48 @@
 // 51.4 MB of features and write 12.8 MB of dprobs.
 //
 // Design: F/8 threads per row, each owning 8 features read as one 16-byte
-// vector (bf16), so a warp reads 32/(F/8) whole rows in one coalesced
-// sweep. In the forward each thread keeps its P*C x 8 partial sums in
-// registers over a grid-stride loop; the warp folds them with shuffles in a
-// fixed order, the block adds its warps in a fixed order into one partial
-// per block, and a second one-block kernel adds the block partials in a
-// fixed order and divides. No float atomics: two runs on the same inputs
-// give bit-identical centroids. The backward first forms dsums/dcounts for
-// the block in shared memory, then writes each row's dfeats as 16-byte
-// stores. C is fixed at compile time (slcl::kC).
-#include "common.cuh"
+// vector (bf16), so the rows' sums need no exchange between threads until
+// the end of the block. The forward's first version ran at 32% of its
+// bound (0.059 ms on an NVIDIA H100 80GB HBM3 at 700.00 W, where all the
+// figures here were taken; this one runs at 64%), for two reasons. Its
+// streaming pass kept one 16-byte feature load and four scalar probs loads
+// in flight per thread, in a grid-stride loop over 1024 blocks; it moved
+// its bytes at 2.3 TB/s. Its final pass was one block in which 133 threads
+// each added the 1024 block partials one after another, and took as long as
+// the streaming pass. Now:
+// - the streaming pass is a persistent grid (one block per resident slot)
+//   in which a thread starts kRowsInFlight<P> rows' 16-byte feature loads
+//   and their probs (one float4 a row) before it accumulates, within 128
+//   registers (2 blocks per SM): with one partition four rows, 32 KB of
+//   features in flight per SM; with two partitions (64 partial sums a
+//   thread) two rows, since four spill. It needs no shared memory; a bulk-
+//   copy ring as the MPCL kernels' (ring.cuh) was built and measured, and
+//   moved its bytes ~8% slower at P = 1 (2.43 against 2.63 TB/s) and within
+//   the spread of two rows' loads at P = 2 (PERF.md). Each thread keeps its
+//   P*C x 8 partial sums in registers; at the end the warp folds them with
+//   shuffles in a fixed order and the block adds its warps in a fixed order
+//   into one partial a block, <= 132 x 2 of them, stored value-major so
+//   that the final pass reads them coalesced.
+// - the final pass gives every value a warp: the lanes stride the blocks'
+//   partials (at most 32 each), a shuffle tree adds the lanes, and the warp
+//   divides by its class's count, which it sums the same way.
+// No float atomics, and the order of every sum is fixed by the launch shape:
+// two runs on the same inputs give bit-identical centroids. The backward
+// first forms dsums/dcounts for the block in shared memory, then writes each
+// row's dfeats as 16-byte stores. C is fixed at compile time (slcl::kC).
+#include "ring.cuh"
 
 namespace {
 
 using slcl::kThreads;
 constexpr int kWarps = kThreads / 32;
 
+// Weights of one row from its probs p and partition id: w[c], certain, and
+// whether the id lies in [0, P) (part is 0 when it does not).
 template <int P, int C>
-__device__ __forceinline__ void row_weights(const float* __restrict__ probs,
-                                            const int* __restrict__ assign, int row,
-                                            float thd, int use_thd, int weighted,
-                                            float (&w)[C], float& cert,
-                                            float& in_part, int& part) {
-  float p[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) p[c] = probs[(size_t)row * C + c];
+__device__ __forceinline__ void weights_of(const float (&p)[C], int id, float thd,
+                                           int use_thd, int weighted, float (&w)[C],
+                                           float& cert, float& in_part, int& part) {
   float mx = p[0];
   int am = 0;
 #pragma unroll
@@ -58,7 +75,7 @@ __device__ __forceinline__ void row_weights(const float* __restrict__ probs,
       am = c;
     }
   cert = (!use_thd || mx >= thd) ? 1.f : 0.f;
-  part = (P > 1) ? assign[row] : 0;
+  part = id;
   // a row outside [0, P) belongs to no partition and gets no weight (it
   // still counts in the certain ratio)
   in_part = (part >= 0 && part < P) ? 1.f : 0.f;
@@ -68,78 +85,166 @@ __device__ __forceinline__ void row_weights(const float* __restrict__ probs,
     w[c] = (weighted ? p[c] : (c == am ? 1.f : 0.f)) * cert * in_part;
 }
 
+// The same, with probs and id read from memory.
+template <int P, int C>
+__device__ __forceinline__ void row_weights(const float* __restrict__ probs,
+                                            const int* __restrict__ assign, int row,
+                                            float thd, int use_thd, int weighted,
+                                            float (&w)[C], float& cert,
+                                            float& in_part, int& part) {
+  float p[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) p[c] = probs[(size_t)row * C + c];
+  weights_of<P, C>(p, (P > 1) ? assign[row] : 0, thd, use_thd, weighted, w, cert, in_part,
+                   part);
+}
+
+// rows a thread of the forward loads before it accumulates: what 128
+// registers hold beside its P * C * 8 partial sums without spilling
+template <int P>
+constexpr int kRowsInFlight = P == 1 ? 4 : 2;
+constexpr int kCentFwdBlocksPerSM = 2;  // 128 registers a thread
+
+// Tiles of the forward's persistent grid: the rows a block takes a step.
+template <int F, int P>
+struct FwdTiles {
+  static constexpr int kRows = kRowsInFlight<P> * (kThreads / (F / 8));
+  static constexpr int kSmemBytes = 0;
+};
+
+// One thread's partial sums: its 8 features of every (partition, class),
+// and, on the row's first thread, the weights and the certain rows.
+template <int P, int C>
+struct Acc {
+  float sum[P * C][8];
+  float cnt[P * C];
+  float n_cert;
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < P * C; ++i) {
+      cnt[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum[i][j] = 0.f;
+    }
+    n_cert = 0.f;
+  }
+
+  // one row: its 8 features x, probs p and partition id
+  __device__ __forceinline__ void add(const float (&x)[8], const float (&p)[C], int id,
+                                      bool first, float thd, int use_thd, int weighted) {
+    float w[C], cert, in_part;
+    int part;
+    weights_of<P, C>(p, id, thd, use_thd, weighted, w, cert, in_part, part);
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp) {
+      if (pp == part) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum[pp * C + c][j] = fmaf(w[c], x[j], sum[pp * C + c][j]);
+          if (first) cnt[pp * C + c] += w[c];
+        }
+      }
+    }
+    if (first) n_cert += cert;
+  }
+
+  // The block's sums into part_out, value-major (value i of block b at
+  // i * gridDim.x + b): the warp folds its rows with shuffles (lanes with
+  // the same sub hold the same features), then the block adds its warps,
+  // both in a fixed order. Every thread of the block must call it.
+  template <int F>
+  __device__ __forceinline__ void store(float* __restrict__ part_out) const {
+    constexpr int TPR = F / 8;
+    constexpr int NPC = P * C;
+    constexpr int NV = NPC * F + NPC + 1;
+    __shared__ float s_acc[kWarps][NV];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < NPC; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v = sum[i][j];
+#pragma unroll
+        for (int off = TPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < TPR) s_acc[warp][i * F + lane * 8 + j] = v;
+      }
+      float v = cnt[i];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) s_acc[warp][NPC * F + i] = v;
+    }
+    float v = n_cert;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) s_acc[warp][NPC * F + NPC] = v;
+    __syncthreads();
+    for (int i = threadIdx.x; i < NV; i += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int wq = 0; wq < kWarps; ++wq) s += s_acc[wq][i];
+      part_out[(size_t)i * gridDim.x + blockIdx.x] = s;
+    }
+  }
+};
+
+// The streaming pass: a persistent grid, each thread starting
+// kRowsInFlight<P> rows' loads before it accumulates.
 template <typename T, int F, int P, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCentFwdBlocksPerSM)
 centroids_fwd_partial(const T* __restrict__ feats, const float* __restrict__ probs,
                       const int* __restrict__ assign, int M, float thd, int use_thd,
                       int weighted, float* __restrict__ part_out) {
+  static_assert(C == 4, "a row's probs are read as one float4");
   constexpr int TPR = F / 8;
   constexpr int RPB = kThreads / TPR;
-  constexpr int NPC = P * C;
-  constexpr int NV = NPC * F + NPC + 1;
-  __shared__ float s_acc[kWarps][NV];
+  constexpr int kRows = kRowsInFlight<P>;
+  constexpr int kTile = FwdTiles<F, P>::kRows;
   const int sub = threadIdx.x % TPR;
   const int r = threadIdx.x / TPR;
-  float acc[NPC][8];
-  float cnt[NPC];
+  Acc<P, C> acc;
+  acc.clear();
+  for (long long base = (long long)blockIdx.x * kTile; base < M;
+       base += (long long)gridDim.x * kTile) {
+    float x[kRows][8];
+    float4 pv[kRows];
+    int id[kRows];
 #pragma unroll
-  for (int i = 0; i < NPC; ++i) {
-    cnt[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  float n_cert = 0.f;
-  for (long long base = (long long)blockIdx.x * RPB; base < M;
-       base += (long long)gridDim.x * RPB) {
-    const int row = static_cast<int>(base) + r;
-    if (row < M) {
-      float x[8], w[C], cert, in_part;
-      int part;
-      slcl::load8(feats + (size_t)row * F + sub * 8, x);
-      row_weights<P, C>(probs, assign, row, thd, use_thd, weighted, w, cert, in_part, part);
-#pragma unroll
-      for (int pp = 0; pp < P; ++pp) {
-        if (pp == part) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[pp * C + c][j] = fmaf(w[c], x[j], acc[pp * C + c][j]);
-            if (sub == 0) cnt[pp * C + c] += w[c];
-          }
-        }
+    for (int j = 0; j < kRows; ++j) {
+      const long long row = base + j * RPB + r;
+      id[j] = 0;
+      if (row < M) {
+        slcl::load8(feats + (size_t)row * F + sub * 8, x[j]);
+        pv[j] = __ldg(reinterpret_cast<const float4*>(probs) + row);
+        if constexpr (P > 1) id[j] = assign[row];
       }
-      if (sub == 0) n_cert += cert;
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      if (base + j * RPB + r < M) {
+        const float p[C] = {pv[j].x, pv[j].y, pv[j].z, pv[j].w};
+        acc.add(x[j], p, id[j], sub == 0, thd, use_thd, weighted);
+      }
     }
   }
-  // fold the rows of the warp: lanes with the same sub hold the same features
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < NPC; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = acc[i][j];
-#pragma unroll
-      for (int off = TPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane < TPR) s_acc[warp][i * F + lane * 8 + j] = v;
-    }
-    float v = cnt[i];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) s_acc[warp][NPC * F + i] = v;
-  }
-  float v = n_cert;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) s_acc[warp][NPC * F + NPC] = v;
-  __syncthreads();
-  for (int i = threadIdx.x; i < NV; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int wq = 0; wq < kWarps; ++wq) s += s_acc[wq][i];
-    part_out[(size_t)blockIdx.x * NV + i] = s;
-  }
+  acc.template store<F>(part_out);
 }
 
+// Blocks of the streaming pass's persistent launch: at most kMaxBlocks, so
+// that no lane of the final pass adds more than 32 partials.
+template <typename T, int F, int P>
+int fwd_grid_of(int M, int* g) {
+  const int rc =
+      slcl::ring_grid<FwdTiles<F, P>, centroids_fwd_partial<T, F, P, slcl::kC>>(M, g);
+  if (rc == 0 && *g > slcl::kMaxBlocks) *g = slcl::kMaxBlocks;
+  return rc;
+}
+
+// The final pass: a warp per value. Its lanes stride the nparts block
+// partials of the value (nparts <= 1024: at most 32 additions a lane), a
+// shuffle tree adds the lanes, and the warp of a centroid value sums its
+// class's count the same way to divide by it.
 template <int F, int P, int C>
 __global__ void __launch_bounds__(kThreads)
 centroids_fwd_final(const float* __restrict__ part_in, int nparts, int M,
@@ -147,17 +252,24 @@ centroids_fwd_final(const float* __restrict__ part_in, int nparts, int M,
                     float* __restrict__ ratio) {
   constexpr int NPC = P * C;
   constexpr int NV = NPC * F + NPC + 1;
-  __shared__ float s[NV];
-  for (int i = threadIdx.x; i < NV; i += kThreads) {
-    float v = 0.f;
-    for (int b = 0; b < nparts; ++b) v += part_in[(size_t)b * NV + i];
-    s[i] = v;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (i >= NV) return;
+  auto total = [&](int value) {
+    float s = 0.f;
+    for (int b = lane; b < nparts; b += 32) s += part_in[(size_t)value * nparts + b];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    return s;
+  };
+  const float v = total(i);
+  if (i < NPC * F) {
+    const float n = total(NPC * F + i / F);
+    if (lane == 0) cents[i] = v / (n + 1e-7f);
+  } else if (lane == 0) {
+    if (i < NPC * F + NPC) counts[i - NPC * F] = v;
+    else ratio[0] = v / static_cast<float>(M);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < NPC * F; i += kThreads)
-    cents[i] = s[i] / (s[NPC * F + i / F] + 1e-7f);
-  for (int i = threadIdx.x; i < NPC; i += kThreads) counts[i] = s[NPC * F + i];
-  if (threadIdx.x == 0) ratio[0] = s[NPC * F + NPC] / static_cast<float>(M);
 }
 
 template <typename T, int F, int P, int C>
@@ -243,14 +355,22 @@ int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
                int F, int P, float thd, int use_thd, int weighted, float* partials,
                float* cents, float* counts, float* ratio, cudaStream_t st) {
   SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, {
-    const int grid = slcl::grid_for(M, kThreads / (kF / 8));
+    int grid = 0;
+    const int rc = fwd_grid_of<T, kF, kP>(M, &grid);
+    if (rc != 0) return rc;
     centroids_fwd_partial<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
-        partials);
-    centroids_fwd_final<kF, kP, kC><<<1, kThreads, 0, st>>>(partials, grid, M, cents,
-                                                            counts, ratio);
+        static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted, partials);
+    constexpr int kNV = kP * kC * kF + kP * kC + 1;
+    centroids_fwd_final<kF, kP, kC><<<(kNV + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        partials, grid, M, cents, counts, ratio);
   }));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_grid(int M, int F, int P, int* grid) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, return (fwd_grid_of<T, kF, kP>(M, grid))));
+  return -1;
 }
 
 template <typename T>
@@ -281,11 +401,16 @@ int occupancy_of(int bwd, int F, int P, int* blocks_per_sm, int* smem_bytes) {
 
 extern "C" {
 
-// Floats the forward's partial buffer must hold (blocks x values per block).
-long long soft_centroids_partials_size(int M, int F, int P, int C) {
-  if (F % 8 != 0 || F < 8) return -1;
-  const long long nv = (long long)P * C * F + P * C + 1;
-  return nv * slcl::grid_for(M, kThreads / (F / 8));
+// *n = the floats the forward's partial buffer must hold: values per block
+// x the blocks of its persistent grid on the current device. Returns a
+// cudaError_t; -1 for an unsupported shape.
+int soft_centroids_partials_size(int feats_bf16, int M, int F, int P, int C, int* n) {
+  if (C != kC) return -1;
+  int grid = 0;
+  const int rc = feats_bf16 ? fwd_grid<__nv_bfloat16>(M, F, P, &grid)
+                            : fwd_grid<float>(M, F, P, &grid);
+  *n = (P * C * F + P * C + 1) * grid;
+  return rc;
 }
 
 // Returns cudaGetLastError() after the launches; -1 for an unsupported

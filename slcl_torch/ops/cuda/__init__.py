@@ -85,7 +85,7 @@ def raise_on_error(rc: int, what: str) -> None:
     raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
 
 
-VP, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+VP, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 IP = ctypes.POINTER(ctypes.c_int)
 
 

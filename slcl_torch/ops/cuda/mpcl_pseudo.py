@@ -11,6 +11,8 @@ labels and mask are selections and get no gradient, nor do the prototypes.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
@@ -23,7 +25,7 @@ BWD = register("mpcl_pseudo_bwd", "slcl_torch/csrc/mpcl_pseudo.cu",
                "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:179")
 
 _SIGS = {
-    "mpcl_pseudo_num_partials": (I32, [I32]),
+    "mpcl_pseudo_num_partials": (I32, [I32, I32, I32, IP]),
     "mpcl_pseudo_fwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP]),
     "mpcl_pseudo_bwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP,
                               VP]),
@@ -63,10 +65,13 @@ def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th) -> torc
     """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
     _check_inputs(feats, centers)
     lib = build.load("mpcl_pseudo", _SIGS)
-    parts = torch.empty(2 * lib.mpcl_pseudo_num_partials(feats.shape[0]),
-                        dtype=torch.float32, device=feats.device)
-    stats = torch.empty(3, dtype=torch.float32, device=feats.device)
+    n_pairs = ctypes.c_int()
     with torch.cuda.device(feats.device):
+        raise_on_error(lib.mpcl_pseudo_num_partials(
+            int(feats.dtype == torch.bfloat16), *feats.shape, ctypes.byref(n_pairs)),
+            "mpcl_pseudo_num_partials")
+        parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
+        stats = torch.empty(3, dtype=torch.float32, device=feats.device)
         rc = lib.mpcl_pseudo_fwd(*_args(feats, centers, T, margin, easy, scale, sel_th),
                                  ptr(parts), ptr(stats), stream_of(feats))
     raise_on_error(rc, "mpcl_pseudo_fwd")

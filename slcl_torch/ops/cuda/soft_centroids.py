@@ -9,12 +9,13 @@ jnp autodiff does on the JAX main path, so the port adds a backward kernel.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import F32, I32, IP, I64, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
 
 FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
                "slcl_tpu/ops/pallas/centroid_kernel.py:64")
@@ -23,7 +24,7 @@ BWD = register("soft_centroids_bwd", "slcl_torch/csrc/soft_centroids.cu",
 
 _EPS = 1e-7
 _SIGS = {
-    "soft_centroids_partials_size": (I64, [I32, I32, I32, I32]),
+    "soft_centroids_partials_size": (I32, [I32, I32, I32, I32, I32, IP]),
     "soft_centroids_fwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
                                  VP, VP, VP, VP, VP]),
     "soft_centroids_bwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
@@ -91,17 +92,19 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
     m, f = feats.shape
     C = probs.shape[1]
     lib = build.load("soft_centroids", _SIGS)
-    n_part = lib.soft_centroids_partials_size(m, f, partition, C)
-    if n_part < 0:
-        raise ValueError(f"soft_centroids: F={f} not supported")
     dev = feats.device
-    parts = torch.empty(n_part, dtype=torch.float32, device=dev)
-    cents = torch.empty((partition, C, f), dtype=torch.float32, device=dev)
-    counts = torch.empty(partition * C, dtype=torch.float32, device=dev)
-    ratio = torch.empty((), dtype=torch.float32, device=dev)
+    bf16 = int(feats.dtype == torch.bfloat16)
+    n_part = ctypes.c_int()
     with torch.cuda.device(dev):
+        raise_on_error(lib.soft_centroids_partials_size(bf16, m, f, partition, C,
+                                                        ctypes.byref(n_part)),
+                       "soft_centroids_partials_size")
+        parts = torch.empty(n_part.value, dtype=torch.float32, device=dev)
+        cents = torch.empty((partition, C, f), dtype=torch.float32, device=dev)
+        counts = torch.empty(partition * C, dtype=torch.float32, device=dev)
+        ratio = torch.empty((), dtype=torch.float32, device=dev)
         rc = lib.soft_centroids_fwd(
-            ptr(feats), int(feats.dtype == torch.bfloat16), ptr(probs),
+            ptr(feats), bf16, ptr(probs),
             ptr(assign) if partition > 1 else None, m, f, C, partition,
             float(threshold), int(weighted), ptr(parts), ptr(cents), ptr(counts),
             ptr(ratio), stream_of(feats))

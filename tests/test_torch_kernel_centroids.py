@@ -10,7 +10,9 @@ Tolerances are those of tests/test_pallas.py: centroids rtol 1e-4 / atol
 exact except on rows whose top1-top2 gap lies within 1e-6 of a tie or of
 the threshold; with this seed there are 0 such rows, and the test asserts
 that every differing row is one of them. M = 2500 is not a multiple of any
-tile.
+tile. The centroid version is also held at F = 16 and F = 64 with an odd M
+(2491 = 47 * 53), and with partition ids outside [0, P): the Pallas kernel
+gives such rows no weight and counts them in the ratio, as the port does.
 """
 import jax
 import jax.numpy as jnp
@@ -126,3 +128,79 @@ def test_soft_centroids_plain_matches_jnp_and_pallas(data, P, weighted, thd):
                                       num_classes=C)
     np.testing.assert_allclose(got, np.asarray(pc), rtol=1e-4, atol=1e-5)
     assert float(res.ratio) == pytest.approx(float(pr), rel=1e-5)
+
+
+H2, W2 = 47, 53   # M = 2491: odd, so no multiple of 4, of a warp's rows or of a tile
+
+
+def _wide_data(rng, f):
+    m = H2 * W2
+    feats = rng.normal(size=(m, f)).astype(np.float32)
+    logits = rng.normal(size=(m, C)).astype(np.float32)
+    probs = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32)
+    return feats, probs, rng.normal(size=(2, C, f)).astype(np.float32)
+
+
+def _port_centroids(feats, probs, assign, P, weighted, thd, dc):
+    f = feats.shape[1]
+    x = torch.from_numpy(feats.reshape(1, H2, W2, f)).requires_grad_(True)
+    p = torch.from_numpy(probs.reshape(1, H2, W2, C)).requires_grad_(True)
+    res = tcen.target_soft_centroids(
+        x, p, partition=P, assign=torch.from_numpy(assign) if P > 1 else None,
+        threshold=thd, weighted_ave=weighted, num_classes=C)
+    gx, gp = torch.autograd.grad((res.centroids * torch.from_numpy(dc)).sum(), [x, p],
+                                 allow_unused=True)
+    gp = torch.zeros_like(p) if gp is None else gp
+    return (res.centroids.detach().numpy(), float(res.ratio),
+            gx.numpy().reshape(-1, f), gp.numpy().reshape(-1, C))
+
+
+@pytest.mark.parametrize("f", [16, 64])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_soft_centroids_plain_other_widths_match_jnp(rng, f, P, weighted):
+    feats, probs, dcents = _wide_data(rng, f)
+    dc, thd = dcents[:P], 0.4
+    key = jax.random.PRNGKey(5)
+    # the draw target_soft_centroids makes from its rng (centroids.py:124)
+    assign = np.array(jax.random.randint(key, (H2 * W2,), 0, P))
+    got, ratio, gx, gp = _port_centroids(feats, probs, assign, P, weighted, thd, dc)
+
+    def fn(x, p):
+        res = cen.target_soft_centroids(
+            x.reshape(1, H2, W2, f), p.reshape(1, H2, W2, C), partition=P,
+            rng=key if P > 1 else None, threshold=thd, weighted_ave=weighted,
+            num_classes=C)
+        return jnp.sum(res.centroids * dc), (res.centroids, res.ratio)
+    (_, (cents, want_ratio)), (want_gx, want_gp) = jax.value_and_grad(
+        fn, argnums=(0, 1), has_aux=True)(jnp.asarray(feats), jnp.asarray(probs))
+    np.testing.assert_allclose(got, np.asarray(cents), rtol=1e-4, atol=1e-5)
+    assert ratio == pytest.approx(float(want_ratio), rel=1e-5)
+    np.testing.assert_allclose(gx, np.asarray(want_gx), rtol=2e-3, atol=1e-7)
+    np.testing.assert_allclose(gp, np.asarray(want_gp), rtol=2e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("f", [16, 64])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("thd", [0.0, 0.4])
+def test_soft_centroids_plain_ids_out_of_range_match_pallas(rng, f, weighted, thd):
+    """Rows whose partition id is -1 or P get no weight and count in the
+    ratio, in the last three rows and elsewhere."""
+    P = 2
+    feats, probs, dcents = _wide_data(rng, f)
+    assign = rng.integers(0, P, size=H2 * W2).astype(np.int32)
+    assign[::101] = P
+    assign[5::211] = -1
+    assign[-3:] = (-1, P, -1)
+    got, ratio, _, _ = _port_centroids(feats, probs, assign, P, weighted, thd, dcents)
+    with pltpu.force_tpu_interpret_mode():
+        pc, pr = soft_centroids_fused(jnp.asarray(feats), jnp.asarray(probs),
+                                      jnp.asarray(assign), partition=P, threshold=thd,
+                                      weighted_ave=weighted, num_classes=C)
+    np.testing.assert_allclose(got, np.asarray(pc), rtol=1e-4, atol=1e-5)
+    assert ratio == pytest.approx(float(pr), rel=1e-5)
+    # the out-of-range rows are missing from the sums: with all ids in range
+    # the centroids differ
+    inside, _, _, _ = _port_centroids(feats, probs, np.clip(assign, 0, P - 1), P, weighted,
+                                      thd, dcents)
+    assert np.abs(inside - got).max() > 1e-4

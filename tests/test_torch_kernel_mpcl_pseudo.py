@@ -6,7 +6,7 @@ in value and feature gradient.
 
 Tolerances are those of tests/test_pallas.py's fused-kernel test: value
 rel 1e-4, gradient rtol 1e-3 / atol 1e-6. M = 2500 is not a multiple of
-any tile.
+any tile. The widths F = 16 and F = 64 are held as F = 32 is.
 """
 import jax
 import jax.numpy as jnp
@@ -46,7 +46,7 @@ def _port(feats, centers, easy, th):
 
 def _jnp(feats, centers, easy, th):
     def f(x):
-        x4 = x.reshape(1, 50, 50, F)
+        x4 = x.reshape(1, 50, 50, feats.shape[1])
         lab, sel = cen.generate_pseudo_label(x4, jnp.asarray(centers), pixel_sel_th=th)
         return L.mpcl_loss_calc(x4, lab, jnp.asarray(centers), temperature=T,
                                 base_temperature=BASE_T, margin=MARGIN,
@@ -71,6 +71,19 @@ def test_mpcl_pseudo_plain_matches_reference(data, reference, easy):
     got_v, got_g = _port(feats, centers, easy, TH)
     ref = _jnp if reference == "jnp" else _pallas
     want_v, want_g = ref(feats, centers, easy, TH)
+    assert got_v != 0.0
+    assert got_v == pytest.approx(want_v, rel=1e-4)
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("reference", ["jnp", "pallas"])
+@pytest.mark.parametrize("f", [16, 64])
+def test_mpcl_pseudo_plain_other_widths_match_reference(rng, reference, f):
+    feats = rng.normal(size=(M, f)).astype(np.float32)
+    centers = rng.normal(size=(C, f)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    got_v, got_g = _port(feats, centers, False, TH)
+    want_v, want_g = (_jnp if reference == "jnp" else _pallas)(feats, centers, False, TH)
     assert got_v != 0.0
     assert got_v == pytest.approx(want_v, rel=1e-4)
     np.testing.assert_allclose(got_g, want_g, rtol=1e-3, atol=1e-6)

@@ -6,7 +6,14 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
 - every C function in its wrapper's ``_SIGS`` is defined ``extern "C"`` in
   the source with as many parameters as ``_SIGS`` gives ctypes;
 - every ``chip_smoke.py`` ``SYMBOLS`` entry, occupancy query and profiler
-  name part of the library names a function of the source;
+  name part of the library names a function of the source, and every
+  ``__global__`` of the source and its includes is counted by some profiler
+  name part (a final-pass kernel must not drop out of the profile's sum);
+- a source that makes a bulk copy gets it from ``ring.cuh``, the entry
+  points that size the forwards' partial buffers are in ``_SIGS``, and every
+  persistent grid's cached size is keyed by its kernel;
+- every text edit of ``tools/ring_variants.py`` applies to the sources as
+  they stand, and its timed kernels' symbols name kernels of their sources;
 - the source's header names the ``slcl_tpu/ops/pallas/*.py`` function it
   replaces, and that function exists.
 
@@ -25,7 +32,10 @@ CSRC = ROOT / "slcl_torch" / "csrc"
 LIBS = ("mpcl", "mpcl_pseudo", "pseudo_label", "soft_centroids")
 
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 import chip_smoke  # noqa: E402  (imports the standard library only at top level)
+import ring_variants  # noqa: E402  (the same)
+from slcl_torch.ops.cuda import IP  # noqa: E402
 
 
 def _strip_comments(src: str) -> str:
@@ -105,3 +115,76 @@ def test_header_names_the_pallas_function_it_replaces(name):
     path, fn = ROOT / m.group(1), m.group(2)
     assert path.is_file(), path
     assert re.search(rf"^def {fn}\(", path.read_text(), re.M), f"{fn} not in {path.name}"
+
+
+@pytest.mark.parametrize("name", LIBS)
+def test_profiler_counts_every_global_kernel(name):
+    parts = sum(chip_smoke.PORT_KERNELS.values(), ())
+    for kernel in _global_kernels(_source_with_includes(name)):
+        # the profiler shows "name<...>(" for a template, "name(" otherwise
+        assert any(p in kernel + "<" or p in kernel + "(" for p in parts), (
+            f"no chip_smoke.PORT_KERNELS part counts {kernel} (csrc/{name}.cu)")
+
+
+@pytest.mark.parametrize("name", LIBS)
+def test_bulk_copies_come_from_ring_header(name):
+    """Every file that makes a bulk copy or touches an mbarrier includes
+    ring.cuh, and only ring.cuh writes their PTX."""
+    files = sorted(CSRC.glob("*.cu*"))
+    assert CSRC / f"{name}.cu" in files
+    for path in files:
+        text = _strip_comments(path.read_text())
+        if path.name == "ring.cuh":
+            assert "cp.async.bulk" in text and "mbarrier.try_wait" in text
+            continue
+        assert "cp.async.bulk" not in text and "mbarrier." not in text, path.name
+        if re.search(r"\b(bulk_copy|mbar_\w+)\(", text):
+            assert '#include "ring.cuh"' in text, f"{path.name} calls the ring without ring.cuh"
+    if re.search(r"\bbulk_copy\(", _source_with_includes(name)):
+        assert "ring.cuh" in _source_with_includes(name)
+
+
+@pytest.mark.parametrize("lib,entry", [("mpcl_pseudo", "mpcl_pseudo_num_partials"),
+                                       ("soft_centroids", "soft_centroids_partials_size")])
+def test_partials_entry_points_are_bound(lib, entry):
+    """The wrappers size the forwards' partial buffers from the ring's grid:
+    the entry point is in _SIGS, returns its count through a pointer, and
+    the wrapper calls it."""
+    wrapper = importlib.import_module(f"slcl_torch.ops.cuda.{lib}")
+    assert entry in wrapper._SIGS
+    _restype, argtypes = wrapper._SIGS[entry]
+    assert argtypes[-1] is IP
+    assert f"lib.{entry}(" in Path(wrapper.__file__).read_text()
+    assert "ring_grid<" in _source_with_includes(lib)
+
+
+@pytest.mark.parametrize("name", LIBS)
+def test_ring_grid_cache_is_keyed_by_the_kernel(name):
+    """ring_grid caches a slot count per template instantiation: the kernel
+    is a template argument, so kernels that share a signature and a tile
+    type cannot share an entry (and launch each other's grid)."""
+    ring = _strip_comments((CSRC / "ring.cuh").read_text())
+    assert re.search(r"template <typename G, auto kKern>\s+static int ring_grid\(int M,", ring)
+    src = _strip_comments(_source_with_includes(name))
+    kernels = _global_kernels(src)
+    for call in re.findall(r"ring_grid<(.*?)>\(M,", src.split("static int ring_grid", 1)[-1],
+                           re.S):
+        assert any(re.search(rf"\b{k}<", call) for k in kernels), (
+            f"ring_grid<{call}> in csrc/{name}.cu names no __global__ of the source")
+
+
+@pytest.mark.parametrize("variant", sorted(ring_variants.VARIANTS))
+def test_ring_variant_edits_apply(variant):
+    kernels, edits = ring_variants.VARIANTS[variant]
+    assert kernels
+    texts = {}
+    for f, old, new in edits:
+        text = texts.get(f) or (CSRC / f).read_text()
+        assert old in text, f"variant {variant}: an edit no longer applies to csrc/{f}"
+        assert old != new
+        texts[f] = text.replace(old, new)
+    for kernel in kernels:
+        lib = ring_variants.LIB_OF[kernel]
+        assert lib in LIBS
+        sym = ring_variants.SYMBOL_OF[kernel].split("I13", 1)[0]
+        assert sym in _global_kernels(_source_with_includes(lib))
