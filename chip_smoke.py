@@ -18,13 +18,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      them: a ragged M (a partial last tile, labels and sel read from
      memory past the last whole group of four), F = 16 and F = 64, and out-
      of-range labels; the fused backward must equal the two-op backward
-     bit for bit, and zero exactly the rows that pseudo_label masks. The two
-     streaming forwards (soft centroids, fused target loss) run at the same
-     shapes and at M = 100 and M = 1, the centroids with one and two
-     partitions and partition ids out of range; the fused forward's count
-     of selected rows must equal the two-op route's and the number of
-     non-zero rows of the fused backward. Each forward's streaming pass and
-     final pass are timed apart, and one torch.sum over the features is the
+     bit for bit, and zero exactly the rows that pseudo_label masks. The
+     kernels that only read their rows (soft centroids, fused target loss,
+     MPCL forward, pseudo-labels) run at the same shapes and at M = 100 and
+     M = 1, the centroids with one and two partitions and partition ids out
+     of range, the MPCL forward with sel and without and with labels out of
+     range in the last rows; the fused forward's count of selected rows
+     must equal the two-op route's and the number of non-zero rows of the
+     fused backward. Each forward's streaming pass and final pass are timed
+     apart, the MPCL forward for the step's call (no sel) and the two-op
+     route's (with sel), and one torch.sum over the features is the
      yardstick of a kernel that only reads;
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps and two ``baseline`` steps on the card (kernels) against the same
@@ -130,10 +133,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launch_split(fn, iters: int = 20) -> dict:
-    """Device ms per call of a forward's streaming kernel (*_fwd_partial*) and
-    of its final kernel (*_fwd_final), apart: torch.profiler's CUDA events
-    over ``iters`` calls, summed by kernel name."""
+def launch_split(fn, parts=None, iters: int = 20) -> dict:
+    """Device ms per call of each of ``fn``'s kernels, apart: torch.profiler's
+    CUDA events over ``iters`` calls, summed by the part of the kernel's name
+    that ``parts`` gives per key (default: a forward's streaming kernel,
+    *_fwd_partial*, and its final kernel, *_fwd_final)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,16 +147,20 @@ def launch_split(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    parts = {"partial_ms": "_fwd_partial", "final_ms": "_fwd_final"}
+    parts = parts or {"partial_ms": "_fwd_partial", "final_ms": "_fwd_final"}
     us = dict.fromkeys(parts, 0.0)
+    seen = dict.fromkeys(parts, 0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             for key, part in parts.items():
                 if part in e.name:
                     us[key] += e.time_range.elapsed_us()
-    if not all(us.values()):
-        raise AssertionError(f"launch_split: the profiler saw {us}")
-    return {k: v / iters / 1e3 for k, v in us.items()}
+                    seen[key] += 1
+    if not all(seen.values()):
+        raise AssertionError(f"launch_split: the profiler saw {seen}")
+    # a call launches each of its kernels once; the profiler may drop events,
+    # so the mean is over the launches it kept
+    return {k: us[k] / seen[k] / 1e3 for k in parts}
 
 
 def bound(nbytes: float, flops: float, peaks) -> tuple:
@@ -283,12 +291,15 @@ def cross_route(feats, centers, th: float, what: str) -> None:
 
 
 def check_fwd_shapes(g) -> None:
-    """Phase 2, the two streaming forwards where the main shape cannot reach
-    them: a ragged last tile (the fused loss's bulk copy of a part tile, the
+    """Phase 2, the kernels that only read their rows where the main shape
+    cannot reach them: a ragged last tile (threads without a row, the
     centroids' rows past M), F = 16 and F = 64, fewer rows than a tile, one
-    row. Each against its plain version at the main shape's tolerances and
-    launched twice for bit-identity."""
+    row. The soft centroids, the fused target loss, the MPCL
+    forward (with sel and without, labels out of range in the last three
+    rows) and the pseudo-labels, each against its plain version at the main
+    shape's tolerances and launched twice for bit-identity."""
     import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
     from slcl_torch.ops.cuda import pseudo_label as K_pl
     from slcl_torch.ops.cuda import soft_centroids as K_sc
@@ -341,6 +352,41 @@ def check_fwd_shapes(g) -> None:
             raise AssertionError(f"{what}: an all-masked input gives loss {float(zero[0])}, "
                                  f"den {float(zero[2])}")
         cross_route(feats, centers, th, what)
+
+        # MPCL forward with given labels: out of range in the last three rows
+        # (mlpp = 0, still counted in den), fractional weights among sel
+        bad = torch.tensor([C, -1, C + 3], dtype=torch.int32, device=dev)[-min(3, m):]
+        labels = torch.randint(0, C, (m,), generator=g, device=dev, dtype=torch.int32)
+        sel = torch.randint(0, 2, (m,), generator=g, device=dev).float()
+        sel[::7] = 0.5
+        label_sets = [torch.cat([labels[:-3], bad])]
+        if m <= 3:   # else no row of this shape would have a label column
+            label_sets.append(labels)
+        for lab in label_sets:
+            for s in (sel, None):
+                tag = f"{what} mpcl_fwd sel={s is not None}"
+                stats = K_mpcl.mpcl_fwd_cuda(feats, lab, cen, s, T, 0.4, False, scale)
+                if not torch.equal(stats, K_mpcl.mpcl_fwd_cuda(feats, lab, cen, s, T, 0.4,
+                                                               False, scale)):
+                    raise AssertionError(f"{tag}: two launches differ")
+                want = K_mpcl.mpcl_plain(feats, lab, cen, s, temperature=T,
+                                         base_temperature=base_T, margin=0.4)
+                close(stats[0], want, 1e-4, 0.0, tag + " loss")
+                if s is None and float(stats[2]) != float(m):
+                    raise AssertionError(f"{tag}: den {float(stats[2])}, expected M")
+                if s is not None:   # halves and ones: the sum is exact below 2^24
+                    close(stats[2], s.double().sum() + 1e-4, 1e-6, 0.0, tag + " den")
+
+        # pseudo-labels: exact away from near-tie rows (raw centres in)
+        lab_k, mask_k = K_pl.pseudo_label_cuda(feats, centers, th)
+        lab_k2, mask_k2 = K_pl.pseudo_label_cuda(feats, centers, th)
+        if not (torch.equal(lab_k, lab_k2) and torch.equal(mask_k, mask_k2)):
+            raise AssertionError(f"{what}: pseudo_label's two launches differ")
+        lab_p, mask_p = K_pl.pseudo_label_plain(feats, centers, th)
+        differ = ((lab_k != lab_p) | (mask_k != mask_p)) & ~near_tie_rows(feats, centers, th)
+        if bool(differ.any()):
+            raise AssertionError(f"{what}: pseudo_label differs from its plain version in "
+                                 f"{int(differ.sum())} rows away from a tie")
         log(f"{what}: ok")
 
 
@@ -394,30 +440,42 @@ def check_kernels(peaks) -> list:
                 raise AssertionError("mpcl_bwd: two launches differ")
             err_b = close(d1, g_want, g_rtol, 1e-3 * float(g_want.abs().max()),
                           f"mpcl bwd {tag} sel={use_sel} easy={easy}")
-            if tag == "bf16" and use_sel and not easy:   # the target call's shape
-                rows["mpcl_fwd"] = {"max_abs_err": err_f}
-                rows["mpcl_bwd"] = {"max_abs_err": err_b}
-                t_fwd = time_ms(lambda: K_mpcl.mpcl_fwd_cuda(
-                    feats, labels, centers, s, T, margin, easy, scale))
-                t_bwd = time_ms(lambda: K_mpcl.mpcl_bwd_cuda(
-                    feats, labels, centers, s, T, margin, easy, scale, grad, stats))
-                plain_fwd = time_ms(lambda: K_mpcl.mpcl_plain(
-                    feats, labels, centers, s, temperature=T, base_temperature=base_T,
-                    margin=margin, easy_margin=easy))
+            if tag == "bf16" and not easy:
+                def fwd():
+                    return K_mpcl.mpcl_fwd_cuda(feats, labels, centers, s, T, margin, easy,
+                                                scale)
+
+                def plain():
+                    return K_mpcl.mpcl_plain(feats, labels, centers, s, temperature=T,
+                                             base_temperature=base_T, margin=margin,
+                                             easy_margin=easy)
+                es = feats.element_size()
+                fl_row = 2 * F + 2 * C * F + 12 * C
+            if tag == "bf16" and not easy and use_sel:
+                # the two-op route's call (labels and sel read), and the backward
+                rows["mpcl_fwd"] = {
+                    "sel_max_abs_err": err_f, "sel_ms": time_ms(fwd),
+                    "sel_plain_ms": time_ms(plain),
+                    "sel_bound_ms": bound(M * (F * es + 4 + 4), M * fl_row, peaks)[0],
+                    **{"sel_" + k: v for k, v in launch_split(fwd).items()}}
                 y = K_mpcl.mpcl_plain(x, labels, centers, s, temperature=T,
                                       base_temperature=base_T, margin=margin,
                                       easy_margin=easy)
-                plain_bwd = time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True))
-                es = feats.element_size()
-                fl_row = 2 * F + 2 * C * F + 12 * C
-                rows["mpcl_fwd"].update(launch_split(lambda: K_mpcl.mpcl_fwd_cuda(
-                    feats, labels, centers, s, T, margin, easy, scale)))
-                rows["mpcl_fwd"].update(ms=t_fwd, plain_ms=plain_fwd, library_ms=None,
-                                        bound=bound(M * (F * es + 4 + 4), M * fl_row, peaks))
-                rows["mpcl_bwd"].update(ms=t_bwd, plain_ms=plain_bwd, library_ms=None,
-                                        bound=bound(M * (2 * F * es + 4 + 4),
-                                                    M * (fl_row + 2 * C * F + 4 * F), peaks))
+                rows["mpcl_bwd"] = {
+                    "max_abs_err": err_b,
+                    "ms": time_ms(lambda: K_mpcl.mpcl_bwd_cuda(
+                        feats, labels, centers, s, T, margin, easy, scale, grad, stats)),
+                    "plain_ms": time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True)),
+                    "library_ms": None,
+                    "bound": bound(M * (2 * F * es + 4 + 4),
+                                   M * (fl_row + 2 * C * F + 4 * F), peaks)}
                 del y
+            if tag == "bf16" and not easy and not use_sel:
+                # the slcl step's call: the source branch, labels read, mean over M
+                rows["mpcl_fwd"].update(
+                    max_abs_err=err_f, ms=time_ms(fwd), plain_ms=time_ms(plain),
+                    library_ms=None, bound=bound(M * (F * es + 4), M * fl_row, peaks),
+                    **launch_split(fwd))
         log(f"mpcl {tag}: ok")
 
         # ---- pseudo-labels: exact apart from near-tie rows ----
@@ -442,7 +500,9 @@ def check_kernels(peaks) -> list:
                 "ms": time_ms(lambda: K_pl.pseudo_label_cuda(feats, centers, 0.25)),
                 "plain_ms": time_ms(lambda: K_pl.pseudo_label_plain(feats, centers, 0.25)),
                 "library_ms": None,
-                "bound": bound(M * (F * es + 4 + 4), M * (2 * F + 2 * C * F), peaks)}
+                "bound": bound(M * (F * es + 4 + 4), M * (2 * F + 2 * C * F), peaks),
+                **launch_split(lambda: K_pl.pseudo_label_cuda(feats, centers, 0.25),
+                               {"kernel_ms": "pseudo_label_kernel"})}
 
         # ---- fused target branch: loss rel 1e-4 beyond the near-tie rows,
         # dfeats at mpcl_bwd's tolerance away from them, all-masked = 0 ----
@@ -878,7 +938,8 @@ def main() -> int:
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
         for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms", "partial_ms",
-                      "final_ms", "p2_ms"):
+                      "final_ms", "p2_ms", "kernel_ms", "sel_ms", "sel_plain_ms",
+                      "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -899,6 +960,12 @@ def main() -> int:
         table.append(entry)
     if {e["name"] for e in table} != set(PER_STEP):
         raise AssertionError("kernel table incomplete")
+    # the kernels that hold a row in registers: no instantiation (any F, bf16
+    # or f32) may spill, not only the main path's
+    for src in ("mpcl", "mpcl_pseudo", "pseudo_label"):
+        for fn, regs, spill in build.ptxas_report(src):
+            if spill and ("fwd_partial" in fn or "pseudo_label_kernel" in fn):
+                raise AssertionError(f"{fn} spills {spill} bytes at {regs} registers")
     print(json.dumps({"kernels": table, "read_only_ms": read_only_ms}))
     print(json.dumps({"train": train}))
     print(json.dumps({"protocol": protocol}))

@@ -20,15 +20,23 @@
 // is ~128 FMAs per 64 bytes, far under the card's ratio, and too narrow for
 // tensor cores.
 //
-// Forward design: one thread per row, C = slcl::kC fixed at compile time. A
-// thread reads its row as 16-byte vectors, so a warp has 2 KB of loads in
-// flight per row step; the prototypes sit in shared memory and are read as
-// broadcasts. All per-row math is f32 in registers. The forward sums
-// sel*mlpp and sel per thread over a grid-stride loop, then per block in a
-// fixed tree; a second one-block kernel adds the block partials in a fixed
-// order and writes the loss, so two runs on the same inputs give
-// bit-identical results (no float atomics). Its per-row arithmetic lives in
-// mpcl_row.cuh, shared with mpcl_pseudo.cu.
+// Forward design (mpcl_fwd_tile.cuh, shared with mpcl_pseudo.cu and
+// pseudo_label.cu). The thread-per-row forward that held its whole row in
+// registers ran at 34% of its bound (0.051 ms on an NVIDIA H100 80GB HBM3
+// at 700.00 W): 166 registers let one block of 8 warps run per SM; loads
+// were started only at the top of a row (at most 16 KB in flight per SM,
+// and nothing during the math); a warp's 16-byte loads sat 64 B apart; a
+// 1024-block grid left a tail of 7.76 waves. Now a persistent grid walks
+// tiles of 256 rows, a thread a row: it holds the row's raw bytes in 16
+// registers, loaded with direct 16-byte loads, and starts the loads of its
+// next row, label and sel before it takes the current row's cosines
+// (stream_cosines, unrolled) and softmax, within 80 registers and 3 blocks
+// per SM. The same loop through a bulk-copy ring measured slower. A row
+// with sel = 0 skips the softmax. C = slcl::kC is fixed at compile time.
+// Sums go per thread, then per block in a fixed tree, one (num, den) pair a
+// block, which mpcl_fwd_final adds in a second launch in a fixed order, so
+// two runs on the same inputs give bit-identical results (no float
+// atomics).
 //
 // Backward design (mpcl_bwd_tile.cuh, shared with mpcl_pseudo.cu). The
 // thread-per-row backward that loaded its rows itself ran at 35% of its
@@ -44,6 +52,7 @@
 // dfeats an instruction. Four lanes a row (one per class) measured slower:
 // each lane repeats the row's norm and unpacks the whole row.
 #include "mpcl_bwd_tile.cuh"
+#include "mpcl_fwd_tile.cuh"
 
 namespace {
 
@@ -51,28 +60,16 @@ using slcl::kC;
 using slcl::kThreads;
 using slcl::Margin;
 
+// The forward's streaming pass: each block's (num, den) pair into part.
 template <typename T, int F, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, slcl::FwdTile<T, F>::kBlocksPerSM)
 mpcl_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
                  const float* __restrict__ sel, const float* __restrict__ centers,
                  int M, Margin mg, float* __restrict__ part) {
-  __shared__ float s_cent[C * F];
+  static_assert(C == kC, "the tile loop is built for kC classes");
   __shared__ float s_red[kThreads];
-  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
-  __syncthreads();
-  float num = 0.f, den = 0.f;
-  const int stride = gridDim.x * blockDim.x;
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
-    float x[F];
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
-    const float s = sel ? sel[row] : 1.f;
-    float cosv[C], e[C], z, inv;
-    slcl::row_cosines<F, C>(x, s_cent, cosv, inv);
-    const float mlpp = slcl::margin_softmax<C>(cosv, labels[row], mg, e, z);
-    num = fmaf(s, mlpp, num);
-    den += s;
-  }
+  float num, den;
+  slcl::mpcl_fwd_tiles<T, F, false>(feats, labels, sel, centers, M, mg, 0.f, num, den);
   num = slcl::block_sum(num, s_red);
   den = slcl::block_sum(den, s_red);
   if (threadIdx.x == 0) {
@@ -93,12 +90,23 @@ mpcl_bwd(const T* __restrict__ feats, const int* __restrict__ labels,
   slcl::mpcl_bwd_tiles<T, F, false>(feats, labels, sel, centers, M, mg, 0.f, coef, dfeats);
 }
 
+// Blocks of the forward's persistent launch: the pairs part must hold.
+template <typename T>
+int fwd_grid(int M, int F, int* grid) {
+  SLCL_DISPATCH_F(F, return (slcl::ring_grid<slcl::FwdTile<T, kF>,
+                                             mpcl_fwd_partial<T, kF, kC>>(M, grid)));
+  return -1;
+}
+
 template <typename T>
 int launch_fwd(const void* feats, const int* labels, const float* sel,
                const float* centers, int M, int F, Margin mg, float scale,
                float* part, float* out, cudaStream_t st) {
-  const int grid = slcl::grid_for(M, kThreads);
-  SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC><<<grid, kThreads, 0, st>>>(
+  int grid = 0;
+  const int rc = fwd_grid<T>(M, F, &grid);
+  if (rc != 0) return rc;
+  SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC>
+                     <<<grid, kThreads, slcl::FwdTile<T, kF>::kSmemBytes, st>>>(
                          static_cast<const T*>(feats), labels, sel, centers, M, mg,
                          part));
   slcl::mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, sel != nullptr, scale, out);
@@ -127,7 +135,9 @@ int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
   SLCL_DISPATCH_F(F, {
     return bwd ? slcl::occupancy(mpcl_bwd<T, kF, kC>, slcl::BwdRing<T, kF, false>::kSmemBytes,
                                  blocks_per_sm, smem_bytes)
-               : slcl::occupancy(mpcl_fwd_partial<T, kF, kC>, 0, blocks_per_sm, smem_bytes);
+               : slcl::occupancy(mpcl_fwd_partial<T, kF, kC>,
+                                 slcl::FwdTile<T, kF>::kSmemBytes, blocks_per_sm,
+                                 smem_bytes);
   });
   return -1;
 }
@@ -136,8 +146,12 @@ int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
 
 extern "C" {
 
-// Number of float pairs the forward's partial buffer must hold.
-int mpcl_num_partials(int M) { return slcl::grid_for(M, kThreads); }
+// *n = the float pairs the forward's partial buffer must hold: the blocks
+// of its persistent grid on the current device. Returns a cudaError_t; -1
+// for an unsupported F.
+int mpcl_num_partials(int feats_bf16, int M, int F, int* n) {
+  return feats_bf16 ? fwd_grid<__nv_bfloat16>(M, F, n) : fwd_grid<float>(M, F, n);
+}
 
 // Returns cudaGetLastError() after the launches; -1 for an unsupported F or
 // a C other than slcl::kC. sel may be null (plain mean over M).

@@ -21,7 +21,7 @@
 //   labels and sel: one is computed on while the other fills, ~54 KB in
 //   flight an SM.
 // - One thread per row, streaming the staged row in 8-value chunks: the
-//   cosines in row_cosines' order (sequential fmaf over k), so a
+//   cosines by the forwards' stream_cosines (sequential fmaf over k), so a
 //   recomputed label and sel equal the forward's bit for bit; then the
 //   margin softmax's gradient; then dx, written back over the row in
 //   shared memory. Each warp then copies its 32 rows out with 16-byte

@@ -22,22 +22,23 @@
 // then mpcl.cu) also writes and reads labels and mask (4 x 3.2 MB). The
 // arithmetic is ~150 FMAs per 64 bytes, far under the card's ratio.
 //
-// Forward design (mpcl_fwd_tile.cuh). The thread-per-row forward that held
-// its whole row in registers ran at 29% of its bound (0.052 ms on an NVIDIA
-// H100 80GB HBM3 at 700.00 W; the ring runs at 53%): 163 registers let one
-// block of 8 warps run per SM; loads were started only at the top of a row
-// (at most 16 KB in flight per SM, and nothing during the math); a warp's
-// 16-byte loads sat 64 B apart; a 1024-block grid left a tail of 7.76
-// waves; and a second launch added the 1024 block partials. Now a
-// persistent grid streams tiles of 256 rows through a read-only 2-stage
-// shared-memory ring filled by 1D bulk copies. A thread takes one row,
-// streaming it from shared memory in 8-value chunks with the backward's
-// cosine loop (stream_cosines, the order of row_cosines), and its warp
-// frees the stage before the softmax. C = slcl::kC is fixed at compile
-// time; rows that fail the gap test skip the softmax. Sums go per thread,
-// then per block in a fixed tree, one pair a block (at most 132 x blocks per
-// SM of them), which mpcl_fwd_final adds in a second launch. No float
-// atomics: two runs give bit-identical results.
+// Forward design (mpcl_fwd_tile.cuh, shared with mpcl.cu's forward and
+// pseudo_label.cu). The thread-per-row forward that held its whole row as
+// floats ran at 29% of its bound (0.052 ms on an NVIDIA H100 80GB HBM3 at
+// 700.00 W): 163 registers let one block of 8 warps run per SM; loads were
+// started only at the top of a row (at most 16 KB in flight per SM, and
+// nothing during the math); a 1024-block grid left a tail of 7.76 waves;
+// and a second launch added the 1024 block partials. A read-only bulk-copy
+// ring with the backward's shape took it to 53% (0.029 ms). Now a
+// persistent grid walks tiles of 256 rows, a thread a row: it holds the
+// row's raw bytes in 16 registers, loaded with direct 16-byte loads, and
+// starts its next row's loads before it takes the current row's cosines
+// (stream_cosines, the backward's sums term by term) and softmax, within 80
+// registers and 3 blocks per SM. C = slcl::kC is fixed at compile time;
+// rows that fail the gap test skip the softmax. Sums go per thread, then
+// per block in a fixed tree, one pair a block (at most 132 x blocks per SM
+// of them), which mpcl_fwd_final adds in a second launch. No float atomics:
+// two runs give bit-identical results.
 //
 // Backward design: mpcl.cu's backward, from mpcl_bwd_tile.cuh, with label
 // and sel recomputed from the staged row's cosines. The thread-per-row
@@ -48,8 +49,8 @@
 // ring filled by 1D bulk copies; a thread streams its row from shared
 // memory in chunks within 80 registers (3 blocks, 24 warps per SM), rows
 // that fail the gap test write zeros, and each warp stores 512 contiguous
-// bytes an instruction. The cosines are taken in row_cosines' order, so
-// every row gets the forward's label and sel.
+// bytes an instruction. The cosines come from the forward's stream_cosines,
+// so every row gets the forward's label and sel.
 #include "mpcl_bwd_tile.cuh"
 #include "mpcl_fwd_tile.cuh"
 
@@ -61,13 +62,14 @@ using slcl::Margin;
 
 // The forward's streaming pass: each block's (num, den) pair into part.
 template <typename T, int F, int C>
-__global__ void __launch_bounds__(kThreads, slcl::kFwdBlocksPerSM)
+__global__ void __launch_bounds__(kThreads, slcl::FwdTile<T, F>::kBlocksPerSM)
 mpcl_pseudo_fwd_partial(const T* __restrict__ feats, const float* __restrict__ centers,
                         int M, Margin mg, float sel_th, float* __restrict__ part) {
-  static_assert(C == kC, "the ring is built for kC classes");
+  static_assert(C == kC, "the tile loop is built for kC classes");
   __shared__ float s_red[kThreads];
   float num, den;
-  slcl::mpcl_pseudo_fwd_tiles<T, F>(feats, centers, M, mg, sel_th, num, den);
+  slcl::mpcl_fwd_tiles<T, F, true>(feats, nullptr, nullptr, centers, M, mg, sel_th, num,
+                                   den);
   num = slcl::block_sum(num, s_red);
   den = slcl::block_sum(den, s_red);
   if (threadIdx.x == 0) {
@@ -91,7 +93,7 @@ mpcl_pseudo_bwd(const T* __restrict__ feats, const float* __restrict__ centers, 
 // Blocks of the forward's persistent launch: the pairs part must hold.
 template <typename T>
 int fwd_grid(int M, int F, int* grid) {
-  SLCL_DISPATCH_F(F, return (slcl::ring_grid<slcl::FwdRing<T, kF>,
+  SLCL_DISPATCH_F(F, return (slcl::ring_grid<slcl::FwdTile<T, kF>,
                                              mpcl_pseudo_fwd_partial<T, kF, kC>>(M, grid)));
   return -1;
 }
@@ -103,7 +105,7 @@ int launch_fwd(const void* feats, const float* centers, int M, int F, Margin mg,
   const int rc = fwd_grid<T>(M, F, &grid);
   if (rc != 0) return rc;
   SLCL_DISPATCH_F(F, mpcl_pseudo_fwd_partial<T, kF, kC>
-                     <<<grid, kThreads, slcl::FwdRing<T, kF>::kSmemBytes, st>>>(
+                     <<<grid, kThreads, slcl::FwdTile<T, kF>::kSmemBytes, st>>>(
                          static_cast<const T*>(feats), centers, M, mg, sel_th, part));
   slcl::mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, 1, scale, out);
   return static_cast<int>(cudaGetLastError());
@@ -132,7 +134,7 @@ int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
                                  slcl::BwdRing<T, kF, true>::kSmemBytes, blocks_per_sm,
                                  smem_bytes)
                : slcl::occupancy(mpcl_pseudo_fwd_partial<T, kF, kC>,
-                                 slcl::FwdRing<T, kF>::kSmemBytes, blocks_per_sm,
+                                 slcl::FwdTile<T, kF>::kSmemBytes, blocks_per_sm,
                                  smem_bytes);
   });
   return -1;

@@ -1,10 +1,9 @@
-// Per-row MPCL arithmetic of the forward kernels, shared by mpcl.cu and
-// mpcl_pseudo.cu so both run the same math: L2 normalisation
-// (rsqrt(sum x^2 + 1e-24)), cosines against the (C, F) normalised
-// prototypes, the pseudo-label rule, and the ArcFace margin softmax on the
-// label column. The ring kernels (mpcl_fwd_tile.cuh, mpcl_bwd_tile.cuh)
-// stream each row from shared memory instead, taking the cosines in the
-// same order (stream_cosines) and sharing the pseudo-label rule.
+// Per-row MPCL arithmetic of every kernel in mpcl.cu, mpcl_pseudo.cu and
+// pseudo_label.cu, so all run the same math: L2 normalisation
+// (rsqrt(sum x^2 + 1e-24)) and cosines against the (C, F) normalised
+// prototypes (stream_cosines), the pseudo-label rule (row_pseudo_label),
+// and the ArcFace margin softmax on the label column (margin_softmax). The
+// tile loops (mpcl_fwd_tile.cuh, mpcl_bwd_tile.cuh) are the callers.
 #pragma once
 
 #include "common.cuh"
@@ -16,37 +15,23 @@ struct Margin {
   int easy;
 };
 
-// cosv[c] = <x, cent[c]> / ||x||; inv = 1/||x||.
-template <int F, int C>
-__device__ __forceinline__ void row_cosines(const float (&x)[F], const float* cent,
-                                            float* cosv, float& inv) {
-  float ss = 0.f;
-#pragma unroll
-  for (int k = 0; k < F; ++k) ss = fmaf(x[k], x[k], ss);
-  inv = rsqrtf(ss + 1e-24f);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float d = 0.f;
-#pragma unroll
-    for (int k = 0; k < F; ++k) d = fmaf(x[k], cent[c * F + k], d);
-    cosv[c] = d * inv;
-  }
-}
-
-// The same cosines of a row that lies in shared memory (a stage of a ring),
-// taken in 8-value chunks within a few registers: ss and each class's dot
-// product are one sequential fmaf chain over k, row_cosines' order, so the
-// results are equal bit for bit. Every kernel that derives a label or a
-// mask from a staged row must take its cosines here: the fused forward's
-// count of selected rows and the fused backward's zero rows agree only
-// because both do.
-template <typename T, int F>
+// cosv[c] = <x, cent[c]> / ||x||; inv = 1/||x||, of a row taken in 8-value
+// chunks: ss and each class's dot product are one sequential fmaf chain
+// over k, whoever calls and however the chunk loop is unrolled. The
+// backward streams a row staged in shared memory one chunk at a time
+// (kUnroll = 1: a few registers); the forwards hold the row's raw bytes in
+// registers and unroll every chunk (kUnroll = F / 8), so that no index is
+// left at run time. Every kernel that derives a label or a mask from a row
+// must take its cosines here and its rule from row_pseudo_label: the
+// pseudo-label kernel's mask, the fused forward's count of selected rows
+// and the fused backward's zero rows agree only because all do.
+template <typename T, int F, int kUnroll = 1>
 __device__ __forceinline__ void stream_cosines(const T* row, const float* s_cent,
                                                float* cosv, float& inv) {
   float ss = 0.f, d[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) d[c] = 0.f;
-#pragma unroll 1
+#pragma unroll(kUnroll)
   for (int k = 0; k < F; k += 8) {
     float x[8];
     load8(row + k, x);
@@ -98,8 +83,9 @@ __device__ __forceinline__ float margin_softmax(const float* cosv, int lab,
   return (lab >= 0 && lab < C) ? mixed_lab - logf(z) : 0.f;
 }
 
-// Label and sel of one row from its cosines (pseudo_label.cu's rule):
-// first-occurrence argmax; sel = 1 where top1 - second > sel_th.
+// Label and sel of one row from its cosines: first-occurrence argmax;
+// sel = 1 where top1 - second > sel_th, second being the largest cosine
+// among the other columns (a tie gives a gap of 0).
 template <int C>
 __device__ __forceinline__ int row_pseudo_label(const float* cosv, float sel_th, float& sel) {
   float best = -INFINITY, second = -INFINITY;

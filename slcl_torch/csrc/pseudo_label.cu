@@ -12,11 +12,20 @@
 // C = 4, bf16 feats) it reads 51.4 MB of features and writes 3.2 MB of
 // labels and 3.2 MB of mask (~58 MB, ~17 us at 3.35 TB/s).
 //
-// Design: one thread per row, C = slcl::kC fixed at compile time, the row
-// read as 16-byte vectors, prototypes
-// in shared memory (broadcast reads), f32 math in registers. No reduction
-// across rows, so the result does not depend on the launch shape.
-#include "common.cuh"
+// Design (mpcl_fwd_tile.cuh, shared with the MPCL forwards). The thread-per-
+// row kernel that held its whole row as floats ran at 43% of its bound
+// (0.040 ms with its wrapper's normalisation of the prototypes, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W; 159 registers, one block of 8 warps
+// per SM, loads started only at the top of a row, a grid tail). Now a
+// persistent grid walks tiles of 256 rows, a thread a row: it holds the
+// row's raw bytes in 16 registers, loaded with direct 16-byte loads, starts
+// its next row's loads before it computes, and stores label and mask
+// straight to memory, 128 contiguous bytes a warp. The cosines and the rule
+// are the fused target kernels' own (stream_cosines, row_pseudo_label in
+// mpcl_row.cuh), so both routes give every row the same label and mask.
+// C = slcl::kC is fixed at compile time. No reduction across rows, so the
+// result does not depend on the launch shape.
+#include "mpcl_fwd_tile.cuh"
 
 namespace {
 
@@ -24,55 +33,32 @@ using slcl::kC;
 using slcl::kThreads;
 
 template <typename T, int F, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, slcl::FwdTile<T, F>::kBlocksPerSM)
 pseudo_label_kernel(const T* __restrict__ feats, const float* __restrict__ centers,
                     int M, float th, int* __restrict__ labels,
                     float* __restrict__ mask) {
-  __shared__ float s_cent[C * F];
-  for (int i = threadIdx.x; i < C * F; i += blockDim.x) s_cent[i] = centers[i];
-  __syncthreads();
-  const int stride = gridDim.x * blockDim.x;
-  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < M; row += stride) {
-    float x[F];
-#pragma unroll
-    for (int k = 0; k < F; k += 8) slcl::load8(feats + (size_t)row * F + k, x + k);
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < F; ++k) ss = fmaf(x[k], x[k], ss);
-    const float inv = rsqrtf(ss + 1e-24f);
-    float best = -INFINITY, second = -INFINITY;
-    int arg = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float d = 0.f;
-#pragma unroll
-      for (int k = 0; k < F; ++k) d = fmaf(x[k], s_cent[c * F + k], d);
-      const float cs = d * inv;
-      if (cs > best) {
-        second = best;
-        best = cs;
-        arg = c;
-      } else if (cs > second) {
-        second = cs;
-      }
-    }
-    labels[row] = arg;
-    mask[row] = (best - second > th) ? 1.f : 0.f;
-  }
+  static_assert(C == kC, "the tile loop is built for kC classes");
+  slcl::pseudo_label_tiles<T, F>(feats, centers, M, th, labels, mask);
 }
 
 template <typename T>
 int launch(const void* feats, const float* centers, int M, int F, float th,
            int* labels, float* mask, cudaStream_t st) {
-  const int grid = slcl::grid_for(M, kThreads);
-  SLCL_DISPATCH_F(F, pseudo_label_kernel<T, kF, kC><<<grid, kThreads, 0, st>>>(
-                         static_cast<const T*>(feats), centers, M, th, labels, mask));
+  SLCL_DISPATCH_F(F, {
+    using G = slcl::FwdTile<T, kF>;
+    int grid = 0;
+    const int rc = slcl::ring_grid<G, pseudo_label_kernel<T, kF, kC>>(M, &grid);
+    if (rc != 0) return rc;
+    pseudo_label_kernel<T, kF, kC><<<grid, kThreads, G::kSmemBytes, st>>>(
+        static_cast<const T*>(feats), centers, M, th, labels, mask);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int occupancy_of(int F, int* blocks_per_sm, int* smem_bytes) {
-  SLCL_DISPATCH_F(F, return slcl::occupancy(pseudo_label_kernel<T, kF, kC>, 0, blocks_per_sm,
+  SLCL_DISPATCH_F(F, return slcl::occupancy(pseudo_label_kernel<T, kF, kC>,
+                                            slcl::FwdTile<T, kF>::kSmemBytes, blocks_per_sm,
                                             smem_bytes));
   return -1;
 }

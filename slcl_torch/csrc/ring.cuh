@@ -1,6 +1,7 @@
-// Primitives of the shared-memory rings that feed the port's streaming
+// Primitives of the shared-memory rings that feed the port's backward
 // kernels on Hopper (sm_90): mbarriers, the 1D bulk copy (cp.async.bulk)
-// that completes on one, and the size of a persistent grid.
+// that completes on one, and the size of a persistent grid, which the
+// kernels on direct loads take too.
 //
 // A ring kernel runs one block per resident slot. Each block walks tiles of
 // G::kRows rows at a fixed stride; one elected thread fills a stage with
@@ -62,7 +63,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 }
 
 // Blocks of a persistent launch of the kernel kKern over tiles of G::kRows
-// rows with G::kSmemBytes of dynamic shared memory: one per resident slot
+// rows with G::kSmemBytes of dynamic shared memory (a ring's stages, or 0):
+// one per resident slot
 // (SMs x blocks per SM), at most one per tile. The slot count is queried
 // once per device and cached per kernel: the kernel itself is the template
 // argument, so two kernels never share an entry, whatever their signatures

@@ -9,6 +9,7 @@ backward is a second kernel that recomputes each row and returns dfeats
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -24,7 +25,7 @@ BWD = register("mpcl_bwd", "slcl_torch/csrc/mpcl.cu",
 
 _MARGIN = [F32, F32, F32, F32, F32, I32, F32]  # T, cos_m, sin_m, th, mm, easy, scale
 _SIGS = {
-    "mpcl_num_partials": (I32, [I32]),
+    "mpcl_num_partials": (I32, [I32, I32, I32, IP]),
     "mpcl_fwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP]),
     "mpcl_bwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP, VP]),
     "mpcl_occupancy": (I32, [I32, I32, I32, IP, IP]),
@@ -115,10 +116,13 @@ def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale) -> torch.
     """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
     _check_inputs(feats, labels, centers, sel)
     lib = build.load("mpcl", _SIGS)
-    parts = torch.empty(2 * lib.mpcl_num_partials(feats.shape[0]),
-                        dtype=torch.float32, device=feats.device)
-    stats = torch.empty(3, dtype=torch.float32, device=feats.device)
+    n_pairs = ctypes.c_int()
     with torch.cuda.device(feats.device):
+        raise_on_error(lib.mpcl_num_partials(
+            int(feats.dtype == torch.bfloat16), *feats.shape, ctypes.byref(n_pairs)),
+            "mpcl_num_partials")
+        parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
+        stats = torch.empty(3, dtype=torch.float32, device=feats.device)
         rc = lib.mpcl_fwd(*_args(feats, labels, centers, sel, T, margin, easy, scale),
                           ptr(parts), ptr(stats), stream_of(feats))
     raise_on_error(rc, "mpcl_fwd")

@@ -12,6 +12,9 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
 - a source that makes a bulk copy gets it from ``ring.cuh``, the entry
   points that size the forwards' partial buffers are in ``_SIGS``, and every
   persistent grid's cached size is keyed by its kernel;
+- every source that gives a row a label, a mask or a margin softmax takes
+  the row's cosines from ``stream_cosines``, the one cosine routine, and
+  ``pseudo_label.cu`` holds no arithmetic of its own;
 - every text edit of ``tools/ring_variants.py`` applies to the sources as
   they stand, and its timed kernels' symbols name kernels of their sources;
 - the source's header names the ``slcl_tpu/ops/pallas/*.py`` function it
@@ -144,7 +147,8 @@ def test_bulk_copies_come_from_ring_header(name):
         assert "ring.cuh" in _source_with_includes(name)
 
 
-@pytest.mark.parametrize("lib,entry", [("mpcl_pseudo", "mpcl_pseudo_num_partials"),
+@pytest.mark.parametrize("lib,entry", [("mpcl", "mpcl_num_partials"),
+                                       ("mpcl_pseudo", "mpcl_pseudo_num_partials"),
                                        ("soft_centroids", "soft_centroids_partials_size")])
 def test_partials_entry_points_are_bound(lib, entry):
     """The wrappers size the forwards' partial buffers from the ring's grid:
@@ -171,6 +175,42 @@ def test_ring_grid_cache_is_keyed_by_the_kernel(name):
                            re.S):
         assert any(re.search(rf"\b{k}<", call) for k in kernels), (
             f"ring_grid<{call}> in csrc/{name}.cu names no __global__ of the source")
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")), ids=lambda p: p.name)
+def test_one_cosine_routine_for_every_label(path):
+    """A kernel that derives a label or a mask (row_pseudo_label) or the
+    margin softmax or its gradient from a row's cosines gets them from
+    stream_cosines: the two-op route and the fused route then agree by
+    construction. The norm and the dot products against the prototypes are
+    written once, in mpcl_row.cuh."""
+    text = _strip_comments(path.read_text())
+    assert "row_cosines" not in path.read_text(), f"{path.name} still cites row_cosines"
+    if re.search(r"\b(row_pseudo_label|margin_softmax|margin_grad)<", text):
+        assert "stream_cosines<" in text, (
+            f"{path.name} labels a row without stream_cosines")
+    if path.name == "mpcl_row.cuh":
+        assert len(re.findall(r"\bvoid stream_cosines\(", text)) == 1
+        assert len(re.findall(r"rsqrtf\(ss \+ 1e-24f\)", text)) == 1
+    else:
+        assert "1e-24f" not in text, f"{path.name} normalises a row itself"
+    if path.suffix == ".cu" and "soft_centroids" not in path.name:
+        # the MPCL and pseudo-label sources are thin kernels over the tile
+        # headers: no dot product, norm or argmax of their own
+        for own in ("fmaf(", "rsqrtf(", "expf(", "best", "second"):
+            assert own not in text, f"{path.name} holds arithmetic of its own: {own}"
+
+
+def test_pseudo_label_kernel_runs_on_the_shared_tile_loop():
+    text = _strip_comments((CSRC / "pseudo_label.cu").read_text())
+    assert '#include "mpcl_fwd_tile.cuh"' in text
+    assert "pseudo_label_tiles<T, F>(" in text and "ring_grid<" in text
+    tile = _strip_comments((CSRC / "mpcl_fwd_tile.cuh").read_text())
+    body = tile.split("void pseudo_label_tiles(", 1)[1]
+    assert "row_pseudo_label<kC>(cosv" in body and "fwd_rows<T, F>(" in body
+    # all three kernels go through the one loop, which takes the cosines
+    assert len(re.findall(r"stream_cosines<T, F, F / 8>\(", tile)) == 1
+    assert len(re.findall(r"fwd_rows<T, F>\(", tile)) == 2
 
 
 @pytest.mark.parametrize("variant", sorted(ring_variants.VARIANTS))

@@ -16,8 +16,13 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
 - ``bwd`` variants edit ``mpcl_bwd_tile.cuh`` and time ``mpcl_bwd`` and
   ``mpcl_pseudo_bwd``;
 - ``fwd_*`` variants edit ``mpcl_fwd_tile.cuh`` and ``soft_centroids.cu``
-  and time ``mpcl_pseudo_fwd`` (on the ring) and ``soft_centroids_fwd``
-  (direct loads; P = 1, hard weights: the step's call; and P = 2).
+  and time the kernels that only read their rows, all on direct loads:
+  ``mpcl_pseudo_fwd``; ``mpcl_fwd`` without sel, the step's call, and with
+  sel, the two-op route's; ``pseudo_label``; and ``soft_centroids_fwd``
+  (P = 1, hard weights: the step's call; and P = 2). ``fwd_ring*`` put the
+  first four on a bulk-copy ring like the backward's.
+
+A variant that does not compile is reported and left out; the others run.
 
 Yardsticks for what the card's memory allows, timed the same way: one
 ``copy_`` of the features into a tensor of their shape (read + write) and
@@ -38,33 +43,160 @@ sys.path.insert(0, str(ROOT))
 
 BWD, FWD, CEN = "mpcl_bwd_tile.cuh", "mpcl_fwd_tile.cuh", "soft_centroids.cu"
 _STAGES = ("32768 / kFeatBytes < 2 ? 2 : (32768 / kFeatBytes > 4 ? 4 : 32768 / kFeatBytes);")
-_FWD_BLOCKS = "constexpr int kFwdBlocksPerSM = 3;"
+_FWD_BLOCKS = "kBlocksPerSM = kRowBytes <= 128 ? 3 : 2;"
 _CEN_ROWS = "constexpr int kRowsInFlight = P == 1 ? 4 : 2;"
 _CEN_BLOCKS = "constexpr int kCentFwdBlocksPerSM = 2;"
 _CEN_BLOCKS3 = (CEN, _CEN_BLOCKS, "constexpr int kCentFwdBlocksPerSM = 3;")
 _CEN_MEMONLY = (CEN, "        acc.add(x[j], p, id[j], sub == 0, thd, use_thd, weighted);\n",
                 "        for (int i = 0; i < 8; ++i) acc.sum[0][i] += x[j][i];\n"
                 "        acc.cnt[0] += p[0] + id[j];\n")
-_REFILL = """    if (threadIdx.x == 0) {
+BWD_KERNELS = ("mpcl_bwd", "mpcl_pseudo_bwd")
+MPCL_FWD = ("mpcl_fwd", "mpcl_fwd_sel")   # labels given: without sel, with sel
+ROW_FWD = ("mpcl_pseudo_fwd", *MPCL_FWD, "pseudo_label")   # on mpcl_fwd_tile.cuh
+CEN_FWD = ("soft_centroids_fwd", "soft_centroids_fwd_p2")
+FWD_KERNELS = ROW_FWD + CEN_FWD
+LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
+          "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
+          "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
+          "soft_centroids_fwd_p2": "soft_centroids"}
+# ptxas entry-function name parts of each timed kernel's instantiation
+SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
+             "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
+             "mpcl_pseudo_fwd": "mpcl_pseudo_fwd_partialI13__nv_bfloat16Li32E",
+             "mpcl_fwd": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
+             "mpcl_fwd_sel": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
+             "pseudo_label": "pseudo_label_kernelI13__nv_bfloat16Li32E",
+             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E",
+             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2E"}
+
+
+def _section(f: str, start: str, end: str) -> str:
+    """The text of ``csrc/<f>`` from ``start`` through the next ``end``: the
+    old side of an edit that replaces a whole passage."""
+    text = (ROOT / "slcl_torch" / "csrc" / f).read_text()
+    a = text.index(start)
+    return text[a:text.index(end, a) + len(end)]
+
+
+# The forwards' tile loop through a read-only bulk-copy ring with the
+# backward's shape, in place of the direct loads: 256-row tiles, two 16 KB
+# stages, one elected thread filling them, a thread streaming its row from
+# shared memory a chunk at a time, the warp freeing the stage before the
+# softmax. A row's label and sel are plain loads started before the wait.
+_RING = (FWD, _section(FWD, "template <typename T, int F>\nstruct FwdTile {",
+                       "      side_cur = side_nxt;\n    }\n  }\n}\n"), """\
+template <typename T, int F>
+struct FwdTile {
+  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  static constexpr int kRows = kThreads;
+  static constexpr int kFeatBytes = kRows * kRowBytes;
+  static constexpr int kStages =
+      32768 / kFeatBytes < 2 ? 2 : (32768 / kFeatBytes > 4 ? 4 : 32768 / kFeatBytes);
+  static constexpr int kStageBytes = kFeatBytes;
+  static constexpr int kSmemBytes = kStages * kStageBytes + kC * F * 4 + 2 * kStages * 8;
+  static constexpr int kBlocksPerSM = 3;
+};
+
+template <typename T, int F, typename Side, typename Each>
+__device__ __forceinline__ void fwd_rows(const T* __restrict__ feats,
+                                         const float* __restrict__ centers, int M,
+                                         Side&& side, Each&& each) {
+  using G = FwdTile<T, F>;
+  using S = decltype(side(0));
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_cent = reinterpret_cast<float*>(smem + G::kStages * G::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_cent + kC * F);
+  uint64_t* empty = full + G::kStages;
+  const int ntiles = (M + G::kRows - 1) / G::kRows;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < kC * F; i += kThreads) s_cent[i] = centers[i];
+  __syncthreads();
+  auto fill = [&](int stage, int tile) {
+    const int row0 = tile * G::kRows;
+    const uint32_t fbytes = min(G::kRows, M - row0) * G::kRowBytes;
+    mbar_expect_tx(&full[stage], fbytes);
+    bulk_copy(smem + stage * G::kStageBytes, feats + (size_t)row0 * F, fbytes, &full[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < ntiles) fill(s, tile);
+    }
+  }
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int stage = it % G::kStages;
+    const uint32_t parity = (it / G::kStages) & 1;
+    const int row = tile * G::kRows + static_cast<int>(threadIdx.x);
+    const bool live = row < M;
+    S sd{};
+    if (live) sd = side(row);
+    mbar_wait(&full[stage], parity);
+    float cosv[kC], inv;
+    if (live)
+      stream_cosines<T, F>(reinterpret_cast<const T*>(smem + stage * G::kStageBytes) +
+                               threadIdx.x * F,
+                           s_cent, cosv, inv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (live) each(row, cosv, sd);
+    if (threadIdx.x == 0) {
       const int next = tile + G::kStages * gridDim.x;
       if (next < ntiles) {
         mbar_wait(&empty[stage], parity);
         fill(stage, next);
       }
     }
-"""
-BWD_KERNELS = ("mpcl_bwd", "mpcl_pseudo_bwd")
-FWD_KERNELS = ("mpcl_pseudo_fwd", "soft_centroids_fwd", "soft_centroids_fwd_p2")
-LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
-          "mpcl_pseudo_fwd": "mpcl_pseudo", "soft_centroids_fwd": "soft_centroids",
-          "soft_centroids_fwd_p2": "soft_centroids"}
-# ptxas entry-function name parts of each timed kernel's instantiation
-SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
-             "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
-             "mpcl_pseudo_fwd": "mpcl_pseudo_fwd_partialI13__nv_bfloat16Li32E",
-             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E",
-             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2E"}
-
+  }
+}
+""")
+# On that ring, a given label and sel ride in a side area of the stage,
+# bulk-copied in whole groups of four rows (the backward's way), a ragged
+# tail from memory. These edits apply after _RING, to mpcl.cu's forward only.
+_RING_SIDE = [
+    (FWD, "  static constexpr int kStageBytes = kFeatBytes;\n",
+     "  static constexpr int kStageBytes = kFeatBytes + 2 * kRows * 4;\n"),
+    (FWD, "                                         Side&& side, Each&& each) {\n"
+          "  using G = FwdTile<T, F>;\n  using S = decltype(side(0));\n  constexpr int kWarps",
+     "                                         Side&& side, Each&& each,\n"
+     "                                         const int* side_lab = nullptr,\n"
+     "                                         const float* side_sel = nullptr) {\n"
+     "  using G = FwdTile<T, F>;\n  using S = decltype(side(0));\n  constexpr int kWarps"),
+    (FWD, "    const uint32_t fbytes = min(G::kRows, M - row0) * G::kRowBytes;\n"
+          "    mbar_expect_tx(&full[stage], fbytes);\n",
+     "    const int rows = min(G::kRows, M - row0);\n"
+     "    const uint32_t fbytes = rows * G::kRowBytes;\n"
+     "    const uint32_t sbytes = side_lab ? (rows & ~3) * 4 : 0;\n"
+     "    unsigned char* area = smem + stage * G::kStageBytes + G::kFeatBytes;\n"
+     "    mbar_expect_tx(&full[stage], fbytes + sbytes * (side_sel ? 2u : 1u));\n"
+     "    if (sbytes) {\n"
+     "      bulk_copy(area, side_lab + row0, sbytes, &full[stage]);\n"
+     "      if (side_sel)\n"
+     "        bulk_copy(area + G::kRows * 4, side_sel + row0, sbytes, &full[stage]);\n"
+     "    }\n"),
+    (FWD, "    if (live) sd = side(row);\n    mbar_wait(&full[stage], parity);\n",
+     "    mbar_wait(&full[stage], parity);\n"
+     "    if (live) {\n"
+     "      const int r = threadIdx.x;\n"
+     "      const unsigned char* area = smem + stage * G::kStageBytes + G::kFeatBytes;\n"
+     "      if (side_lab && r < (min(G::kRows, M - tile * G::kRows) & ~3)) {\n"
+     "        sd.lab = reinterpret_cast<const int*>(area)[r];\n"
+     "        sd.sel = side_sel ? reinterpret_cast<const float*>(area + G::kRows * 4)[r]\n"
+     "                          : 1.f;\n"
+     "      } else {\n"
+     "        sd = side(row);\n"
+     "      }\n"
+     "    }\n"),
+    (FWD, "      });\n  num = n;\n", "      }, kPseudo ? nullptr : labels, sel);\n  num = n;\n"),
+]
 
 # name -> (kernels it concerns, [(file, old text, new text)])
 VARIANTS = {
@@ -76,41 +208,47 @@ VARIANTS = {
          "      load8(row + k, x);\n      for (int i = 0; i < 8; ++i) x[i] *= coef;\n"
          "      store8(row + k, x);\n    }\n    return;\n  }\n")]),
     # the cosine loop cut to its first chunk: what the cosine phase costs
-    # (it is shared with the forward, so this variant concerns both)
-    "nocos": (BWD_KERNELS + FWD_KERNELS[:1], [
-        ("mpcl_row.cuh", "#pragma unroll 1\n  for (int k = 0; k < F; k += 8) {",
-         "#pragma unroll 1\n  for (int k = 0; k < 8; k += 8) {")]),
+    # (it is shared with the forwards, so this variant concerns them too)
+    "nocos": (BWD_KERNELS + ROW_FWD, [
+        ("mpcl_row.cuh", "#pragma unroll(kUnroll)\n  for (int k = 0; k < F; k += 8) {",
+         "#pragma unroll(kUnroll)\n  for (int k = 0; k < 8; k += 8) {")]),
     "stages3": (BWD_KERNELS, [(BWD, _STAGES, "3;")]),
     "stages4": (BWD_KERNELS, [(BWD, _STAGES, "4;")]),
     "blocks4": (BWD_KERNELS, [(BWD, "constexpr int kRingBlocksPerSM = 3;",
                                "constexpr int kRingBlocksPerSM = 4;")]),
-    # the forwards' feeds alone: a row's chunks are read and one value of
-    # each added up, no cosines, softmax or weights
+    # the forwards' feeds alone: every loaded vector is folded into one
+    # value, no cosines, softmax or weights
     "fwd_memonly": (FWD_KERNELS, [
-        (FWD, "    float cosv[kC], inv;\n    if (live)\n      stream_cosines<T, F>(",
-         "    float cosv[kC] = {0.f, 0.f, 0.f, 0.f}, inv;\n    if (live)\n"
-         "      for (int k = 0; k < F; k += 8) {\n        float x[8];\n"
-         "        load8(reinterpret_cast<const T*>(smem + stage * G::kStageBytes) +\n"
-         "                  threadIdx.x * F + k, x);\n        cosv[0] += x[0];\n      }\n"
-         "    if (false)\n      stream_cosines<T, F>("),
-        (FWD, "      if (s != 0.f) {  // rows that fail the gap test skip the softmax\n",
-         "      num += cosv[0];\n      if (false) {\n"),
+        (FWD, "      stream_cosines<T, F, F / 8>(reinterpret_cast<const T*>(cur), s_cent, cosv,"
+              " inv);\n",
+         "      uint32_t u = 0;\n#pragma unroll\n      for (int v = 0; v < G::kVec; ++v)\n"
+         "        u ^= cur[v].x ^ cur[v].y ^ cur[v].z ^ cur[v].w;\n"
+         "      cosv[0] = __uint_as_float(u & 0x3fffffffu) + s_cent[0];\n"
+         "      cosv[1] = cosv[2] = cosv[3] = inv = 0.f;\n"),
+        (FWD, "        if (r.sel != 0.f) {  // rows without weight skip the softmax\n",
+         "        n += cosv[0];\n        if (false) {\n"),
         _CEN_MEMONLY]),
-    "fwd_stages3": (FWD_KERNELS[:1], [(FWD, _STAGES, "3;")]),
-    "fwd_stages4": (FWD_KERNELS[:1], [(FWD, _STAGES, "4;")]),
-    "fwd_blocks4": (FWD_KERNELS[:1], [(FWD, _FWD_BLOCKS, "constexpr int kFwdBlocksPerSM = 4;")]),
-    "fwd_blocks6": (FWD_KERNELS[:1], [(FWD, _FWD_BLOCKS, "constexpr int kFwdBlocksPerSM = 6;")]),
+    # one row in flight a thread: a row is loaded where it is used
+    "fwd_1row": (ROW_FWD, [(FWD, "kTwoRows = kRowBytes <= 64;", "kTwoRows = false;")]),
+    "fwd_blocks2": (ROW_FWD, [(FWD, _FWD_BLOCKS, "kBlocksPerSM = 2;")]),
+    # the prototypes in static shared memory (ptxas then spills)
+    "fwd_static": (ROW_FWD, [
+        (FWD, "  extern __shared__ __align__(128) unsigned char smem[];\n"
+              "  float* s_cent = reinterpret_cast<float*>(smem);\n",
+         "  __shared__ __align__(16) float s_cent[kC * F];\n")]),
+    "fwd_blocks4": (ROW_FWD, [(FWD, _FWD_BLOCKS, "kBlocksPerSM = 4;")]),
+    # the same kernels fed by a bulk-copy ring (see _RING); with 3 stages;
+    # with label and sel through a side area of the stage
+    "fwd_ring": (ROW_FWD, [_RING]),
+    "fwd_ring_stages3": (ROW_FWD, [_RING, (FWD, _STAGES, "3;")]),
+    "fwd_ring_side": (MPCL_FWD, [_RING, *_RING_SIDE]),
     # the centroids' rows in flight a thread and blocks per SM: two rows at
     # P = 1 (at 3 blocks per SM, 80 registers), four rows at 3 blocks per SM,
     # and four rows at P = 2
-    "fwd_rows2": (FWD_KERNELS[1:2], [(CEN, _CEN_ROWS, "constexpr int kRowsInFlight = 2;"),
-                                     _CEN_BLOCKS3]),
-    "fwd_cen_blocks3": (FWD_KERNELS[1:2], [_CEN_BLOCKS3]),
-    "fwd_rows4_p2": (FWD_KERNELS[2:], [(CEN, _CEN_ROWS, "constexpr int kRowsInFlight = 4;")]),
-    # the fused forward refills a stage before its softmax, not after
-    "fwd_earlyfill": (FWD_KERNELS[:1], [
-        (FWD, _REFILL, ""), (FWD, "    if (live) {\n      float s;\n",
-                             _REFILL + "    if (live) {\n      float s;\n")]),
+    "fwd_rows2": (CEN_FWD[:1], [(CEN, _CEN_ROWS, "constexpr int kRowsInFlight = 2;"),
+                                _CEN_BLOCKS3]),
+    "fwd_cen_blocks3": (CEN_FWD[:1], [_CEN_BLOCKS3]),
+    "fwd_rows4_p2": (CEN_FWD[1:], [(CEN, _CEN_ROWS, "constexpr int kRowsInFlight = 4;")]),
 }
 
 
@@ -129,6 +267,8 @@ def ptxas_of(log: str, symbol: str) -> list:
 
 
 def build_variants(names):
+    """Build each variant's libraries; returns (directory, the variants that
+    built). One that nvcc refuses is reported on stderr and left out."""
     from slcl_torch.ops.cuda import build
     out = build.BUILD_DIR / "variants"
     shutil.rmtree(out, ignore_errors=True)
@@ -147,12 +287,17 @@ def build_variants(names):
                    str(d / f"{lib}.cu")]
             procs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.STDOUT, text=True)))
+    failed = set()
     for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed for {lib}.cu\n{log}")
+            if name == "base":
+                raise SystemExit(f"nvcc failed for {lib}.cu\n{log}")
+            failed.add(name)
+            print(f"variant {name}: nvcc failed for {lib}.cu, left out\n{log}",
+                  file=sys.stderr)
         (out / name / f"{lib}.log").write_text(log)
-    return out
+    return out, [n for n in names if n not in failed]
 
 
 def main() -> int:
@@ -163,6 +308,7 @@ def main() -> int:
     from chip_smoke import C, F, M, time_ms
     from slcl_torch.ops.cuda import mpcl as K
     from slcl_torch.ops.cuda import mpcl_pseudo as KP
+    from slcl_torch.ops.cuda import pseudo_label as KL
     from slcl_torch.ops.cuda import ptr, raise_on_error, stream_of
     from slcl_torch.ops.cuda import soft_centroids as KC
 
@@ -173,7 +319,7 @@ def main() -> int:
         else:
             names.append(arg)
     names = ["base", *dict.fromkeys(n for n in names if n != "base")]
-    out = build_variants(names)
+    out, names = build_variants(names)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
@@ -189,14 +335,20 @@ def main() -> int:
     pstats = KP.mpcl_pseudo_fwd_cuda(feats, centers, T, tm, False, scale, th)
     d1, d2 = torch.empty_like(feats), torch.empty_like(feats)
     args = K._args(feats, labels, centers, sel, T, margin, False, scale)
+    args_nosel = K._args(feats, labels, centers, None, T, margin, False, scale)
     pargs = KP._args(feats, centers, T, tm, False, scale, th)
     stream = stream_of(feats)
     fstats = torch.empty(3, device=dev)
+    mstats = {k: torch.empty(3, device=dev) for k in MPCL_FWD}
+    plab = torch.empty(M, dtype=torch.int32, device=dev)
+    pmask = torch.empty(M, device=dev)
     cen_out = {P: (torch.empty(P, C, F, device=dev), torch.empty(P * C, device=dev),
                    torch.empty((), device=dev)) for P in (1, 2)}
     # what each kernel leaves behind, to hold a variant against base
     result = {"mpcl_bwd": lambda: d1, "mpcl_pseudo_bwd": lambda: d2,
-              "mpcl_pseudo_fwd": lambda: fstats, "soft_centroids_fwd": lambda: cen_out[1][0],
+              "mpcl_pseudo_fwd": lambda: fstats, "mpcl_fwd": lambda: mstats["mpcl_fwd"],
+              "mpcl_fwd_sel": lambda: mstats["mpcl_fwd_sel"],
+              "pseudo_label": lambda: pmask + plab, "soft_centroids_fwd": lambda: cen_out[1][0],
               "soft_centroids_fwd_p2": lambda: cen_out[2][0]}
 
     def loaded(path, sigs):
@@ -216,7 +368,8 @@ def main() -> int:
     calls = {}
     for name in names:
         libs = {lib: loaded(out / name / f"{lib}.so", mod._SIGS)
-                for lib, mod in (("mpcl", K), ("mpcl_pseudo", KP), ("soft_centroids", KC))
+                for lib, mod in (("mpcl", K), ("mpcl_pseudo", KP), ("pseudo_label", KL),
+                                 ("soft_centroids", KC))
                 if (out / name / f"{lib}.so").exists()}
         calls[name] = {}
         for kernel in VARIANTS[name][0]:
@@ -233,6 +386,16 @@ def main() -> int:
                 parts = torch.empty(2 * n.value, device=dev)
                 call = lambda lib=lib, parts=parts: lib.mpcl_pseudo_fwd(  # noqa: E731
                     *pargs, ptr(parts), ptr(fstats), stream)
+            elif kernel in MPCL_FWD:
+                n = ctypes.c_int()
+                raise_on_error(lib.mpcl_num_partials(1, M, F, ctypes.byref(n)), name)
+                parts = torch.empty(2 * n.value, device=dev)
+                a = args if kernel == "mpcl_fwd_sel" else args_nosel
+                call = lambda lib=lib, parts=parts, a=a, o=mstats[kernel]: (  # noqa: E731
+                    lib.mpcl_fwd(*a, ptr(parts), ptr(o), stream))
+            elif kernel == "pseudo_label":
+                call = lambda lib=lib: lib.pseudo_label(  # noqa: E731
+                    ptr(feats), 1, ptr(centers), M, F, C, th, ptr(plab), ptr(pmask), stream)
             else:
                 P = 2 if kernel.endswith("_p2") else 1
                 n = ctypes.c_int()
