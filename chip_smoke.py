@@ -5,7 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build: compile the four kernel libraries from ``slcl_torch/csrc`` with
-     nvcc for sm_90a, one nvcc per source, all started together;
+     nvcc for sm_90a, one nvcc per source, all started together; no
+     instantiation of a kernel that holds rows or sums in registers (the
+     read-only forwards, every soft-centroid kernel) may spill;
   2. kernels: hold each kernel against its plain PyTorch version on the
      card at the main path's shapes (M = 16*224*224 rows, F = 32, C = 4;
      bf16 and f32 features): values and gradients within the stated
@@ -28,31 +30,45 @@ Phases, in order; any failure raises and the script exits non-zero:
      fused backward. Each forward's streaming pass and final pass are timed
      apart, the MPCL forward for the step's call (no sel) and the two-op
      route's (with sel), and one torch.sum over the features is the
-     yardstick of a kernel that only reads;
+     yardstick of a kernel that only reads. The soft centroids' std variant
+     (MCCL's stdmin) is held against the plain version at the main shape,
+     the ragged ones and with out-of-range ids, both kernels launched twice
+     for bit-identity; the MCCL step's four centroid launches (soft weights,
+     P = 2 and P = 1, forward and backward) and their std variants are
+     timed; and the std-free kernels' outputs on fixed inputs must hash to
+     what the kernels gave before the std variant existed
+     (``STD_FREE_DIGEST``);
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
-     steps and two ``baseline`` steps on the card (kernels) against the same
-     steps on the CPU (plain versions), from the same weights and batches,
-     at a small size in f32;
+     steps, two ``baseline`` steps and two ``mccl`` steps in each forward
+     mode (stdmin and seg_pseudo on; one shared rMC draw) on the card
+     (kernels) against the same steps on the CPU (plain versions), from the
+     same weights and batches, at a small size in f32, with each method's
+     launch counts;
   4. train: the full-width ``method=slcl model.multilvl=true
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
      just after: each kernel must have run its per-step count every step,
      and every loss must be finite), then twenty timed steps, then three
      steps traced with torch.profiler for the device's busy time and the
-     kernels that take most of it;
+     kernels that take most of it; then the same for the ``mccl`` preset
+     (phead, P = 2, soft weights; 16 source + 16 + 16 target images);
   5. protocol: the SLCL protocol at the same width through the port's entry
      points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
      epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
      warm-started from both for two epochs (launch counts set to 0 just
      before and read just after), its final test with HD95/ASSD and KLC;
      the warm start's epoch -1 validation must equal AdvEnt's best, and a
-     saved and restored state must continue as the uninterrupted one.
+     saved and restored state must continue as the uninterrupted one. Then
+     ``mccl`` from the same AdvEnt checkpoint (which must keep the fresh
+     projection head) with a centre file of its own, two epochs, test and
+     the same restore check (the rMC draw follows the seed and the step).
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
-memory per block of each kernel) as one JSON line, the step timing and the
-protocol as one JSON line each, the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``. TF32 is off for matmuls
-and cuDNN. Run directories go to ``runs/`` in the checkout and are removed.
+memory per block of each kernel; the centroids' per instantiation) as one
+JSON line, the two step cells' timing and the protocol as one JSON line
+each, the card's name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
+directories go to ``runs/`` in the checkout and are removed.
 """
 from __future__ import annotations
 
@@ -73,6 +89,17 @@ M, F, C = 16 * 224 * 224, 32, 4
 # launches per slcl step; the fused target kernel takes pseudo_label's work
 PER_STEP = {"mpcl_fwd": 1, "mpcl_bwd": 1, "mpcl_pseudo_fwd": 1, "mpcl_pseudo_bwd": 1,
             "pseudo_label": 0, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1}
+# launches per mccl step: the rMC centroids at P = 2 on img_t and P = 1 on
+# img_t_aug, each 16 images (M rows)
+PER_STEP_MCCL = {**dict.fromkeys(PER_STEP, 0), "soft_centroids_fwd": 2,
+                 "soft_centroids_bwd": 2}
+PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL,
+              "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0)}
+# sha256 of the std-free centroid kernels' outputs on centroid_digest's
+# inputs, as the kernels of commit 98d6b0e (before the std variant) gave
+# them on an NVIDIA H100 80GB HBM3: the std variant must leave them bit for
+# bit as they were
+STD_FREE_DIGEST = "bc25075579b4582c5d1d2615392eed6e1f97663f5167cd45b3632fe4761d5a04"
 # published peaks: (HBM bytes/s, f32 non-tensor FLOP/s)
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12),
          "H200": (4.8e12, 67e12)}
@@ -85,9 +112,9 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "mpcl_pseudo_bwd": ("mpcl_pseudo", "mpcl_pseudo_bwdI13__nv_bfloat16Li32E"),
            "pseudo_label": ("pseudo_label", "pseudo_label_kernelI13__nv_bfloat16Li32E"),
            "soft_centroids_fwd": ("soft_centroids",
-                                  "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E"),
+                                  "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E"),
            "soft_centroids_bwd": ("soft_centroids",
-                                  "centroids_bwdI13__nv_bfloat16Li32ELi1E")}
+                                  "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE")}
 # (C query, its arguments) for each kernel's blocks per SM and shared memory
 # at the main path's instantiation; the query lives in SYMBOLS' source
 OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
@@ -95,13 +122,13 @@ OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
              "mpcl_pseudo_fwd": ("mpcl_pseudo_occupancy", (0, 1, F)),
              "mpcl_pseudo_bwd": ("mpcl_pseudo_occupancy", (1, 1, F)),
              "pseudo_label": ("pseudo_label_occupancy", (1, F)),
-             "soft_centroids_fwd": ("soft_centroids_occupancy", (0, 1, F, 1)),
-             "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1))}
+             "soft_centroids_fwd": ("soft_centroids_occupancy", (0, 1, F, 1, 0)),
+             "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1, 0))}
 # parts of a CUDA kernel's name by which the profiler counts it as the
-# port's, per source ("name<" for one kernel, "name_" for a family)
+# port's, per source ("name<" for one kernel, a prefix for a family)
 PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<"), "mpcl_pseudo": ("mpcl_pseudo_",),
                 "pseudo_label": ("pseudo_label_kernel",),
-                "soft_centroids": ("centroids_fwd_", "centroids_bwd<")}
+                "soft_centroids": ("centroids_fwd_", "centroids_bwd")}
 
 
 def log(msg: str) -> None:
@@ -143,20 +170,25 @@ def launch_split(fn, parts=None, iters: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     parts = parts or {"partial_ms": "_fwd_partial", "final_ms": "_fwd_final"}
-    us = dict.fromkeys(parts, 0.0)
-    seen = dict.fromkeys(parts, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for key, part in parts.items():
-                if part in e.name:
-                    us[key] += e.time_range.elapsed_us()
-                    seen[key] += 1
-    if not all(seen.values()):
+    # the profiler now and then keeps no device event of a whole window:
+    # profile again, at most three windows
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(parts, 0.0)
+        seen = dict.fromkeys(parts, 0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for key, part in parts.items():
+                    if part in e.name:
+                        us[key] += e.time_range.elapsed_us()
+                        seen[key] += 1
+        if all(seen.values()):
+            break
+    else:
         raise AssertionError(f"launch_split: the profiler saw {seen}")
     # a call launches each of its kernels once; the profiler may drop events,
     # so the mean is over the launches it kept
@@ -297,7 +329,8 @@ def check_fwd_shapes(g) -> None:
     row. The soft centroids, the fused target loss, the MPCL
     forward (with sel and without, labels out of range in the last three
     rows) and the pseudo-labels, each against its plain version at the main
-    shape's tolerances and launched twice for bit-identity."""
+    shape's tolerances and launched twice for bit-identity; the soft
+    centroids' std variant too."""
     import torch
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
@@ -305,6 +338,7 @@ def check_fwd_shapes(g) -> None:
     from slcl_torch.ops.cuda import soft_centroids as K_sc
 
     dev = torch.device("cuda")
+    g_std = torch.Generator(device=dev).manual_seed(7)
     T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
     for m, f, dtype in ((M - 37, F, torch.bfloat16), (M - 37, F, torch.float32),
                         (65_536 - 5, 16, torch.bfloat16), (65_536 - 5, 64, torch.float32),
@@ -333,6 +367,7 @@ def check_fwd_shapes(g) -> None:
                     tag = f"{what} soft_centroids P={P} soft={weighted} thd={thd}"
                     close(one[0], want, 1e-4, 1e-5, tag)
                     close(one[2], want_ratio, 1e-5, 0.0, tag + " ratio")
+        check_std_variant(feats, probs, assign, g_std, what, grads=m > 1000)
 
         cen = K_pl.normalize_rows(centers).contiguous()
         stats = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
@@ -390,6 +425,102 @@ def check_fwd_shapes(g) -> None:
         log(f"{what}: ok")
 
 
+def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) -> None:
+    """The soft centroids' std variant (kStd) against the plain version with
+    with_std, at P = 1 and 2, hard and soft, thd 0 and 0.4: two launches of
+    each kernel bit-identical; centroids, ratio and stddevs at the centroids'
+    tolerances; and, where ``grads``, dfeats and dprobs of sum(cents * dc) +
+    sum(std * ds) against autograd's at the std-free backward's. Without
+    ``grads`` (a few rows, where a class's variance is a difference of two
+    nearly equal sums) the values must be finite and the centroids and ratio
+    are held as above."""
+    import torch
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = feats.device
+    m, f = feats.shape
+    g_rtol = 1.6e-2 if feats.dtype == torch.bfloat16 else 2e-3
+    dstd = torch.randn(C, generator=g, device=dev)
+    for P in (1, 2):
+        dc = torch.randn(P, C, f, generator=g, device=dev)
+        a = assign if P > 1 else None
+        for weighted in (False, True):
+            for thd in (0.0, 0.4):
+                tag = f"{what} std P={P} soft={weighted} thd={thd}"
+                one = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, thd, weighted,
+                                                   with_std=True)
+                two = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, thd, weighted,
+                                                   with_std=True)
+                if not all(torch.equal(x, y) for x, y in zip(one, two)):
+                    raise AssertionError(f"{tag}: two forward launches differ")
+                cents, counts, ratio, std, s2 = one
+                x = feats.detach().requires_grad_(True)
+                pr = probs.detach().requires_grad_(True)
+                w_c, w_r, w_s = K_sc.soft_centroids_plain(x, pr, a, partition=P, threshold=thd,
+                                                          weighted=weighted, with_std=True)
+                close(cents, w_c.detach(), 1e-4, 1e-5, tag + " cents")
+                close(ratio, w_r, 1e-5, 0.0, tag + " ratio")
+                if not bool(torch.isfinite(std).all() & torch.isfinite(s2).all()):
+                    raise AssertionError(f"{tag}: non-finite std")
+                if not grads:
+                    continue
+                close(std, w_s.detach(), 1e-4, 1e-5, tag + " std")
+                want = torch.autograd.grad((w_c * dc).sum() + (w_s * dstd).sum(),
+                                           [x, pr] if weighted else [x])
+                d1 = K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, thd, weighted, dc, cents,
+                                                  counts, weighted, dstd=dstd, std=std, s2=s2)
+                d2 = K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, thd, weighted, dc, cents,
+                                                  counts, weighted, dstd=dstd, std=std, s2=s2)
+                if not (torch.equal(d1[0], d2[0])
+                        and (not weighted or torch.equal(d1[1], d2[1]))):
+                    raise AssertionError(f"{tag}: two backward launches differ")
+                close(d1[0], want[0], g_rtol, 1e-3 * float(want[0].abs().max()),
+                      tag + " dfeats")
+                if weighted:
+                    close(d1[1], want[1], 2e-3, 1e-3 * float(want[1].abs().max()),
+                          tag + " dprobs")
+
+
+def centroid_digest() -> str:
+    """sha256 over the std-free soft-centroid kernels' outputs, forward
+    (centroids, counts, ratio) and backward (dfeats, dprobs), at P = 1 and 2,
+    hard and soft, thd 0 and 0.4, bf16 and f32 features, M - 37 rows, on
+    inputs made with numpy from a fixed seed (uniform bits only, so the
+    inputs are the same on any host). Calls only the wrappers' std-free
+    signatures, which the kernels had before the std variant."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2024)
+    m = M - 37
+    f32 = (rng.random((m, F), dtype=np.float32) - np.float32(0.5)) * np.float32(4.0)
+    u = rng.random((m, C), dtype=np.float32) + np.float32(0.05)
+    probs = torch.from_numpy(u / u.sum(axis=1, keepdims=True)).to(dev)
+    assign = torch.from_numpy(rng.integers(0, 2, m).astype(np.int32)).to(dev)
+    dcents = {P: torch.from_numpy(rng.random((P, C, F), dtype=np.float32) - np.float32(0.5)
+                                  ).to(dev) for P in (1, 2)}
+    h = hashlib.sha256()
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = torch.from_numpy(f32).to(dev).to(dtype)
+        for P in (1, 2):
+            a = assign if P > 1 else None
+            for weighted in (False, True):
+                for thd in (0.0, 0.4):
+                    cents, counts, ratio = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P,
+                                                                        thd, weighted)
+                    dfeats, dprobs = K_sc.soft_centroids_bwd_cuda(
+                        feats, probs, a, P, thd, weighted, dcents[P], cents, counts, weighted)
+                    for t in (cents, counts, ratio, dfeats, dprobs):
+                        if t is not None:
+                            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    torch.cuda.synchronize()
+    return h.hexdigest()
+
+
 def check_kernels(peaks) -> list:
     """Phase 2: every kernel against its plain version; returns the table."""
     import torch
@@ -400,6 +531,9 @@ def check_kernels(peaks) -> list:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    # the std variant's and the MCCL rows' inputs: their own stream, so the
+    # other checks see the inputs they always had
+    g_std = torch.Generator(device=dev).manual_seed(6)
     rows = {}
     T, base_T, margin = 0.1, 1.0, 0.4
     for dtype in (torch.float32, torch.bfloat16):
@@ -641,7 +775,10 @@ def check_kernels(peaks) -> list:
                         rows["soft_centroids_fwd"]["p2_ms"] = time_ms(
                             lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, assign, 2,
                                                                  0.0, False))
-        log(f"soft_centroids {tag}: ok")
+        check_std_variant(feats, probs, assign, g_std, f"soft_centroids {tag}")
+        log(f"soft_centroids {tag}: ok, std variant ok")
+        if tag == "bf16":
+            mccl_rows(rows, feats, probs, assign, g_std, peaks)
         torch.cuda.synchronize()
     # what the card's memory gives one PyTorch call that only reads the
     # (bf16) features
@@ -652,12 +789,55 @@ def check_kernels(peaks) -> list:
     return rows, read_only_ms
 
 
+def mccl_rows(rows, feats, probs, assign, g, peaks) -> None:
+    """The MCCL step's four centroid launches (soft weights, f32 probs, P = 2
+    on img_t and P = 1 on img_t_aug, forward and backward with dprobs) and
+    the same with the std variant, timed at the main shape, each with its
+    bound; no one PyTorch call computes any of them (library: none)."""
+    import torch
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    es = feats.element_size()
+    dstd = torch.randn(C, generator=g, device=feats.device)
+    fwd, bwd = {}, {}
+    for P in (1, 2):
+        a = assign if P > 1 else None
+        ids = 4 * M if P > 1 else 0       # the int32 partition ids
+        dc = torch.randn(P, C, F, generator=g, device=feats.device)
+        cents, counts, _ = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True)
+        _, _, _, std, s2 = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True,
+                                                        with_std=True)
+        # feats and probs read (+ ids); the (P*C, F) outputs are negligible
+        fwd_bytes = M * (F * es + 4 * C) + ids
+        bwd_bytes = 2 * M * (F * es + 4 * C) + ids     # + dfeats and dprobs written
+        fwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
+            feats, probs, a, P, 0.0, True))
+        fwd[f"p{P}_bound_ms"] = bound(fwd_bytes, 2 * M * F * C, peaks)[0]
+        fwd[f"std_p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
+            feats, probs, a, P, 0.0, True, with_std=True))
+        fwd[f"std_p{P}_bound_ms"] = bound(fwd_bytes, 5 * M * F * C, peaks)[0]
+        bwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
+            feats, probs, a, P, 0.0, True, dc, cents, counts, True))
+        bwd[f"p{P}_bound_ms"] = bound(bwd_bytes, 4 * M * F * C, peaks)[0]
+        bwd[f"std_p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
+            feats, probs, a, P, 0.0, True, dc, cents, counts, True, dstd=dstd, std=std,
+            s2=s2))
+        bwd[f"std_p{P}_bound_ms"] = bound(bwd_bytes, 8 * M * F * C, peaks)[0]
+        fwd.update({f"p{P}_" + k: v for k, v in launch_split(
+            lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True)).items()})
+        fwd.update({f"std_p{P}_" + k: v for k, v in launch_split(
+            lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True,
+                                                 with_std=True)).items()})
+    rows["soft_centroids_fwd"]["mccl"] = fwd
+    rows["soft_centroids_bwd"]["mccl"] = bwd
+
+
 def small_config(method: str = "slcl"):
     from slcl_torch.config import Config, apply_recipe
     cfg = Config()
     cfg.method = method
     cfg = apply_recipe(cfg)
-    cfg.model.multilvl = True
+    cfg.model.multilvl = method != "mccl"     # the MCCL preset: phead, no aux head
     cfg.data.dataset = "synthetic"
     cfg.data.bs, cfg.data.crop = 2, 32
     cfg.data.num_workers = 1
@@ -666,18 +846,43 @@ def small_config(method: str = "slcl"):
     return cfg
 
 
+def shared_draw(seed: int):
+    """An rMC draw for make_mccl_step's ``draw_assign``: ids from a CPU
+    generator seeded per call, then moved to the step's device, so that a
+    step on the card and one on the CPU take the same partitions."""
+    import torch
+    calls = [0]
+
+    def draw(m: int, P: int, device):
+        g = torch.Generator().manual_seed(seed + calls[0])
+        calls[0] += 1
+        return torch.randint(0, P, (m,), generator=g, dtype=torch.int32).to(device)
+    return draw
+
+
 def check_small_steps() -> None:
     """Phase 3: for each method, two steps on the card vs two on the CPU,
-    same start."""
+    same start; mccl in both forward modes with stdmin and seg_pseudo on,
+    the card's and the CPU's steps taking one shared rMC draw."""
     import torch
     from slcl_torch.data import to_device
     from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.steps import build_step
     from slcl_torch.train.trainer import Trainer
 
-    for method in ("slcl", "advent", "baseline"):
+    runs = [("slcl", False), ("advent", False), ("baseline", False), ("mccl", False),
+            ("mccl", True)]
+    for method, concat in runs:
         cfg = small_config(method)
+        if method == "mccl":
+            cfg.contrastive.concat_forward = concat
+            cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
+            cfg.contrastive.seg_pseudo = True
         cpu = Trainer(cfg, device="cpu")
         gpu = Trainer(cfg, device="cuda")
+        if method == "mccl":
+            for t in (cpu, gpu):
+                t.step_fn = build_step(cfg, t.centroids_loaded, draw_assign=shared_draw(5))
         batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
         sched = cpu._sched(0)
         reset_launch_counts()
@@ -691,13 +896,13 @@ def check_small_steps() -> None:
                 # near-tie would move loss_mpscl_tg by O(1/M)
                 close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {method} step {i} {k}")
         counts = launch_counts()
-        for name, per in PER_STEP.items():
-            want = 2 * per if method == "slcl" else 0
-            if counts[name] != want:
+        for name, per in PER_METHOD[method].items():
+            if counts[name] != 2 * per:
                 raise AssertionError(f"small {method}: {name} launched {counts[name]} "
-                                     f"times, expected {want}")
+                                     f"times, expected {2 * per}")
         torch.cuda.synchronize()
-        log(f"small {method}: card matches CPU over two steps")
+        log(f"small {method}{' concat_forward' if concat else ''}: card matches CPU over "
+            "two steps")
 
 
 def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
@@ -732,12 +937,20 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
             "device_busy_ms_per_step": busy_us / n / 1e3,
             "idle_share": 1.0 - busy_us / wall_us,
+            "port_kernels_share": (by_cat.get("port_kernels", 0.0) / busy_us
+                                   if busy_us else None),
             "by_category_ms_per_step": {c: v / n / 1e3 for c, v in by_cat.items()},
             "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top]}
 
 
-def train_full_width(work: Path) -> dict:
-    """Phase 4: the full-width recipe through the port's Trainer."""
+# parameters of the full-width DRUNet of each step cell: multilvl (slcl),
+# phead without the aux head (mccl's preset)
+N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036}
+
+
+def train_full_width(work: Path, method: str = "slcl") -> dict:
+    """Phase 4: one full-width recipe through the port's Trainer: ``slcl``
+    with multilvl (the main path), or the ``mccl`` preset."""
     import torch
     from slcl_torch.config import Config, apply_recipe
     from slcl_torch.data import device_prefetch
@@ -745,17 +958,18 @@ def train_full_width(work: Path) -> dict:
     from slcl_torch.train.trainer import Trainer
 
     cfg = Config()
-    cfg.method = "slcl"
+    cfg.method = method
     cfg = apply_recipe(cfg)
-    cfg.model.multilvl = True
+    cfg.model.multilvl = method == "slcl"
     cfg.data.dataset = "synthetic"
     cfg.optim.epochs = 1
     cfg.run.out_dir = str(work)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg)
     n_params = sum(p.numel() for p in trainer.state.seg.parameters())
-    if n_params != 13_484_104:
-        raise AssertionError(f"DRUNet multilvl has {n_params} parameters")
+    if n_params != N_PARAMS[method]:
+        raise AssertionError(f"{method}: DRUNet has {n_params} parameters")
     steps_per_epoch = len(trainer.datasets["train_s"]) // cfg.data.bs
 
     reset_launch_counts()
@@ -764,15 +978,15 @@ def train_full_width(work: Path) -> dict:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t1
     counts = launch_counts()
-    for name, per in PER_STEP.items():
+    for name, per in PER_METHOD[method].items():
         if counts[name] != steps_per_epoch * per:
-            raise AssertionError(f"train: {name} launched {counts[name]} times in "
+            raise AssertionError(f"train {method}: {name} launched {counts[name]} times in "
                                  f"{steps_per_epoch} steps, expected "
                                  f"{steps_per_epoch * per}")
     bad = {k: v for k, v in means.items() if not math.isfinite(v)}
     if bad:
-        raise AssertionError(f"train: non-finite losses {bad}")
-    log(f"train epoch: {steps_per_epoch} steps in {epoch_s:.2f} s, means {means}")
+        raise AssertionError(f"train {method}: non-finite losses {bad}")
+    log(f"train {method} epoch: {steps_per_epoch} steps in {epoch_s:.2f} s, means {means}")
 
     batches = list(device_prefetch(trainer._epoch_batches(), trainer.device))
     sched = trainer._sched(0)
@@ -794,7 +1008,7 @@ def train_full_width(work: Path) -> dict:
         each.append((time.perf_counter() - t3) * 1e3)
     each.sort()
     prof = profile_steps(trainer, batches, sched)
-    return {"step_ms": step_ms, "timed_steps": n_timed,
+    return {"method": method, "step_ms": step_ms, "timed_steps": n_timed,
             "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
             "profile": prof,
             "src_img_per_s": cfg.data.bs / step_ms * 1e3,
@@ -809,6 +1023,8 @@ def _same_state(a, b) -> None:
     """Raise unless two trainers hold bit-identical networks, centres, step."""
     import torch
     for net in ("seg", "d_main", "d_aux"):
+        if getattr(a.state, net) is None:
+            continue
         sa, sb = getattr(a.state, net).state_dict(), getattr(b.state, net).state_dict()
         bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
         if bad:
@@ -817,12 +1033,43 @@ def _same_state(a, b) -> None:
         raise AssertionError("restore: centres or step differ")
 
 
+def resumed_step_diff(args, method: str) -> float:
+    """Save -> restore -> one more step against the uninterrupted step, from
+    the run's last checkpoint (``args`` of the CLI run); returns the largest
+    parameter difference."""
+    import torch
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.train import __main__ as train_cli
+    from slcl_torch.train.trainer import Trainer
+
+    cfg, _, _ = train_cli.parse_args(args, method)
+    a = Trainer(cfg)
+    a.restore_checkpoint("last")
+    batches = [b for _, b in zip(range(2), device_prefetch(a._epoch_batches(), a.device))]
+    sched = a._sched(1)
+    a.step_fn(a.state, batches[0], sched)
+    a.save_checkpoint("resume")
+    b = Trainer(cfg)
+    b.restore_checkpoint("resume")
+    _same_state(a, b)
+    ma = a.step_fn(a.state, batches[1], sched)
+    mb = b.step_fn(b.state, batches[1], sched)
+    for k in ma:
+        close(mb[k], ma[k], 1e-5, 0.0, f"resumed {method} step {k}")
+    # the backward's atomics (bilinear upsampling, cuDNN) sum in no fixed
+    # order, so the two updates may differ in the last bits
+    diff = max(float((pa - pb).abs().max()) for pa, pb in
+               zip(a.state.seg.state_dict().values(), b.state.seg.state_dict().values()))
+    if diff > 1e-6:
+        raise AssertionError(f"resumed {method} step: parameters differ by {diff}")
+    return diff
+
+
 def protocol_full_width(work: Path) -> dict:
     """Phase 5: AdvEnt -> class centres -> slcl fine-tune -> final test,
     through the port's entry points at full width."""
     import numpy as np
     import torch
-    from slcl_torch.data import device_prefetch
     from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
     from slcl_torch.scripts import gen_class_centers
     from slcl_torch.train import __main__ as train_cli
@@ -859,29 +1106,53 @@ def protocol_full_width(work: Path) -> dict:
         if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"protocol: {split} metrics {fine[split]}")
 
-    # save -> restore -> one more step, against the uninterrupted step
-    cfg, _, _ = train_cli.parse_args(slcl_args, "slcl")
-    a = Trainer(cfg)
-    a.restore_checkpoint("last")
-    batches = [b for _, b in zip(range(2), device_prefetch(a._epoch_batches(), a.device))]
-    sched = a._sched(1)
-    a.step_fn(a.state, batches[0], sched)
-    a.save_checkpoint("resume")
-    b = Trainer(cfg)
-    b.restore_checkpoint("resume")
-    _same_state(a, b)
-    ma = a.step_fn(a.state, batches[1], sched)
-    mb = b.step_fn(b.state, batches[1], sched)
-    for k in ma:
-        close(mb[k], ma[k], 1e-5, 0.0, f"resumed step {k}")
-    # the backward's atomics (bilinear upsampling, cuDNN) sum in no fixed
-    # order, so the two updates may differ in the last bits
-    diff = max(float((pa - pb).abs().max()) for pa, pb in
-               zip(a.state.seg.state_dict().values(), b.state.seg.state_dict().values()))
-    if diff > 1e-6:
-        raise AssertionError(f"resumed step: parameters differ by {diff}")
+    diff = resumed_step_diff(slcl_args, "slcl")
+
+    # MCCL from the same AdvEnt checkpoint: the warm start keeps the fresh
+    # phead (AdvEnt has none), its own centre file (features through that
+    # phead), two epochs through the CLI
+    mccl_base = [a for a in base if a != "model.multilvl=true"] + ["model.multilvl=false"]
+    mcfg, _, _ = train_cli.parse_args(["method=mccl", *mccl_base], "mccl")
+    fresh = Trainer(mcfg)
+    phead0 = {k: v.clone() for k, v in fresh.state.seg.state_dict().items() if "phead" in k}
+    fresh.restore_checkpoint(str(best), params_only=True)
+    warm = fresh.state.seg.state_dict()
+    saved = torch.load(best, map_location="cuda", weights_only=True)["seg"]
+    if (len(phead0) != 4 or any(not torch.equal(warm[k], v) for k, v in phead0.items())
+            or any(not torch.equal(warm[k], saved[k]) for k in warm if "phead" not in k)):
+        raise AssertionError("protocol: the mccl warm start did not keep the fresh phead "
+                             "and load the rest")
+    del fresh, warm, saved
+    mccl_centres_path = work / "centers_mccl.npy"
+    mccl_centres = gen_class_centers.main(["method=mccl", *mccl_base,
+                                           f"run.restore_from={best}",
+                                           f"out={mccl_centres_path}"])
+    if not (np.isfinite(mccl_centres).all() and mccl_centres.any()):
+        raise AssertionError("protocol: bad mccl centre file")
+    mccl_args = ["method=mccl", *mccl_base, "optim.lr=2e-4", f"run.init_from={best}",
+                 f"contrastive.init_centers={mccl_centres_path}"]
+    reset_launch_counts()
+    mccl = train_cli.main(mccl_args)
+    mccl_counts = launch_counts()
+    for name, per in PER_STEP_MCCL.items():
+        if mccl_counts[name] != steps * per:
+            raise AssertionError(f"protocol mccl: {name} launched {mccl_counts[name]} times "
+                                 f"in {steps} steps, expected {steps * per}")
+    if [r["epoch"] for r in mccl["history"]] != [-1, 0, 1]:
+        raise AssertionError(f"protocol mccl: epochs {mccl['history']}")
+    init = mccl["history"][0]
+    for split in ("test", "test_s"):
+        vals = [v for k in ("dc", "hd", "asd") for v in mccl[split][k]]
+        if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"protocol mccl: {split} metrics {mccl[split]}")
+    mccl_diff = resumed_step_diff(mccl_args, "mccl")
     torch.cuda.synchronize()
     return {"seconds": time.perf_counter() - t0,
+            "mccl_val_dice": {r["epoch"]: r["val_dice"] for r in mccl["history"]},
+            "mccl_init_val_dice": init["val_dice"], "mccl_best_epoch": mccl["best_epoch"],
+            "mccl_test_dice_hd95_assd": [mccl["test"][k][0::2] for k in ("dc", "hd", "asd")],
+            "mccl_centre_norms": np.linalg.norm(mccl_centres, axis=1).tolist(),
+            "mccl_resume_max_param_diff": mccl_diff, "mccl_launches": mccl_counts,
             "advent_val_dice": [r["val_dice"] for r in adv["history"]],
             "slcl_val_dice": {r["epoch"]: r["val_dice"] for r in fine["history"]},
             "slcl_best_epoch": fine["best_epoch"],
@@ -912,16 +1183,29 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"built {len(build.SOURCES)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    # no instantiation (any F, bf16 or f32, P, std or not) of the kernels
+    # that hold rows or sums in registers may spill, not only the main path's
+    for src in ("mpcl", "mpcl_pseudo", "pseudo_label", "soft_centroids"):
+        for fn, regs, spill in build.ptxas_report(src):
+            if spill and ("fwd_partial" in fn or "pseudo_label_kernel" in fn
+                          or src == "soft_centroids"):
+                raise AssertionError(f"{fn} spills {spill} bytes at {regs} registers")
 
     # the phases' own prints (the trainer's epoch lines and test tables) go
     # to stderr: stdout carries the result lines only
     with contextlib.redirect_stdout(sys.stderr):
         rows, read_only_ms = check_kernels(peaks)
+        digest = centroid_digest()
+        if digest != STD_FREE_DIGEST:
+            raise AssertionError(f"the std-free centroid kernels' outputs changed: digest "
+                                 f"{digest}, before the std variant {STD_FREE_DIGEST}")
+        log("std-free centroid kernels: outputs bit-identical to commit 98d6b0e's")
         check_small_steps()
         (ROOT / "runs").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
         try:
             train = train_full_width(work)
+            train_mccl = train_full_width(work, "mccl")
             protocol = protocol_full_width(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -933,13 +1217,17 @@ def main() -> int:
         entry = {"name": kname, "route": "cuda", "source": k.source,
                  "replaces": k.replaces, "launches": train["launches"][kname],
                  "launches_per_step": train["launches"][kname] / train["steps_per_epoch"],
+                 "mccl_launches_per_step": (train_mccl["launches"][kname]
+                                            / train_mccl["steps_per_epoch"]),
                  "launches_protocol": protocol["launches"][kname],
+                 "launches_protocol_mccl": protocol["mccl_launches"][kname],
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
         for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms", "partial_ms",
                       "final_ms", "p2_ms", "kernel_ms", "sel_ms", "sel_plain_ms",
-                      "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err"):
+                      "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err",
+                      "mccl"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -949,25 +1237,30 @@ def main() -> int:
         blocks, smem = occupancy(getattr(lib, query), *args)
         entry.update(registers=regs, spill_store_bytes=spill, blocks_per_sm=blocks,
                      smem_bytes=smem)
-        if kname == "soft_centroids_fwd":   # the same with two partitions
-            ((regs, spill),) = [(r, sp) for fn, r, sp in build.ptxas_report(src)
-                                if sym.replace("Li1E", "Li2E") in fn]
-            blocks, smem = occupancy(getattr(lib, query), *args[:-1], 2)
-            entry.update(p2_registers=regs, p2_spill_store_bytes=spill,
-                         p2_blocks_per_sm=blocks, p2_smem_bytes=smem)
-        if entry["spill_store_bytes"] or entry.get("p2_spill_store_bytes"):
+        if kname.startswith("soft_centroids"):
+            # P = 1 and 2, with and without the std: registers / spill bytes /
+            # blocks per SM / shared memory bytes
+            inst = {}
+            for P in (1, 2):
+                for std in (0, 1):
+                    isym = sym.replace("Li1E", f"Li{P}E")
+                    if std:   # the forward's template switch; the backward's kernel
+                        isym = isym.replace("Lb0E", "Lb1E").replace("centroids_bwdI",
+                                                                    "centroids_bwd_stdI")
+                    ((r, sp),) = [(r, sp) for fn, r, sp in build.ptxas_report(src)
+                                  if isym in fn]
+                    bl, sm = occupancy(getattr(lib, query), *args[:3], P, std)
+                    inst[f"p{P}" + ("_std" if std else "")] = [r, sp, bl, sm]
+            entry["instantiations"] = inst
+        if entry["spill_store_bytes"]:
             raise AssertionError(f"{kname} spills registers: {entry}")
         table.append(entry)
     if {e["name"] for e in table} != set(PER_STEP):
         raise AssertionError("kernel table incomplete")
-    # the kernels that hold a row in registers: no instantiation (any F, bf16
-    # or f32) may spill, not only the main path's
-    for src in ("mpcl", "mpcl_pseudo", "pseudo_label"):
-        for fn, regs, spill in build.ptxas_report(src):
-            if spill and ("fwd_partial" in fn or "pseudo_label_kernel" in fn):
-                raise AssertionError(f"{fn} spills {spill} bytes at {regs} registers")
-    print(json.dumps({"kernels": table, "read_only_ms": read_only_ms}))
+    print(json.dumps({"kernels": table, "read_only_ms": read_only_ms,
+                      "std_free_digest": digest}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train_mccl": train_mccl}))
     print(json.dumps({"protocol": protocol}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

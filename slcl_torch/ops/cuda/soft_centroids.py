@@ -6,6 +6,9 @@ The forward kernel (``slcl_torch/csrc/soft_centroids.cu``) replaces
 kernel is forward-only; CNR backpropagates through the target centroids
 into the features (and, with soft weights, into the probabilities), which
 jnp autodiff does on the JAX main path, so the port adds a backward kernel.
+With ``with_std`` both kernels also take MCCL's per-class feature spread
+around partition 0's centroid (``CentroidResult.stddevs``,
+``slcl_tpu/ops/centroids.py:137-146``) and its gradient, in the same pass.
 """
 from __future__ import annotations
 
@@ -24,12 +27,12 @@ BWD = register("soft_centroids_bwd", "slcl_torch/csrc/soft_centroids.cu",
 
 _EPS = 1e-7
 _SIGS = {
-    "soft_centroids_partials_size": (I32, [I32, I32, I32, I32, I32, IP]),
+    "soft_centroids_partials_size": (I32, [I32, I32, I32, I32, I32, I32, IP]),
     "soft_centroids_fwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
-                                 VP, VP, VP, VP, VP]),
+                                 VP, VP, VP, VP, VP, VP, VP]),
     "soft_centroids_bwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
-                                 VP, VP, VP, VP, VP, VP]),
-    "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, IP, IP]),
+                                 VP, VP, VP, VP, VP, VP, VP, VP, VP]),
+    "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, I32, IP, IP]),
 }
 
 
@@ -42,12 +45,16 @@ def certain_mask(probs: torch.Tensor, threshold: float) -> torch.Tensor:
 
 def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
                          assign: Optional[torch.Tensor] = None, *, partition: int = 1,
-                         threshold: float = 0.0, weighted: bool = True
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         threshold: float = 0.0, weighted: bool = True,
+                         with_std: bool = False) -> Tuple[torch.Tensor, ...]:
     """(M, F) feats, (M, C) probs, (M,) partition ids -> (centroids (P, C, F),
-    ratio). Differentiable by autograd. Follows
+    ratio), and with ``with_std`` the per-class stddevs (C,) third.
+    Differentiable by autograd. Follows
     ``slcl_tpu/ops/centroids.py::target_soft_centroids`` with the partition
-    assignment given."""
+    assignment given: the stddevs take the weights of all partitions,
+    W = sum w + 1e-7 and S2 = sum w f^2, around partition 0's centroid,
+    std = sqrt(mean_f max(S2 / W - c0^2, 0) + 1e-7). A row whose id lies
+    outside [0, P) has no weight in either."""
     feats = feats.float()
     probs = probs.float()
     C = probs.shape[1]
@@ -64,13 +71,22 @@ def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
         a = assign.long()
         ok = (a >= 0) & (a < partition)
         part = F.one_hot(torch.where(ok, a, 0), partition).float() * ok[:, None].float()
-        w_flat = (weights[:, None, :] * part[:, :, None]).reshape(-1, partition * C)
+        w_pc = weights[:, None, :] * part[:, :, None]
+        w_flat = w_pc.reshape(-1, partition * C)
         sums = (w_flat.T @ feats).reshape(partition, C, -1)
         counts = w_flat.sum(dim=0).reshape(partition, C, 1)
-        return sums / (counts + _EPS), ratio
-    sums = weights.T @ feats
-    counts = weights.sum(dim=0)[:, None]
-    return (sums / (counts + _EPS))[None], ratio
+        cents = sums / (counts + _EPS)
+        weights = w_pc.sum(dim=1)       # the rows' weights in any partition
+    else:
+        sums = weights.T @ feats
+        counts = weights.sum(dim=0)[:, None]
+        cents = (sums / (counts + _EPS))[None]
+    if not with_std:
+        return cents, ratio
+    w_total = weights.sum(dim=0)[:, None] + _EPS
+    mean_sq = (weights.T @ (feats * feats)) / w_total
+    var = torch.maximum(mean_sq - cents[0] * cents[0], torch.zeros_like(mean_sq))
+    return cents, ratio, torch.sqrt(var.mean(dim=-1) + _EPS)
 
 
 def _check_inputs(feats, probs, assign, partition):
@@ -86,8 +102,10 @@ def _check_inputs(feats, probs, assign, partition):
         check(assign, "assign", (torch.int32,), (m,), feats.device)
 
 
-def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted):
-    """Launch the forward; returns (centroids (P, C, F), counts (P*C,), ratio)."""
+def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted,
+                            with_std: bool = False):
+    """Launch the forward; returns (centroids (P, C, F), counts (P*C,), ratio),
+    and with ``with_std`` also (stddevs (C,), S2 (C, F)): the std variant."""
     _check_inputs(feats, probs, assign, partition)
     m, f = feats.shape
     C = probs.shape[1]
@@ -97,25 +115,32 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
     n_part = ctypes.c_int()
     with torch.cuda.device(dev):
         raise_on_error(lib.soft_centroids_partials_size(bf16, m, f, partition, C,
+                                                        int(with_std),
                                                         ctypes.byref(n_part)),
                        "soft_centroids_partials_size")
         parts = torch.empty(n_part.value, dtype=torch.float32, device=dev)
         cents = torch.empty((partition, C, f), dtype=torch.float32, device=dev)
         counts = torch.empty(partition * C, dtype=torch.float32, device=dev)
         ratio = torch.empty((), dtype=torch.float32, device=dev)
+        std = torch.empty(C, dtype=torch.float32, device=dev) if with_std else None
+        s2 = torch.empty((C, f), dtype=torch.float32, device=dev) if with_std else None
         rc = lib.soft_centroids_fwd(
             ptr(feats), bf16, ptr(probs),
             ptr(assign) if partition > 1 else None, m, f, C, partition,
             float(threshold), int(weighted), ptr(parts), ptr(cents), ptr(counts),
-            ptr(ratio), stream_of(feats))
+            ptr(ratio), ptr(s2), ptr(std), stream_of(feats))
     raise_on_error(rc, "soft_centroids_fwd")
     FWD.launches += 1
+    if with_std:
+        return cents, counts, ratio, std, s2
     return cents, counts, ratio
 
 
 def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted,
-                            dcents, cents, counts, need_dprobs: bool):
-    """Launch the backward; returns (dfeats in feats' dtype, dprobs or None)."""
+                            dcents, cents, counts, need_dprobs: bool,
+                            dstd=None, std=None, s2=None):
+    """Launch the backward; returns (dfeats in feats' dtype, dprobs or None).
+    ``dstd`` (C,) takes the std variant, with the forward's ``std`` and ``s2``."""
     _check_inputs(feats, probs, assign, partition)
     m, f = feats.shape
     C = probs.shape[1]
@@ -123,6 +148,10 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
     check(dcents, "dcents", (torch.float32,), (partition, C, f), dev)
     check(cents, "cents", (torch.float32,), (partition, C, f), dev)
     check(counts, "counts", (torch.float32,), (partition * C,), dev)
+    if dstd is not None:
+        check(dstd, "dstd", (torch.float32,), (C,), dev)
+        check(std, "std", (torch.float32,), (C,), dev)
+        check(s2, "s2", (torch.float32,), (C, f), dev)
     lib = build.load("soft_centroids", _SIGS)
     dfeats = torch.empty_like(feats)
     dprobs = (torch.empty_like(probs) if (need_dprobs and weighted) else None)
@@ -131,7 +160,9 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
             ptr(feats), int(feats.dtype == torch.bfloat16), ptr(probs),
             ptr(assign) if partition > 1 else None, m, f, C, partition,
             float(threshold), int(weighted), ptr(dcents), ptr(cents), ptr(counts),
-            ptr(dfeats), ptr(dprobs), stream_of(feats))
+            ptr(dfeats), ptr(dprobs), ptr(dstd),
+            ptr(s2) if dstd is not None else None,
+            ptr(std) if dstd is not None else None, stream_of(feats))
     raise_on_error(rc, "soft_centroids_bwd")
     BWD.launches += 1
     return dfeats, dprobs          # hard weights: None, no gradient to probs
@@ -139,32 +170,42 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
 
 class _SoftCentroidsFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, probs, assign, partition, threshold, weighted):
-        cents, counts, ratio = soft_centroids_fwd_cuda(feats, probs, assign, partition,
-                                                       threshold, weighted)
-        ctx.save_for_backward(feats, probs, assign, cents, counts)
+    def forward(ctx, feats, probs, assign, partition, threshold, weighted, with_std):
+        out = soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold,
+                                      weighted, with_std)
+        cents, counts, ratio = out[:3]
+        ctx.save_for_backward(feats, probs, assign, cents, counts, *out[3:])
         ctx.consts = (partition, threshold, weighted)
         ctx.mark_non_differentiable(ratio)
-        return cents, ratio
+        # an output the loss does not use gets None, not zeros: the backward
+        # then takes the std variant only when the std has a gradient
+        ctx.set_materialize_grads(False)
+        return (cents, ratio, out[3]) if with_std else (cents, ratio)
 
     @staticmethod
-    def backward(ctx, dcents, _dratio):
-        feats, probs, assign, cents, counts = ctx.saved_tensors
+    def backward(ctx, dcents, _dratio, dstd=None):
+        feats, probs, assign, cents, counts, *std_s2 = ctx.saved_tensors
         partition, threshold, weighted = ctx.consts
+        dcents = torch.zeros_like(cents) if dcents is None else dcents.float().contiguous()
+        std_args = {}
+        if dstd is not None:
+            std_args = dict(dstd=dstd.float().contiguous(), std=std_s2[0], s2=std_s2[1])
         dfeats, dprobs = soft_centroids_bwd_cuda(
-            feats, probs, assign, partition, threshold, weighted,
-            dcents.float().contiguous(), cents, counts, ctx.needs_input_grad[1])
-        return dfeats, dprobs, None, None, None, None
+            feats, probs, assign, partition, threshold, weighted, dcents, cents, counts,
+            ctx.needs_input_grad[1], **std_args)
+        return dfeats, dprobs, None, None, None, None, None
 
 
 def soft_centroids(feats: torch.Tensor, probs: torch.Tensor,
                    assign: Optional[torch.Tensor] = None, *, partition: int = 1,
-                   threshold: float = 0.0, weighted: bool = True
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(centroids (P, C, F), ratio). CUDA tensors go to the kernels (probs
-    float32, assign int32), CPU tensors to :func:`soft_centroids_plain`."""
+                   threshold: float = 0.0, weighted: bool = True,
+                   with_std: bool = False) -> Tuple[torch.Tensor, ...]:
+    """(centroids (P, C, F), ratio), and with ``with_std`` the stddevs (C,).
+    CUDA tensors go to the kernels (probs float32, assign int32), CPU tensors
+    to :func:`soft_centroids_plain`."""
     if feats.is_cuda:
         return _SoftCentroidsFn.apply(feats, probs, assign, partition,
-                                      float(threshold), bool(weighted))
+                                      float(threshold), bool(weighted), bool(with_std))
     return soft_centroids_plain(feats, probs, assign, partition=partition,
-                                threshold=threshold, weighted=weighted)
+                                threshold=threshold, weighted=weighted,
+                                with_std=with_std)

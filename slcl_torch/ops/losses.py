@@ -106,6 +106,52 @@ def cnr_loss(centroid_s: torch.Tensor, centroid_t: torch.Tensor) -> torch.Tensor
     return ((norm_t - norm_s) ** 2).mean()
 
 
+def centroid_contrastive_loss(centroid_s: torch.Tensor, centroid_t: torch.Tensor, *,
+                              bg: bool = False, split: bool = False, norm: bool = True,
+                              tau: Optional[float] = None) -> torch.Tensor:
+    """Inter/intra centroid InfoNCE between two (C, F) centroid sets (MCCL):
+    for each anchor class i (1..C-1 unless ``bg``), with t and s unit rows,
+    -log((exp<t_i,s_i> + exp<t_i,t_i>) / (sum_j exp<t_i,s_j> + sum_j
+    exp<t_i,t_j> + 1e-7)), summed; ``split`` halves the nominator into two
+    -log terms. No temperature unless ``tau`` is given, as the JAX package's
+    MCCL step calls it. Norms by :func:`_safe_norm`, so an all-zero centroid
+    has a finite gradient."""
+    centroid_s = centroid_s.float()
+    centroid_t = centroid_t.float()
+    if norm:
+        centroid_s = centroid_s / (_safe_norm(centroid_s) + _EPS)
+        centroid_t = centroid_t / (_safe_norm(centroid_t) + _EPS)
+    sim_st = centroid_t @ centroid_s.T
+    sim_tt = centroid_t @ centroid_t.T
+    if tau is not None:
+        sim_st = sim_st / tau
+        sim_tt = sim_tt / tau
+    exp_st = torch.exp(sim_st)
+    exp_tt = torch.exp(sim_tt)
+    start = 0 if bg else 1
+    diag_st = torch.diagonal(exp_st)[start:]
+    diag_tt = torch.diagonal(exp_tt)[start:]
+    denom = exp_st[start:].sum(dim=1) + exp_tt[start:].sum(dim=1)
+    if split:
+        logit = 0.5 * (-torch.log(diag_st / (denom + _EPS))
+                       - torch.log(diag_tt / (denom + _EPS)))
+    else:
+        logit = -torch.log((diag_st + diag_tt) / (denom + _EPS))
+    return logit.sum()
+
+
+def seg_pseudo_loss(probs_t: torch.Tensor, threshold: float,
+                    num_classes: int) -> torch.Tensor:
+    """Calibrated self-training entropy on confident target pixels: probs
+    times C / e, ``-detach(cal) * log(cal)``, masked where the max prob
+    exceeds ``threshold``, mean over every element."""
+    p = probs_t.float()
+    cal = p * num_classes / math.e
+    loss = -cal.detach() * torch.log(cal)
+    mask = (p.max(dim=-1, keepdim=True).values > threshold).float()
+    return (loss * mask).mean()
+
+
 def nearest_resize_labels(labels: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of NHW integer labels; samples input
     floor((i + 0.5) * in / out), as ``jax.image.resize(..., 'nearest')``."""

@@ -1,5 +1,5 @@
-"""Generate the initial class-centre file of MPSCL/SLCL (counterpart of
-``scripts/gen_class_centers.py``).
+"""Generate the initial class-centre file of MPSCL/SLCL/MCCL (counterpart
+of ``scripts/gen_class_centers.py``).
 
 The file is (C, F) float32 ``.npy``: per-class means of the source-domain
 decoder features under a restored (or fresh) segmentor, the same contract
@@ -9,6 +9,11 @@ Usage:
   python -m slcl_torch.scripts.gen_class_centers method=baseline \\
       data.dataset=synthetic run.restore_from=runs/<apdx>/ckpt_best.pt \\
       out=centers.npy [--device cpu]
+
+With ``method=mccl`` the features pass through MCCL's projection head: an
+AdvEnt checkpoint has none, so the head keeps its fresh init from
+``run.seed``, the same init an MCCL run warm-started from that checkpoint
+with the same seed starts from.
 
 Runs on CUDA unless ``--device`` names another device.
 """

@@ -3,6 +3,10 @@
 Usage:
   python -m slcl_torch.train method=advent model.multilvl=true \\
       data.dataset=synthetic optim.epochs=30 run.out_dir=runs [--device cpu]
+  python -m slcl_torch.train method=mccl data.dataset=synthetic \\
+      optim.epochs=30 run.out_dir=runs [--device cpu]
+
+``method`` is one of baseline, advent, mpscl, slcl and mccl.
 
 Recipe presets are applied first (``apply_recipe``), then the
 ``section.key=value`` overrides. Runs ``Trainer.train()`` on CUDA unless

@@ -1,8 +1,10 @@
 """Training state and optimizers (counterpart of ``slcl_tpu/train/state.py``).
 
 The JAX package keeps one immutable PyTree; here the state is the modules
-and optimizers themselves, updated in place, plus the EMA class centres and
-the step counter.
+and optimizers themselves, updated in place, plus the EMA class centres,
+the step counter and the run's seed. In place of JAX's ``TrainState.rng``
+the seed and the step fix every random draw a step makes (MCCL's rMC
+partition), so the checkpoint carries no generator state.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ class TrainState:
     opt_d_aux: Optional[torch.optim.Optimizer] = None
     centroids: Optional[torch.Tensor] = None   # (C, F) EMA class centres
     step: int = 0
+    seed: int = 0                              # run.seed: the steps' draws
 
 
 def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float = 1.0,
@@ -64,4 +67,5 @@ def create_train_state(cfg, seg: nn.Module, *, disc: Optional[nn.Module] = None,
     opt_da = (make_optimizer("adam", disc_aux.parameters(), cfg.optim.lr_dis, betas=betas)
               if disc_aux is not None else None)
     return TrainState(seg=seg, opt_seg=opt_seg, d_main=disc, opt_d_main=opt_d,
-                      d_aux=disc_aux, opt_d_aux=opt_da, centroids=centroids)
+                      d_aux=disc_aux, opt_d_aux=opt_da, centroids=centroids,
+                      seed=cfg.run.seed)

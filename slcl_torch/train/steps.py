@@ -1,8 +1,9 @@
-"""Per-method train steps: baseline, AdvEnt and SLCL (MPSCL path).
+"""Per-method train steps: baseline, AdvEnt, SLCL (MPSCL path) and MCCL.
 
 Counterpart of ``slcl_tpu/train/steps.py`` ``make_baseline_step``,
-``_gan_step``, ``make_advent_step``, ``make_mpscl_step`` and ``build_step``
-for ``method`` in ``baseline``/``advent``/``mpscl``/``slcl``.
+``_gan_step``, ``make_advent_step``, ``make_mpscl_step``,
+``make_mccl_step`` (without RAIN) and ``build_step`` for ``method`` in
+``baseline``/``advent``/``mpscl``/``slcl``/``mccl``.
 ``step(state, batch, sched) -> metrics`` updates ``state`` in place and
 returns 0-d float32 tensors on the device (no host sync); the trainer
 reduces them once per epoch.
@@ -17,11 +18,18 @@ one Adam step. The SLCL generator loss adds CE + Dice on source, EMA class
 centres from detached source features, MPCL on source, the fused target
 branch (pseudo-labels, gap mask and MPCL in one kernel), CNR on the target
 soft centroids, and the entropy-map adversarial terms.
+
+MCCL (no discriminators) takes one segmentor step on CE + Jaccard on
+source, source centroids, rMC soft target centroids with P partitions on
+``img_t`` and one on ``img_t_aug``, and the centroid contrastive, CNR and
+stdmin terms. Its rMC draw at step n is a function of the state's seed and
+n alone, made on the step's device, so a restored checkpoint repeats the
+uninterrupted run's draws.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -242,7 +250,144 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
     return _gan_step(cfg, gen_loss, "weighted")
 
 
-def build_step(cfg, centroids_loaded: bool = False) -> Callable:
+DrawAssign = Callable[[int, int, torch.device], torch.Tensor]
+
+
+def rmc_seed(seed: int, step: int) -> int:
+    """The rMC draw's generator seed at ``step`` of a run seeded ``seed``:
+    splitmix64 of (seed, step), a bijection, so every pair seeds its own
+    stream, and mixed into the low 32 bits, which are all that the CPU's
+    generator keeps."""
+    mask = (1 << 64) - 1
+    z = ((((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return z ^ (z >> 31)
+
+
+def make_mccl_step(cfg, centroids_loaded: bool = False,
+                   draw_assign: Optional[DrawAssign] = None) -> Callable:
+    """MCCL, "SLCL proper" (``slcl_tpu/train/steps.py:414-673`` without the
+    RAIN branches). ``draw_assign(m, P, device)`` replaces the rMC draw
+    (int32 partition ids of the ``img_t`` pixels): by default
+    ``torch.randint`` from a generator on the step's device seeded with
+    :func:`rmc_seed` of (``state.seed``, ``state.step``)."""
+    if cfg.rain.enabled:
+        raise NotImplementedError(
+            "method 'mccl' with rain.enabled=true: slcl_torch has no RAIN yet "
+            "(models/rain.py, train/steps_rain.py; ROADMAP queue 1, RAIN)")
+    c = cfg.contrastive
+    P = max(int(c.part), 1)
+    n_class = cfg.model.num_classes
+    gens: Dict[torch.device, torch.Generator] = {}
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             sched: Dict[str, float]) -> Metrics:
+        img_s, labels_s = batch["img_s"], batch["lab_s"]
+        img_t, img_t_aug = batch["img_t"], batch["img_t_aug"]
+        dev = img_s.device
+        s_size, t_size = img_s.shape[0], img_t.shape[0]
+        state.seg.train()
+        with autocast(cfg.model.dtype, dev):
+            if c.concat_forward:
+                # one forward over all three (Trainer_MCCL.py:217/:246):
+                # BatchNorm statistics mix the domains
+                out = state.seg(torch.cat([img_s, img_t, img_t_aug]))
+                pred_s, pred_t_all = out.pred[:s_size], out.pred[s_size:]
+                dcdr_s = out.dcdr_ft[:s_size]
+                dcdr_t = out.dcdr_ft[s_size:s_size + t_size]
+                dcdr_t_aug = out.dcdr_ft[s_size + t_size:]
+            else:
+                # two domain-pure forwards; running statistics carry over
+                out_s = state.seg(img_s)
+                out_t = state.seg(torch.cat([img_t, img_t_aug]))
+                pred_s, pred_t_all = out_s.pred, out_t.pred
+                dcdr_s = out_s.dcdr_ft
+                dcdr_t, dcdr_t_aug = out_t.dcdr_ft[:t_size], out_t.dcdr_ft[t_size:]
+
+        loss_seg = L.loss_calc(pred_s, labels_s, jaccard=True)
+        metrics: Metrics = {"seg_s": loss_seg}
+        total = loss_seg
+        probs_t_all = torch.softmax(pred_t_all.float(), dim=-1)
+        probs_t, probs_t_aug = probs_t_all[:t_size], probs_t_all[t_size:]
+        if c.seg_pseudo:
+            lp = L.seg_pseudo_loss(probs_t, c.thd, n_class)
+            metrics["loss_pseudo"] = lp
+            total = total + 0.5 * lp
+
+        # source centroids, EMA across steps; zero-init centres adopt the
+        # first batch means outright
+        centroid_s = cen.source_centroids(
+            dcdr_s, labels_s, num_classes=n_class, previous=state.centroids,
+            momentum=c.ctd_mmt,
+            bootstrap=None if centroids_loaded else state.step == 0).detach()
+
+        assign = None
+        if P > 1:
+            m = dcdr_t.shape[0] * dcdr_t.shape[1] * dcdr_t.shape[2]
+            if draw_assign is not None:
+                assign = draw_assign(m, P, dev)
+            else:
+                g = gens.get(dev)
+                if g is None:
+                    g = gens[dev] = torch.Generator(device=dev)
+                g.manual_seed(rmc_seed(state.seed, state.step))
+                assign = torch.randint(0, P, (m,), generator=g, device=dev,
+                                       dtype=torch.int32)
+        res_t = cen.target_soft_centroids(
+            dcdr_t, probs_t, partition=P, assign=assign, threshold=c.thd,
+            weighted_ave=c.wtd_ave, num_classes=n_class, with_std=c.stdmin)
+        res_ta = cen.target_soft_centroids(
+            dcdr_t_aug, probs_t_aug, partition=1, threshold=c.thd,
+            weighted_ave=c.wtd_ave, num_classes=n_class)
+        centroid_t_aug = res_ta.centroids[0]
+        metrics["ratio_t"] = res_t.ratio
+        metrics["ratio_t_aug"] = res_ta.ratio
+
+        # diagnostics: pseudo-label maturity, source-target alignment and
+        # the spread of the target centroids (foreground classes)
+        metrics["conf_t"] = probs_t.max(dim=-1).values.mean()
+        t0 = res_t.centroids[0].detach()
+        t0 = t0 / (torch.linalg.vector_norm(t0, dim=-1, keepdim=True) + 1e-12)
+        s0 = centroid_s / (torch.linalg.vector_norm(centroid_s, dim=-1, keepdim=True)
+                           + 1e-12)
+        fg = (torch.arange(n_class, device=dev) >= 1).float()
+        metrics["align_st"] = (torch.diagonal(t0 @ s0.T) * fg).sum() / fg.sum()
+        off = (1.0 - torch.eye(n_class, device=dev)) * torch.outer(fg, fg)
+        metrics["spread_tt"] = ((t0 @ t0.T) * off).sum() / off.sum()
+
+        # CNR and the inter/intra contrastive terms, averaged over the P
+        # partitions
+        cnr = inter = intra = torch.zeros((), dtype=torch.float32, device=dev)
+        for p in range(P):
+            cent_p = res_t.centroids[p]
+            cnr = cnr + L.cnr_loss(centroid_s, cent_p) / P
+            inter = inter + L.centroid_contrastive_loss(
+                centroid_s, cent_p, bg=c.bg, split=c.contrast_split) / P
+            intra = intra + L.centroid_contrastive_loss(
+                cent_p, centroid_t_aug, bg=c.bg, split=c.contrast_split) / P
+        metrics["CNR"] = cnr
+        metrics["inter_c_loss"] = inter
+        metrics["intra_c_loss"] = intra
+
+        contrast = c.inter_w * inter + (c.intra_w * intra if c.intra else 0.0)
+        warm = sched["warm"]
+        if c.clda:
+            total = total + warm * contrast
+        if c.CNR:
+            total = total + warm * c.CNR_w * cnr
+        if c.stdmin:
+            total = total + warm * c.w_stdmin * res_t.stddevs.sum()
+        _seg_update(state, total, sched["lr"])
+        state.centroids = centroid_s
+        state.step += 1
+        return {k: v.detach().float() for k, v in metrics.items()}
+
+    return step
+
+
+def build_step(cfg, centroids_loaded: bool = False,
+               draw_assign: Optional[DrawAssign] = None) -> Callable:
     m = cfg.method
     if m == "baseline":
         return make_baseline_step(cfg)
@@ -250,5 +395,8 @@ def build_step(cfg, centroids_loaded: bool = False) -> Callable:
         return make_advent_step(cfg)
     if m in ("mpscl", "slcl"):
         return make_mpscl_step(cfg, centroids_loaded=centroids_loaded)
+    if m == "mccl":
+        return make_mccl_step(cfg, centroids_loaded=centroids_loaded,
+                              draw_assign=draw_assign)
     raise NotImplementedError(
-        f"method {m!r}: slcl_torch ports baseline, advent, mpscl and slcl only")
+        f"method {m!r}: slcl_torch ports baseline, advent, mpscl, slcl and mccl only")

@@ -1,5 +1,5 @@
 """Training orchestration (counterpart of ``slcl_tpu/train/trainer.py``) for
-``method`` in ``baseline``/``advent``/``mpscl``/``slcl``.
+``method`` in ``baseline``/``advent``/``mpscl``/``slcl``/``mccl``.
 
 ``Trainer(cfg, device=None)`` builds DRUNet, the entropy-map
 discriminators of the adversarial methods, the optimizers, the step and
@@ -14,7 +14,8 @@ Class centres: ``contrastive.init_centers`` names a (C, F) float32 ``.npy``
 (``python -m slcl_torch.scripts.gen_class_centers``); with none, the
 centres start at zero and the first step adopts the batch means.
 Checkpoints: ``<run.out_dir>/<apdx>/ckpt_<tag>.pt``, a ``torch.save`` of
-the modules', optimizers' and centres' state and the step counter, loadable
+the modules', optimizers' and centres' state, the step counter and the
+seed (which with the step fixes MCCL's rMC draws), loadable
 with ``torch.load(..., weights_only=True)``. ``run.init_from`` warm-starts
 the networks from any such file (weights and BatchNorm buffers only,
 merged by name across methods); ``run.restore_from`` resumes the full state.
@@ -40,7 +41,7 @@ from . import schedules
 from .state import create_train_state
 from .steps import autocast, build_step
 
-_PORTED = ("baseline", "advent", "mpscl", "slcl")
+_PORTED = ("baseline", "advent", "mpscl", "slcl", "mccl")
 _ADVERSARIAL = ("advent", "mpscl", "slcl")
 _NETS = ("seg", "d_main", "d_aux")
 _OPTS = ("opt_seg", "opt_d_main", "opt_d_aux")
@@ -56,6 +57,10 @@ class Trainer:
             raise NotImplementedError(
                 f"method {cfg.method!r}: slcl_torch ports {_PORTED} only")
         self.cfg = cfg
+        # method-implied data: MCCL pairs each target image with a second
+        # view (JAX trainer.py:89-90); before the datasets are built
+        if cfg.method == "mccl":
+            cfg.data.aug_counter = True
         self.device = resolve_device(device)
         self.apdx = build_apdx(cfg)
         # created on first write: eval-only users (gen_class_centers,
@@ -84,7 +89,7 @@ class Trainer:
                                                     generator=gen).to(dev, memory_format=fmt)
         centroids = None
         self.centroids_loaded = False
-        if cfg.method in ("mpscl", "slcl"):
+        if cfg.method in ("mpscl", "slcl", "mccl"):
             centroids = self._initial_centroids()
         self.state = create_train_state(cfg, seg, disc=disc, disc_aux=disc_aux,
                                         centroids=centroids)
@@ -184,7 +189,8 @@ class Trainer:
         s = self.state
         ckpt = {name: getattr(s, name).state_dict() if getattr(s, name) is not None
                 else None for name in _NETS + _OPTS}
-        ckpt.update(centroids=s.centroids, step=s.step, method=self.cfg.method)
+        ckpt.update(centroids=s.centroids, step=s.step, seed=s.seed,
+                    method=self.cfg.method)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         path = self.out_dir / f"ckpt_{tag}.pt"
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -193,7 +199,7 @@ class Trainer:
         return path
 
     def restore_checkpoint(self, tag: str = "best", params_only: bool = False) -> None:
-        """Restore the full state (modules, optimizers, centres, step), or with
+        """Restore the full state (modules, optimizers, centres, step, seed), or with
         ``params_only`` the networks' weights and BatchNorm buffers alone,
         merged by name: entries the checkpoint lacks keep their fresh init,
         entries the model lacks are ignored (both are reported), and a shape
@@ -213,6 +219,7 @@ class Trainer:
                     raise KeyError(f"checkpoint {path} has no class centres")
                 s.centroids = ckpt["centroids"].to(self.device, torch.float32)
             s.step = int(ckpt["step"])
+            s.seed = int(ckpt.get("seed", s.seed))
             return
         kept, dropped, loaded = [], [], 0
         for name in _NETS:

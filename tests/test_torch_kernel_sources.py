@@ -18,7 +18,12 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
 - every text edit of ``tools/ring_variants.py`` applies to the sources as
   they stand, and its timed kernels' symbols name kernels of their sources;
 - the source's header names the ``slcl_tpu/ops/pallas/*.py`` function it
-  replaces, and that function exists.
+  replaces, and that function exists;
+- the soft centroids' std variant is a compile-time switch: every use of
+  ``kStd`` is a template parameter or argument, a constant expression or an
+  ``if constexpr``, and once its ``if constexpr (kStd)`` blocks and
+  ``std_block`` are taken out no std arithmetic is left, so the std-free
+  instantiations are the code they were; no sum there uses a float atomic.
 
 Reads files only: no CUDA, no nvcc.
 """
@@ -73,8 +78,8 @@ def _extern_c_functions(src: str) -> dict:
 
 def _global_kernels(src: str) -> set:
     src = _strip_comments(src)
-    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
-                          src))
+    bounds = r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+"   # one level of nesting
+    return set(re.findall(rf"__global__\s+void\s+(?:{bounds})?(\w+)\(", src))
 
 
 @pytest.mark.parametrize("name", LIBS)
@@ -228,3 +233,44 @@ def test_ring_variant_edits_apply(variant):
         assert lib in LIBS
         sym = ring_variants.SYMBOL_OF[kernel].split("I13", 1)[0]
         assert sym in _global_kernels(_source_with_includes(lib))
+
+
+def _without_std_blocks(src: str) -> str:
+    """The source with every ``if constexpr (kStd) { ... }`` block and the
+    body of ``std_block`` cut out (braces matched)."""
+    out, i = [], 0
+    heads = re.compile(r"if constexpr \(kStd\) \{|void std_block\([^{]*\{")
+    while True:
+        m = heads.search(src, i)
+        if not m:
+            return "".join(out) + src[i:]
+        out.append(src[i:m.start()])
+        depth, j = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(src[j], 0)
+            j += 1
+        i = j
+
+
+def test_std_variant_is_a_compile_time_switch():
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    kernels = src.split("extern \"C\"", 1)[0]
+    for line in kernels.splitlines():
+        if not re.search(r"\bkStd\b", line):
+            continue
+        rest = re.sub(r"bool kStd|if constexpr \(kStd\)|<[^<>;]*\bkStd\b[^<>;]*>+", "", line)
+        if re.search(r"\bkStd\b", rest):
+            assert "constexpr" in line or re.search(r"\[[^\]]*\bkStd\b[^\]]*\]", line), (
+                f"kStd read at run time: {line.strip()}")
+    rest = _without_std_blocks(kernels)
+    # (the member's declaration aside)
+    for name in (r"(?<!float )\bsq\[", r"\bgstd\[", r"\bs2\[", r"\bstdv\[",
+                 r"\bstd_block<"):
+        assert not re.search(name, rest), f"{name} outside the std variant's blocks"
+    # the blocks exist: the sums, the final pass and the backward's terms
+    assert kernels.count("if constexpr (kStd)") >= 8
+
+
+def test_centroid_sums_use_no_float_atomics():
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    assert "atomic" not in src

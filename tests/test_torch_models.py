@@ -5,7 +5,9 @@ input through both.
 Tolerances: DRUNet eval forward rtol 1e-3 / atol 1e-4, atol 2e-3 for aux
 (those of test_reference_model_parity.py:114-124); BatchNorm running
 statistics after one train-mode forward rtol 1e-4 / atol 1e-5 (f32 means and
-variances of the same activations, reduced in another order).
+variances of the same activations, reduced in another order). The
+projection head (``phead``, MCCL's preset) is held in train mode, alone and
+with the aux head, at the same tolerances.
 """
 import jax
 import jax.numpy as jnp
@@ -34,8 +36,8 @@ def _perturb(tree, rng):
         lambda a: a + rng.normal(size=a.shape).astype(np.float32) * 0.1, tree)
 
 
-def _flax_drunet(multilvl, rng):
-    model = DRUNet(multilvl=multilvl, dtype=jnp.float32, **SMALL)
+def _flax_drunet(multilvl, rng, phead=False):
+    model = DRUNet(multilvl=multilvl, phead=phead, dtype=jnp.float32, **SMALL)
     v = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), False)
     params = _perturb(_np_tree(v["params"]), rng)
     stats = jax.tree_util.tree_map_with_path(
@@ -46,8 +48,8 @@ def _flax_drunet(multilvl, rng):
     return model, params, stats
 
 
-def _port_drunet(multilvl, params, stats):
-    m = TDRUNet(multilvl=multilvl, **SMALL).to(memory_format=torch.channels_last)
+def _port_drunet(multilvl, params, stats, phead=False):
+    m = TDRUNet(multilvl=multilvl, phead=phead, **SMALL).to(memory_format=torch.channels_last)
     return load_flax_weights(m, params, stats)
 
 
@@ -69,16 +71,20 @@ def test_drunet_eval_forward_matches_flax(multilvl, rng):
         assert got.aux is None and want.aux is None
 
 
-def test_drunet_train_forward_running_stats_match_flax(rng):
-    """flax updates the running variance with the biased batch variance."""
-    model, params, stats = _flax_drunet(True, rng)
-    port = _port_drunet(True, params, stats).train()
+def _check_train_forward(multilvl, phead, rng):
+    model, params, stats = _flax_drunet(multilvl, rng, phead)
+    port = _port_drunet(multilvl, params, stats, phead).train()
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     want, upd = model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
                             True, mutable=["batch_stats"])
     got = port(torch.from_numpy(x))
     np.testing.assert_allclose(got.pred.detach().numpy(), np.asarray(want.pred),
                                rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got.dcdr_ft.detach().numpy(), np.asarray(want.dcdr_ft),
+                               rtol=1e-3, atol=1e-4)
+    if multilvl:
+        np.testing.assert_allclose(got.aux.detach().numpy(), np.asarray(want.aux),
+                                   rtol=1e-3, atol=2e-3)
     got_stats = state_dict_to_flax(port)["batch_stats"]
     want_flat = jax.tree_util.tree_flatten_with_path(_np_tree(upd["batch_stats"]))[0]
     for path, w in want_flat:
@@ -87,6 +93,18 @@ def test_drunet_train_forward_running_stats_match_flax(rng):
             node = node[p.key]
         np.testing.assert_allclose(node, w, rtol=1e-4, atol=1e-5,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def test_drunet_train_forward_running_stats_match_flax(rng):
+    """flax updates the running variance with the biased batch variance."""
+    _check_train_forward(True, False, rng)
+
+
+@pytest.mark.parametrize("multilvl", [False, True])
+def test_drunet_phead_train_forward_matches_flax(multilvl, rng):
+    """dcdr_ft = phead2(relu(phead1(decoder_ft))): the weights carried by
+    name (phead1/phead2), the features, and the running statistics."""
+    _check_train_forward(multilvl, True, rng)
 
 
 def test_discriminator_forward_matches_flax(rng):
@@ -101,9 +119,11 @@ def test_discriminator_forward_matches_flax(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("multilvl,count", [(False, 13_483_844), (True, 13_484_104)])
-def test_drunet_full_width_parameter_count(multilvl, count):
-    m = TDRUNet(filters=32, n_block=4, bottleneck_depth=4, multilvl=multilvl)
+@pytest.mark.parametrize("multilvl,phead,count", [(False, False, 13_483_844),
+                                                  (True, False, 13_484_104),
+                                                  (False, True, 13_488_036)])
+def test_drunet_full_width_parameter_count(multilvl, phead, count):
+    m = TDRUNet(filters=32, n_block=4, bottleneck_depth=4, multilvl=multilvl, phead=phead)
     assert sum(p.numel() for p in m.parameters()) == count
 
 

@@ -66,8 +66,8 @@ SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_fwd": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
              "mpcl_fwd_sel": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
              "pseudo_label": "pseudo_label_kernelI13__nv_bfloat16Li32E",
-             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1E",
-             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2E"}
+             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E",
+             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb0E"}
 
 
 def _section(f: str, start: str, end: str) -> str:
@@ -399,12 +399,12 @@ def main() -> int:
             else:
                 P = 2 if kernel.endswith("_p2") else 1
                 n = ctypes.c_int()
-                raise_on_error(lib.soft_centroids_partials_size(1, M, F, P, C,
+                raise_on_error(lib.soft_centroids_partials_size(1, M, F, P, C, 0,
                                                                 ctypes.byref(n)), name)
                 parts = torch.empty(n.value, device=dev)
                 call = lambda lib=lib, parts=parts, P=P: lib.soft_centroids_fwd(  # noqa: E731
                     ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C, P,
-                    0.0, 0, ptr(parts), *(ptr(t) for t in cen_out[P]), stream)
+                    0.0, 0, ptr(parts), *(ptr(t) for t in cen_out[P]), None, None, stream)
             calls[name][kernel] = checked(name, kernel, call)
 
     print(json.dumps({"variant": "copy_ yardstick (read + write)",
