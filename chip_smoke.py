@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build: compile the four kernel libraries from ``slcl_torch/csrc`` with
      nvcc for sm_90a, one nvcc per source, all started together; no
      instantiation of a kernel that holds rows or sums in registers (the
-     read-only forwards, every soft-centroid kernel) may spill;
+     read-only forwards, every soft-centroid kernel, the std kernels at
+     every F, type and P among them) may spill;
   2. kernels: hold each kernel against its plain PyTorch version on the
      card at the main path's shapes (M = 16*224*224 rows, F = 32, C = 4;
      bf16 and f32 features): values and gradients within the stated
@@ -35,9 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the ragged ones and with out-of-range ids, both kernels launched twice
      for bit-identity; the MCCL step's four centroid launches (soft weights,
      P = 2 and P = 1, forward and backward) and their std variants are
-     timed; and the std-free kernels' outputs on fixed inputs must hash to
-     what the kernels gave before the std variant existed
-     (``STD_FREE_DIGEST``);
+     timed; the std kernels (their own rows: the stdmin step's P = 2 call and
+     P = 1, each forward's launches apart) beside their plain versions; and
+     the std-free kernels' outputs on fixed inputs must hash to what the
+     kernels gave before the std variant existed (``STD_FREE_DIGEST``);
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps, two ``baseline`` steps and two ``mccl`` steps in each forward
      mode (stdmin and seg_pseudo on; one shared rMC draw) on the card
@@ -51,7 +53,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      and every loss must be finite), then twenty timed steps, then three
      steps traced with torch.profiler for the device's busy time and the
      kernels that take most of it; then the same for the ``mccl`` preset
-     (phead, P = 2, soft weights; 16 source + 16 + 16 target images);
+     (phead, P = 2, soft weights; 16 source + 16 + 16 target images); then
+     a short cell of the preset with ``contrastive.stdmin=true
+     contrastive.w_stdmin=0.1`` (this slice's path: img_t's centroids take
+     the std kernels), one epoch and ten timed steps, with the std kernels'
+     launches per step and their share of the device time;
   5. protocol: the SLCL protocol at the same width through the port's entry
      points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
      epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
@@ -64,9 +70,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the same restore check (the rMC draw follows the seed and the step).
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
-memory per block of each kernel; the centroids' per instantiation) as one
-JSON line, the two step cells' timing and the protocol as one JSON line
-each, the card's name and power limit as nvidia-smi gives them, and last
+memory per block of each kernel; the centroids' per instantiation; each
+kernel's launches from its own path: the ``slcl`` cell, or the stdmin cell
+for the std kernels) as one JSON line, the three step cells' timing and
+the protocol as one JSON line each, the card's name and power limit as
+nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
 """
@@ -88,13 +96,20 @@ ROOT = Path(__file__).resolve().parent
 M, F, C = 16 * 224 * 224, 32, 4
 # launches per slcl step; the fused target kernel takes pseudo_label's work
 PER_STEP = {"mpcl_fwd": 1, "mpcl_bwd": 1, "mpcl_pseudo_fwd": 1, "mpcl_pseudo_bwd": 1,
-            "pseudo_label": 0, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1}
+            "pseudo_label": 0, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1,
+            "soft_centroids_fwd_std": 0, "soft_centroids_bwd_std": 0}
 # launches per mccl step: the rMC centroids at P = 2 on img_t and P = 1 on
 # img_t_aug, each 16 images (M rows)
 PER_STEP_MCCL = {**dict.fromkeys(PER_STEP, 0), "soft_centroids_fwd": 2,
                  "soft_centroids_bwd": 2}
-PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL,
+# ... with contrastive.stdmin: img_t's centroids (P = 2) take the std kernels
+PER_STEP_MCCL_STD = {**PER_STEP_MCCL, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1,
+                     "soft_centroids_fwd_std": 1, "soft_centroids_bwd_std": 1}
+PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL, "mccl_stdmin": PER_STEP_MCCL_STD,
               "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0)}
+# the step cell whose launch counts each kernel's row reports (its path)
+PATH_OF = {"soft_centroids_fwd_std": "train_mccl_stdmin",
+           "soft_centroids_bwd_std": "train_mccl_stdmin"}
 # sha256 of the std-free centroid kernels' outputs on centroid_digest's
 # inputs, as the kernels of commit 98d6b0e (before the std variant) gave
 # them on an NVIDIA H100 80GB HBM3: the std variant must leave them bit for
@@ -104,7 +119,8 @@ STD_FREE_DIGEST = "bc25075579b4582c5d1d2615392eed6e1f97663f5167cd45b3632fe4761d5
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100": (3.35e12, 67e12),
          "H200": (4.8e12, 67e12)}
 # (source, symbol part) of each kernel's main-path instantiation: bf16, F=32
-# (and P=1 for the centroids)
+# (and P=1 for the std-free centroids, P=2 for the std kernels: the stdmin
+# cell's img_t call)
 SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "mpcl_bwd": ("mpcl", "mpcl_bwdI13__nv_bfloat16Li32E"),
            "mpcl_pseudo_fwd": ("mpcl_pseudo",
@@ -112,9 +128,13 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "mpcl_pseudo_bwd": ("mpcl_pseudo", "mpcl_pseudo_bwdI13__nv_bfloat16Li32E"),
            "pseudo_label": ("pseudo_label", "pseudo_label_kernelI13__nv_bfloat16Li32E"),
            "soft_centroids_fwd": ("soft_centroids",
-                                  "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E"),
+                                  "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4EE"),
            "soft_centroids_bwd": ("soft_centroids",
-                                  "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE")}
+                                  "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE"),
+           "soft_centroids_fwd_std": (
+               "soft_centroids", "centroids_fwd_std_partialI13__nv_bfloat16Li32ELi2ELi4EE"),
+           "soft_centroids_bwd_std": ("soft_centroids",
+                                      "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE")}
 # (C query, its arguments) for each kernel's blocks per SM and shared memory
 # at the main path's instantiation; the query lives in SYMBOLS' source
 OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
@@ -123,12 +143,29 @@ OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
              "mpcl_pseudo_bwd": ("mpcl_pseudo_occupancy", (1, 1, F)),
              "pseudo_label": ("pseudo_label_occupancy", (1, F)),
              "soft_centroids_fwd": ("soft_centroids_occupancy", (0, 1, F, 1, 0)),
-             "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1, 0))}
+             "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1, 0)),
+             "soft_centroids_fwd_std": ("soft_centroids_occupancy", (0, 1, F, 2, 1)),
+             "soft_centroids_bwd_std": ("soft_centroids_occupancy", (1, 1, F, 2, 1))}
 # parts of a CUDA kernel's name by which the profiler counts it as the
 # port's, per source ("name<" for one kernel, a prefix for a family)
 PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<"), "mpcl_pseudo": ("mpcl_pseudo_",),
                 "pseudo_label": ("pseudo_label_kernel",),
-                "soft_centroids": ("centroids_fwd_", "centroids_bwd")}
+                "soft_centroids": ("centroids_fwd_partial<", "centroids_fwd_std_partial<",
+                                   "centroids_fwd_final<", "centroids_bwd<",
+                                   "centroids_bwd_std<")}
+# the std kernels of one stdmin step, as the profiler names them (every part
+# of one entry): both streaming kernels and the std instantiation's final pass
+STD_KERNELS = (("centroids_fwd_std_partial<",), ("centroids_bwd_std<",),
+               ("centroids_fwd_final<", ", true>"))
+
+
+def centroid_symbol(bwd: int, std: int, P: int, f: int = F,
+                    ty: str = "13__nv_bfloat16") -> str:
+    """The mangled-name part of a soft-centroid streaming kernel's
+    instantiation (C = 4)."""
+    stem = (("centroids_fwd_partial", "centroids_fwd_std_partial"),
+            ("centroids_bwd", "centroids_bwd_std"))[bwd][std]
+    return f"{stem}I{ty}Li{f}ELi{P}ELi4EE"
 
 
 def log(msg: str) -> None:
@@ -425,7 +462,7 @@ def check_fwd_shapes(g) -> None:
         log(f"{what}: ok")
 
 
-def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) -> None:
+def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) -> dict:
     """The soft centroids' std variant (kStd) against the plain version with
     with_std, at P = 1 and 2, hard and soft, thd 0 and 0.4: two launches of
     each kernel bit-identical; centroids, ratio and stddevs at the centroids'
@@ -433,7 +470,8 @@ def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) ->
     sum(std * ds) against autograd's at the std-free backward's. Without
     ``grads`` (a few rows, where a class's variance is a difference of two
     nearly equal sums) the values must be finite and the centroids and ratio
-    are held as above."""
+    are held as above. Returns the max abs errors by (P, soft, thd): the
+    forward's stddevs and the backward's dfeats."""
     import torch
     from slcl_torch.ops.cuda import soft_centroids as K_sc
 
@@ -441,6 +479,7 @@ def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) ->
     m, f = feats.shape
     g_rtol = 1.6e-2 if feats.dtype == torch.bfloat16 else 2e-3
     dstd = torch.randn(C, generator=g, device=dev)
+    errs = {}
     for P in (1, 2):
         dc = torch.randn(P, C, f, generator=g, device=dev)
         a = assign if P > 1 else None
@@ -464,7 +503,7 @@ def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) ->
                     raise AssertionError(f"{tag}: non-finite std")
                 if not grads:
                     continue
-                close(std, w_s.detach(), 1e-4, 1e-5, tag + " std")
+                err_s = close(std, w_s.detach(), 1e-4, 1e-5, tag + " std")
                 want = torch.autograd.grad((w_c * dc).sum() + (w_s * dstd).sum(),
                                            [x, pr] if weighted else [x])
                 d1 = K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, thd, weighted, dc, cents,
@@ -474,11 +513,13 @@ def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) ->
                 if not (torch.equal(d1[0], d2[0])
                         and (not weighted or torch.equal(d1[1], d2[1]))):
                     raise AssertionError(f"{tag}: two backward launches differ")
-                close(d1[0], want[0], g_rtol, 1e-3 * float(want[0].abs().max()),
-                      tag + " dfeats")
+                err_d = close(d1[0], want[0], g_rtol, 1e-3 * float(want[0].abs().max()),
+                              tag + " dfeats")
                 if weighted:
                     close(d1[1], want[1], 2e-3, 1e-3 * float(want[1].abs().max()),
                           tag + " dprobs")
+                errs[(P, weighted, thd)] = (err_s, err_d)
+    return errs
 
 
 def centroid_digest() -> str:
@@ -775,10 +816,10 @@ def check_kernels(peaks) -> list:
                         rows["soft_centroids_fwd"]["p2_ms"] = time_ms(
                             lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, assign, 2,
                                                                  0.0, False))
-        check_std_variant(feats, probs, assign, g_std, f"soft_centroids {tag}")
+        std_errs = check_std_variant(feats, probs, assign, g_std, f"soft_centroids {tag}")
         log(f"soft_centroids {tag}: ok, std variant ok")
         if tag == "bf16":
-            mccl_rows(rows, feats, probs, assign, g_std, peaks)
+            mccl_rows(rows, feats, probs, assign, g_std, peaks, std_errs)
         torch.cuda.synchronize()
     # what the card's memory gives one PyTorch call that only reads the
     # (bf16) features
@@ -789,17 +830,21 @@ def check_kernels(peaks) -> list:
     return rows, read_only_ms
 
 
-def mccl_rows(rows, feats, probs, assign, g, peaks) -> None:
+def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
     """The MCCL step's four centroid launches (soft weights, f32 probs, P = 2
-    on img_t and P = 1 on img_t_aug, forward and backward with dprobs) and
-    the same with the std variant, timed at the main shape, each with its
-    bound; no one PyTorch call computes any of them (library: none)."""
+    on img_t and P = 1 on img_t_aug, forward and backward with dprobs), each
+    with its bound, and the std kernels' rows: the stdmin step's call (P = 2)
+    and the same at P = 1, each launch of the forward apart; ``std_errs``
+    from check_std_variant at this shape. No one PyTorch call computes any
+    of them (library: none)."""
     import torch
     from slcl_torch.ops.cuda import soft_centroids as K_sc
 
     es = feats.element_size()
     dstd = torch.randn(C, generator=g, device=feats.device)
     fwd, bwd = {}, {}
+    fstd = {"library_ms": None, "max_abs_err": std_errs[(2, True, 0.0)][0]}
+    bstd = {"library_ms": None, "max_abs_err": std_errs[(2, True, 0.0)][1]}
     for P in (1, 2):
         a = assign if P > 1 else None
         ids = 4 * M if P > 1 else 0       # the int32 partition ids
@@ -813,23 +858,38 @@ def mccl_rows(rows, feats, probs, assign, g, peaks) -> None:
         fwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
             feats, probs, a, P, 0.0, True))
         fwd[f"p{P}_bound_ms"] = bound(fwd_bytes, 2 * M * F * C, peaks)[0]
-        fwd[f"std_p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
-            feats, probs, a, P, 0.0, True, with_std=True))
-        fwd[f"std_p{P}_bound_ms"] = bound(fwd_bytes, 5 * M * F * C, peaks)[0]
         bwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
             feats, probs, a, P, 0.0, True, dc, cents, counts, True))
         bwd[f"p{P}_bound_ms"] = bound(bwd_bytes, 4 * M * F * C, peaks)[0]
-        bwd[f"std_p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
-            feats, probs, a, P, 0.0, True, dc, cents, counts, True, dstd=dstd, std=std,
-            s2=s2))
-        bwd[f"std_p{P}_bound_ms"] = bound(bwd_bytes, 8 * M * F * C, peaks)[0]
         fwd.update({f"p{P}_" + k: v for k, v in launch_split(
             lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True)).items()})
-        fwd.update({f"std_p{P}_" + k: v for k, v in launch_split(
+        # the std kernels; "p1_" keys at P = 1, unprefixed the stdmin step's P = 2
+        pre = "" if P > 1 else "p1_"
+        x = feats.detach().requires_grad_(True)
+        pr = probs.detach().requires_grad_(True)
+        w_c, _, w_s = K_sc.soft_centroids_plain(x, pr, a, partition=P, weighted=True,
+                                                with_std=True)
+        y = (w_c * dc).sum() + (w_s * dstd).sum()
+        fstd[pre + "ms"] = time_ms(lambda: K_sc.soft_centroids_fwd_cuda(
+            feats, probs, a, P, 0.0, True, with_std=True))
+        fstd[pre + "plain_ms"] = time_ms(lambda: K_sc.soft_centroids_plain(
+            feats, probs, a, partition=P, weighted=True, with_std=True))
+        fstd[pre + "bound"] = bound(fwd_bytes, 5 * M * F * C, peaks)
+        fstd.update({pre + k: v for k, v in launch_split(
             lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True,
-                                                 with_std=True)).items()})
+                                                 with_std=True),
+            {"partial_ms": "_fwd_std_partial", "final_ms": "_fwd_final"}).items()})
+        bstd[pre + "ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
+            feats, probs, a, P, 0.0, True, dc, cents, counts, True, dstd=dstd, std=std,
+            s2=s2))
+        bstd[pre + "plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            y, [x, pr], retain_graph=True))
+        bstd[pre + "bound"] = bound(bwd_bytes, 8 * M * F * C, peaks)
+        del y
     rows["soft_centroids_fwd"]["mccl"] = fwd
     rows["soft_centroids_bwd"]["mccl"] = bwd
+    rows["soft_centroids_fwd_std"] = fstd
+    rows["soft_centroids_bwd_std"] = bstd
 
 
 def small_config(method: str = "slcl"):
@@ -896,13 +956,18 @@ def check_small_steps() -> None:
                 # near-tie would move loss_mpscl_tg by O(1/M)
                 close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {method} step {i} {k}")
         counts = launch_counts()
-        for name, per in PER_METHOD[method].items():
+        for name, per in PER_METHOD["mccl_stdmin" if method == "mccl" else method].items():
             if counts[name] != 2 * per:
                 raise AssertionError(f"small {method}: {name} launched {counts[name]} "
                                      f"times, expected {2 * per}")
         torch.cuda.synchronize()
         log(f"small {method}{' concat_forward' if concat else ''}: card matches CPU over "
             "two steps")
+
+
+def is_std_kernel(name: str) -> bool:
+    """One of the std variant's kernels, by the profiler's name."""
+    return any(all(p in name for p in parts) for parts in STD_KERNELS)
 
 
 def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
@@ -919,10 +984,13 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
+    n_std = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_std += is_std_kernel(e.name)
     busy_us = sum(by_name.values())
+    std_us = sum(v for k, v in by_name.items() if is_std_kernel(k))
     # first matching category wins; the rest is elementwise/copy/reduce
     cats = (("port_kernels", sum(PORT_KERNELS.values(), ())),
             ("convolution", ("xmma", "conv", "implicit_gemm", "cudnn", "gemm")),
@@ -939,6 +1007,9 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
             "idle_share": 1.0 - busy_us / wall_us,
             "port_kernels_share": (by_cat.get("port_kernels", 0.0) / busy_us
                                    if busy_us else None),
+            "std_kernels_ms_per_step": std_us / n / 1e3,
+            "std_kernels_share": std_us / busy_us if busy_us else None,
+            "std_kernel_launches_per_step": n_std / n,
             "by_category_ms_per_step": {c: v / n / 1e3 for c, v in by_cat.items()},
             "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top]}
 
@@ -948,9 +1019,11 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
 N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036}
 
 
-def train_full_width(work: Path, method: str = "slcl") -> dict:
+def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
+                     n_timed: int = 20) -> dict:
     """Phase 4: one full-width recipe through the port's Trainer: ``slcl``
-    with multilvl (the main path), or the ``mccl`` preset."""
+    with multilvl (the main path), or the ``mccl`` preset, with ``stdmin``
+    its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``)."""
     import torch
     from slcl_torch.config import Config, apply_recipe
     from slcl_torch.data import device_prefetch
@@ -961,6 +1034,8 @@ def train_full_width(work: Path, method: str = "slcl") -> dict:
     cfg.method = method
     cfg = apply_recipe(cfg)
     cfg.model.multilvl = method == "slcl"
+    if stdmin:
+        cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
     cfg.data.dataset = "synthetic"
     cfg.optim.epochs = 1
     cfg.run.out_dir = str(work)
@@ -978,7 +1053,7 @@ def train_full_width(work: Path, method: str = "slcl") -> dict:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t1
     counts = launch_counts()
-    for name, per in PER_METHOD[method].items():
+    for name, per in PER_METHOD[method + ("_stdmin" if stdmin else "")].items():
         if counts[name] != steps_per_epoch * per:
             raise AssertionError(f"train {method}: {name} launched {counts[name]} times in "
                                  f"{steps_per_epoch} steps, expected "
@@ -990,7 +1065,6 @@ def train_full_width(work: Path, method: str = "slcl") -> dict:
 
     batches = list(device_prefetch(trainer._epoch_batches(), trainer.device))
     sched = trainer._sched(0)
-    n_timed = 20
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     for i in range(n_timed):
@@ -1008,7 +1082,7 @@ def train_full_width(work: Path, method: str = "slcl") -> dict:
         each.append((time.perf_counter() - t3) * 1e3)
     each.sort()
     prof = profile_steps(trainer, batches, sched)
-    return {"method": method, "step_ms": step_ms, "timed_steps": n_timed,
+    return {"method": method, "stdmin": stdmin, "step_ms": step_ms, "timed_steps": n_timed,
             "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
             "profile": prof,
             "src_img_per_s": cfg.data.bs / step_ms * 1e3,
@@ -1190,6 +1264,15 @@ def main() -> int:
             if spill and ("fwd_partial" in fn or "pseudo_label_kernel" in fn
                           or src == "soft_centroids"):
                 raise AssertionError(f"{fn} spills {spill} bytes at {regs} registers")
+    # ... the std kernels among them, every F, type and P
+    built = [fn for fn, _, _ in build.ptxas_report("soft_centroids")]
+    for bwd in (0, 1):
+        for P in (1, 2):
+            for f in (8, 16, 32, 64):
+                for ty in ("13__nv_bfloat16", "f"):
+                    isym = centroid_symbol(bwd, 1, P, f, ty)
+                    if not any(isym in fn for fn in built):
+                        raise AssertionError(f"no ptxas report for {isym}")
 
     # the phases' own prints (the trainer's epoch lines and test tables) go
     # to stderr: stdout carries the result lines only
@@ -1206,19 +1289,27 @@ def main() -> int:
         try:
             train = train_full_width(work)
             train_mccl = train_full_width(work, "mccl")
+            # this slice's path: the std kernels, in a short cell
+            train_std = train_full_width(work, "mccl", stdmin=True, n_timed=10)
             protocol = protocol_full_width(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    cells = {"train": train, "train_mccl": train_mccl, "train_mccl_stdmin": train_std}
     table = []
     for kname, rec in rows.items():
         k = KERNELS[kname]
         bound_ms, bound_by = rec["bound"]
+        # (each cell has checked its counts against PER_METHOD)
+        path = cells[PATH_OF.get(kname, "train")]
         entry = {"name": kname, "route": "cuda", "source": k.source,
-                 "replaces": k.replaces, "launches": train["launches"][kname],
+                 "replaces": k.replaces, "launches": path["launches"][kname],
+                 "launches_path": PATH_OF.get(kname, "train"),
                  "launches_per_step": train["launches"][kname] / train["steps_per_epoch"],
                  "mccl_launches_per_step": (train_mccl["launches"][kname]
                                             / train_mccl["steps_per_epoch"]),
+                 "mccl_stdmin_launches_per_step": (train_std["launches"][kname]
+                                                   / train_std["steps_per_epoch"]),
                  "launches_protocol": protocol["launches"][kname],
                  "launches_protocol_mccl": protocol["mccl_launches"][kname],
                  "max_abs_err": rec["max_abs_err"],
@@ -1227,7 +1318,8 @@ def main() -> int:
         for extra in ("near_tie_rows", "fused_route_ms", "two_op_route_ms", "partial_ms",
                       "final_ms", "p2_ms", "kernel_ms", "sel_ms", "sel_plain_ms",
                       "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err",
-                      "mccl"):
+                      "mccl", "p1_ms", "p1_plain_ms", "p1_bound", "p1_partial_ms",
+                      "p1_final_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -1237,16 +1329,13 @@ def main() -> int:
         blocks, smem = occupancy(getattr(lib, query), *args)
         entry.update(registers=regs, spill_store_bytes=spill, blocks_per_sm=blocks,
                      smem_bytes=smem)
-        if kname.startswith("soft_centroids"):
+        if kname in ("soft_centroids_fwd", "soft_centroids_bwd"):
             # P = 1 and 2, with and without the std: registers / spill bytes /
             # blocks per SM / shared memory bytes
             inst = {}
             for P in (1, 2):
                 for std in (0, 1):
-                    isym = sym.replace("Li1E", f"Li{P}E")
-                    if std:   # the forward's template switch; the backward's kernel
-                        isym = isym.replace("Lb0E", "Lb1E").replace("centroids_bwdI",
-                                                                    "centroids_bwd_stdI")
+                    isym = centroid_symbol(kname.endswith("bwd"), std, P)
                     ((r, sp),) = [(r, sp) for fn, r, sp in build.ptxas_report(src)
                                   if isym in fn]
                     bl, sm = occupancy(getattr(lib, query), *args[:3], P, std)
@@ -1261,6 +1350,7 @@ def main() -> int:
                       "std_free_digest": digest}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_mccl": train_mccl}))
+    print(json.dumps({"train_mccl_stdmin": train_std}))
     print(json.dumps({"protocol": protocol}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

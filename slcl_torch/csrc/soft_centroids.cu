@@ -60,15 +60,34 @@
 // - the final pass gives every value a warp: the lanes stride the blocks'
 //   partials (at most 32 each), a shuffle tree adds the lanes, and the warp
 //   divides by its class's count, which it sums the same way.
+// The backward first forms dsums/dcounts for the block in shared memory,
+// then writes each row's dfeats as 16-byte stores.
+//
+// The std variant has kernels of its own (the std_* functions and the two
+// *_std kernels): its C x 8 more sums a thread left the std-free design no
+// registers for rows in flight (as instantiations of the std-free kernels
+// they ran at 38-47% of their bound). Both read their rows through a bulk-
+// copy ring (ring.cuh), whose bytes in flight cost no registers:
+// - forward (centroids_fwd_std_partial): kStages tiles of 256 rows
+//   (features, probs and, with two partitions, ids) in flight, ~64 KB of
+//   features a block, two blocks per SM. Each warp takes 32 rows of a tile:
+//   one lane a row first turns the row's probs and id into its weights in
+//   each partition and its certain flag (once a row, not once a thread of
+//   the row), then F/4 lanes a row, each owning 4 features, add w * x to
+//   the partition sums without a branch and w * x^2 to S2. At P = 2 that
+//   took it from 0.049 to 0.039 ms: a branch per row over both partitions,
+//   and the weights taken by every thread of the row, had cost the rest.
+// - its final pass gives each class's std a block whose warps each sum a
+//   few of the class's 2F + P values, every load of a batch issued together.
+// - backward (centroids_bwd_std): 2-3 stages of 256 rows after the block's
+//   coefficients; a thread holds a / W at its 8 features in registers (and
+//   at P = 1 the dsums too), takes dfeats and the C dprobs partials in one
+//   pass over them (std_bwd_row), and stores dfeats as 16-byte vectors and
+//   dprobs as one float4 a row. On direct loads with 2 or 4 rows in flight
+//   a thread it ran 24-26% slower (tools/ring_variants.py, std_bwd_direct).
 // No float atomics, and the order of every sum is fixed by the launch shape:
-// two runs on the same inputs give bit-identical centroids. The std variant
-// is a compile-time switch (kStd): its instantiations hold C x 8 more sums a
-// thread and take fewer rows in flight (kFwdRows, kFwdBlocks); the final
-// pass gives each class's std a block of its own, which totals S2, the
-// class's partition-0 sums and counts with all its threads. Without it the
-// kernels are the same code as before it existed. The backward
-// first forms dsums/dcounts for the block in shared memory, then writes each
-// row's dfeats as 16-byte stores. C is fixed at compile time (slcl::kC).
+// two runs on the same inputs give bit-identical results. C is fixed at
+// compile time (slcl::kC).
 #include "ring.cuh"
 
 namespace {
@@ -120,49 +139,34 @@ __device__ __forceinline__ void row_weights(const float* __restrict__ probs,
 template <int P>
 constexpr int kRowsInFlight = P == 1 ? 4 : 2;
 constexpr int kCentFwdBlocksPerSM = 2;  // 128 registers a thread
-// The same with the std sums (C x 8 more a thread): two rows at P = 1 in
-// 128 registers; at P = 2 (104 sums a thread) one block per SM, whose 255
-// registers hold four rows.
-template <int P, bool kStd>
-constexpr int kFwdRows = !kStd ? kRowsInFlight<P> : (P == 1 ? 2 : 4);
-template <int P, bool kStd>
-constexpr int kFwdBlocks = (kStd && P > 1) ? 1 : kCentFwdBlocksPerSM;
 
 // Tiles of the forward's persistent grid: the rows a block takes a step.
-template <int F, int P, bool kStd>
+template <int F, int P>
 struct FwdTiles {
-  static constexpr int kRows = kFwdRows<P, kStd> * (kThreads / (F / 8));
+  static constexpr int kRows = kRowsInFlight<P> * (kThreads / (F / 8));
   static constexpr int kSmemBytes = 0;
 };
 
-// One thread's partial sums: its 8 features of every (partition, class),
-// and, on the row's first thread, the weights and the certain rows; with
-// kStd also w * x^2 of its 8 features of every class.
-template <int P, int C, bool kStd>
+// One thread's partial sums: its V features of every (partition, class),
+// and, on the row's first thread, the weights and the certain rows.
+template <int P, int C, int V = 8>
 struct Acc {
-  float sum[P * C][8];
+  float sum[P * C][V];
   float cnt[P * C];
   float n_cert;
-  float sq[kStd ? C : 1][8];
 
   __device__ __forceinline__ void clear() {
 #pragma unroll
     for (int i = 0; i < P * C; ++i) {
       cnt[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sum[i][j] = 0.f;
+      for (int j = 0; j < V; ++j) sum[i][j] = 0.f;
     }
     n_cert = 0.f;
-    if constexpr (kStd) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sq[c][j] = 0.f;
-    }
   }
 
-  // one row: its 8 features x, probs p and partition id
-  __device__ __forceinline__ void add(const float (&x)[8], const float (&p)[C], int id,
+  // one row: its V features x, probs p and partition id
+  __device__ __forceinline__ void add(const float (&x)[V], const float (&p)[C], int id,
                                       bool first, float thd, int use_thd, int weighted) {
     float w[C], cert, in_part;
     int part;
@@ -173,18 +177,12 @@ struct Acc {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) sum[pp * C + c][j] = fmaf(w[c], x[j], sum[pp * C + c][j]);
+          for (int j = 0; j < V; ++j) sum[pp * C + c][j] = fmaf(w[c], x[j], sum[pp * C + c][j]);
           if (first) cnt[pp * C + c] += w[c];
         }
       }
     }
     if (first) n_cert += cert;
-    if constexpr (kStd) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sq[c][j] = fmaf(w[c] * x[j], x[j], sq[c][j]);
-    }
   }
 
   // The block's sums into part_out, value-major (value i of block b at
@@ -193,19 +191,19 @@ struct Acc {
   // both in a fixed order. Every thread of the block must call it.
   template <int F>
   __device__ __forceinline__ void store(float* __restrict__ part_out) const {
-    constexpr int TPR = F / 8;
+    constexpr int TPR = F / V;
     constexpr int NPC = P * C;
-    constexpr int NV = NPC * F + NPC + 1 + (kStd ? C * F : 0);
+    constexpr int NV = NPC * F + NPC + 1;
     __shared__ float s_acc[kWarps][NV];
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
     for (int i = 0; i < NPC; ++i) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < V; ++j) {
         float v = sum[i][j];
 #pragma unroll
         for (int off = TPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane < TPR) s_acc[warp][i * F + lane * 8 + j] = v;
+        if (lane < TPR) s_acc[warp][i * F + lane * V + j] = v;
       }
       float v = cnt[i];
 #pragma unroll
@@ -216,18 +214,6 @@ struct Acc {
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     if (lane == 0) s_acc[warp][NPC * F + NPC] = v;
-    if constexpr (kStd) {   // S2 after the certain count
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float q = sq[c][j];
-#pragma unroll
-          for (int off = TPR; off < 32; off <<= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-          if (lane < TPR) s_acc[warp][NPC * F + NPC + 1 + c * F + lane * 8 + j] = q;
-        }
-      }
-    }
     __syncthreads();
     for (int i = threadIdx.x; i < NV; i += kThreads) {
       float s = 0.f;
@@ -240,19 +226,19 @@ struct Acc {
 
 // The streaming pass: a persistent grid, each thread starting
 // kRowsInFlight<P> rows' loads before it accumulates.
-template <typename T, int F, int P, int C, bool kStd>
-__global__ void __launch_bounds__(kThreads, (kFwdBlocks<P, kStd>))
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads, kCentFwdBlocksPerSM)
 centroids_fwd_partial(const T* __restrict__ feats, const float* __restrict__ probs,
                       const int* __restrict__ assign, int M, float thd, int use_thd,
                       int weighted, float* __restrict__ part_out) {
   static_assert(C == 4, "a row's probs are read as one float4");
   constexpr int TPR = F / 8;
   constexpr int RPB = kThreads / TPR;
-  constexpr int kRows = kFwdRows<P, kStd>;
-  constexpr int kTile = FwdTiles<F, P, kStd>::kRows;
+  constexpr int kRows = kRowsInFlight<P>;
+  constexpr int kTile = FwdTiles<F, P>::kRows;
   const int sub = threadIdx.x % TPR;
   const int r = threadIdx.x / TPR;
-  Acc<P, C, kStd> acc;
+  Acc<P, C> acc;
   acc.clear();
   for (long long base = (long long)blockIdx.x * kTile; base < M;
        base += (long long)gridDim.x * kTile) {
@@ -282,66 +268,295 @@ centroids_fwd_partial(const T* __restrict__ feats, const float* __restrict__ pro
 
 // Blocks of the streaming pass's persistent launch: at most kMaxBlocks, so
 // that no lane of the final pass adds more than 32 partials.
-template <typename T, int F, int P, bool kStd>
+template <typename T, int F, int P>
 int fwd_grid_of(int M, int* g) {
-  const int rc = slcl::ring_grid<FwdTiles<F, P, kStd>,
-                                 centroids_fwd_partial<T, F, P, slcl::kC, kStd>>(M, g);
+  const int rc = slcl::ring_grid<FwdTiles<F, P>,
+                                 centroids_fwd_partial<T, F, P, slcl::kC>>(M, g);
   if (rc == 0 && *g > slcl::kMaxBlocks) *g = slcl::kMaxBlocks;
   return rc;
 }
 
-// One class's S2 and std, by a whole block of the final pass: every thread
-// adds its share of the block partials (the threads stride them; at most
-// kMaxBlocks / kThreads each, their loads all issued together) of the
-// class's F S2 sums, F partition-0 sums and P counts, kChunk values at a
-// time; the warps fold their lanes with shuffles and the block adds its
-// warps, all in a fixed order. Then one warp takes the variance of each
-// feature around partition 0's centroid and their mean.
+// ---- the std variant's forward ----
+
+// Features a thread of the std forward owns: 4, which halves its sums
+// against 8 (at P = 2, 8 took 104 sums a thread and one block per SM at 198
+// registers). Blocks per SM: two, within 128 registers. The bytes in flight
+// are the ring's, whatever the registers hold.
+template <int P>
+constexpr int kStdFwdVec = 4;
+template <int P>
+constexpr int kStdFwdBlocks = 2;
+
+// V consecutive values of a row in shared memory -> f32 registers
+template <int V>
+__device__ __forceinline__ void std_load_vec(const float* p, float (&x)[V]) {
+  if constexpr (V == 8) {
+    slcl::load8(p, x);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void std_load_vec(const __nv_bfloat16* p, float (&x)[V]) {
+  if constexpr (V == 8) {
+    slcl::load8(p, x);
+  } else {   // a bf16 is the top half of an f32
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(u.x << 16);
+    x[1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2] = __uint_as_float(u.y << 16);
+    x[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// The std forward's read-only ring: tiles of 256 rows, each stage holding
+// their features, their probs (a float4 a row) and, with two partitions,
+// their ids; 2-4 stages, ~64 KB of features in all.
+template <typename T, int F, int P>
+struct StdFwdRing {
+  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  static constexpr int kRows = kThreads;
+  static constexpr int kFeatBytes = kRows * kRowBytes;
+  static constexpr int kProbBytes = kRows * 16;
+  static constexpr int kIdBytes = P > 1 ? kRows * 4 : 0;
+  static constexpr int kStageBytes = kFeatBytes + kProbBytes + kIdBytes;
+  static constexpr int kStages =
+      65536 / kFeatBytes < 2 ? 2 : (65536 / kFeatBytes > 4 ? 4 : 65536 / kFeatBytes);
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kRowBytes % 16 == 0, "bulk copies of whole rows");
+};
+
+// One row of the std forward on a thread's V features x, given the row's
+// weights in each partition wp (w where the row lies, 0 elsewhere) and its
+// certain flag: w * x into the partition sums and w * x^2 into S2. The
+// partition sums take no branch, though a warp's rows lie in both
+// partitions: the other partition's sums gain an exact 0.
+template <int P, int C, int V>
+__device__ __forceinline__ void std_fwd_row(Acc<P, C, V>& acc, float (&sq)[C][V],
+                                            const float (&x)[V], const float4 (&wp)[P],
+                                            float cert, bool first) {
+  float w[C] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int pp = 0; pp < P; ++pp) {
+    const float wc[C] = {wp[pp].x, wp[pp].y, wp[pp].z, wp[pp].w};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc.sum[pp * C + c][j] = fmaf(wc[c], x[j], acc.sum[pp * C + c][j]);
+      if (first) acc.cnt[pp * C + c] += wc[c];
+      w[c] += wc[c];
+    }
+  }
+  if (first) acc.n_cert += cert;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float x2 = x[j] * x[j];
+#pragma unroll
+    for (int c = 0; c < C; ++c) sq[c][j] = fmaf(w[c], x2, sq[c][j]);
+  }
+}
+
+// The std forward's S2 sums (C x V a thread) into part_out as values
+// NV0 + c * F + f, folded as Acc::store folds its sums. Every thread of the
+// block must call it.
+template <int F, int C, int V, int NV0>
+__device__ __forceinline__ void std_store_sq(const float (&sq)[C][V],
+                                             float* __restrict__ part_out) {
+  constexpr int TPR = F / V;
+  __shared__ float s_sq[kWarps][C * F];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float q = sq[c][j];
+#pragma unroll
+      for (int off = TPR; off < 32; off <<= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
+      if (lane < TPR) s_sq[warp][c * F + lane * V + j] = q;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < C * F; i += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int wq = 0; wq < kWarps; ++wq) s += s_sq[wq][i];
+    part_out[(size_t)(NV0 + i) * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// The std forward's streaming pass: a persistent grid over 256-row tiles
+// fed by the ring. Thread 0 fills the stages (ids in whole groups of four
+// rows; a ragged tile's last 1-3 ids are read from memory). Each warp takes
+// 32 rows of a tile: first a lane a row, which turns the row's probs and id
+// into its weights in each partition and its certain flag, in the warp's
+// own shared memory (once a row, not once a thread of the row); then TPR
+// lanes a row, a pass at a time. The warp then arrives on the stage's empty
+// barrier.
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads, kStdFwdBlocks<P>)
+centroids_fwd_std_partial(const T* __restrict__ feats, const float* __restrict__ probs,
+                          const int* __restrict__ assign, int M, float thd, int use_thd,
+                          int weighted, float* __restrict__ part_out) {
+  static_assert(C == 4, "a row's probs are one float4");
+  using G = StdFwdRing<T, F, P>;
+  static_assert(G::kRows == kThreads, "32 rows a warp");
+  constexpr int V = kStdFwdVec<P>;
+  constexpr int TPR = F / V;
+  constexpr int RPW = 32 / TPR;   // rows a warp takes a pass
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kStages * G::kStageBytes);
+  uint64_t* empty = full + G::kStages;
+  // a row's weights in each partition and its certain flag, per warp
+  __shared__ float4 s_wp[kWarps][32][P];
+  __shared__ float s_cert[kWarps][32];
+  const int ntiles = (M + G::kRows - 1) / G::kRows;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane % TPR;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      slcl::mbar_init(&full[s], 1);
+      slcl::mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto fill = [&](int stage, int tile) {
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    unsigned char* st = smem + stage * G::kStageBytes;
+    const uint32_t fbytes = rows * G::kRowBytes;
+    const uint32_t pbytes = rows * 16;
+    const uint32_t ibytes = P > 1 ? (rows & ~3) * 4 : 0;
+    slcl::mbar_expect_tx(&full[stage], fbytes + pbytes + ibytes);
+    slcl::bulk_copy(st, feats + (size_t)row0 * F, fbytes, &full[stage]);
+    slcl::bulk_copy(st + G::kFeatBytes, probs + (size_t)row0 * C, pbytes, &full[stage]);
+    if (ibytes)
+      slcl::bulk_copy(st + G::kFeatBytes + G::kProbBytes, assign + row0, ibytes, &full[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < ntiles) fill(s, tile);
+    }
+  }
+  Acc<P, C, V> acc;
+  acc.clear();
+  float sq[C][V];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < V; ++j) sq[c][j] = 0.f;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int stage = it % G::kStages;
+    const uint32_t parity = (it / G::kStages) & 1;
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    slcl::mbar_wait(&full[stage], parity);
+    const unsigned char* st = smem + stage * G::kStageBytes;
+    const T* s_feat = reinterpret_cast<const T*>(st);
+    const float4* s_prob = reinterpret_cast<const float4*>(st + G::kFeatBytes);
+    const int* s_id = reinterpret_cast<const int*>(st + G::kFeatBytes + G::kProbBytes);
+    const int rw = warp * 32;   // the warp's rows of the tile
+    if (rw + lane < rows) {
+      const int rr = rw + lane;
+      int id = 0;
+      if constexpr (P > 1) id = rr < (rows & ~3) ? s_id[rr] : assign[row0 + rr];
+      const float4 pv = s_prob[rr];
+      const float p[C] = {pv.x, pv.y, pv.z, pv.w};
+      float w[C], cert, in_part;
+      int part;
+      weights_of<P, C>(p, id, thd, use_thd, weighted, w, cert, in_part, part);
+#pragma unroll
+      for (int pp = 0; pp < P; ++pp) {
+        const float on = pp == part ? 1.f : 0.f;
+        s_wp[warp][lane][pp] = make_float4(w[0] * on, w[1] * on, w[2] * on, w[3] * on);
+      }
+      s_cert[warp][lane] = cert;
+    }
+    __syncwarp();
+#pragma unroll 2
+    for (int q = 0; q < 32 / RPW; ++q) {
+      const int l = q * RPW + lane / TPR;   // the row's lane in the first step
+      if (rw + l < rows) {
+        float x[V];
+        std_load_vec<V>(s_feat + (rw + l) * F + sub * V, x);
+        std_fwd_row<P, C, V>(acc, sq, x, s_wp[warp][l], s_cert[warp][l], sub == 0);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) slcl::mbar_arrive(&empty[stage]);
+    if (threadIdx.x == 0) {
+      const int next = tile + G::kStages * gridDim.x;
+      if (next < ntiles) {
+        slcl::mbar_wait(&empty[stage], parity);
+        fill(stage, next);
+      }
+    }
+  }
+  acc.template store<F>(part_out);
+  std_store_sq<F, C, V, P * C * F + P * C + 1>(sq, part_out);
+}
+
+// The std forward's persistent grid, at most kMaxBlocks as the std-free one.
+template <typename T, int F, int P>
+int std_fwd_grid_of(int M, int* g) {
+  const int rc = slcl::ring_grid<StdFwdRing<T, F, P>,
+                                 centroids_fwd_std_partial<T, F, P, slcl::kC>>(M, g);
+  if (rc == 0 && *g > slcl::kMaxBlocks) *g = slcl::kMaxBlocks;
+  return rc;
+}
+
+// One class's S2 and std, by a whole block of the final pass. The class's
+// 2F + P values (S2[k][f], partition 0's sums[k][f], counts[p][k]) go to the
+// warps, kPer a warp; a lane adds its share of the nparts block partials of
+// each, kBatch partials a value (96 loads a lane) with every load of the
+// batch issued together, and a shuffle tree adds the lanes, all in a fixed
+// order. Then one warp takes the variance of each feature around
+// partition 0's centroid and their mean.
 template <int F, int P, int C>
 __device__ __forceinline__ void std_block(const float* __restrict__ part_in, int nparts,
                                           int k, float* __restrict__ s2,
                                           float* __restrict__ stdv) {
   constexpr int NPC = P * C;
   constexpr int NK = 2 * F + P;   // S2[k][f], sums[0][k][f], counts[p][k]
-  constexpr int kChunk = 32;
-  constexpr int kIters = slcl::kMaxBlocks / kThreads;
-  __shared__ float s_w[kWarps][NK];
+  constexpr int kPer = (NK + kWarps - 1) / kWarps;
+  constexpr int kBatch = 96 / kPer;   // a lane's partials of one value a batch
   __shared__ float s_tot[NK];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   auto value_of = [&](int s) {
     return s < F ? NPC * F + NPC + 1 + k * F + s
                  : (s < 2 * F ? k * F + (s - F) : NPC * F + (s - 2 * F) * C + k);
   };
+  float acc[kPer];
 #pragma unroll
-  for (int s0 = 0; s0 < NK; s0 += kChunk) {
-    float acc[kChunk];
+  for (int u = 0; u < kPer; ++u) acc[u] = 0.f;
+  for (int b0 = 0; b0 < nparts; b0 += 32 * kBatch) {
+    float v[kPer][kBatch];
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) acc[u] = 0.f;
+    for (int u = 0; u < kPer; ++u) {
+      const int s = warp + u * kWarps;
+      const float* src = part_in + (size_t)value_of(s < NK ? s : 0) * nparts;
 #pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int b = threadIdx.x + it * kThreads;
-      if (b < nparts) {
-#pragma unroll
-        for (int u = 0; u < kChunk; ++u)
-          if (s0 + u < NK) acc[u] += part_in[(size_t)value_of(s0 + u) * nparts + b];
+      for (int i = 0; i < kBatch; ++i) {
+        const int b = b0 + i * 32 + lane;
+        v[u][i] = (s < NK && b < nparts) ? src[b] : 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      if (s0 + u < NK) {
-        float v = acc[u];
+    for (int u = 0; u < kPer; ++u)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) s_w[warp][s0 + u] = v;
-      }
-    }
+      for (int i = 0; i < kBatch; ++i) acc[u] += v[u][i];
   }
-  __syncthreads();
-  for (int s = threadIdx.x; s < NK; s += kThreads) {
-    float t = 0.f;
 #pragma unroll
-    for (int wq = 0; wq < kWarps; ++wq) t += s_w[wq][s];
-    s_tot[s] = t;
+  for (int u = 0; u < kPer; ++u) {
+    float t = acc[u];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+    const int s = warp + u * kWarps;
+    if (lane == 0 && s < NK) s_tot[s] = t;
   }
   __syncthreads();
   if (warp != 0) return;
@@ -411,9 +626,8 @@ __device__ __forceinline__ float weight_total(const float* __restrict__ counts, 
   return w + 1e-7f;
 }
 
-// The backward's body, with or without the std's terms (kStd); the two
-// kernels below differ only in what they ask of ptxas.
-template <typename T, int F, int P, int C, bool kStd>
+// The backward's body.
+template <typename T, int F, int P, int C>
 __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
                                          const float* __restrict__ probs,
                                          const int* __restrict__ assign, int M, float thd,
@@ -421,54 +635,23 @@ __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
                                          const float* __restrict__ dcents,
                                          const float* __restrict__ cents,
                                          const float* __restrict__ counts,
-                                         T* __restrict__ dfeats, float* __restrict__ dprobs,
-                                         const float* __restrict__ gstd,
-                                         const float* __restrict__ s2,
-                                         const float* __restrict__ stdv) {
+                                         T* __restrict__ dfeats, float* __restrict__ dprobs) {
   constexpr int TPR = F / 8;
   constexpr int RPB = kThreads / TPR;
   constexpr int NPC = P * C;
-  // with kStd, a[c][f] and a[c][f] / W[c] follow the dsums
-  __shared__ float s_dsum[NPC * F + (kStd ? 2 * C * F : 0)];
+  __shared__ float s_dsum[NPC * F];
   __shared__ float s_dcnt[NPC];
-  if constexpr (kStd) {
-    float* s_a = s_dsum + NPC * F;
-    float* s_aw = s_a + C * F;
-    for (int i = threadIdx.x; i < C * F; i += kThreads) {
-      const int c = i / F;
-      const float wk = weight_total<P, C>(counts, c);
-      const float var = s2[i] / wk - cents[i] * cents[i];
-      const float dvar = var > 0.f ? 1.f : (var == 0.f ? 0.5f : 0.f);
-      const float a = gstd[c] * dvar / (2.f * stdv[c] * static_cast<float>(F));
-      s_a[i] = a;
-      s_aw[i] = a / wk;
-    }
-    __syncthreads();
-  }
   for (int i = threadIdx.x; i < NPC * F; i += kThreads) {
     float d = dcents[i];
-    if constexpr (kStd) {
-      if (i < C * F) d = fmaf(-2.f * s_dsum[NPC * F + i], cents[i], d);
-    }
     s_dsum[i] = d / (counts[i / F] + 1e-7f);
   }
   for (int i = threadIdx.x; i < NPC; i += kThreads) {
     float v = 0.f;
     for (int f = 0; f < F; ++f) {
       float d = dcents[i * F + f];
-      if constexpr (kStd) {
-        if (i < C) d = fmaf(-2.f * s_dsum[NPC * F + i * F + f], cents[i * F + f], d);
-      }
       v = fmaf(d, cents[i * F + f], v);
     }
     s_dcnt[i] = -v / (counts[i] + 1e-7f);
-    if constexpr (kStd) {   // - sum_f a S2 / W^2, whatever the row's partition
-      const int c = i % C;
-      const float wk = weight_total<P, C>(counts, c);
-      float b = 0.f;
-      for (int f = 0; f < F; ++f) b = fmaf(s_dsum[NPC * F + c * F + f], s2[c * F + f], b);
-      s_dcnt[i] -= b / (wk * wk);
-    }
   }
   __syncthreads();
   const int sub = threadIdx.x % TPR;
@@ -483,12 +666,8 @@ __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
     float w[C], cert = 0.f, in_part = 0.f;
     int part = 0;
     if (valid) {
-      if constexpr (kStd) {   // the std's gradient reads the features
-        slcl::load8(feats + (size_t)row * F + sub * 8, x);
-      } else {
-        // the features enter only dprobs: dfeats needs just the weights
-        if (dprobs != nullptr) slcl::load8(feats + (size_t)row * F + sub * 8, x);
-      }
+      // the features enter only dprobs: dfeats needs just the weights
+      if (dprobs != nullptr) slcl::load8(feats + (size_t)row * F + sub * 8, x);
       row_weights<P, C>(probs, assign, row, thd, use_thd, weighted, w, cert, in_part, part);
     } else {
 #pragma unroll
@@ -501,13 +680,6 @@ __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
       float v = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) v = fmaf(w[c], ds[c * F + j], v);
-      if constexpr (kStd) {   // a / W after a, at C * F past the dsums
-        const float* as = s_dsum + NPC * F + C * F + sub * 8;
-        float u = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) u = fmaf(w[c], as[c * F + j], u);
-        v = fmaf(2.f * x[j], u, v);
-      }
       dx[j] = v;
     }
     if (valid) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
@@ -518,11 +690,6 @@ __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
         float v = 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) v = fmaf(ds[c * F + j], x[j], v);
-        if constexpr (kStd) {
-          const float* as = s_dsum + NPC * F + C * F + sub * 8;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v = fmaf(as[c * F + j] * x[j], x[j], v);
-        }
 #pragma unroll
         for (int off = 1; off < TPR; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
         dw[c] = v;
@@ -544,16 +711,167 @@ centroids_bwd(const T* __restrict__ feats, const float* __restrict__ probs,
               int weighted, const float* __restrict__ dcents,
               const float* __restrict__ cents, const float* __restrict__ counts,
               T* __restrict__ dfeats, float* __restrict__ dprobs) {
-  bwd_rows<T, F, P, C, false>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
-                              counts, dfeats, dprobs, nullptr, nullptr, nullptr);
+  bwd_rows<T, F, P, C>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
+                       counts, dfeats, dprobs);
 }
 
-// With the std: three blocks per SM asked (80 registers), two at F = 8.
-// Left to itself ptxas held the bf16 F = 32 P = 1 instantiation at 64
-// registers and spilled 8 bytes; the same request of the std-free kernel
-// took it from 48 to 76 registers and 0.0325 to 0.0384 ms, so it has its own.
+// ---- the std variant's backward ----
+
+constexpr int kBwdStdBlocksPerSM = 2;
+
+// The std backward's ring: tiles of 256 rows, each stage holding their
+// features, their probs (a float4 a row) and, with two partitions, their
+// ids; 2-3 stages (~48 KB of features) after the coefficients in dynamic
+// shared memory: dsums (P*C, F), a and a / W (C, F), dcounts (P*C).
+template <typename T, int F, int P>
+struct BwdStdTiles {
+  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  static constexpr int kRows = kThreads;
+  static constexpr int kFeatBytes = kRows * kRowBytes;
+  static constexpr int kProbBytes = kRows * 16;
+  static constexpr int kIdBytes = P > 1 ? kRows * 4 : 0;
+  static constexpr int kStageBytes = kFeatBytes + kProbBytes + kIdBytes;
+  static constexpr int kStages =
+      49152 / kFeatBytes < 2 ? 2 : (49152 / kFeatBytes > 3 ? 3 : 49152 / kFeatBytes);
+  static constexpr int kCoefBytes = (P * slcl::kC * F + 2 * slcl::kC * F + P * slcl::kC) * 4;
+  static constexpr int kCoefPad = (kCoefBytes + 127) / 128 * 128;
+  static constexpr int kSmemBytes = kCoefPad + kStages * kStageBytes + 2 * kStages * 8;
+};
+
+// The std backward's coefficients, once a block, in shared memory: a and
+// a / W, the dsums with dcents[0] -= 2 a cents[0], and the dcounts with
+// - sum_f a S2 / W^2 (a warp each, its lanes over the features).
+template <int F, int P, int C>
+__device__ __forceinline__ void std_bwd_coefs(const float* __restrict__ dcents,
+                                              const float* __restrict__ cents,
+                                              const float* __restrict__ counts,
+                                              const float* __restrict__ gstd,
+                                              const float* __restrict__ s2,
+                                              const float* __restrict__ stdv, float* s_dsum,
+                                              float* s_a, float* s_aw, float* s_dcnt) {
+  constexpr int NPC = P * C;
+  static_assert(NPC <= kWarps, "a warp per dcount");
+  for (int i = threadIdx.x; i < C * F; i += kThreads) {
+    const int c = i / F;
+    const float wk = weight_total<P, C>(counts, c);
+    const float var = s2[i] / wk - cents[i] * cents[i];
+    const float dvar = var > 0.f ? 1.f : (var == 0.f ? 0.5f : 0.f);
+    const float a = gstd[c] * dvar / (2.f * stdv[c] * static_cast<float>(F));
+    s_a[i] = a;
+    s_aw[i] = a / wk;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < NPC * F; i += kThreads) {
+    float d = dcents[i];
+    if (i < C * F) d = fmaf(-2.f * s_a[i], cents[i], d);
+    s_dsum[i] = d / (counts[i / F] + 1e-7f);
+  }
+  const int lane = threadIdx.x % 32, i = threadIdx.x / 32;
+  if (i < NPC) {
+    const int c = i % C;
+    float v = 0.f, b = 0.f;
+    for (int f = lane; f < F; f += 32) {
+      float d = dcents[i * F + f];
+      if (i < C) d = fmaf(-2.f * s_a[i * F + f], cents[i * F + f], d);
+      v = fmaf(d, cents[i * F + f], v);
+      b = fmaf(s_a[c * F + f], s2[c * F + f], b);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      const float wk = weight_total<P, C>(counts, c);
+      s_dcnt[i] = -v / (counts[i] + 1e-7f) - b / (wk * wk);
+    }
+  }
+  __syncthreads();
+}
+
+// One row of the std backward on its thread's 8 features x, in one pass
+// over them: dfeats = sum_c w ds + 2 x sum_c w a / W, stored as 16-byte
+// vectors, and with dprobs the C partials sum_f ds x + a / W x^2, folded
+// over the row's threads and stored as one float4. aw: a / W at the
+// thread's features; dsr: at P = 1 the dsums there (at P = 2 they are read
+// from s_dsum, two float4 a class). Every thread of the warp must call it.
 template <typename T, int F, int P, int C>
-__global__ void __launch_bounds__(kThreads, (F == 8 ? 2 : 3))
+__device__ __forceinline__ void std_bwd_row(const float (&x)[8], const float4& pv, int id,
+                                            long long row, bool valid, float thd,
+                                            int use_thd, int weighted,
+                                            const float (&aw)[C][8],
+                                            const float (&dsr)[P == 1 ? C : 1][8],
+                                            const float* s_dsum, const float* s_dcnt,
+                                            int sub, T* __restrict__ dfeats,
+                                            float* __restrict__ dprobs) {
+  constexpr int TPR = F / 8;
+  const float p[C] = {pv.x, pv.y, pv.z, pv.w};
+  float w[C], cert, in_part;
+  int part;
+  weights_of<P, C>(p, id, thd, use_thd, weighted, w, cert, in_part, part);
+  float dx[8], dw[C];
+  if constexpr (P == 1) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) dw[c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float x2 = x[k] * x[k];
+      float v = 0.f, u = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        v = fmaf(w[c], dsr[c][k], v);
+        u = fmaf(w[c], aw[c][k], u);
+        dw[c] = fmaf(dsr[c][k], x[k], dw[c]);
+        dw[c] = fmaf(aw[c][k], x2, dw[c]);
+      }
+      dx[k] = fmaf(2.f * x[k], u, v);
+    }
+  } else {
+    float u[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dx[k] = u[k] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float ds[8];
+      slcl::load8(s_dsum + (part * C + c) * F + sub * 8, ds);
+      float d = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        dx[k] = fmaf(w[c], ds[k], dx[k]);
+        u[k] = fmaf(w[c], aw[c][k], u[k]);
+        d = fmaf(ds[k], x[k], d);
+        d = fmaf(aw[c][k], x[k] * x[k], d);
+      }
+      dw[c] = d;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dx[k] = fmaf(2.f * x[k], u[k], dx[k]);
+  }
+  if (valid) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
+  if (dprobs != nullptr) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) dw[c] += __shfl_xor_sync(0xffffffffu, dw[c], off);
+    if (valid && sub == 0) {
+      const float g = cert * in_part;
+      const float* dc = s_dcnt + part * C;
+      reinterpret_cast<float4*>(dprobs)[row] =
+          make_float4((dw[0] + dc[0]) * g, (dw[1] + dc[1]) * g, (dw[2] + dc[2]) * g,
+                      (dw[3] + dc[3]) * g);
+    }
+  }
+}
+
+// The std backward: a persistent grid over 256-row tiles fed by the ring.
+// Thread 0 fills the stages (ids in whole groups of four rows; a ragged
+// tile's last 1-3 ids are read from memory) as soon as the barriers exist,
+// while the block forms its coefficients; the threads then take their rows
+// from the stage a pass at a time (std_bwd_row) and store dfeats and dprobs
+// directly, and each warp arrives on the stage's empty barrier once it has
+// read its rows.
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads, kBwdStdBlocksPerSM)
 centroids_bwd_std(const T* __restrict__ feats, const float* __restrict__ probs,
                   const int* __restrict__ assign, int M, float thd, int use_thd,
                   int weighted, const float* __restrict__ dcents,
@@ -561,8 +879,97 @@ centroids_bwd_std(const T* __restrict__ feats, const float* __restrict__ probs,
                   T* __restrict__ dfeats, float* __restrict__ dprobs,
                   const float* __restrict__ gstd, const float* __restrict__ s2,
                   const float* __restrict__ stdv) {
-  bwd_rows<T, F, P, C, true>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
-                             counts, dfeats, dprobs, gstd, s2, stdv);
+  static_assert(C == 4, "a row's probs and dprobs are one float4");
+  using G = BwdStdTiles<T, F, P>;
+  constexpr int TPR = F / 8;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int NPC = P * C;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_dsum = reinterpret_cast<float*>(smem);
+  float* s_a = s_dsum + NPC * F;
+  float* s_aw = s_a + C * F;
+  float* s_dcnt = s_aw + C * F;
+  unsigned char* ring = smem + G::kCoefPad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStageBytes);
+  uint64_t* empty = full + G::kStages;
+  const int ntiles = (M + G::kRows - 1) / G::kRows;
+  const int lane = threadIdx.x % 32;
+  auto fill = [&](int stage, int tile) {
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    unsigned char* st = ring + stage * G::kStageBytes;
+    const uint32_t fbytes = rows * G::kRowBytes;
+    const uint32_t pbytes = rows * 16;
+    const uint32_t ibytes = P > 1 ? (rows & ~3) * 4 : 0;
+    slcl::mbar_expect_tx(&full[stage], fbytes + pbytes + ibytes);
+    slcl::bulk_copy(st, feats + (size_t)row0 * F, fbytes, &full[stage]);
+    slcl::bulk_copy(st + G::kFeatBytes, probs + (size_t)row0 * C, pbytes, &full[stage]);
+    if (ibytes)
+      slcl::bulk_copy(st + G::kFeatBytes + G::kProbBytes, assign + row0, ibytes, &full[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      slcl::mbar_init(&full[s], 1);
+      slcl::mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < G::kStages; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < ntiles) fill(s, tile);
+    }
+  }
+  std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  float aw[C][8];
+  float dsr[P == 1 ? C : 1][8];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    slcl::load8(s_aw + c * F + sub * 8, aw[c]);
+    if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);
+  }
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const int stage = it % G::kStages;
+    const uint32_t parity = (it / G::kStages) & 1;
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    slcl::mbar_wait(&full[stage], parity);
+    const unsigned char* st = ring + stage * G::kStageBytes;
+    const T* s_feat = reinterpret_cast<const T*>(st);
+    const float4* s_prob = reinterpret_cast<const float4*>(st + G::kFeatBytes);
+    const int* s_id = reinterpret_cast<const int*>(st + G::kFeatBytes + G::kProbBytes);
+#pragma unroll 1
+    for (int q = 0; q < G::kRows / RPB; ++q) {
+      const int rr = q * RPB + r;
+      const bool valid = rr < rows;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+      int id = 0;
+      if (valid) {
+        slcl::load8(s_feat + rr * F + sub * 8, x);
+        pv = s_prob[rr];
+        if constexpr (P > 1) id = rr < (rows & ~3) ? s_id[rr] : __ldg(assign + row0 + rr);
+      }
+      std_bwd_row<T, F, P, C>(x, pv, id, (long long)row0 + rr, valid, thd, use_thd, weighted,
+                              aw, dsr, s_dsum, s_dcnt, sub, dfeats, dprobs);
+    }
+    __syncwarp();
+    if (lane == 0) slcl::mbar_arrive(&empty[stage]);
+    if (threadIdx.x == 0) {
+      const int next = tile + G::kStages * gridDim.x;
+      if (next < ntiles) {
+        slcl::mbar_wait(&empty[stage], parity);
+        fill(stage, next);
+      }
+    }
+  }
+}
+
+// The std backward's persistent grid.
+template <typename T, int F, int P>
+int std_bwd_grid_of(int M, int* g) {
+  return slcl::ring_grid<BwdStdTiles<T, F, P>, centroids_bwd_std<T, F, P, slcl::kC>>(M, g);
 }
 
 #define SLCL_DISPATCH_P(P, ...)                                 \
@@ -585,10 +992,18 @@ int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
                cudaStream_t st) {
   SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(s2 != nullptr, {
     int grid = 0;
-    const int rc = fwd_grid_of<T, kF, kP, kS>(M, &grid);
-    if (rc != 0) return rc;
-    centroids_fwd_partial<T, kF, kP, kC, kS><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted, partials);
+    if constexpr (kS) {
+      const int rc = std_fwd_grid_of<T, kF, kP>(M, &grid);
+      if (rc != 0) return rc;
+      constexpr int kSmem = StdFwdRing<T, kF, kP>::kSmemBytes;
+      centroids_fwd_std_partial<T, kF, kP, kC><<<grid, kThreads, kSmem, st>>>(
+          static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted, partials);
+    } else {
+      const int rc = fwd_grid_of<T, kF, kP>(M, &grid);
+      if (rc != 0) return rc;
+      centroids_fwd_partial<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted, partials);
+    }
     constexpr int kNV = kP * kC * kF + kP * kC + 1;
     constexpr int kBlocks = (kNV + kWarps - 1) / kWarps + (kS ? kC : 0);
     centroids_fwd_final<kF, kP, kC, kS><<<kBlocks, kThreads, 0, st>>>(
@@ -599,8 +1014,10 @@ int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
 
 template <typename T>
 int fwd_grid(int M, int F, int P, int with_std, int* grid) {
-  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(
-      with_std, return (fwd_grid_of<T, kF, kP, kS>(M, grid)))));
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(with_std, {
+    if constexpr (kS) return std_fwd_grid_of<T, kF, kP>(M, grid);
+    else return fwd_grid_of<T, kF, kP>(M, grid);
+  })));
   return -1;
 }
 
@@ -611,15 +1028,20 @@ int launch_bwd(const void* feats, const float* probs, const int* assign, int M,
                void* dfeats, float* dprobs, const float* gstd, const float* s2,
                const float* stdv, cudaStream_t st) {
   SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(gstd != nullptr, {
-    const int grid = slcl::grid_for(M, kThreads / (kF / 8));
-    if constexpr (kS)
-      centroids_bwd_std<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
+    if constexpr (kS) {
+      int grid = 0;
+      const int rc = std_bwd_grid_of<T, kF, kP>(M, &grid);
+      if (rc != 0) return rc;
+      constexpr int kSmem = BwdStdTiles<T, kF, kP>::kSmemBytes;
+      centroids_bwd_std<T, kF, kP, kC><<<grid, kThreads, kSmem, st>>>(
           static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
           dcents, cents, counts, static_cast<T*>(dfeats), dprobs, gstd, s2, stdv);
-    else
+    } else {
+      const int grid = slcl::grid_for(M, kThreads / (kF / 8));
       centroids_bwd<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
           static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
           dcents, cents, counts, static_cast<T*>(dfeats), dprobs);
+    }
   })));
   return static_cast<int>(cudaGetLastError());
 }
@@ -628,13 +1050,18 @@ template <typename T>
 int occupancy_of(int bwd, int F, int P, int with_std, int* blocks_per_sm,
                  int* smem_bytes) {
   SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(with_std, {
-    if (!bwd)
-      return slcl::occupancy(centroids_fwd_partial<T, kF, kP, kC, kS>, 0, blocks_per_sm,
-                             smem_bytes);
-    if constexpr (kS)
-      return slcl::occupancy(centroids_bwd_std<T, kF, kP, kC>, 0, blocks_per_sm, smem_bytes);
-    else
+    if constexpr (kS) {
+      if (!bwd)
+        return slcl::occupancy(centroids_fwd_std_partial<T, kF, kP, kC>,
+                               StdFwdRing<T, kF, kP>::kSmemBytes, blocks_per_sm, smem_bytes);
+      return slcl::occupancy(centroids_bwd_std<T, kF, kP, kC>,
+                             BwdStdTiles<T, kF, kP>::kSmemBytes, blocks_per_sm, smem_bytes);
+    } else {
+      if (!bwd)
+        return slcl::occupancy(centroids_fwd_partial<T, kF, kP, kC>, 0, blocks_per_sm,
+                               smem_bytes);
       return slcl::occupancy(centroids_bwd<T, kF, kP, kC>, 0, blocks_per_sm, smem_bytes);
+    }
   })));
   return -1;
 }

@@ -24,6 +24,13 @@ FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
                "slcl_tpu/ops/pallas/centroid_kernel.py:64")
 BWD = register("soft_centroids_bwd", "slcl_torch/csrc/soft_centroids.cu",
                "slcl_tpu/ops/centroids.py:76 (jnp autodiff; the Pallas kernel has no bwd)")
+# the std variant (MCCL's stdmin): kernels of their own, counted apart
+FWD_STD = register("soft_centroids_fwd_std", "slcl_torch/csrc/soft_centroids.cu",
+                   "slcl_tpu/ops/pallas/centroid_kernel.py:64 with the stddevs of "
+                   "slcl_tpu/ops/centroids.py:137-146")
+BWD_STD = register("soft_centroids_bwd_std", "slcl_torch/csrc/soft_centroids.cu",
+                   "slcl_tpu/ops/centroids.py:76,137-146 (jnp autodiff of the centroids "
+                   "and stddevs; the Pallas kernel has no bwd)")
 
 _EPS = 1e-7
 _SIGS = {
@@ -130,7 +137,7 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
             float(threshold), int(weighted), ptr(parts), ptr(cents), ptr(counts),
             ptr(ratio), ptr(s2), ptr(std), stream_of(feats))
     raise_on_error(rc, "soft_centroids_fwd")
-    FWD.launches += 1
+    (FWD_STD if with_std else FWD).launches += 1
     if with_std:
         return cents, counts, ratio, std, s2
     return cents, counts, ratio
@@ -164,7 +171,7 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
             ptr(s2) if dstd is not None else None,
             ptr(std) if dstd is not None else None, stream_of(feats))
     raise_on_error(rc, "soft_centroids_bwd")
-    BWD.launches += 1
+    (BWD if dstd is None else BWD_STD).launches += 1
     return dfeats, dprobs          # hard weights: None, no gradient to probs
 
 

@@ -21,9 +21,11 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
   replaces, and that function exists;
 - the soft centroids' std variant is a compile-time switch: every use of
   ``kStd`` is a template parameter or argument, a constant expression or an
-  ``if constexpr``, and once its ``if constexpr (kStd)`` blocks and
-  ``std_block`` are taken out no std arithmetic is left, so the std-free
-  instantiations are the code they were; no sum there uses a float atomic.
+  ``if constexpr``, and once its ``if constexpr (kStd)`` blocks and its own
+  functions and tile types (``*std*`` / ``*Std*``) are taken out no std
+  arithmetic is left, so the std-free instantiations are the code they
+  were; both std kernels take a persistent grid from ``ring_grid``; no sum
+  there uses a float atomic.
 
 Reads files only: no CUDA, no nvcc.
 """
@@ -235,11 +237,19 @@ def test_ring_variant_edits_apply(variant):
         assert sym in _global_kernels(_source_with_includes(lib))
 
 
+# the std variant's own functions (name holding "std") and tile types
+STD_FUNCS = ("centroids_fwd_std_partial", "centroids_bwd_std", "std_block", "std_fwd_row",
+             "std_store_sq", "std_bwd_coefs", "std_bwd_row", "std_fwd_grid_of",
+             "std_bwd_grid_of")
+
+
 def _without_std_blocks(src: str) -> str:
-    """The source with every ``if constexpr (kStd) { ... }`` block and the
-    body of ``std_block`` cut out (braces matched)."""
+    """The source with every ``if constexpr (kStd) { ... }`` block, and the
+    definition of every function whose name holds ``std`` and of every
+    struct whose name holds ``Std``, cut out (braces matched)."""
     out, i = [], 0
-    heads = re.compile(r"if constexpr \(kStd\) \{|void std_block\([^{]*\{")
+    heads = re.compile(r"if constexpr \(kStd\) \{|\b\w*std\w*\([^;{]*\)\s*\{"
+                       r"|struct \w*Std\w* \{")
     while True:
         m = heads.search(src, i)
         if not m:
@@ -263,12 +273,30 @@ def test_std_variant_is_a_compile_time_switch():
             assert "constexpr" in line or re.search(r"\[[^\]]*\bkStd\b[^\]]*\]", line), (
                 f"kStd read at run time: {line.strip()}")
     rest = _without_std_blocks(kernels)
-    # (the member's declaration aside)
-    for name in (r"(?<!float )\bsq\[", r"\bgstd\[", r"\bs2\[", r"\bstdv\[",
-                 r"\bstd_block<"):
-        assert not re.search(name, rest), f"{name} outside the std variant's blocks"
-    # the blocks exist: the sums, the final pass and the backward's terms
-    assert kernels.count("if constexpr (kStd)") >= 8
+    # (the dispatch may name the std kernels, their grids and tile types)
+    for name in (r"\bsq\[", r"\bgstd\[", r"\bs2\[", r"\bstdv\[", r"\bx2\b", r"\bs_aw\b",
+                 r"\bstd_(block|fwd_row|store_sq|bwd_coefs|bwd_row)<"):
+        assert not re.search(name, rest), f"{name} outside the std variant's code"
+    # the std variant's code exists and was cut: its own functions, and the
+    # final pass's class blocks (the one kStd branch left in shared code)
+    for fn in STD_FUNCS:
+        assert re.search(rf"\b{fn}\(", kernels) and not re.search(rf"\b{fn}\(", rest), fn
+    assert kernels.count("if constexpr (kStd)") >= 1
+
+
+@pytest.mark.parametrize("kernel,grid", [("centroids_fwd_std_partial", "std_fwd_grid_of"),
+                                         ("centroids_bwd_std", "std_bwd_grid_of")])
+def test_std_kernels_take_their_grid_from_ring_grid(kernel, grid):
+    """Each std kernel runs on a persistent grid of its own: its grid
+    function asks ring_grid for the kernel's slots, and the launch takes
+    that grid and the tile type's dynamic shared memory."""
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    body = src.split(f"int {grid}(", 1)[1].split("\n}", 1)[0]
+    assert re.search(rf"ring_grid<\w+<T, F, P>,\s*{kernel}<T, F, P, slcl::kC>>\(M,", body)
+    # the launch follows the grid's query, before any other kernel's
+    launch = src.split(f"{grid}<T, kF, kP>(M, &grid)", 1)[1].split("<<<", 1)[0]
+    assert launch.rstrip().endswith(f"{kernel}<T, kF, kP, kC>"), launch
+    assert "kSmem = " in launch
 
 
 def test_centroid_sums_use_no_float_atomics():

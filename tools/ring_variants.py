@@ -21,6 +21,14 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
   sel, the two-op route's; ``pseudo_label``; and ``soft_centroids_fwd``
   (P = 1, hard weights: the step's call; and P = 2). ``fwd_ring*`` put the
   first four on a bulk-copy ring like the backward's.
+- ``std_*`` variants edit ``soft_centroids.cu`` and time the centroids' std
+  kernels (soft weights, dprobs, P = 1 and 2: MCCL's stdmin call is P = 2):
+  ``std_half`` is the forward on direct loads with half-width ownership (4
+  features a thread), ``std_bwd_direct*`` the backward on direct loads with
+  rows in flight (the design the ring replaced).
+  With ``--parent DIR`` (a checkout of an earlier commit), the variant
+  ``parent`` builds that checkout's sources unedited and times the same
+  calls: the design they replaced.
 
 A variant that does not compile is reported and left out; the others run.
 
@@ -51,6 +59,8 @@ _CEN_MEMONLY = (CEN, "        acc.add(x[j], p, id[j], sub == 0, thd, use_thd, we
                 "        for (int i = 0; i < 8; ++i) acc.sum[0][i] += x[j][i];\n"
                 "        acc.cnt[0] += p[0] + id[j];\n")
 BWD_KERNELS = ("mpcl_bwd", "mpcl_pseudo_bwd")
+STD_KERNELS = ("soft_centroids_fwd_std", "soft_centroids_fwd_std_p2", "soft_centroids_bwd_std",
+               "soft_centroids_bwd_std_p2")
 MPCL_FWD = ("mpcl_fwd", "mpcl_fwd_sel")   # labels given: without sel, with sel
 ROW_FWD = ("mpcl_pseudo_fwd", *MPCL_FWD, "pseudo_label")   # on mpcl_fwd_tile.cuh
 CEN_FWD = ("soft_centroids_fwd", "soft_centroids_fwd_p2")
@@ -58,7 +68,8 @@ FWD_KERNELS = ROW_FWD + CEN_FWD
 LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
           "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
           "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
-          "soft_centroids_fwd_p2": "soft_centroids"}
+          "soft_centroids_fwd_p2": "soft_centroids",
+          **dict.fromkeys(STD_KERNELS, "soft_centroids")}
 # ptxas entry-function name parts of each timed kernel's instantiation
 SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
@@ -66,8 +77,20 @@ SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_fwd": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
              "mpcl_fwd_sel": "mpcl_fwd_partialI13__nv_bfloat16Li32E",
              "pseudo_label": "pseudo_label_kernelI13__nv_bfloat16Li32E",
-             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E",
-             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb0E"}
+             "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4EE",
+             "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4EE",
+             "soft_centroids_fwd_std": "centroids_fwd_std_partialI13__nv_bfloat16Li32ELi1ELi4EE",
+             "soft_centroids_fwd_std_p2":
+                 "centroids_fwd_std_partialI13__nv_bfloat16Li32ELi2ELi4EE",
+             "soft_centroids_bwd_std": "centroids_bwd_stdI13__nv_bfloat16Li32ELi1ELi4EE",
+             "soft_centroids_bwd_std_p2": "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE"}
+# the same in a parent checkout whose std forward was an instantiation of the
+# std-free kernel (kStd)
+PARENT_SYMBOL_OF = {
+    "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E",
+    "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb0E",
+    "soft_centroids_fwd_std": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb1E",
+    "soft_centroids_fwd_std_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb1E"}
 
 
 def _section(f: str, start: str, end: str) -> str:
@@ -198,9 +221,106 @@ _RING_SIDE = [
     (FWD, "      });\n  num = n;\n", "      }, kPseudo ? nullptr : labels, sel);\n  num = n;\n"),
 ]
 
+# The std forward on direct loads with half-width ownership, design (b): a
+# thread owns 4 features (8-byte loads of bf16, F/4 threads a row), which
+# halves its sums (48 at P = 2, so 2 blocks per SM at both P), and starts
+# four rows' loads before it accumulates. It keeps the ring's tile type's
+# name, which the grid and the launch ask.
+_STD_HALF = [
+    (CEN, _section(CEN, "// The std forward's read-only ring: tiles of 256 rows",
+                   "bulk copies of whole rows\");\n};\n"),
+     """\
+constexpr int kHalfRows = 4;
+template <typename T, int F, int P>
+struct StdFwdRing {
+  static constexpr int kRows = kHalfRows * (kThreads / (F / 4));
+  static constexpr int kSmemBytes = 0;
+};
+
+__device__ __forceinline__ void half_load4(const float* p, float (&x)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
+
+__device__ __forceinline__ void half_load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  x[0] = __uint_as_float(u.x << 16); x[1] = __uint_as_float(u.x & 0xffff0000u);
+  x[2] = __uint_as_float(u.y << 16); x[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+"""),
+    (CEN, _section(CEN, "// The std forward's streaming pass: a persistent grid",
+                   "  std_store_sq<F, C, V, P * C * F + P * C + 1>(sq, part_out);\n}\n"), """\
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads, kStdFwdBlocks<P>)
+centroids_fwd_std_partial(const T* __restrict__ feats, const float* __restrict__ probs,
+                          const int* __restrict__ assign, int M, float thd, int use_thd,
+                          int weighted, float* __restrict__ part_out) {
+  constexpr int TPR = F / 4;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int kTile = StdFwdRing<T, F, P>::kRows;
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  Acc<P, C, 4> acc;
+  acc.clear();
+  float sq[C][4];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sq[c][j] = 0.f;
+  for (long long base = (long long)blockIdx.x * kTile; base < M;
+       base += (long long)gridDim.x * kTile) {
+    float x[kHalfRows][4];
+    float4 pv[kHalfRows];
+    int id[kHalfRows];
+#pragma unroll
+    for (int j = 0; j < kHalfRows; ++j) {
+      const long long row = base + j * RPB + r;
+      id[j] = 0;
+      if (row < M) {
+        half_load4(feats + (size_t)row * F + sub * 4, x[j]);
+        pv[j] = __ldg(reinterpret_cast<const float4*>(probs) + row);
+        if constexpr (P > 1) id[j] = assign[row];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kHalfRows; ++j) {
+      if (base + j * RPB + r < M) {
+        const float p[C] = {pv[j].x, pv[j].y, pv[j].z, pv[j].w};
+        float w[C], cert, in_part;
+        int part;
+        weights_of<P, C>(p, id[j], thd, use_thd, weighted, w, cert, in_part, part);
+        float4 wp[P];
+#pragma unroll
+        for (int pp = 0; pp < P; ++pp) {
+          const float on = pp == part ? 1.f : 0.f;
+          wp[pp] = make_float4(w[0] * on, w[1] * on, w[2] * on, w[3] * on);
+        }
+        std_fwd_row<P, C, 4>(acc, sq, x[j], wp, cert, sub == 0);
+      }
+    }
+  }
+  acc.template store<F>(part_out);
+  std_store_sq<F, C, 4, P * C * F + P * C + 1>(sq, part_out);
+}
+""")]
+# The std backward on direct loads, the design the ring replaced: a thread
+# loads kBwdStdRows<P> rows (16-byte features, a float4 of probs, the id)
+# before it computes the first, on a persistent grid of tiles of that many
+# passes, with the coefficients alone in dynamic shared memory.
+_STD_BWD_DIRECT = [
+    (CEN, _section(CEN, "constexpr int kBwdStdBlocksPerSM = 2;\n", "};\n"), "// Rows a thread of the std backward loads before it computes the first:\n// what 128 registers hold beside its coefficients (a / W at its 8\n// features; at P = 1 the dsums too)\ntemplate <int P>\nconstexpr int kBwdStdRows = P == 1 ? 2 : 4;\nconstexpr int kBwdStdBlocksPerSM = 2;\n\n// Tiles of the std backward's persistent grid, and its dynamic shared\n// memory: dsums (P*C, F), a and a / W (C, F), dcounts (P*C).\ntemplate <typename T, int F, int P>\nstruct BwdStdTiles {\n  static constexpr int kRows = kBwdStdRows<P> * (kThreads / (F / 8));\n  static constexpr int kSmemBytes = (P * slcl::kC * F + 2 * slcl::kC * F + P * slcl::kC) * 4;\n};\n\n// 8 values of T as loaded, unconverted: one 16-byte vector of bf16 or two\n// of f32. A bf16 is the top half of an f32, so its conversion is exact.\ntemplate <typename T>\nconstexpr int kRaw = static_cast<int>(sizeof(T)) / 2;\n\ntemplate <typename T>\n__device__ __forceinline__ void std_raw_load(const T* p, uint4 (&u)[kRaw<T>]) {\n#pragma unroll\n  for (int v = 0; v < kRaw<T>; ++v) u[v] = __ldg(reinterpret_cast<const uint4*>(p) + v);\n}\n\n__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[1], float (&x)[8]) {\n  const uint32_t h[4] = {u[0].x, u[0].y, u[0].z, u[0].w};\n#pragma unroll\n  for (int i = 0; i < 4; ++i) {\n    x[2 * i] = __uint_as_float(h[i] << 16);\n    x[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);\n  }\n}\n\n__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[2], float (&x)[8]) {\n#pragma unroll\n  for (int v = 0; v < 2; ++v) {\n    x[4 * v] = __uint_as_float(u[v].x);\n    x[4 * v + 1] = __uint_as_float(u[v].y);\n    x[4 * v + 2] = __uint_as_float(u[v].z);\n    x[4 * v + 3] = __uint_as_float(u[v].w);\n  }\n}\n"),
+    (CEN, _section(CEN, "  extern __shared__ __align__(128) unsigned char smem[];\n"
+                        "  float* s_dsum = reinterpret_cast<float*>(smem);",
+                   "\n}\n\n// The std backward's persistent grid."), "  constexpr int R = kBwdStdRows<P>;\n  extern __shared__ __align__(16) float s_co[];\n  float* s_dsum = s_co;\n  float* s_a = s_dsum + NPC * F;\n  float* s_aw = s_a + C * F;\n  float* s_dcnt = s_aw + C * F;\n  std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);\n  const int sub = threadIdx.x % TPR;\n  const int r = threadIdx.x / TPR;\n  // the same for every row: a / W at this thread's features, and at P = 1\n  // the dsums\n  float aw[C][8];\n  float dsr[P == 1 ? C : 1][8];\n#pragma unroll\n  for (int c = 0; c < C; ++c) {\n    slcl::load8(s_aw + c * F + sub * 8, aw[c]);\n    if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);\n  }\n  // every thread of the block runs the same number of iterations, so the\n  // shuffles below always see the whole warp\n  for (long long base = (long long)blockIdx.x * G::kRows; base < M;\n       base += (long long)gridDim.x * G::kRows) {\n    uint4 raw[R][kRaw<T>];\n    float4 pv[R];\n    int id[R];\n#pragma unroll\n    for (int j = 0; j < R; ++j) {\n      const long long row = base + j * RPB + r;\n      id[j] = 0;\n      pv[j] = make_float4(0.f, 0.f, 0.f, 0.f);\n#pragma unroll\n      for (int v = 0; v < kRaw<T>; ++v) raw[j][v] = make_uint4(0u, 0u, 0u, 0u);\n      if (row < M) {\n        std_raw_load(feats + (size_t)row * F + sub * 8, raw[j]);\n        pv[j] = __ldg(reinterpret_cast<const float4*>(probs) + row);\n        if constexpr (P > 1) id[j] = __ldg(assign + row);\n      }\n    }\n#pragma unroll\n    for (int j = 0; j < R; ++j) {\n      const long long row = base + j * RPB + r;\n      float x[8];\n      std_raw_unpack(raw[j], x);\n      std_bwd_row<T, F, P, C>(x, pv[j], id[j], row, row < M, thd, use_thd, weighted, aw, dsr,\n                              s_dsum, s_dcnt, sub, dfeats, dprobs);\n    }\n  }\n}\n\n// The std backward's persistent grid.")]
+
+_STD_ROW = "        std_fwd_row<P, C, V>(acc, sq, x, s_wp[warp][l], s_cert[warp][l], sub == 0);\n"
+_STD_PASS = "#pragma unroll 2\n    for (int q = 0; q < 32 / RPW; ++q) {\n"
+_STD_SQ = ("#pragma unroll\n  for (int j = 0; j < V; ++j) {\n    const float x2 = x[j] * x[j];\n"
+           "#pragma unroll\n    for (int c = 0; c < C; ++c) sq[c][j] = fmaf(w[c], x2, sq[c][j]);\n  }\n")
+
 # name -> (kernels it concerns, [(file, old text, new text)])
 VARIANTS = {
-    "base": (BWD_KERNELS + FWD_KERNELS, []),
+    "base": (BWD_KERNELS + FWD_KERNELS + STD_KERNELS, []),
     # the ring alone: each row is scaled and written back, no MPCL math
     "memonly": (BWD_KERNELS, [
         (BWD, "  // one chunk at a time, and the row and prototypes read again below: held\n",
@@ -249,6 +369,30 @@ VARIANTS = {
                                 _CEN_BLOCKS3]),
     "fwd_cen_blocks3": (CEN_FWD[:1], [_CEN_BLOCKS3]),
     "fwd_rows4_p2": (CEN_FWD[1:], [(CEN, _CEN_ROWS, "constexpr int kRowsInFlight = 4;")]),
+    # the centroids' std kernels: design (b) for the forward; the ring
+    # forward with 8 features a thread (one block per SM at P = 2); the
+    # backward on direct loads, also
+    # with one row more a thread; the ring backward with 4 stages
+    "std_half": (STD_KERNELS[:2], _STD_HALF),
+    "std_vec8": (STD_KERNELS[:2], [
+        (CEN, "constexpr int kStdFwdVec = 4;", "constexpr int kStdFwdVec = 8;"),
+        (CEN, "constexpr int kStdFwdBlocks = 2;", "constexpr int kStdFwdBlocks = P == 1 ? 2 : 1;")]),
+    # the ring's feed alone (each row folded into one sum), and the kernel
+    # without the S2 sums: what the feed and the std's own sums cost
+    "std_memonly": (STD_KERNELS[:2], [
+        (CEN, _STD_ROW, "        for (int j = 0; j < V; ++j) acc.sum[0][j] += x[j];\n"
+                        "        acc.cnt[0] += s_wp[warp][l][0].x + s_cert[warp][l];\n")]),
+    "std_nosq": (STD_KERNELS[:2], [(CEN, _STD_SQ, "")]),
+    # the passes over a warp's rows unrolled less and more
+    "std_unroll1": (STD_KERNELS[:2], [(CEN, _STD_PASS, _STD_PASS.replace("unroll 2", "unroll 1"))]),
+    "std_unroll4": (STD_KERNELS[:2], [(CEN, _STD_PASS, _STD_PASS.replace("unroll 2", "unroll 4"))]),
+    "std_bwd_direct": (STD_KERNELS[2:], _STD_BWD_DIRECT),
+    "std_bwd_direct_rows": (STD_KERNELS[2:], [
+        *_STD_BWD_DIRECT, (CEN, "constexpr int kBwdStdRows = P == 1 ? 2 : 4;",
+                           "constexpr int kBwdStdRows = P == 1 ? 3 : 5;")]),
+    "std_bwd_stages4": (STD_KERNELS[2:], [
+        (CEN, "49152 / kFeatBytes < 2 ? 2 : (49152 / kFeatBytes > 3 ? 3 : 49152 / kFeatBytes);",
+         "4;")]),
 }
 
 
@@ -266,17 +410,19 @@ def ptxas_of(log: str, symbol: str) -> list:
     return []
 
 
-def build_variants(names):
+def build_variants(names, parent=None):
     """Build each variant's libraries; returns (directory, the variants that
-    built). One that nvcc refuses is reported on stderr and left out."""
+    built). One that nvcc refuses is reported on stderr and left out.
+    ``parent``: the checkout whose sources the variant "parent" builds."""
     from slcl_torch.ops.cuda import build
     out = build.BUILD_DIR / "variants"
     shutil.rmtree(out, ignore_errors=True)
     procs = []
     for name in names:
-        kernels, edits = VARIANTS[name]
+        kernels, edits = VARIANTS[name] if name != "parent" else (STD_KERNELS, [])
         d = out / name
-        shutil.copytree(build.CSRC, d)
+        shutil.copytree(Path(parent) / "slcl_torch" / "csrc" if name == "parent" else build.CSRC,
+                        d)
         for f, old, new in edits:
             text = (d / f).read_text()
             if old not in text:
@@ -312,14 +458,25 @@ def main() -> int:
     from slcl_torch.ops.cuda import ptr, raise_on_error, stream_of
     from slcl_torch.ops.cuda import soft_centroids as KC
 
+    args, parent = sys.argv[1:], None
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = args[i + 1]
+        del args[i:i + 2]
+    group = {"fwd": "fwd_", "std": "std_"}
     names = []
-    for arg in sys.argv[1:] or list(VARIANTS):
-        if arg in ("bwd", "fwd"):
-            names += [n for n in VARIANTS if n.startswith("fwd_") == (arg == "fwd")]
+    for arg in args or list(VARIANTS):
+        if arg in ("bwd", "fwd", "std"):
+            names += [n for n in VARIANTS if n != "base" and (
+                n.startswith(group[arg]) if arg in group
+                else not n.startswith(tuple(group.values())))]
         else:
             names.append(arg)
     names = ["base", *dict.fromkeys(n for n in names if n != "base")]
-    out, names = build_variants(names)
+    if parent:
+        names.append("parent")
+    out, names = build_variants(names, parent)
+    kernels_of = {n: VARIANTS[n][0] if n != "parent" else STD_KERNELS for n in names}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
@@ -344,12 +501,27 @@ def main() -> int:
     pmask = torch.empty(M, device=dev)
     cen_out = {P: (torch.empty(P, C, F, device=dev), torch.empty(P * C, device=dev),
                    torch.empty((), device=dev)) for P in (1, 2)}
+    # the std kernels' outputs (std, S2) and their inputs: the forward's
+    # results from the wrapper, soft weights, dcents and dstd from a seed
+    std_out = {P: (torch.empty(C, device=dev), torch.empty(C, F, device=dev)) for P in (1, 2)}
+    std_in = {}
+    for P in (1, 2):
+        a = assign if P > 1 else None
+        cents, counts, _, std, s2 = KC.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True,
+                                                               with_std=True)
+        std_in[P] = (cents, counts, std, s2, torch.randn(P, C, F, generator=g, device=dev),
+                     torch.randn(C, generator=g, device=dev))
+    std_d = {P: (torch.empty_like(feats), torch.empty_like(probs)) for P in (1, 2)}
     # what each kernel leaves behind, to hold a variant against base
     result = {"mpcl_bwd": lambda: d1, "mpcl_pseudo_bwd": lambda: d2,
               "mpcl_pseudo_fwd": lambda: fstats, "mpcl_fwd": lambda: mstats["mpcl_fwd"],
               "mpcl_fwd_sel": lambda: mstats["mpcl_fwd_sel"],
               "pseudo_label": lambda: pmask + plab, "soft_centroids_fwd": lambda: cen_out[1][0],
-              "soft_centroids_fwd_p2": lambda: cen_out[2][0]}
+              "soft_centroids_fwd_p2": lambda: cen_out[2][0],
+              "soft_centroids_fwd_std": lambda: std_out[1][0],
+              "soft_centroids_fwd_std_p2": lambda: std_out[2][0],
+              "soft_centroids_bwd_std": lambda: std_d[1][0],
+              "soft_centroids_bwd_std_p2": lambda: std_d[2][0]}
 
     def loaded(path, sigs):
         lib = ctypes.CDLL(str(path))
@@ -372,7 +544,7 @@ def main() -> int:
                                  ("soft_centroids", KC))
                 if (out / name / f"{lib}.so").exists()}
         calls[name] = {}
-        for kernel in VARIANTS[name][0]:
+        for kernel in kernels_of[name]:
             lib = libs[LIB_OF[kernel]]
             if kernel == "mpcl_bwd":
                 call = lambda lib=lib: lib.mpcl_bwd(  # noqa: E731
@@ -396,6 +568,25 @@ def main() -> int:
             elif kernel == "pseudo_label":
                 call = lambda lib=lib: lib.pseudo_label(  # noqa: E731
                     ptr(feats), 1, ptr(centers), M, F, C, th, ptr(plab), ptr(pmask), stream)
+            elif kernel.startswith("soft_centroids_fwd_std"):
+                P = 2 if kernel.endswith("_p2") else 1
+                n = ctypes.c_int()
+                raise_on_error(lib.soft_centroids_partials_size(1, M, F, P, C, 1,
+                                                                ctypes.byref(n)), name)
+                parts = torch.empty(n.value, device=dev)
+                o = torch.empty(P, C, F, device=dev), torch.empty(P * C, device=dev)
+                call = lambda lib=lib, parts=parts, P=P, o=o: lib.soft_centroids_fwd(  # noqa
+                    ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C, P,
+                    0.0, 1, ptr(parts), ptr(o[0]), ptr(o[1]), ptr(cen_out[P][2]),
+                    ptr(std_out[P][1]), ptr(std_out[P][0]), stream)
+            elif kernel.startswith("soft_centroids_bwd_std"):
+                P = 2 if kernel.endswith("_p2") else 1
+                cents, counts, std, s2, dc, dstd = std_in[P]
+                call = lambda lib=lib, P=P, cents=cents, counts=counts, std=std, s2=s2, \
+                    dc=dc, dstd=dstd: lib.soft_centroids_bwd(  # noqa: E731
+                        ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C,
+                        P, 0.0, 1, ptr(dc), ptr(cents), ptr(counts), ptr(std_d[P][0]),
+                        ptr(std_d[P][1]), ptr(dstd), ptr(s2), ptr(std), stream)
             else:
                 P = 2 if kernel.endswith("_p2") else 1
                 n = ctypes.c_int()
@@ -425,7 +616,8 @@ def main() -> int:
             rec[kernel] = {
                 "ms": [time_ms(run, iters=50) for _ in range(3)],
                 "max_diff_from_base": float((got.float() - ref[kernel].float()).abs().max()),
-                "registers_spills": ptxas_of(log, SYMBOL_OF[kernel])}
+                "registers_spills": ptxas_of(log, (PARENT_SYMBOL_OF if name == "parent"
+                                                   else {}).get(kernel, SYMBOL_OF[kernel]))}
         print(json.dumps(rec), flush=True)
     for name in reversed(names):
         print(json.dumps({"variant": name, "again_ms": {
