@@ -67,14 +67,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      saved and restored state must continue as the uninterrupted one. Then
      ``mccl`` from the same AdvEnt checkpoint (which must keep the fresh
      projection head) with a centre file of its own, two epochs, test and
-     the same restore check (the rMC draw follows the seed and the step).
+     the same restore check (the rMC draw follows the seed and the step);
+  6. real-format data: an MMWHS raw NIfTI tree and an MS-CMRSeg PNG tree
+     written with the port's own writers (256x256 int16 slices and
+     224x224 PNGs, 128 training and 64 test slices a domain), then
+     ``slcl`` (multilvl, CT -> MR, simple aug) and the ``mccl`` preset
+     (bSSFP -> LGE, counter pairs) one epoch each through the training
+     CLI's ``main`` with validation and the final test, at full width: each
+     kernel's launches per step the synthetic cell's, finite test Dice /
+     HD95 / ASSD on both domains, two passes of one Loader identical; it
+     times the Loader per batch per domain (its threads alone, and in one
+     thread), both Loaders zipped as an epoch runs them, an epoch with the
+     loader in the loop, 20 steps back to back and 3 profiled, and the
+     same for the synthetic ``slcl`` cell beside them; and heavy2's host
+     path: the C++ SLIC built with g++, superpixels held to their
+     contract, a heavy2 Loader epoch timed.
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
 kernel's launches from its own path: the ``slcl`` cell, or the stdmin cell
-for the std kernels) as one JSON line, the three step cells' timing and
-the protocol as one JSON line each, the card's name and power limit as
-nvidia-smi gives them, and last
+for the std kernels) as one JSON line, the three step cells' timing, the
+protocol and the real-format phase as one JSON line each, the card's name
+and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
 """
@@ -1235,6 +1249,230 @@ def protocol_full_width(work: Path) -> dict:
             "resume_max_param_diff": diff, "launches": counts}
 
 
+# phase 6's trees: patients that the fold-0 / split-0 tables put where each
+# split needs them (CT test ids carry the +32 offset), SLICES slices each,
+# so each domain has 128 training slices (one 8-step epoch at bs16) and 64
+# test slices
+SLICES = 32
+MMWHS_PATIENTS = {"CT": ([1, 2, 3, 4], [33, 36]), "MR": ([21, 22, 23, 24], [1, 4])}
+MSCMRSEG_PATIENTS = {"train": [6, 7, 9, 11], "test": [23, 24]}
+
+
+def _slices(rng, n: int, size: int, mr: bool):
+    """n cardiac-like (size, size) slices and raw label maps {0, 205, 500,
+    600}: blood pool, myocardial ring and right ventricle on a noisy
+    background; MR inverts the contrast."""
+    import numpy as np
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    s = size / 64
+    cy = size / 2 + rng.uniform(-4 * s, 4 * s, (n, 1, 1))
+    cx = size / 2 + rng.uniform(-4 * s, 4 * s, (n, 1, 1))
+    r = np.hypot(yy - cy, xx - cx)
+    lv, myo = r < 9 * s, (r >= 9 * s) & (r < 14 * s)
+    rv = np.hypot(yy - cy + 3 * s, xx - cx - 17 * s) < 7 * s
+    lab = np.zeros((n, size, size), np.int16)
+    lab[myo], lab[lv], lab[rv] = 205, 500, 600
+    img = rng.normal(200, 30, (n, size, size)) + 300 * myo + 700 * lv + 550 * rv
+    if mr:
+        img = 1400 - img + rng.normal(0, 40, (n, size, size))
+    return img.astype(np.float32), lab
+
+
+def write_trees(root: Path, seed: int = 0, slices: int = SLICES) -> dict:
+    """Phase 6's data, in the real on-disk formats, with the port's own
+    writers: an MMWHS raw tree (per-slice 256x256 int16 NIfTI stored
+    (H, W, 1), labels beside the images with ground truth, per-patient 1/99
+    percentile windows in ``{CT,MR}minmax99.csv``) and an MS-CMRSeg tree of
+    224x224 8-bit PNGs (masks {0, 85, 212, 255}); ``slices`` a patient."""
+    import csv
+
+    import numpy as np
+    from slcl_torch.data.nifti import write_nii
+    from slcl_torch.data.png import write_png_gray
+
+    rng = np.random.default_rng(seed)
+    mmwhs, msc = root / "mmwhs_raw", root / "mscmrseg"
+    for mod, (train, test) in MMWHS_PATIENTS.items():
+        for sub in ("_woGT", "_withGT"):
+            (mmwhs / f"{mod}{sub}").mkdir(parents=True)
+        windows = []
+        for p in train + test:
+            img, lab = _slices(rng, slices, 256, mod == "MR")
+            img = img.astype(np.int16)
+            folder = mmwhs / f"{mod}{'_withGT' if p in test else '_woGT'}"
+            for i in range(slices):
+                write_nii(folder / f"img{p}_slice{i}.nii", img[i, :, :, None])
+                write_nii(mmwhs / f"{mod}_withGT" / f"lab{p}_label_slice{i}.nii",
+                          lab[i, :, :, None])
+            windows.append([f"img{p}", repr(float(np.percentile(img, 1))),
+                            repr(float(np.percentile(img, 99)))])
+        with open(mmwhs / f"{mod}minmax99.csv", "w", newline="") as f:
+            csv.writer(f).writerows([["", "min99", "max99"], *windows])
+    for sub, tag, mr in (("A", "bSSFP", False), ("B", "lge", True)):
+        for phase, pats in MSCMRSEG_PATIENTS.items():
+            (msc / f"{phase}{sub}").mkdir(parents=True)
+            (msc / f"{phase}{sub}mask").mkdir(parents=True)
+            for p in pats:
+                img, lab = _slices(rng, slices, 224, mr)
+                img = np.clip(img / img.max() * 255.0, 0, 255).astype(np.uint8)
+                mask = np.select([lab == 205, lab == 500, lab == 600], [85, 212, 255],
+                                 0).astype(np.uint8)
+                for i in range(slices):
+                    name = f"pat_{p}_{tag}_{i}.png"
+                    write_png_gray(msc / f"{phase}{sub}" / name, img[i])
+                    write_png_gray(msc / f"{phase}{sub}mask" / name, mask[i])
+    return {"mmwhs": mmwhs, "mscmrseg": msc}
+
+
+def _loader_passes(loader) -> dict:
+    """Two passes of one Loader over the same epoch with its threads, each
+    timed alone (no step beside it), which must give identical batches;
+    then one pass in the calling thread."""
+    import numpy as np
+    passes, times = [], []
+    for _ in range(2):
+        loader.epoch = 0
+        t0 = time.perf_counter()
+        passes.append(list(loader))
+        times.append((time.perf_counter() - t0) * 1e3 / len(passes[-1]))
+    for a, b in zip(*passes):
+        for x, y in zip(a, b):
+            same = np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+            if not same:
+                raise AssertionError("two passes of one Loader over one epoch differ")
+    threads, loader.num_threads = loader.num_threads, 1
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return {"ms_per_batch": times, "ms_per_batch_1_thread": (time.perf_counter() - t0) * 1e3 / n,
+            "batches": len(passes[0]), "threads": threads}
+
+
+def _host_figures(trainer, steps: int) -> dict:
+    """Where a step's time goes with the data path in it, on a trainer
+    whose first epoch has run: each domain's Loader alone, both Loaders
+    zipped as an epoch runs them (no step), an epoch with the loader in the
+    loop, 20 steps back to back on preloaded batches and 3 profiled."""
+    import torch
+    from slcl_torch.data import Loader, device_prefetch
+
+    cfg, ds = trainer.cfg, trainer.datasets
+    out = {"loader": {dom: _loader_passes(Loader(ds[dom], cfg.data.bs, seed=cfg.data.seed,
+                                                 num_threads=cfg.data.num_workers))
+                      for dom in ("train_s", "train_t")}}
+    t0 = time.perf_counter()
+    n = sum(1 for _ in trainer._epoch_batches())
+    out["both_loaders_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    means = trainer.train_epoch(1)
+    torch.cuda.synchronize()
+    out["epoch_ms_per_step_with_loader"] = (time.perf_counter() - t1) * 1e3 / steps
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"non-finite losses {means}")
+    batches = list(device_prefetch(trainer._epoch_batches(), trainer.device))
+    sched = trainer._sched(1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(20):
+        trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t2) / 20 * 1e3
+    prof = profile_steps(trainer, batches, sched)
+    out["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
+    out["idle_share"] = prof["idle_share"]
+    return out
+
+
+def heavy2_on_host(root: Path) -> dict:
+    """heavy2's host path on this machine: the C++ SLIC built with g++ from
+    the checkout, superpixels on one slice against its contract (every
+    segment replaced by its mean: inside the image's range, smoother), and
+    an epoch of the MS-CMRSeg source Loader with ``aug_mode=heavy2``."""
+    import numpy as np
+    from slcl_torch.data import Loader, slic, transforms
+    from slcl_torch.data.mscmrseg import MSCMRSegDataset
+    from slcl_torch.data.png import read_png_gray
+
+    t0 = time.perf_counter()
+    slic.load()
+    build_s = time.perf_counter() - t0
+    img = read_png_gray(next((root / "trainA").glob("*.png"))).astype(np.float32) / 255.0
+    out = transforms.superpixels(img, np.random.default_rng(0), n_segments=64, p_replace=1.0)
+    if (out.shape != img.shape or out.min() < img.min() - 1e-6
+            or out.max() > img.max() + 1e-6 or not out.std() < img.std()):
+        raise AssertionError("superpixels broke its contract on the card's host")
+    loader = Loader(MSCMRSegDataset(str(root), "bssfp", "s", augmentation=True,
+                                    aug_mode="heavy2"), 16)
+    t1 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return {"slic_build_s": build_s,
+            "heavy2_loader_ms_per_batch": (time.perf_counter() - t1) * 1e3 / n}
+
+
+def train_real(work: Path) -> dict:
+    """Phase 6: the real-format data path at full width. ``slcl`` (multilvl,
+    CNR) on the MMWHS raw tree and the ``mccl`` preset on the MS-CMRSeg tree,
+    one epoch each through ``python -m slcl_torch.train``'s ``main`` with
+    validation and the final test; each kernel's launches per step must be
+    the synthetic cell's. Then ``_host_figures`` on a fresh trainer of each
+    run after one epoch, and on the synthetic ``slcl`` cell's beside them."""
+    import torch
+    from slcl_torch.config import Config, apply_recipe
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train import __main__ as train_cli
+    from slcl_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trees = write_trees(work / "data")
+    out = {"trees_s": time.perf_counter() - t0, **heavy2_on_host(trees["mscmrseg"])}
+    runs = {"slcl_mmwhs_raw": ["method=slcl", "model.multilvl=true", "data.dataset=mmwhs",
+                               "data.raw=true", f"data.data_dir={trees['mmwhs']}"],
+            "mccl_mscmrseg": ["method=mccl", "data.dataset=mscmrseg",
+                              f"data.data_dir={trees['mscmrseg']}"]}
+    for name, args in runs.items():
+        method = args[0].split("=")[1]
+        args = [*args, "optim.epochs=1", "run.eval_frequency=1", f"run.out_dir={work}"]
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        rec = train_cli.main(args)
+        counts = launch_counts()
+        run_s = time.perf_counter() - t1
+        cfg, _, _ = train_cli.parse_args(args, method)
+        trainer = Trainer(cfg)
+        ds = trainer.datasets
+        steps = min(len(ds["train_s"]), len(ds["train_t"])) // cfg.data.bs
+        if steps != 8 or {len(ds[k]) for k in ("valid_t", "test_t", "test_s")} != {64}:
+            raise AssertionError(f"{name}: {steps} steps, test sets "
+                                 f"{[len(ds[k]) for k in ('valid_t', 'test_t', 'test_s')]}")
+        for kname, per in PER_METHOD[method].items():
+            if counts[kname] != steps * per:
+                raise AssertionError(f"{name}: {kname} launched {counts[kname]} times in "
+                                     f"{steps} steps, expected {steps * per}")
+        for split in ("test", "test_s"):
+            vals = [v for k in ("dc", "hd", "asd") for v in rec[split][k]]
+            if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"{name}: {split} metrics {rec[split]}")
+        trainer.train_epoch(0)
+        out[name] = {"run_s": run_s, "steps_per_epoch": steps, "launches": counts,
+                     "val_dice": rec["history"][0]["val_dice"],
+                     "test_dice_hd95_assd": [rec["test"][k][0::2] for k in ("dc", "hd", "asd")],
+                     "test_s_dice_hd95_assd": [rec["test_s"][k][0::2]
+                                               for k in ("dc", "hd", "asd")],
+                     **_host_figures(trainer, steps)}
+        del trainer
+        log(f"train_real {name}: {out[name]}")
+    cfg = apply_recipe(Config(method="slcl"))
+    cfg.model.multilvl, cfg.data.dataset = True, "synthetic"
+    cfg.run.out_dir = str(work)
+    trainer = Trainer(cfg)
+    trainer.train_epoch(0)
+    out["synthetic_slcl"] = _host_figures(trainer, len(trainer.datasets["train_s"]) // cfg.data.bs)
+    del trainer
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1292,6 +1530,7 @@ def main() -> int:
             # this slice's path: the std kernels, in a short cell
             train_std = train_full_width(work, "mccl", stdmin=True, n_timed=10)
             protocol = protocol_full_width(work)
+            real = train_real(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -1312,6 +1551,8 @@ def main() -> int:
                                                    / train_std["steps_per_epoch"]),
                  "launches_protocol": protocol["launches"][kname],
                  "launches_protocol_mccl": protocol["mccl_launches"][kname],
+                 "launches_real": {run: real[run]["launches"][kname]
+                                   for run in ("slcl_mmwhs_raw", "mccl_mscmrseg")},
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
@@ -1352,6 +1593,7 @@ def main() -> int:
     print(json.dumps({"train_mccl": train_mccl}))
     print(json.dumps({"train_mccl_stdmin": train_std}))
     print(json.dumps({"protocol": protocol}))
+    print(json.dumps({"train_real": real}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

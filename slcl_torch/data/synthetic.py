@@ -8,8 +8,7 @@ domain gap (CT-like vs MR-like intensity statistics), so the full UDA recipe
 is exercisable end-to-end without data on disk.
 
 A copy of ``slcl_tpu/data/synthetic.py`` (numpy only), so both packages draw
-the same slices from the same seed. The heavy counter-augmentation modes
-need the transform library, which the port does not carry yet.
+the same slices from the same seed.
 """
 from __future__ import annotations
 
@@ -127,9 +126,11 @@ class SyntheticCardiacDataset:
             img_b = self._image(mask, rng)
             if self.aug_mode == "simple":
                 img_b, _ = self._augment(img_b, mask, aug_rng)
-            else:
-                raise NotImplementedError(
-                    f"aug_mode={self.aug_mode!r}: only 'simple' is ported")
+            else:  # heavy / heavy2 like the real pipelines
+                from . import transforms as T
+                fn = T.heavy_aug2 if "2" in self.aug_mode else T.heavy_aug
+                img_b, _ = fn(img_b, None, aug_rng)
+                img_b = np.clip(img_b, 0.0, 1.0)
             img3_b = np.stack([img_b] * 3, axis=-1).astype(np.float32)
             return img3, img3_b, name
         if self.vert:

@@ -4,6 +4,9 @@
 Usage:
   python -m slcl_torch.scripts.evaluate method=slcl model.multilvl=true \\
       data.dataset=synthetic run.out_dir=runs run.restore_from=best [--device cpu]
+  python -m slcl_torch.scripts.evaluate method=slcl model.multilvl=true \\
+      data.dataset=mmwhs data.data_dir=/data/mmwhs_raw run.out_dir=runs \\
+      run.restore_from=best
 
 ``run.restore_from`` is a tag under ``<run.out_dir>/<apdx>/`` or a
 checkpoint path; a restore that fails raises. Prints the per-class table of

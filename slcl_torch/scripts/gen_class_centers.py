@@ -9,6 +9,9 @@ Usage:
   python -m slcl_torch.scripts.gen_class_centers method=baseline \\
       data.dataset=synthetic run.restore_from=runs/<apdx>/ckpt_best.pt \\
       out=centers.npy [--device cpu]
+  python -m slcl_torch.scripts.gen_class_centers method=baseline \\
+      data.dataset=mmwhs data.data_dir=/data/mmwhs_raw \\
+      run.restore_from=runs/<apdx>/ckpt_best.pt out=centers.npy
 
 With ``method=mccl`` the features pass through MCCL's projection head: an
 AdvEnt checkpoint has none, so the head keeps its fresh init from

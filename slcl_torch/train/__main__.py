@@ -5,8 +5,15 @@ Usage:
       data.dataset=synthetic optim.epochs=30 run.out_dir=runs [--device cpu]
   python -m slcl_torch.train method=mccl data.dataset=synthetic \\
       optim.epochs=30 run.out_dir=runs [--device cpu]
+  python -m slcl_torch.train method=slcl model.multilvl=true \\
+      data.dataset=mmwhs data.data_dir=/data/mmwhs_raw [data.raw=false]
+  python -m slcl_torch.train method=mccl data.dataset=mscmrseg \\
+      data.data_dir=/data/mscmrseg
 
-``method`` is one of baseline, advent, mpscl, slcl and mccl.
+``method`` is one of baseline, advent, mpscl, slcl and mccl. ``data.dataset``
+is ``mmwhs`` (CT -> MR; the raw per-slice NIfTI tree with its minmax CSVs,
+or with ``data.raw=false`` the preprocessed PNG tree), ``mscmrseg`` (bSSFP
+-> LGE PNGs) or ``synthetic``; ``data.rev=true`` swaps the domains.
 
 Recipe presets are applied first (``apply_recipe``), then the
 ``section.key=value`` overrides. Runs ``Trainer.train()`` on CUDA unless

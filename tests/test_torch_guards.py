@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,17 +21,34 @@ ROOT = Path(__file__).resolve().parents[1]
 ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
 
 
-def test_port_imports_no_jax_and_no_slcl_tpu():
+def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
+    """Every module of the port imported, one augmented sample of each
+    aug_mode (and a counter pair) drawn from each fixture tree, and
+    ``chip_smoke.py``'s trees written: no JAX, no ``slcl_tpu``, and none of
+    OpenCV, pandas and PIL, which the card's host does not have."""
     code = (
-        "import importlib, pkgutil, sys, slcl_torch\n"
+        "import importlib, pathlib, pkgutil, sys, slcl_torch, chip_smoke\n"
         "mods = [m.name for m in pkgutil.walk_packages(slcl_torch.__path__, 'slcl_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        f"chip_smoke.write_trees(pathlib.Path({str(tmp_path)!r}), slices=1)\n"
+        "from slcl_torch.data.mmwhs import MMWHSRawDataset, MMWHSPngDataset\n"
+        "from slcl_torch.data.mscmrseg import MSCMRSegDataset\n"
+        f"fix = {str(ROOT / 'tests' / 'fixtures')!r}\n"
+        "for mode in ('simple', 'heavy', 'heavy2'):\n"
+        "    for counter in (False, True):\n"
+        "        kw = dict(domain='t', augmentation=True, aug_mode=mode, aug_counter=counter)\n"
+        "        for ds in (MMWHSRawDataset(fix + '/mini_mmwhs', 'mr', **kw),\n"
+        "                   MMWHSPngDataset(fix + '/mini_mmwhs_png', 'mr', **kw),\n"
+        "                   MSCMRSegDataset(fix + '/mini_mscmrseg', 'lge', **kw)):\n"
+        "            for i in range(len(ds)): ds[i]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'slcl_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'slcl_tpu', 'cv2', 'pandas', 'PIL'))\n"
         "assert not bad, bad\n"
         "assert {'slcl_torch.scripts.gen_class_centers', 'slcl_torch.scripts.evaluate',\n"
         "        'slcl_torch.eval.evaluator', 'slcl_torch.ops.metrics',\n"
-        "        'slcl_torch.utils.callbacks', 'slcl_torch.ops.cuda.mpcl_pseudo'} <= set(mods)\n"
+        "        'slcl_torch.utils.callbacks', 'slcl_torch.ops.cuda.mpcl_pseudo',\n"
+        "        'slcl_torch.data.mmwhs', 'slcl_torch.data.mscmrseg', 'slcl_torch.data.png',\n"
+        "        'slcl_torch.data.imgproc', 'slcl_torch.data.slic'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -85,5 +103,34 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
               "loss_adv_aux", "loss_dis", "loss_dis_aux"):
         assert k in epoch and epoch[k] == epoch[k] and abs(epoch[k]) < float("inf"), k
     assert len(rec["test"]["dc"]) == 6 and len(rec["test"]["hd"]) == 6
+    for name in ("ckpt_best.pt", "ckpt_last.pt", "log.jsonl", "summary.json"):
+        assert (Path(rec["out_dir"]) / name).is_file(), name
+
+
+@pytest.mark.parametrize("method,dataset,tree", [
+    ("slcl", "mmwhs", "mini_mmwhs"), ("mccl", "mscmrseg", "mini_mscmrseg")])
+def test_cli_trains_one_epoch_on_real_format_trees(tmp_path, method, dataset, tree):
+    """``slcl`` on the raw NIfTI MMWHS tree (CT -> MR), ``mccl`` on the
+    MS-CMRSeg PNG tree (bSSFP -> LGE, counter pairs): one epoch, validation,
+    the final test on both domains, checkpoints."""
+    args = [sys.executable, "-m", "slcl_torch.train", f"method={method}",
+            f"data.dataset={dataset}", f"data.data_dir={ROOT / 'tests' / 'fixtures' / tree}",
+            "data.raw=true", "optim.epochs=1", "data.bs=2", "data.eval_bs=4",
+            "data.crop=32", "model.filters=8", "model.n_block=2",
+            "model.bottleneck_depth=2", "model.dtype=float32", "data.num_workers=2",
+            f"model.multilvl={method == 'slcl'}", f"run.out_dir={tmp_path}",
+            "--device", "cpu"]
+    out = subprocess.run(args, cwd=ROOT, env=ENV, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["device"] == "cpu" and Path(rec["out_dir"]).parent == tmp_path
+    (epoch,) = rec["history"]
+    assert epoch["epoch"] == 0 and 0.0 <= epoch["val_dice"] <= 1.0
+    assert all(v == v and abs(v) < float("inf") for v in epoch.values()
+               if isinstance(v, float))
+    for split in ("test", "test_s"):
+        vals = [v for k in ("dc", "hd", "asd") for v in rec[split][k]]
+        assert len(vals) == 18 and all(np.isfinite(vals)), (split, rec[split])
     for name in ("ckpt_best.pt", "ckpt_last.pt", "log.jsonl", "summary.json"):
         assert (Path(rec["out_dir"]) / name).is_file(), name
