@@ -37,15 +37,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      for bit-identity; the MCCL step's four centroid launches (soft weights,
      P = 2 and P = 1, forward and backward) and their std variants are
      timed; the std kernels (their own rows: the stdmin step's P = 2 call and
-     P = 1, each forward's launches apart) beside their plain versions; and
-     the std-free kernels' outputs on fixed inputs must hash to what the
-     kernels gave before the std variant existed (``STD_FREE_DIGEST``);
+     P = 1, each forward's launches apart) beside their plain versions, and
+     each soft centroid row beside the one ``torch.mm`` that gives its sums
+     (forward) or its dfeats (backward); and the std-free kernels' outputs
+     on fixed inputs must hash to what the kernels gave before the std
+     variant existed (``STD_FREE_DIGEST``);
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps, two ``baseline`` steps and two ``mccl`` steps in each forward
-     mode (stdmin and seg_pseudo on; one shared rMC draw) on the card
-     (kernels) against the same steps on the CPU (plain versions), from the
-     same weights and batches, at a small size in f32, with each method's
-     launch counts;
+     mode (stdmin and seg_pseudo on; one shared rMC draw) on DRUNet; two
+     ``slcl`` multilvl and two ``mccl`` steps on a shallow ResNet-50 U-Net
+     (one block a stage, base 8) at 64x64, two ``advent`` and two
+     ``adaptseg`` multilvl steps on a shallow DeepLabV2 (the heads' 10x
+     group included), one ``baseline`` step on UNet at base 8 and two
+     ``slcl`` steps on the full UNet with ``model.filters=64`` (the F = 64
+     kernels on a step): on the card (kernels) against the same steps on
+     the CPU (plain versions), from the same weights and batches, in f32,
+     with each run's launch counts;
   4. train: the full-width ``method=slcl model.multilvl=true
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
@@ -57,7 +64,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      a short cell of the preset with ``contrastive.stdmin=true
      contrastive.w_stdmin=0.1`` (this slice's path: img_t's centroids take
      the std kernels), one epoch and ten timed steps, with the std kernels'
-     launches per step and their share of the device time;
+     launches per step and their share of the device time; then the
+     backbones at full width, each one epoch with its launch counts and
+     parameter count, timed steps and three profiled: ``slcl`` multilvl on
+     the ResNet-50 U-Net (the paper's train_SLCL.py cell; 20 timed steps),
+     the ``mccl`` preset on it, ``advent`` and ``adaptseg`` multilvl on the
+     full DeepLabV2 (no kernel; 5 timed steps) and ``baseline`` on UNet;
   5. protocol: the SLCL protocol at the same width through the port's entry
      points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
      epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
@@ -87,7 +99,9 @@ Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
 kernel's launches from its own path: the ``slcl`` cell, or the stdmin cell
 for the std kernels) as one JSON line, the three step cells' timing, the
-protocol and the real-format phase as one JSON line each, the card's name
+protocol, the real-format phase and the backbones (``train_backbones``:
+phase 4's backbone cells and phase 3's runs) as one JSON line each, the
+card's name
 and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
@@ -120,7 +134,8 @@ PER_STEP_MCCL = {**dict.fromkeys(PER_STEP, 0), "soft_centroids_fwd": 2,
 PER_STEP_MCCL_STD = {**PER_STEP_MCCL, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1,
                      "soft_centroids_fwd_std": 1, "soft_centroids_bwd_std": 1}
 PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL, "mccl_stdmin": PER_STEP_MCCL_STD,
-              "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0)}
+              "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0),
+              "adaptseg": dict.fromkeys(PER_STEP, 0)}
 # the step cell whose launch counts each kernel's row reports (its path)
 PATH_OF = {"soft_centroids_fwd_std": "train_mccl_stdmin",
            "soft_centroids_bwd_std": "train_mccl_stdmin"}
@@ -849,20 +864,53 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
     on img_t and P = 1 on img_t_aug, forward and backward with dprobs), each
     with its bound, and the std kernels' rows: the stdmin step's call (P = 2)
     and the same at P = 1, each launch of the forward apart; ``std_errs``
-    from check_std_variant at this shape. No one PyTorch call computes any
-    of them (library: none)."""
+    from check_std_variant at this shape. Beside each, the one PyTorch call
+    that computes its main output (TF32 off): the (P*C, F) weighted sums as
+    ``torch.mm(w_flat.t(), feats)`` and the dfeats as ``torch.mm(w_flat,
+    dsums)``, ``w_flat`` (M, P*C) the soft weights split by partition, cast
+    to the features' bf16 before the timing (``library_ms``: mm takes one
+    dtype), and the same in f32 on an f32 copy of the features
+    (``library_f32_ms``). The std rows take the same two calls."""
     import torch
     from slcl_torch.ops.cuda import soft_centroids as K_sc
 
     es = feats.element_size()
     dstd = torch.randn(C, generator=g, device=feats.device)
     fwd, bwd = {}, {}
-    fstd = {"library_ms": None, "max_abs_err": std_errs[(2, True, 0.0)][0]}
-    bstd = {"library_ms": None, "max_abs_err": std_errs[(2, True, 0.0)][1]}
+    fstd = {"max_abs_err": std_errs[(2, True, 0.0)][0]}
+    bstd = {"max_abs_err": std_errs[(2, True, 0.0)][1]}
+    feats32 = feats.float()
     for P in (1, 2):
         a = assign if P > 1 else None
         ids = 4 * M if P > 1 else 0       # the int32 partition ids
         dc = torch.randn(P, C, F, generator=g, device=feats.device)
+        # the library calls' operands: w_flat[m, p*C + c] = probs[m, c] where
+        # m's partition is p
+        part = (a.long() if a is not None
+                else torch.zeros(M, dtype=torch.long, device=feats.device))
+        w32 = torch.zeros(M, P, C, device=feats.device).scatter_(
+            1, part[:, None, None].expand(M, 1, C), probs[:, None, :]).reshape(M, P * C)
+        w16 = w32.to(feats.dtype)
+        ds32 = dc.reshape(P * C, F)
+        ds16 = ds32.to(feats.dtype)
+        # the call computes the kernel's sums: the plain centroids times
+        # their weight totals
+        want_c, _ = K_sc.soft_centroids_plain(feats32, probs, a, partition=P, weighted=True)
+        close(torch.mm(w32.t(), feats32).reshape(P, C, F)
+              / (w32.sum(0).reshape(P, C, 1) + 1e-7), want_c, 1e-4, 1e-5,
+              f"library mm P={P}")
+        lib = {"fwd": time_ms(lambda: torch.mm(w16.t(), feats)),
+               "fwd_f32": time_ms(lambda: torch.mm(w32.t(), feats32)),
+               "bwd": time_ms(lambda: torch.mm(w16, ds16)),
+               "bwd_f32": time_ms(lambda: torch.mm(w32, ds32))}
+        pre = "" if P > 1 else "p1_"
+        for row, kind in ((fstd, "fwd"), (bstd, "bwd")):
+            row[pre + "library_ms"] = lib[kind]
+            row[pre + "library_f32_ms"] = lib[kind + "_f32"]
+        for row, kind in ((fwd, "fwd"), (bwd, "bwd")):
+            row[f"p{P}_library_ms"] = lib[kind]
+            row[f"p{P}_library_f32_ms"] = lib[kind + "_f32"]
+        del w32, w16, want_c
         cents, counts, _ = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True)
         _, _, _, std, s2 = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True,
                                                         with_std=True)
@@ -875,6 +923,16 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
         bwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
             feats, probs, a, P, 0.0, True, dc, cents, counts, True))
         bwd[f"p{P}_bound_ms"] = bound(bwd_bytes, 4 * M * F * C, peaks)[0]
+        # the plain versions: the forward, and autograd's dfeats and dprobs
+        fwd[f"p{P}_plain_ms"] = time_ms(lambda: K_sc.soft_centroids_plain(
+            feats, probs, a, partition=P, weighted=True))
+        xp = feats.detach().requires_grad_(True)
+        pp = probs.detach().requires_grad_(True)
+        yp = (K_sc.soft_centroids_plain(xp, pp, a, partition=P, weighted=True)[0]
+              * dc).sum()
+        bwd[f"p{P}_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            yp, [xp, pp], retain_graph=True))
+        del yp
         fwd.update({f"p{P}_" + k: v for k, v in launch_split(
             lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True)).items()})
         # the std kernels; "p1_" keys at P = 1, unprefixed the stdmin step's P = 2
@@ -934,49 +992,105 @@ def shared_draw(seed: int):
     return draw
 
 
-def check_small_steps() -> None:
-    """Phase 3: for each method, two steps on the card vs two on the CPU,
-    same start; mccl in both forward modes with stdmin and seg_pseudo on,
-    the card's and the CPU's steps taking one shared rMC draw."""
+def small_segmentor(kind: str, cfg, device):
+    """Phase 3's shallow backbones, which the factory does not build (JAX's
+    passes ``layers``/``base`` to ResNetUNet only): DeepLabV2 with one block
+    a stage, UNet at base 8; seeded from ``run.seed``."""
+    import torch
+    from slcl_torch.models import DeepLabV2, UNet
+    gen = torch.Generator().manual_seed(cfg.run.seed)
+    if kind == "deeplabv2":
+        seg = DeepLabV2(cfg.model.num_classes, layers=(1, 1, 1, 1),
+                        multi_level=cfg.model.multilvl, generator=gen)
+    else:
+        seg = UNet(cfg.model.num_classes, base=8, generator=gen)
+    return seg.to(device, memory_format=torch.channels_last)
+
+
+def use_segmentor(trainer, seg) -> None:
+    """Put ``seg`` in ``trainer``'s state: new optimizers (the DeepLab heads'
+    10x group from the config), the same discriminators and centres."""
+    from slcl_torch.train.state import create_train_state
+    s = trainer.state
+    trainer.state = create_train_state(trainer.cfg, seg, disc=s.d_main, disc_aux=s.d_aux,
+                                       centroids=s.centroids)
+
+
+# phase 3: (label, method, model overrides, crop, steps, a shallow backbone
+# the factory does not build, the launch counts per step)
+SMALL_RUNS = (
+    ("slcl", "slcl", {}, 32, 2, None, "slcl"),
+    ("advent", "advent", {}, 32, 2, None, "advent"),
+    ("baseline", "baseline", {}, 32, 2, None, "baseline"),
+    ("mccl", "mccl", {}, 32, 2, None, "mccl_stdmin"),
+    ("mccl concat_forward", "mccl", {}, 32, 2, None, "mccl_stdmin"),
+    # the backbones: ResNetUNet at 64x64 (at 32 its layer-4 map is 1x1)
+    ("resnet50 slcl", "slcl", dict(backbone="resnet50", layers=(1, 1, 1, 1), base=8,
+                                   filters=32), 64, 2, None, "slcl"),
+    ("resnet50 mccl", "mccl", dict(backbone="resnet50", layers=(1, 1, 1, 1), base=8,
+                                   filters=32), 64, 2, None, "mccl"),
+    ("deeplabv2 advent", "advent", dict(backbone="deeplabv2"), 32, 2, "deeplabv2",
+     "advent"),
+    ("deeplabv2 adaptseg", "adaptseg", dict(backbone="deeplabv2"), 32, 2, "deeplabv2",
+     "adaptseg"),
+    ("unet baseline", "baseline", dict(backbone="unet"), 32, 1, "unet", "baseline"),
+    # the F = 64 kernel instantiations on a step: UNet's 64-channel tap
+    ("unet slcl F=64", "slcl", dict(backbone="unet", filters=64, multilvl=False), 32, 2,
+     None, "slcl"),
+)
+
+
+def check_small_steps() -> dict:
+    """Phase 3: for each run of SMALL_RUNS, its steps on the card vs the same
+    on the CPU, same start; mccl on DRUNet in both forward modes with stdmin
+    and seg_pseudo on, every mccl step pair taking one shared rMC draw.
+    Returns each run's launch counts and feature width."""
     import torch
     from slcl_torch.data import to_device
     from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
     from slcl_torch.train.steps import build_step
     from slcl_torch.train.trainer import Trainer
 
-    runs = [("slcl", False), ("advent", False), ("baseline", False), ("mccl", False),
-            ("mccl", True)]
-    for method, concat in runs:
+    out = {}
+    for label, method, model, crop, steps, shallow, per in SMALL_RUNS:
         cfg = small_config(method)
-        if method == "mccl":
-            cfg.contrastive.concat_forward = concat
+        cfg.data.crop = crop
+        for k, v in model.items():
+            setattr(cfg.model, k, v)
+        if method == "mccl" and "backbone" not in model:
+            cfg.contrastive.concat_forward = "concat" in label
             cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
             cfg.contrastive.seg_pseudo = True
         cpu = Trainer(cfg, device="cpu")
         gpu = Trainer(cfg, device="cuda")
-        if method == "mccl":
-            for t in (cpu, gpu):
+        for t in (cpu, gpu):
+            if shallow:
+                use_segmentor(t, small_segmentor(shallow, cfg, t.device))
+            if method == "mccl":
                 t.step_fn = build_step(cfg, t.centroids_loaded, draw_assign=shared_draw(5))
-        batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
+        batches = [b for _, b in zip(range(steps), cpu._epoch_batches())]
         sched = cpu._sched(0)
         reset_launch_counts()
         for i, b in enumerate(batches):
             m_cpu = cpu.step_fn(cpu.state, to_device(b, torch.device("cpu")), sched)
             m_gpu = gpu.step_fn(gpu.state, to_device(b, torch.device("cuda")), sched)
             if set(m_cpu) != set(m_gpu):
-                raise AssertionError(f"small {method} step {i}: metric keys differ")
+                raise AssertionError(f"small {label} step {i}: metric keys differ")
             for k, v in m_cpu.items():
                 # cuDNN vs CPU f32 convolution sums; one pseudo-label flip at a
                 # near-tie would move loss_mpscl_tg by O(1/M)
-                close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {method} step {i} {k}")
+                close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {label} step {i} {k}")
         counts = launch_counts()
-        for name, per in PER_METHOD["mccl_stdmin" if method == "mccl" else method].items():
-            if counts[name] != 2 * per:
-                raise AssertionError(f"small {method}: {name} launched {counts[name]} "
-                                     f"times, expected {2 * per}")
+        for name, n in PER_METHOD[per].items():
+            if counts[name] != steps * n:
+                raise AssertionError(f"small {label}: {name} launched {counts[name]} "
+                                     f"times, expected {steps * n}")
         torch.cuda.synchronize()
-        log(f"small {method}{' concat_forward' if concat else ''}: card matches CPU over "
-            "two steps")
+        out[label] = {"steps": steps, "crop": crop, "feat_dim": gpu.state.seg.feat_dim,
+                      "params": sum(p.numel() for p in gpu.state.seg.parameters()),
+                      "launches": counts}
+        log(f"small {label}: card matches CPU over {steps} step(s)")
+    return out
 
 
 def is_std_kernel(name: str) -> bool:
@@ -1028,16 +1142,31 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
             "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top]}
 
 
-# parameters of the full-width DRUNet of each step cell: multilvl (slcl),
-# phead without the aux head (mccl's preset)
-N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036}
+# parameters of each step cell's full-width segmentor: DRUNet multilvl
+# (slcl), phead without the aux head (mccl's preset); the backbones' equal
+# the JAX models' (tests/test_torch_backbones.py computes them with
+# jax.eval_shape)
+N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036,
+            "resnet50_slcl": 32_522_216, "resnet50_mccl": 32_526_276,
+            "deeplabv2_advent": 42_942_560, "deeplabv2_adaptseg": 42_942_560,
+            "unet_baseline": 31_037_828}
+# phase 4's backbone cells: (name, method, backbone, timed steps); the paper's
+# cell first (train_SLCL.py: resnet50, multilvl)
+BACKBONE_CELLS = (("resnet50_slcl", "slcl", "resnet50", 20),
+                  ("resnet50_mccl", "mccl", "resnet50", 10),
+                  ("deeplabv2_advent", "advent", "deeplabv2", 5),
+                  ("deeplabv2_adaptseg", "adaptseg", "deeplabv2", 5),
+                  ("unet_baseline", "baseline", "unet", 10))
 
 
 def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
-                     n_timed: int = 20) -> dict:
+                     n_timed: int = 20, backbone: str = "drunet",
+                     name: str = "") -> dict:
     """Phase 4: one full-width recipe through the port's Trainer: ``slcl``
     with multilvl (the main path), or the ``mccl`` preset, with ``stdmin``
-    its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``)."""
+    its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``); on
+    ``backbone``, with ``advent``/``adaptseg`` (multilvl) and ``baseline``
+    too. ``name`` keys N_PARAMS (default: the method)."""
     import torch
     from slcl_torch.config import Config, apply_recipe
     from slcl_torch.data import device_prefetch
@@ -1047,7 +1176,8 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     cfg = Config()
     cfg.method = method
     cfg = apply_recipe(cfg)
-    cfg.model.multilvl = method == "slcl"
+    cfg.model.backbone = backbone
+    cfg.model.multilvl = method in ("slcl", "advent", "adaptseg")
     if stdmin:
         cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
     cfg.data.dataset = "synthetic"
@@ -1057,8 +1187,8 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     t0 = time.perf_counter()
     trainer = Trainer(cfg)
     n_params = sum(p.numel() for p in trainer.state.seg.parameters())
-    if n_params != N_PARAMS[method]:
-        raise AssertionError(f"{method}: DRUNet has {n_params} parameters")
+    if n_params != N_PARAMS[name or method]:
+        raise AssertionError(f"{name or method}: {backbone} has {n_params} parameters")
     steps_per_epoch = len(trainer.datasets["train_s"]) // cfg.data.bs
 
     reset_launch_counts()
@@ -1096,13 +1226,18 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
         each.append((time.perf_counter() - t3) * 1e3)
     each.sort()
     prof = profile_steps(trainer, batches, sched)
-    return {"method": method, "stdmin": stdmin, "step_ms": step_ms, "timed_steps": n_timed,
+    return {"method": method, "backbone": backbone, "stdmin": stdmin, "step_ms": step_ms,
+            "timed_steps": n_timed,
             "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
             "profile": prof,
             "src_img_per_s": cfg.data.bs / step_ms * 1e3,
             "epoch_s": epoch_s, "steps_per_epoch": steps_per_epoch,
             "setup_s": t1 - t0, "bs": cfg.data.bs, "crop": cfg.data.crop,
             "params": n_params, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            # the EMA class centres' norms after all the cell's steps (None
+            # without centres): a collapse of the features shows here
+            "centre_norms": (None if trainer.state.centroids is None else
+                             trainer.state.centroids.norm(dim=1).tolist()),
             "launches": counts,
             "means": means}
 
@@ -1521,14 +1656,18 @@ def main() -> int:
             raise AssertionError(f"the std-free centroid kernels' outputs changed: digest "
                                  f"{digest}, before the std variant {STD_FREE_DIGEST}")
         log("std-free centroid kernels: outputs bit-identical to commit 98d6b0e's")
-        check_small_steps()
+        small = check_small_steps()
         (ROOT / "runs").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
         try:
             train = train_full_width(work)
             train_mccl = train_full_width(work, "mccl")
-            # this slice's path: the std kernels, in a short cell
+            # the std kernels' path, in a short cell
             train_std = train_full_width(work, "mccl", stdmin=True, n_timed=10)
+            # the backbones, the paper's ResNet-50 U-Net first
+            backbones = {name: train_full_width(work, method, n_timed=n, backbone=bb,
+                                                name=name)
+                         for name, method, bb, n in BACKBONE_CELLS}
             protocol = protocol_full_width(work)
             real = train_real(work)
         finally:
@@ -1553,6 +1692,10 @@ def main() -> int:
                  "launches_protocol_mccl": protocol["mccl_launches"][kname],
                  "launches_real": {run: real[run]["launches"][kname]
                                    for run in ("slcl_mmwhs_raw", "mccl_mscmrseg")},
+                 "launches_backbones": {cell: backbones[cell]["launches"][kname]
+                                        for cell in backbones},
+                 # phase 3's two UNet steps at F = 64 (the 64-wide instantiations)
+                 "launches_small_f64": small["unet slcl F=64"]["launches"][kname],
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
@@ -1560,7 +1703,8 @@ def main() -> int:
                       "final_ms", "p2_ms", "kernel_ms", "sel_ms", "sel_plain_ms",
                       "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err",
                       "mccl", "p1_ms", "p1_plain_ms", "p1_bound", "p1_partial_ms",
-                      "p1_final_ms"):
+                      "p1_final_ms", "library_f32_ms", "p1_library_ms",
+                      "p1_library_f32_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -1594,6 +1738,7 @@ def main() -> int:
     print(json.dumps({"train_mccl_stdmin": train_std}))
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"train_real": real}))
+    print(json.dumps({"train_backbones": {"cells": backbones, "small_steps": small}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

@@ -43,10 +43,15 @@ def torch_conv_init_(conv: nn.Conv2d, generator: Optional[torch.Generator] = Non
             conv.bias.zero_()
 
 
-def normal_conv_init_(conv: nn.Conv2d, generator: Optional[torch.Generator] = None):
-    """N(0, 0.02) kernel (reference discriminator init, GAN.py:76-80)."""
+def normal_conv_init_(conv: nn.Conv2d, generator: Optional[torch.Generator] = None,
+                      std: float = 0.02):
+    """N(0, std) kernel, zero bias: the flax ``conv_init(std)``; 0.02 is the
+    reference discriminator init (GAN.py:76-80), 0.01 DeepLab's
+    (deeplabv2.py:92-93)."""
     with torch.no_grad():
-        nn.init.normal_(conv.weight, 0.0, 0.02, generator=generator)
+        nn.init.normal_(conv.weight, 0.0, std, generator=generator)
+        if conv.bias is not None:
+            conv.bias.zero_()
 
 
 def conv2d(in_ch: int, out_ch: int, kernel: int = 3, *, dilation: int = 1,
@@ -79,20 +84,37 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def affine(self):
+        return self.weight, self.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.affine()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         n = x.numel() // x.shape[1]
         # F.batch_norm updates the copies in place and autograd keeps them,
         # so the buffers themselves are written only after the call
         mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+        y = F.batch_norm(x, mean, var, weight, bias, True,
                          1.0 - self.momentum, self.eps)
         with torch.no_grad():
             self.running_var.mul_(self.momentum / n).add_(var, alpha=(n - 1) / n)
             self.running_mean.copy_(mean)
         return y
+
+
+class FrozenBatchNorm(BatchNorm):
+    """BatchNorm whose scale and bias take no gradient from the loss
+    (``slcl_tpu/models/common.py::FrozenBatchNorm``, DeepLabV2's frozen BN):
+    batch statistics in training, running statistics updated as
+    :class:`BatchNorm` does, the affine parameters detached inside the
+    call. They stay parameters: the optimizer step hands them a zero
+    gradient (``train/steps.py::_seg_update``), so weight decay shrinks
+    them as optax's ``add_decayed_weights`` does in the JAX package."""
+
+    def affine(self):
+        return self.weight.detach(), self.bias.detach()
 
 
 class ConvBNAct(nn.Module):
@@ -110,8 +132,33 @@ class ConvBNAct(nn.Module):
         return self.BatchNorm_0(F.leaky_relu(self.Conv_0(x), 0.01))
 
 
+class ConvBNReLU(nn.Module):
+    """Conv (no bias, 'same' padding) -> BN -> ReLU, the UNet block order
+    (unet_parts.py:15-22) and ResNetUNet's decoder convs. Submodule names
+    are flax's (``Conv_0``, ``BatchNorm_0``)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=kernel // 2,
+                                bias=False)
+        torch_conv_init_(self.Conv_0, generator)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
 def max_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
+
+
+def stem_pool(x: torch.Tensor, ceil: bool = False) -> torch.Tensor:
+    """3x3 stride-2 max-pool of a ResNet stem. ``ceil=False``: the flax
+    models' -inf pad (1, 1) + VALID (ResNetUNet); ``ceil=True``: pad (1, 2),
+    torch's ``MaxPool2d(3, 2, 1, ceil_mode=True)`` (DeepLabV2: a 224 input
+    gives a 57 pool)."""
+    return F.max_pool2d(x, 3, 2, padding=1, ceil_mode=ceil)
 
 
 def upsample_nearest(x: torch.Tensor) -> torch.Tensor:

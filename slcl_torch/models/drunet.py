@@ -43,6 +43,7 @@ class DRUNet(nn.Module):
         self.bottleneck_depth = bottleneck_depth
         self.multilvl = multilvl
         self.phead = phead
+        self.feat_dim = filters     # dcdr_ft's width
         g = generator
 
         prev = in_channels

@@ -13,7 +13,8 @@ Usage:
       data.dataset=mmwhs data.data_dir=/data/mmwhs_raw \\
       run.restore_from=runs/<apdx>/ckpt_best.pt out=centers.npy
 
-With ``method=mccl`` the features pass through MCCL's projection head: an
+Any backbone (``model.backbone``); the file is as wide as its decoder
+features. With ``method=mccl`` the features pass through MCCL's projection head: an
 AdvEnt checkpoint has none, so the head keeps its fresh init from
 ``run.seed``, the same init an MCCL run warm-started from that checkpoint
 with the same seed starts from.
@@ -37,7 +38,7 @@ def class_centers(trainer) -> np.ndarray:
     cfg = trainer.cfg
     ev = trainer.evaluator
     n_class = cfg.model.num_classes
-    sums = torch.zeros((n_class, cfg.model.filters), dtype=torch.float32,
+    sums = torch.zeros((n_class, trainer.state.seg.feat_dim), dtype=torch.float32,
                        device=trainer.device)
     counts = torch.zeros((n_class, 1), dtype=torch.float32, device=trainer.device)
     loader = Loader(trainer.datasets["train_s"], cfg.data.eval_bs, shuffle=False,

@@ -9,8 +9,20 @@ Usage:
       data.dataset=mmwhs data.data_dir=/data/mmwhs_raw [data.raw=false]
   python -m slcl_torch.train method=mccl data.dataset=mscmrseg \\
       data.data_dir=/data/mscmrseg
+  python -m slcl_torch.train method=slcl model.backbone=resnet50 \\
+      model.multilvl=true data.dataset=synthetic
+  python -m slcl_torch.train method=adaptseg model.backbone=deeplabv2 \\
+      model.multilvl=true model.pretrained=true \\
+      model.pretrained_ckpt=/weights/resnet101.pth data.dataset=synthetic
 
-``method`` is one of baseline, advent, mpscl, slcl and mccl. ``data.dataset``
+``method`` is one of baseline, adaptseg, advent, mpscl, slcl and mccl;
+``model.backbone`` one of drunet (default), unet, deeplabv2 (alias
+resnet101) and resnet50 (alias resnet50_unet). The contrastive methods
+need ``model.filters`` equal to the backbone's feature width (UNet's 64;
+the ResNet-50 U-Net projects to ``model.filters``; DeepLabV2's 2048 is
+not ported for them). With
+``model.pretrained=true`` the ResNet encoder comes from the local file
+``model.pretrained_ckpt`` (a missing file raises). ``data.dataset``
 is ``mmwhs`` (CT -> MR; the raw per-slice NIfTI tree with its minmax CSVs,
 or with ``data.raw=false`` the preprocessed PNG tree), ``mscmrseg`` (bSSFP
 -> LGE PNGs) or ``synthetic``; ``data.rev=true`` swaps the domains.

@@ -9,7 +9,7 @@ partition), so the checkpoint carries no generator state.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -28,7 +28,25 @@ class TrainState:
     seed: int = 0                              # run.seed: the steps' draws
 
 
-def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float = 1.0,
+# top-level submodules trained at 10x the base LR on the DeepLab backbones:
+# the ASPP classifier heads (``slcl_tpu/train/state.py:102-109``; reference
+# deeplabv2.py optim_parameters, lr_adjust.py:15-16)
+LR10_MODULES = ("layer5", "layer6")
+
+
+def param_groups(seg: nn.Module, backbone: str) -> List[dict]:
+    """The segmentor's parameter groups: one at the base LR, and for
+    ``deeplabv2`` (as in the JAX package, not its ``resnet101`` alias) the
+    classifier heads apart with ``lr_mult`` 10."""
+    if backbone.lower() != "deeplabv2":
+        return [{"params": list(seg.parameters()), "lr_mult": 1.0}]
+    head, rest = [], []
+    for name, p in seg.named_parameters():
+        (head if name.split(".", 1)[0] in LR10_MODULES else rest).append(p)
+    return [{"params": rest, "lr_mult": 1.0}, {"params": head, "lr_mult": 10.0}]
+
+
+def make_optimizer(name: str, params: Iterable, lr: float = 1.0,
                    momentum: float = 0.9, weight_decay: float = 0.0,
                    betas=(0.9, 0.999)) -> torch.optim.Optimizer:
     """SGD/Adam matching ``make_optimizer`` (``state.py:39-71``).
@@ -36,29 +54,39 @@ def make_optimizer(name: str, params: Iterable[torch.Tensor], lr: float = 1.0,
     ``sgd``: ``torch.optim.SGD(momentum, weight_decay)`` is optax's
     ``add_decayed_weights(wd)`` -> ``sgd(lr, momentum)`` from a zero trace
     (buf = m * buf + g + wd * p; p -= lr * buf). ``adam``: Adam with eps
-    1e-8, optax's defaults. The LR is set per step with :func:`set_lr`; the
-    optimizer is never rebuilt."""
+    1e-8, optax's defaults. ``params``: tensors, or groups as
+    :func:`param_groups` makes them; a group's ``lr_mult`` (default 1)
+    scales the whole update, decay included, as JAX's masked
+    ``optax.scale(10)`` after the update does. The LR is set per step with
+    :func:`set_lr`; the optimizer is never rebuilt."""
     params = list(params)
+    if not params or not isinstance(params[0], dict):
+        params = [{"params": params}]
+    groups = [{**g, "lr_mult": g.get("lr_mult", 1.0),
+               "lr": lr * g.get("lr_mult", 1.0)} for g in params]
     if name == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=momentum,
+        return torch.optim.SGD(groups, lr=lr, momentum=momentum,
                                weight_decay=weight_decay)
     if name == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=tuple(betas), eps=1e-8)
+        return torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=1e-8)
     raise ValueError(f"unknown optimizer {name!r}")
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Each group's LR is ``lr`` times its ``lr_mult``, which the
+    optimizer's ``state_dict`` carries, so a restored checkpoint keeps it."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_mult", 1.0)
 
 
 def create_train_state(cfg, seg: nn.Module, *, disc: Optional[nn.Module] = None,
                        disc_aux: Optional[nn.Module] = None,
                        centroids: Optional[torch.Tensor] = None) -> TrainState:
-    """Optimizers for the segmentor (``cfg.optim``) and each discriminator
-    (Adam, betas ``(adv.mmt1, adv.mmt)``), as ``create_train_state`` builds
-    them (``state.py:92-125``)."""
-    opt_seg = make_optimizer(cfg.optim.optimizer, seg.parameters(), cfg.optim.lr,
+    """Optimizers for the segmentor (``cfg.optim``; the DeepLab heads'
+    10x group) and each discriminator (Adam, betas ``(adv.mmt1, adv.mmt)``),
+    as ``create_train_state`` builds them (``state.py:92-125``)."""
+    opt_seg = make_optimizer(cfg.optim.optimizer, param_groups(seg, cfg.model.backbone),
+                             cfg.optim.lr,
                              momentum=cfg.optim.momentum,
                              weight_decay=cfg.optim.weight_decay)
     betas = (cfg.adv.mmt1, cfg.adv.mmt)

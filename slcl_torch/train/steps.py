@@ -1,9 +1,11 @@
-"""Per-method train steps: baseline, AdvEnt, SLCL (MPSCL path) and MCCL.
+"""Per-method train steps: baseline, AdaptSeg, AdvEnt, SLCL (MPSCL path)
+and MCCL.
 
 Counterpart of ``slcl_tpu/train/steps.py`` ``make_baseline_step``,
-``_gan_step``, ``make_advent_step``, ``make_mpscl_step``,
-``make_mccl_step`` (without RAIN) and ``build_step`` for ``method`` in
-``baseline``/``advent``/``mpscl``/``slcl``/``mccl``.
+``_gan_step``, ``make_adaptseg_step``, ``make_advent_step``,
+``make_mpscl_step``, ``make_mccl_step`` (without RAIN) and ``build_step``
+for ``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/
+``mccl``.
 ``step(state, batch, sched) -> metrics`` updates ``state`` in place and
 returns 0-d float32 tensors on the device (no host sync); the trainer
 reduces them once per epoch.
@@ -53,21 +55,30 @@ def _d_acc(logits: torch.Tensor, is_source: bool) -> torch.Tensor:
     return m if is_source else 1.0 - m
 
 
-def _entropy_map(logits: torch.Tensor, kind: str) -> torch.Tensor:
-    """Discriminator input map. 'advent' = raw -p*log(p+eps)
-    (Trainer_Advent.py:86-88); 'weighted' = prob_2_entropy with log2/log2C
-    (Trainer_MPSCL.py:171-173)."""
+def _d_input(logits: torch.Tensor, kind: str) -> torch.Tensor:
+    """Discriminator input map. 'softmax' = the class probabilities
+    (AdaptSeg's output space, Trainer_AdaptSeg.py); 'advent' = raw
+    -p*log(p+eps) (Trainer_Advent.py:86-88); 'weighted' = prob_2_entropy
+    with log2/log2C (Trainer_MPSCL.py:171-173)."""
     probs = torch.softmax(logits.float(), dim=-1)
+    if kind == "softmax":
+        return probs
     if kind == "advent":
         return -probs * torch.log(probs + 1e-7)
     return L.prob_2_entropy(probs)
 
 
 def _seg_update(state: TrainState, total: torch.Tensor, lr: float) -> None:
-    """One optimizer step of the segmentor on ``total``'s gradient."""
+    """One optimizer step of the segmentor on ``total``'s gradient. A
+    parameter the loss does not reach (FrozenBatchNorm's affine, DRUNet's
+    dead ``conv1_1``) gets a zero gradient, not none: the optimizer still
+    applies its weight decay to it, as optax does to every leaf."""
     params = [p for p in state.seg.parameters() if p.requires_grad]
     state.opt_seg.zero_grad(set_to_none=True)
     total.backward(inputs=params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     set_lr(state.opt_seg, lr)
     state.opt_seg.step()
 
@@ -76,8 +87,8 @@ def _d_update(disc, opt, lr: float, pred_s: torch.Tensor, pred_t: torch.Tensor,
               kind: str, amp) -> Metrics:
     """One Adam step of a discriminator on detached predictions."""
     with amp:
-        o_s = disc(_entropy_map(pred_s, kind))
-        o_t = disc(_entropy_map(pred_t, kind))
+        o_s = disc(_d_input(pred_s, kind))
+        o_t = disc(_d_input(pred_t, kind))
     loss = 0.5 * L.bce_with_logits(o_s, 1.0) + 0.5 * L.bce_with_logits(o_t, 0.0)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -91,13 +102,13 @@ def _adv_terms(cfg, state: TrainState, out_t, kind: str, amp, metrics: Metrics):
     """Generator-side adversarial loss, main head plus aux when multilvl,
     already weighted by ``adv.w_dis`` / ``adv.w_dis_aux``."""
     with amp:
-        d_out = state.d_main(_entropy_map(out_t.pred, kind))
+        d_out = state.d_main(_d_input(out_t.pred, kind))
     loss_adv = L.bce_with_logits(d_out, 1.0)
     metrics["loss_adv"] = loss_adv
     total = cfg.adv.w_dis * loss_adv
     if cfg.model.multilvl and out_t.aux is not None:
         with amp:
-            d_out_aux = state.d_aux(_entropy_map(out_t.aux, kind))
+            d_out_aux = state.d_aux(_d_input(out_t.aux, kind))
         loss_adv_aux = L.bce_with_logits(d_out_aux, 1.0)
         metrics["loss_adv_aux"] = loss_adv_aux
         total = total + cfg.adv.w_dis_aux * loss_adv_aux
@@ -166,6 +177,24 @@ def make_baseline_step(cfg) -> Callable:
         return {k: v.detach().float() for k, v in metrics.items()}
 
     return step
+
+
+def make_adaptseg_step(cfg) -> Callable:
+    """Output-space adversarial adaptation (``slcl_tpu/train/steps.py:241-
+    272``, Trainer_AdaptSeg.py): CE + Jaccard on source plus ``w_seg_aux``
+    times the aux head's, and the ``w_dis``/``w_dis_aux`` terms of the
+    discriminators on the target softmax."""
+
+    def gen_loss(state, batch, sched, amp):
+        with amp:
+            out_s = state.seg(batch["img_s"])
+            out_t = state.seg(batch["img_t"])
+        metrics: Metrics = {}
+        total = _seg_loss_jaccard(cfg, out_s, batch["lab_s"], "seg_s", metrics)
+        total = total + _adv_terms(cfg, state, out_t, "softmax", amp, metrics)
+        return total, out_s, out_t, metrics
+
+    return _gan_step(cfg, gen_loss, "softmax")
 
 
 def make_advent_step(cfg) -> Callable:
@@ -391,6 +420,8 @@ def build_step(cfg, centroids_loaded: bool = False,
     m = cfg.method
     if m == "baseline":
         return make_baseline_step(cfg)
+    if m == "adaptseg":
+        return make_adaptseg_step(cfg)
     if m == "advent":
         return make_advent_step(cfg)
     if m in ("mpscl", "slcl"):
@@ -399,4 +430,5 @@ def build_step(cfg, centroids_loaded: bool = False,
         return make_mccl_step(cfg, centroids_loaded=centroids_loaded,
                               draw_assign=draw_assign)
     raise NotImplementedError(
-        f"method {m!r}: slcl_torch ports baseline, advent, mpscl, slcl and mccl only")
+        f"method {m!r}: slcl_torch ports baseline, adaptseg, advent, mpscl, slcl "
+        "and mccl only")

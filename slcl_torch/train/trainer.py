@@ -1,7 +1,9 @@
 """Training orchestration (counterpart of ``slcl_tpu/train/trainer.py``) for
-``method`` in ``baseline``/``advent``/``mpscl``/``slcl``/``mccl``.
+``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/``mccl``.
 
-``Trainer(cfg, device=None)`` builds DRUNet, the entropy-map
+``Trainer(cfg, device=None)`` builds the segmentor (``model.backbone``:
+DRUNet, UNet, DeepLabV2 or the ResNet-50 U-Net; with ``model.pretrained``
+its ImageNet encoder from the local file ``model.pretrained_ckpt``), the
 discriminators of the adversarial methods, the optimizers, the step and
 the :class:`Evaluator`, and runs the epoch loop with per-epoch LR (poly by
 default), per-epoch target validation with best-checkpointing, early stop
@@ -36,13 +38,15 @@ from ..config import Config, build_apdx
 from ..data import Loader, device_prefetch, prepare_datasets, zip_domains
 from ..eval.evaluator import Evaluator, mean_fg_dice
 from ..models import UncertaintyDiscriminator, build_segmentor
+from ..utils.pretrained import load_pretrained_encoder
 from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
 from . import schedules
 from .state import create_train_state
 from .steps import autocast, build_step
 
-_PORTED = ("baseline", "advent", "mpscl", "slcl", "mccl")
-_ADVERSARIAL = ("advent", "mpscl", "slcl")
+_PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl")
+_ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
+_CONTRASTIVE = ("mpscl", "slcl", "mccl")
 _NETS = ("seg", "d_main", "d_aux")
 _OPTS = ("opt_seg", "opt_d_main", "opt_d_aux")
 
@@ -80,6 +84,15 @@ class Trainer:
         gen = torch.Generator().manual_seed(cfg.run.seed)
         fmt = torch.channels_last
         seg = build_segmentor(cfg.model, generator=gen).to(dev, memory_format=fmt)
+        if cfg.method in _CONTRASTIVE and seg.feat_dim != cfg.model.filters:
+            raise ValueError(
+                f"method {cfg.method!r} on backbone {cfg.model.backbone!r}: its decoder "
+                f"features (dcdr_ft) are {seg.feat_dim} wide, the class centres "
+                f"model.filters={cfg.model.filters} (set model.filters={seg.feat_dim})")
+        if cfg.model.pretrained:
+            # the ImageNet encoder, before the optimizers see the weights
+            # (JAX trainer.py:235-270; a missing file raises)
+            load_pretrained_encoder(seg, cfg.model.pretrained_ckpt, cfg.model.backbone)
         disc = disc_aux = None
         if cfg.method in _ADVERSARIAL:
             disc = UncertaintyDiscriminator(cfg.model.num_classes, generator=gen).to(

@@ -2,12 +2,16 @@
 
 Turns the JAX package's variables, given as nested dicts of numpy arrays
 (``params`` and optionally ``batch_stats``), into a ``state_dict`` for a
-port module whose submodule names are flax's (``DRUNet``,
-``UncertaintyDiscriminator``). The layout rules are those of
-``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
+port module whose submodule names are flax's (``DRUNet``, ``UNet``,
+``ResNetUNet``, ``DeepLabV2``, ``UncertaintyDiscriminator``). The layout
+rules are those of ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
 
   conv kernel (kH, kW, I, O)   -> weight (O, I, kH, kW)
-  BatchNorm params scale/bias  -> weight/bias
+  ConvTranspose kernel (kH, kW, I, O) -> weight (I, O, kH, kW), flipped
+                                  in both spatial axes (flax's
+                                  ConvTranspose does not flip its kernel,
+                                  torch's ConvTranspose2d does)
+  BatchNorm params scale/bias  -> weight/bias (FrozenBatchNorm too)
   batch_stats mean/var         -> running_mean/running_var
 
 It raises on any flax leaf it leaves unused, any module entry it leaves
@@ -36,17 +40,27 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
-def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
-    return np.transpose(arr, (3, 2, 0, 1)) if leaf == "kernel" else arr
+def _transposed_paths(module: nn.Module) -> set:
+    return {name for name, m in module.named_modules()
+            if isinstance(m, nn.ConvTranspose2d)}
 
 
-def flax_to_state_dict(module: nn.Module, params: Mapping[str, Any],
-                       batch_stats: Optional[Mapping[str, Any]] = None
-                       ) -> Dict[str, torch.Tensor]:
-    """Map flax ``params``/``batch_stats`` onto ``module.state_dict()``'s
-    keys, dtypes and devices. Raises ``KeyError`` on unused or missing
-    entries and ``ValueError`` on shape mismatches."""
+def _torch_layout(leaf: str, arr: np.ndarray, transposed: bool) -> np.ndarray:
+    if leaf != "kernel":
+        return arr
+    if transposed:
+        return np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+    return np.transpose(arr, (3, 2, 0, 1))
+
+
+def map_flax(module: nn.Module, params: Mapping[str, Any],
+             batch_stats: Optional[Mapping[str, Any]] = None):
+    """``(state_dict entries, unused flax keys)``: the flax leaves that
+    have a counterpart in ``module`` in torch layout, on its dtypes and
+    devices (a shape mismatch raises ``ValueError``), and the keys of those
+    that have none."""
     target = module.state_dict()
+    transposed = _transposed_paths(module)
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for tree, leaves in ((params, _PARAM_LEAF), (batch_stats or {}, _STAT_LEAF)):
@@ -59,13 +73,24 @@ def flax_to_state_dict(module: nn.Module, params: Mapping[str, Any],
             if tkey not in target:
                 unused.append(key)
                 continue
-            val = _torch_layout(leaf, arr)
+            val = _torch_layout(leaf, arr, path in transposed)
             ref = target[tkey]
             if tuple(val.shape) != tuple(ref.shape):
                 raise ValueError(f"{key} -> {tkey}: shape {tuple(val.shape)} "
                                  f"!= {tuple(ref.shape)}")
             out[tkey] = torch.from_numpy(np.ascontiguousarray(val)).to(
                 dtype=ref.dtype, device=ref.device)
+    return out, unused
+
+
+def flax_to_state_dict(module: nn.Module, params: Mapping[str, Any],
+                       batch_stats: Optional[Mapping[str, Any]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Map flax ``params``/``batch_stats`` onto ``module.state_dict()``'s
+    keys, dtypes and devices. Raises ``KeyError`` on unused or missing
+    entries and ``ValueError`` on shape mismatches."""
+    target = module.state_dict()
+    out, unused = map_flax(module, params, batch_stats)
     if unused:
         raise KeyError(f"flax entries with no torch counterpart: {unused}")
     missing = sorted(set(target) - set(out))
@@ -89,6 +114,7 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
     stats: Dict[str, Any] = {}
     bn_paths = {name for name, m in module.named_modules()
                 if hasattr(m, "running_var")}
+    transposed = _transposed_paths(module)
     for key, t in module.state_dict().items():
         path, _, leaf = key.rpartition(".")
         arr = t.detach().cpu().float().numpy().copy()
@@ -98,7 +124,10 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
             tree, fleaf = params, "scale"
         elif leaf == "weight":
             tree, fleaf = params, "kernel"
-            arr = np.transpose(arr, (2, 3, 1, 0))
+            if path in transposed:
+                arr = np.ascontiguousarray(np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1])
+            else:
+                arr = np.transpose(arr, (2, 3, 1, 0))
         else:
             tree, fleaf = params, leaf
         node = tree

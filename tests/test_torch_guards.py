@@ -48,7 +48,9 @@ def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
         "        'slcl_torch.eval.evaluator', 'slcl_torch.ops.metrics',\n"
         "        'slcl_torch.utils.callbacks', 'slcl_torch.ops.cuda.mpcl_pseudo',\n"
         "        'slcl_torch.data.mmwhs', 'slcl_torch.data.mscmrseg', 'slcl_torch.data.png',\n"
-        "        'slcl_torch.data.imgproc', 'slcl_torch.data.slic'} <= set(mods)\n"
+        "        'slcl_torch.data.imgproc', 'slcl_torch.data.slic',\n"
+        "        'slcl_torch.models.resnet_unet', 'slcl_torch.models.deeplabv2',\n"
+        "        'slcl_torch.models.unet', 'slcl_torch.utils.pretrained'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -134,3 +136,49 @@ def test_cli_trains_one_epoch_on_real_format_trees(tmp_path, method, dataset, tr
         assert len(vals) == 18 and all(np.isfinite(vals)), (split, rec[split])
     for name in ("ckpt_best.pt", "ckpt_last.pt", "log.jsonl", "summary.json"):
         assert (Path(rec["out_dir"]) / name).is_file(), name
+
+
+def test_cli_trains_adaptseg_on_deeplabv2_one_epoch_on_cpu(tmp_path):
+    """AdaptSeg on the full-depth DeepLabV2 (frozen BN, multi-level, the 10x
+    head group) through the CLI at 32x32: one epoch, validation, test,
+    checkpoints; the checkpoint restores the full state, the optimizer's
+    two groups with their LR ratio included."""
+    args = [sys.executable, "-m", "slcl_torch.train", "method=adaptseg",
+            "model.backbone=deeplabv2", "model.multilvl=true", "data.dataset=synthetic",
+            "optim.epochs=1", "data.bs=2", "data.eval_bs=2", "data.crop=32",
+            "model.dtype=float32", "data.num_workers=1", f"run.out_dir={tmp_path}",
+            "--device", "cpu"]
+    out = subprocess.run(args, cwd=ROOT, env=ENV, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    (epoch,) = rec["history"]
+    for k in ("seg_s", "seg_s_aux", "loss_adv", "loss_adv_aux", "loss_dis", "loss_dis_aux"):
+        assert k in epoch and np.isfinite(epoch[k]), k
+    assert len(rec["test"]["dc"]) == 6
+    from slcl_torch.train.__main__ import parse_args
+    from slcl_torch.train.trainer import Trainer
+    cfg, _, _ = parse_args(args[3:-2], "adaptseg")
+    trainer = Trainer(cfg, device="cpu")
+    trainer.restore_checkpoint(str(Path(rec["out_dir"]) / "ckpt_last.pt"))
+    groups = trainer.state.opt_seg.param_groups
+    assert [g["lr_mult"] for g in groups] == [1.0, 10.0]
+    assert groups[1]["lr"] == pytest.approx(10 * groups[0]["lr"])
+    assert len(groups[1]["params"]) == 16           # layer5 and layer6: 8 convs each
+    assert trainer.state.step == 8
+
+
+@pytest.mark.parametrize("backbone,width", [("unet", 64), ("deeplabv2", 2048)])
+def test_contrastive_method_on_a_wider_backbone_raises(backbone, width):
+    """dcdr_ft wider than model.filters (32) fails at the build, naming both;
+    UNet at model.filters=64 builds."""
+    from slcl_torch.train.trainer import Trainer
+    cfg = Config()
+    cfg.method = "slcl"
+    cfg.model.backbone = backbone
+    cfg.data.dataset, cfg.data.bs, cfg.data.crop = "synthetic", 2, 32
+    with pytest.raises(ValueError, match=f"{width} wide.*model.filters=32"):
+        Trainer(cfg, device="cpu")
+    if backbone == "unet":
+        cfg.model.filters = 64
+        assert Trainer(cfg, device="cpu").state.centroids.shape == (4, 64)
