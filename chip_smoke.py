@@ -39,7 +39,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      timed; the std kernels (their own rows: the stdmin step's P = 2 call and
      P = 1, each forward's launches apart) beside their plain versions, and
      each soft centroid row beside the one ``torch.mm`` that gives its sums
-     (forward) or its dfeats (backward); and the std-free kernels' outputs
+     (forward) or its dfeats (backward), a backward also beside the pair of
+     mm's that gives both its outputs and a ``copy_`` of its bytes; the
+     std-free backward also runs at the odd shapes above against autograd
+     (dprobs at M <= 1000 against float64 within the rounding of its
+     terms); and the std-free kernels' outputs
      on fixed inputs must hash to what the kernels gave before the std
      variant existed (``STD_FREE_DIGEST``);
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
@@ -261,6 +265,15 @@ def launch_split(fn, parts=None, iters: int = 20) -> dict:
     return {k: us[k] / seen[k] / 1e3 for k in parts}
 
 
+def copy_ms(nbytes: int) -> float:
+    """ms of one copy_ that moves ``nbytes`` (half read, half written): what
+    the card's memory gives a kernel that reads and writes as many bytes."""
+    import torch
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src))
+
+
 def bound(nbytes: float, flops: float, peaks) -> tuple:
     t_b, t_o = nbytes / peaks[0], flops / peaks[1]
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
@@ -396,7 +409,9 @@ def check_fwd_shapes(g) -> None:
     forward (with sel and without, labels out of range in the last three
     rows) and the pseudo-labels, each against its plain version at the main
     shape's tolerances and launched twice for bit-identity; the soft
-    centroids' std variant too."""
+    centroids' std-free backward (dfeats and dprobs against autograd's, the
+    rows past a whole group of four taking their ids from memory) and their
+    std variant too."""
     import torch
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
@@ -405,11 +420,15 @@ def check_fwd_shapes(g) -> None:
 
     dev = torch.device("cuda")
     g_std = torch.Generator(device=dev).manual_seed(7)
+    # the std-free backward's dcents: a stream of their own, so the other
+    # checks see the inputs they always had
+    g_bwd = torch.Generator(device=dev).manual_seed(8)
     T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
     for m, f, dtype in ((M - 37, F, torch.bfloat16), (M - 37, F, torch.float32),
                         (65_536 - 5, 16, torch.bfloat16), (65_536 - 5, 64, torch.float32),
                         (100, F, torch.bfloat16), (1, F, torch.bfloat16)):
         what = f"fwd M={m} F={f} {str(dtype)[6:]}"
+        g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 2e-3
         feats = torch.randn(m, f, generator=g, device=dev).to(dtype)
         centers = torch.randn(C, f, generator=g, device=dev)
         probs = torch.softmax(torch.randn(m, C, generator=g, device=dev), dim=-1)
@@ -428,11 +447,42 @@ def check_fwd_shapes(g) -> None:
                     if not all(torch.equal(x, y) for x, y in zip(one, two)):
                         raise AssertionError(f"{what}: soft_centroids_fwd's two launches "
                                              "differ")
+                    x = feats.detach().requires_grad_(True)
+                    pr = probs.detach().requires_grad_(True)
                     want, want_ratio = K_sc.soft_centroids_plain(
-                        feats, probs, a, partition=P, threshold=thd, weighted=weighted)
+                        x, pr, a, partition=P, threshold=thd, weighted=weighted)
                     tag = f"{what} soft_centroids P={P} soft={weighted} thd={thd}"
-                    close(one[0], want, 1e-4, 1e-5, tag)
+                    close(one[0], want.detach(), 1e-4, 1e-5, tag)
                     close(one[2], want_ratio, 1e-5, 0.0, tag + " ratio")
+                    # the backward: a ragged last tile, ids read past the last
+                    # whole group of four, rows out of range, at the main
+                    # shape's tolerances
+                    dc = torch.randn(P, C, f, generator=g_bwd, device=dev)
+                    grads = torch.autograd.grad(want, [x, pr] if weighted else [x], dc)
+                    d1 = K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, thd, weighted, dc,
+                                                      one[0], one[1], weighted)
+                    d2 = K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, thd, weighted, dc,
+                                                      one[0], one[1], weighted)
+                    if not (torch.equal(d1[0], d2[0])
+                            and (not weighted or torch.equal(d1[1], d2[1]))):
+                        raise AssertionError(f"{tag}: soft_centroids_bwd's two launches differ")
+                    close(d1[0], grads[0], g_rtol, 1e-3 * float(grads[0].abs().max()),
+                          tag + " dfeats")
+                    if weighted and m > 1000:
+                        close(d1[1], grads[1], 2e-3, 1e-3 * float(grads[1].abs().max()),
+                              tag + " dprobs")
+                    elif weighted:
+                        # a few rows: a row's dprobs is the difference of two
+                        # nearly equal sums (the row is most of its own
+                        # centroid), which f32 rounds apart in each version:
+                        # held to float64 within the rounding of its terms
+                        ref, mag = centroid_dprobs_f64(feats, probs, a, P, thd, dc, one[0],
+                                                       one[1])
+                        err = (d1[1].double() - ref).abs()
+                        if (not bool(torch.isfinite(d1[1]).all())
+                                or bool((err > 1e-5 * mag).any())):
+                            raise AssertionError(f"{tag} dprobs: max error {float(err.max())} "
+                                                 f"beyond 1e-5 of its terms")
         check_std_variant(feats, probs, assign, g_std, what, grads=m > 1000)
 
         cen = K_pl.normalize_rows(centers).contiguous()
@@ -489,6 +539,31 @@ def check_fwd_shapes(g) -> None:
             raise AssertionError(f"{what}: pseudo_label differs from its plain version in "
                                  f"{int(differ.sum())} rows away from a tie")
         log(f"{what}: ok")
+
+
+def centroid_dprobs_f64(feats, probs, assign, P: int, thd: float, dc, cents, counts):
+    """The std-free backward's dprobs (soft weights) in float64 from the
+    forward's centroids and counts, and the size of the terms it sums:
+    sum_f |dsums x| + sum_f |dcents cents| / (counts + 1e-7) a row and
+    class, the scale of an f32 version's rounding."""
+    import torch
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+    x = feats.double()
+    m = x.shape[0]
+    on = K_sc.certain_mask(probs, thd).double()
+    part = torch.zeros(m, dtype=torch.long, device=x.device)
+    if P > 1:
+        a = assign.long()
+        ok = (a >= 0) & (a < P)
+        part = torch.where(ok, a, 0)
+        on = on * ok.double()
+    n = counts.double().reshape(P, C) + 1e-7
+    ds = dc.double() / n[..., None]
+    dcw = dc.double() * cents.double() / n[..., None]
+    terms = ds[part] * x[:, None, :]
+    ref = (terms.sum(-1) - dcw.sum(-1)[part]) * on[:, None]
+    mag = (terms.abs().sum(-1) + dcw.abs().sum(-1)[part]) * on[:, None]
+    return ref, mag
 
 
 def check_std_variant(feats, probs, assign, g, what: str, grads: bool = True) -> dict:
@@ -838,7 +913,8 @@ def check_kernels(peaks) -> list:
                             "library_ms": time_ms(lambda: dsums.index_select(
                                 0, labels_hard)),
                             # probs read, dfeats written (no feats read)
-                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks)}
+                            "bound": bound(M * (F * es + 4 * C), 2 * M * F, peaks),
+                            "copy_ms": copy_ms(M * (F * es + 4 * C))}
                         del y
                     if tag == "bf16" and P == 2 and not weighted and thd == 0.0:
                         # two partitions (rMC): 64 partial sums a thread
@@ -903,6 +979,10 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
                "fwd_f32": time_ms(lambda: torch.mm(w32.t(), feats32)),
                "bwd": time_ms(lambda: torch.mm(w16, ds16)),
                "bwd_f32": time_ms(lambda: torch.mm(w32, ds32))}
+        # both of the backward's outputs: dfeats, and the (M, P*C) dot
+        # products of the rows with the dsums that dprobs is made from
+        bwd[f"p{P}_library_pair_ms"] = time_ms(
+            lambda: (torch.mm(w16, ds16), torch.mm(feats, ds16.t())))
         pre = "" if P > 1 else "p1_"
         for row, kind in ((fstd, "fwd"), (bstd, "bwd")):
             row[pre + "library_ms"] = lib[kind]
@@ -923,6 +1003,7 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
         bwd[f"p{P}_ms"] = time_ms(lambda: K_sc.soft_centroids_bwd_cuda(
             feats, probs, a, P, 0.0, True, dc, cents, counts, True))
         bwd[f"p{P}_bound_ms"] = bound(bwd_bytes, 4 * M * F * C, peaks)[0]
+        bwd[f"p{P}_copy_ms"] = copy_ms(bwd_bytes)
         # the plain versions: the forward, and autograd's dfeats and dprobs
         fwd[f"p{P}_plain_ms"] = time_ms(lambda: K_sc.soft_centroids_plain(
             feats, probs, a, partition=P, weighted=True))
@@ -1704,7 +1785,7 @@ def main() -> int:
                       "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err",
                       "mccl", "p1_ms", "p1_plain_ms", "p1_bound", "p1_partial_ms",
                       "p1_final_ms", "library_f32_ms", "p1_library_ms",
-                      "p1_library_f32_ms"):
+                      "p1_library_f32_ms", "copy_ms"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]

@@ -11,14 +11,8 @@ namespace slcl {
 constexpr int kThreads = 256;    // threads per block, every kernel here
 constexpr int kC = 4;            // classes: every kernel is built for C = 4
                                  // only, and its entry point rejects others
-constexpr int kMaxBlocks = 1024; // grid cap: fixed per M, so sums are
-                                 // taken in the same order on every run
-
-__host__ __device__ inline int grid_for(long long work_items, int per_block) {
-  long long b = (work_items + per_block - 1) / per_block;
-  if (b < 1) b = 1;
-  return b > kMaxBlocks ? kMaxBlocks : static_cast<int>(b);
-}
+constexpr int kMaxBlocks = 1024; // cap of a forward's persistent grid: its
+                                 // final pass adds at most this many partials
 
 // 8 consecutive values -> f32 registers. p must be 16-byte aligned.
 __device__ __forceinline__ void load8(const float* p, float* x) {

@@ -1,15 +1,19 @@
 // Primitives of the shared-memory rings that feed the port's backward
-// kernels on Hopper (sm_90): mbarriers, the 1D bulk copy (cp.async.bulk)
-// that completes on one, and the size of a persistent grid, which the
-// kernels on direct loads take too.
+// kernels on Hopper (sm_90): mbarriers, the 1D bulk copies (cp.async.bulk)
+// into shared memory, completing on one, and out of it, in bulk groups, and
+// the size of a persistent grid, which the kernels on direct loads take too.
 //
 // A ring kernel runs one block per resident slot. Each block walks tiles of
 // G::kRows rows at a fixed stride; one elected thread fills a stage with
 // bulk copies that complete on the stage's "full" barrier, and every warp
 // arrives on the stage's "empty" barrier when it has read its rows, after
-// which the elected thread may fill the stage again. Bulk copies need sizes
-// and both addresses in multiples of 16 bytes, and mbar_expect_tx must name
-// exactly the bytes the copies bring.
+// which the elected thread may fill the stage again. A ring that also
+// writes (the soft centroids' backward) puts its results in the stage, and
+// the elected thread stores them with bulk_store once the warps have
+// arrived, then waits (bulk_wait_read) until the store has read the stage
+// before it fills it again. Bulk copies need sizes and both addresses in
+// multiples of 16 bytes, and mbar_expect_tx must name exactly the bytes the
+// copies bring.
 #pragma once
 
 #include "common.cuh"
@@ -60,6 +64,39 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// shared -> global, `bytes` (a multiple of 16), in the thread's current bulk
+// group. The writes to the source must be fenced for the async proxy
+// (fence_proxy_async) by every thread that made them, before a barrier that
+// orders them ahead of this call.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// Close the thread's current bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups still read their
+// sources: their shared memory may then be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Wait until every bulk group of the thread has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Order this thread's writes to shared memory before later reads of it by
+// the async proxy (a bulk store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Blocks of a persistent launch of the kernel kKern over tiles of G::kRows

@@ -60,8 +60,34 @@
 // - the final pass gives every value a warp: the lanes stride the blocks'
 //   partials (at most 32 each), a shuffle tree adds the lanes, and the warp
 //   divides by its class's count, which it sums the same way.
-// The backward first forms dsums/dcounts for the block in shared memory,
-// then writes each row's dfeats as 16-byte stores.
+//
+// The backward (centroids_bwd; centroids_bwd_std adds the std's terms) is
+// one ring loop, bwd_ring: a persistent grid over 256-row tiles fed by a
+// bulk-copy ring (ring.cuh), the block's dsums and dcounts formed once in
+// dynamic shared memory while the first stages land, F/8 threads a row,
+// each owning 8 features, the per-row arithmetic that of the first version
+// (outputs bit for bit the same). That version, a grid-stride loop with
+// one row's loads in flight a thread and four scalar probs loads by every
+// thread of the row, ran at 58-67% of its bound. Now:
+// - without dprobs (the slcl step's hard call) the features are not read:
+//   the stages are thin, up to kMaxThinStages tiles of probs (4 KB each),
+//   and each thread stores its dfeats as a 16-byte vector;
+// - with dprobs a thread writes its dfeats over its features and the
+//   row's first thread dprobs over the row's probs in the stage; each warp
+//   fences its writes for the async proxy and arrives, and thread 0 stores
+//   the tile with one shared -> global bulk copy each and waits until the
+//   store has read the stage before it fills it again; since a stage is
+//   held that much longer, the ring keeps one more;
+// - the dsums of every partition at the thread's features sit in
+//   registers, the row's picked by a select: 6-9% faster than reading them
+//   from shared memory at P = 1; at P = 2 (64 floats, 122 registers) as
+//   fast with direct stores, and only with them in registers did the bulk
+//   store beat direct stores there (by 5%).
+// Against its bound, with a copy_ of the same bytes in brackets (NVIDIA
+// H100 80GB HBM3 at 700.00 W, chip_smoke.py phase 2): hard P = 1
+// 0.0272-0.0273 ms, 70% (0.0245); soft P = 1 0.0494-0.0500 ms, 77-78%
+// (0.0454-0.0456); soft P = 2 0.0532-0.0533 ms, 74% (0.0467-0.0468); the
+// first version took 0.0325-0.0326 / 0.0560-0.0566 / 0.0672-0.0679 ms.
 //
 // The std variant has kernels of its own (the std_* functions and the two
 // *_std kernels): its C x 8 more sums a thread left the std-free design no
@@ -79,12 +105,14 @@
 //   and the weights taken by every thread of the row, had cost the rest.
 // - its final pass gives each class's std a block whose warps each sum a
 //   few of the class's 2F + P values, every load of a batch issued together.
-// - backward (centroids_bwd_std): 2-3 stages of 256 rows after the block's
-//   coefficients; a thread holds a / W at its 8 features in registers (and
-//   at P = 1 the dsums too), takes dfeats and the C dprobs partials in one
-//   pass over them (std_bwd_row), and stores dfeats as 16-byte vectors and
-//   dprobs as one float4 a row. On direct loads with 2 or 4 rows in flight
-//   a thread it ran 24-26% slower (tools/ring_variants.py, std_bwd_direct).
+// - backward (centroids_bwd_std): the std-free backward's ring loop with
+//   2-3 stages; a thread holds a / W at its 8 features in registers (and
+//   at P = 1 the dsums too) and takes dfeats and the C dprobs partials in
+//   one pass over them (std_bwd_row); it stores in bulk at P = 1 and
+//   directly at P = 2, where its rows read their dsums from shared memory
+//   (0.0540-0.0541 ms, 71%; 0.0607 ms, 65%). On direct loads with 2 or 4
+//   rows in flight a thread it ran 17-25% slower (tools/ring_variants.py,
+//   std_bwd_direct).
 // No float atomics, and the order of every sum is fixed by the launch shape:
 // two runs on the same inputs give bit-identical results. C is fixed at
 // compile time (slcl::kC).
@@ -118,20 +146,6 @@ __device__ __forceinline__ void weights_of(const float (&p)[C], int id, float th
 #pragma unroll
   for (int c = 0; c < C; ++c)
     w[c] = (weighted ? p[c] : (c == am ? 1.f : 0.f)) * cert * in_part;
-}
-
-// The same, with probs and id read from memory.
-template <int P, int C>
-__device__ __forceinline__ void row_weights(const float* __restrict__ probs,
-                                            const int* __restrict__ assign, int row,
-                                            float thd, int use_thd, int weighted,
-                                            float (&w)[C], float& cert,
-                                            float& in_part, int& part) {
-  float p[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) p[c] = probs[(size_t)row * C + c];
-  weights_of<P, C>(p, (P > 1) ? assign[row] : 0, thd, use_thd, weighted, w, cert, in_part,
-                   part);
 }
 
 // rows a thread of the forward loads before it accumulates: what 128
@@ -626,21 +640,74 @@ __device__ __forceinline__ float weight_total(const float* __restrict__ counts, 
   return w + 1e-7f;
 }
 
-// The backward's body.
-template <typename T, int F, int P, int C>
-__device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
-                                         const float* __restrict__ probs,
-                                         const int* __restrict__ assign, int M, float thd,
-                                         int use_thd, int weighted,
-                                         const float* __restrict__ dcents,
-                                         const float* __restrict__ cents,
-                                         const float* __restrict__ counts,
-                                         T* __restrict__ dfeats, float* __restrict__ dprobs) {
-  constexpr int TPR = F / 8;
-  constexpr int RPB = kThreads / TPR;
+// ---- the backward: one ring loop (bwd_ring), std-free and std ----
+
+constexpr int kBwdBlocksPerSM = 2;
+constexpr int kBwdStdBlocksPerSM = 2;
+
+// Whether a backward with dprobs writes its rows' dfeats over their
+// features and dprobs over their probs in the stage and stores the tile
+// with one bulk copy each, or each thread stores its values directly. The
+// bulk store measured 3-11% faster than direct stores with one partition,
+// in both backwards, and 5% faster with two in the std-free one, whose rows
+// take their dsums from registers; the std one, whose rows read theirs from
+// shared memory there, ran 5% slower with it (tools/ring_variants.py,
+// bwd_soft_direct and bwd_soft_bulk_p2).
+template <int P, bool kStd>
+constexpr bool kBulkStore = !kStd || P == 1;
+
+// Stages of the ring when they carry no features (the std-free backward
+// without dprobs): the probs and ids of a tile each, at most this many.
+constexpr int kMaxThinStages = 8;
+
+// A backward's ring: tiles of 256 rows, each stage holding their features
+// (then their dfeats), their probs a float4 a row (then their dprobs) and,
+// with two partitions, their ids, after the coefficients in dynamic shared
+// memory: dsums (P*C, F), with the std a and a / W (C, F), and dcounts
+// (P*C). The std-free one keeps 2-4 stages (~64 KB of features; 2-5, ~80
+// KB, where it stores in bulk), the std one 2-3 (~48 KB). Without features
+// the same bytes hold up to kMaxThinStages thin stages of probs and ids.
+template <typename T, int F, int P, bool kStd>
+struct BwdRing {
+  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
+  static constexpr int kRows = kThreads;
+  static constexpr int kFeatBytes = kRows * kRowBytes;
+  static constexpr int kProbBytes = kRows * 16;
+  static constexpr int kIdBytes = P > 1 ? kRows * 4 : 0;
+  static constexpr int kStageBytes = kFeatBytes + kProbBytes + kIdBytes;
+  // a bulk store holds its stage until it has read it out: with bulk
+  // stores the std-free ring keeps one stage more
+  static constexpr int kBudget = kStd ? 49152 : (kBulkStore<P, kStd> ? 81920 : 65536);
+  static constexpr int kMaxStages = kStd ? 3 : (kBulkStore<P, kStd> ? 5 : 4);
+  static constexpr int kStages =
+      kBudget / kFeatBytes < 2 ? 2
+                               : (kBudget / kFeatBytes > kMaxStages ? kMaxStages
+                                                                    : kBudget / kFeatBytes);
+  // without features: a stage's probs and ids, as many as the ring holds
+  static constexpr int kThinBytes = kProbBytes + kIdBytes;
+  static constexpr int kThinFit = kStages * kStageBytes / kThinBytes;
+  static constexpr int kThinStages = kThinFit < kMaxThinStages ? kThinFit : kMaxThinStages;
+  static constexpr int kBarriers = kStages > kThinStages ? kStages : kThinStages;
+  static constexpr int kDcntAt = P * slcl::kC * F + (kStd ? 2 * slcl::kC * F : 0);
+  static constexpr int kCoefPad = ((kDcntAt + P * slcl::kC) * 4 + 127) / 128 * 128;
+  static constexpr int kSmemBytes = kCoefPad + kStages * kStageBytes + 2 * kBarriers * 8;
+  static_assert(kRowBytes % 16 == 0, "bulk copies of whole rows");
+};
+
+template <typename T, int F, int P>
+using BwdTiles = BwdRing<T, F, P, false>;
+template <typename T, int F, int P>
+using BwdStdTiles = BwdRing<T, F, P, true>;
+
+// The std-free backward's coefficients, once a block, in shared memory:
+// dsums = dcents / (counts + 1e-7), and dcounts = -sum_f dcents * cents /
+// (counts + 1e-7), a thread each over f ascending.
+template <int F, int P, int C>
+__device__ __forceinline__ void bwd_coefs(const float* __restrict__ dcents,
+                                          const float* __restrict__ cents,
+                                          const float* __restrict__ counts, float* s_dsum,
+                                          float* s_dcnt) {
   constexpr int NPC = P * C;
-  __shared__ float s_dsum[NPC * F];
-  __shared__ float s_dcnt[NPC];
   for (int i = threadIdx.x; i < NPC * F; i += kThreads) {
     float d = dcents[i];
     s_dsum[i] = d / (counts[i / F] + 1e-7f);
@@ -654,89 +721,63 @@ __device__ __forceinline__ void bwd_rows(const T* __restrict__ feats,
     s_dcnt[i] = -v / (counts[i] + 1e-7f);
   }
   __syncthreads();
-  const int sub = threadIdx.x % TPR;
-  const int r = threadIdx.x / TPR;
-  // every thread of the block runs the same number of iterations, so the
-  // shuffles below always see the whole warp
-  for (long long base = (long long)blockIdx.x * RPB; base < M;
-       base += (long long)gridDim.x * RPB) {
-    const int row = static_cast<int>(base) + r;
-    const bool valid = row < M;
-    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float w[C], cert = 0.f, in_part = 0.f;
-    int part = 0;
-    if (valid) {
-      // the features enter only dprobs: dfeats needs just the weights
-      if (dprobs != nullptr) slcl::load8(feats + (size_t)row * F + sub * 8, x);
-      row_weights<P, C>(probs, assign, row, thd, use_thd, weighted, w, cert, in_part, part);
-    } else {
+}
+
+// One row of the std-free backward on its thread's 8 features x (zeros when
+// the features are not read): dx = sum_c w[c] ds[c] over c ascending,
+// handed to store_x before the dprobs are folded; with dprobs, on the row's
+// first thread, dp = (dw + dcount) * certain * in_part, dw the dot of ds[c]
+// with x over the thread's features folded over the row's threads by xor
+// shuffles. ds: the dsums of the row's partition at the thread's features,
+// picked from dsr, every partition's there in registers (6-9% faster than
+// reading the row's from shared memory with one partition, as fast with
+// two; tools/ring_variants.py, bwd_soft_dsum_smem). Every thread of the
+// warp must call it.
+template <int F, int P, int C, typename StoreX>
+__device__ __forceinline__ void bwd_row(const float (&x)[8], const float4& pv, int id,
+                                        float thd, int use_thd, int weighted,
+                                        const float (&dsr)[P * C][8], const float* s_dcnt,
+                                        int sub, bool with_dprobs,
+                                        StoreX&& store_x, float4& dp) {
+  constexpr int TPR = F / 8;
+  const float p[C] = {pv.x, pv.y, pv.z, pv.w};
+  float w[C], cert, in_part;
+  int part;
+  weights_of<P, C>(p, id, thd, use_thd, weighted, w, cert, in_part, part);
+  float dx[8], dw[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) w[c] = 0.f;
-    }
-    const float* ds = s_dsum + part * C * F + sub * 8;
-    float dx[8];
+  for (int j = 0; j < 8; ++j) dx[j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float ds[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float v = 0.f;
+      ds[j] = dsr[c][j];
 #pragma unroll
-      for (int c = 0; c < C; ++c) v = fmaf(w[c], ds[c * F + j], v);
-      dx[j] = v;
+      for (int pp = 1; pp < P; ++pp)
+        if (part == pp) ds[j] = dsr[pp * C + c][j];
     }
-    if (valid) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
-    if (dprobs != nullptr) {
-      float dw[C];
+    float v = 0.f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float v = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      dx[j] = fmaf(w[c], ds[j], dx[j]);
+      v = fmaf(ds[j], x[j], v);
+    }
+    dw[c] = v;
+  }
+  store_x(dx);
+  if (with_dprobs) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v = fmaf(ds[c * F + j], x[j], v);
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int off = 1; off < TPR; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        dw[c] = v;
-      }
-      if (valid && sub == 0) {
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          dprobs[(size_t)row * C + c] = (dw[c] + s_dcnt[part * C + c]) * cert * in_part;
-      }
+      for (int off = 1; off < TPR; off <<= 1) dw[c] += __shfl_xor_sync(0xffffffffu, dw[c], off);
+    if (sub == 0) {
+      const float* dc = s_dcnt + part * C;
+      dp = make_float4((dw[0] + dc[0]) * cert * in_part, (dw[1] + dc[1]) * cert * in_part,
+                       (dw[2] + dc[2]) * cert * in_part, (dw[3] + dc[3]) * cert * in_part);
     }
   }
 }
-
-// Without the std: the kernel as it was before the std variant existed.
-template <typename T, int F, int P, int C>
-__global__ void __launch_bounds__(kThreads)
-centroids_bwd(const T* __restrict__ feats, const float* __restrict__ probs,
-              const int* __restrict__ assign, int M, float thd, int use_thd,
-              int weighted, const float* __restrict__ dcents,
-              const float* __restrict__ cents, const float* __restrict__ counts,
-              T* __restrict__ dfeats, float* __restrict__ dprobs) {
-  bwd_rows<T, F, P, C>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
-                       counts, dfeats, dprobs);
-}
-
-// ---- the std variant's backward ----
-
-constexpr int kBwdStdBlocksPerSM = 2;
-
-// The std backward's ring: tiles of 256 rows, each stage holding their
-// features, their probs (a float4 a row) and, with two partitions, their
-// ids; 2-3 stages (~48 KB of features) after the coefficients in dynamic
-// shared memory: dsums (P*C, F), a and a / W (C, F), dcounts (P*C).
-template <typename T, int F, int P>
-struct BwdStdTiles {
-  static constexpr int kRowBytes = F * static_cast<int>(sizeof(T));
-  static constexpr int kRows = kThreads;
-  static constexpr int kFeatBytes = kRows * kRowBytes;
-  static constexpr int kProbBytes = kRows * 16;
-  static constexpr int kIdBytes = P > 1 ? kRows * 4 : 0;
-  static constexpr int kStageBytes = kFeatBytes + kProbBytes + kIdBytes;
-  static constexpr int kStages =
-      49152 / kFeatBytes < 2 ? 2 : (49152 / kFeatBytes > 3 ? 3 : 49152 / kFeatBytes);
-  static constexpr int kCoefBytes = (P * slcl::kC * F + 2 * slcl::kC * F + P * slcl::kC) * 4;
-  static constexpr int kCoefPad = (kCoefBytes + 127) / 128 * 128;
-  static constexpr int kSmemBytes = kCoefPad + kStages * kStageBytes + 2 * kStages * 8;
-};
 
 // The std backward's coefficients, once a block, in shared memory: a and
 // a / W, the dsums with dcents[0] -= 2 a cents[0], and the dcounts with
@@ -790,20 +831,20 @@ __device__ __forceinline__ void std_bwd_coefs(const float* __restrict__ dcents,
 }
 
 // One row of the std backward on its thread's 8 features x, in one pass
-// over them: dfeats = sum_c w ds + 2 x sum_c w a / W, stored as 16-byte
-// vectors, and with dprobs the C partials sum_f ds x + a / W x^2, folded
-// over the row's threads and stored as one float4. aw: a / W at the
-// thread's features; dsr: at P = 1 the dsums there (at P = 2 they are read
-// from s_dsum, two float4 a class). Every thread of the warp must call it.
-template <typename T, int F, int P, int C>
+// over them: dx = sum_c w ds + 2 x sum_c w a / W, handed to store_x; then
+// with dprobs the C partials sum_f ds x + a / W x^2, folded over the row's
+// threads, and (dw + dcount) * certain * in_part on the row's first thread
+// (dp). aw: a / W at the thread's features; dsr: at P = 1 the dsums there
+// (at P = 2 they are read from s_dsum, two float4 a class). Every thread
+// of the warp must call it.
+template <int F, int P, int C, typename StoreX>
 __device__ __forceinline__ void std_bwd_row(const float (&x)[8], const float4& pv, int id,
-                                            long long row, bool valid, float thd,
-                                            int use_thd, int weighted,
+                                            float thd, int use_thd, int weighted,
                                             const float (&aw)[C][8],
                                             const float (&dsr)[P == 1 ? C : 1][8],
                                             const float* s_dsum, const float* s_dcnt,
-                                            int sub, T* __restrict__ dfeats,
-                                            float* __restrict__ dprobs) {
+                                            int sub, bool with_dprobs, StoreX&& store_x,
+                                            float4& dp) {
   constexpr int TPR = F / 8;
   const float p[C] = {pv.x, pv.y, pv.z, pv.w};
   float w[C], cert, in_part;
@@ -847,29 +888,201 @@ __device__ __forceinline__ void std_bwd_row(const float (&x)[8], const float4& p
 #pragma unroll
     for (int k = 0; k < 8; ++k) dx[k] = fmaf(2.f * x[k], u[k], dx[k]);
   }
-  if (valid) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
-  if (dprobs != nullptr) {
+  store_x(dx);
+  if (with_dprobs) {
 #pragma unroll
     for (int c = 0; c < C; ++c)
 #pragma unroll
       for (int off = 1; off < TPR; off <<= 1) dw[c] += __shfl_xor_sync(0xffffffffu, dw[c], off);
-    if (valid && sub == 0) {
+    if (sub == 0) {
       const float g = cert * in_part;
       const float* dc = s_dcnt + part * C;
-      reinterpret_cast<float4*>(dprobs)[row] =
-          make_float4((dw[0] + dc[0]) * g, (dw[1] + dc[1]) * g, (dw[2] + dc[2]) * g,
-                      (dw[3] + dc[3]) * g);
+      dp = make_float4((dw[0] + dc[0]) * g, (dw[1] + dc[1]) * g, (dw[2] + dc[2]) * g,
+                       (dw[3] + dc[3]) * g);
     }
   }
 }
 
-// The std backward: a persistent grid over 256-row tiles fed by the ring.
-// Thread 0 fills the stages (ids in whole groups of four rows; a ragged
-// tile's last 1-3 ids are read from memory) as soon as the barriers exist,
-// while the block forms its coefficients; the threads then take their rows
-// from the stage a pass at a time (std_bwd_row) and store dfeats and dprobs
-// directly, and each warp arrives on the stage's empty barrier once it has
-// read its rows.
+// The backward, std-free or std (kStd): a persistent grid over 256-row
+// tiles fed by the ring. Thread 0 fills the stages (ids in whole groups of
+// four rows; a ragged tile's last 1-3 ids are read from memory) as soon as
+// the barriers exist, while the block forms its coefficients. Without
+// dprobs the std-free backward reads no features: its stages are thin,
+// probs and ids alone, and more of them. The threads take their rows from
+// the stage a pass at a time (F/8 threads a row, 8 features each). With a
+// bulk store (kBulkStore: the std-free backward with dprobs, the std one
+// at P = 1) they write dfeats over the row's features and dprobs over its
+// probs, each warp fences its writes for the async proxy before it arrives
+// on the stage's empty barrier, and thread 0 then stores the tile with one
+// bulk copy each for dfeats and dprobs and waits until the store has read
+// the stage before it fills the stage again. Otherwise each thread stores its dfeats (16
+// bytes) and the row's first thread its dprobs (a float4) directly.
+template <typename T, int F, int P, int C, bool kStd>
+__device__ __forceinline__ void bwd_ring(const T* __restrict__ feats,
+                                         const float* __restrict__ probs,
+                                         const int* __restrict__ assign, int M, float thd,
+                                         int use_thd, int weighted,
+                                         const float* __restrict__ dcents,
+                                         const float* __restrict__ cents,
+                                         const float* __restrict__ counts,
+                                         T* __restrict__ dfeats, float* __restrict__ dprobs,
+                                         const float* __restrict__ gstd,
+                                         const float* __restrict__ s2,
+                                         const float* __restrict__ stdv) {
+  static_assert(C == 4, "a row's probs and dprobs are one float4");
+  using G = BwdRing<T, F, P, kStd>;
+  constexpr int TPR = F / 8;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int NPC = P * C;
+  constexpr bool kAllFeats = kStd;   // the std's dfeats need the features
+  constexpr int kDsr = kStd ? (P == 1 ? C : 1) : P * C;
+  constexpr int kAw = kStd ? C : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_dsum = reinterpret_cast<float*>(smem);
+  float* s_dcnt = s_dsum + G::kDcntAt;
+  unsigned char* ring = smem + G::kCoefPad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStageBytes);
+  uint64_t* empty = full + G::kBarriers;
+  const int ntiles = (M + G::kRows - 1) / G::kRows;
+  const int lane = threadIdx.x % 32;
+  const bool with_dprobs = dprobs != nullptr;
+  const bool read_feats = kAllFeats || with_dprobs;
+  const bool bulk = kBulkStore<P, kStd> && with_dprobs;
+  // a stage: its features (when read or written there), then its probs,
+  // then its ids
+  const bool thin = !read_feats && !bulk;
+  const int nstages = thin ? G::kThinStages : G::kStages;
+  const int stage_bytes = thin ? G::kThinBytes : G::kStageBytes;
+  const int prob_at = thin ? 0 : G::kFeatBytes;
+  auto fill = [&](int stage, int tile) {
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    unsigned char* st = ring + stage * stage_bytes;
+    const uint32_t fbytes = read_feats ? rows * G::kRowBytes : 0;
+    const uint32_t pbytes = rows * 16;
+    const uint32_t ibytes = P > 1 ? (rows & ~3) * 4 : 0;
+    slcl::mbar_expect_tx(&full[stage], fbytes + pbytes + ibytes);
+    if (fbytes) slcl::bulk_copy(st, feats + (size_t)row0 * F, fbytes, &full[stage]);
+    slcl::bulk_copy(st + prob_at, probs + (size_t)row0 * C, pbytes, &full[stage]);
+    if (ibytes)
+      slcl::bulk_copy(st + prob_at + G::kProbBytes, assign + row0, ibytes, &full[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nstages; ++s) {
+      slcl::mbar_init(&full[s], 1);
+      slcl::mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < nstages; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < ntiles) fill(s, tile);
+    }
+  }
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  // the same for every row, in registers: the dsums at this thread's
+  // features (std: at P = 1 only) and the std's a / W there
+  float dsr[kDsr][8];
+  float aw[kAw][8];
+  if constexpr (kStd) {
+    float* s_a = s_dsum + NPC * F;
+    float* s_aw = s_a + C * F;
+    std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      slcl::load8(s_aw + c * F + sub * 8, aw[c]);
+      if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);
+    }
+  } else {
+    bwd_coefs<F, P, C>(dcents, cents, counts, s_dsum, s_dcnt);
+#pragma unroll
+    for (int i = 0; i < NPC; ++i) slcl::load8(s_dsum + i * F + sub * 8, dsr[i]);
+  }
+  int stage = 0;
+  uint32_t parity = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * G::kRows;
+    const int rows = min(G::kRows, M - row0);
+    slcl::mbar_wait(&full[stage], parity);
+    unsigned char* st = ring + stage * stage_bytes;
+    T* s_feat = reinterpret_cast<T*>(st);
+    float4* s_prob = reinterpret_cast<float4*>(st + prob_at);
+    const int* s_id = reinterpret_cast<const int*>(st + prob_at + G::kProbBytes);
+#pragma unroll 1
+    for (int q = 0; q < G::kRows / RPB; ++q) {
+      const int rr = q * RPB + r;
+      const bool valid = rr < rows;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
+      int id = 0;
+      if (valid) {
+        if (read_feats) slcl::load8(s_feat + rr * F + sub * 8, x);
+        pv = s_prob[rr];
+        if constexpr (P > 1) id = rr < (rows & ~3) ? s_id[rr] : __ldg(assign + row0 + rr);
+      }
+      // dfeats as soon as it is known: over the thread's own features in
+      // the stage, or to memory
+      auto store_x = [&](const float (&dx)[8]) {
+        if (!valid) return;
+        if (bulk) slcl::store8(s_feat + rr * F + sub * 8, dx);
+        else slcl::store8(dfeats + (size_t)(row0 + rr) * F + sub * 8, dx);
+      };
+      float4 dp = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kStd) {
+        std_bwd_row<F, P, C>(x, pv, id, thd, use_thd, weighted, aw, dsr, s_dsum, s_dcnt, sub,
+                             with_dprobs, store_x, dp);
+      } else {
+        bwd_row<F, P, C>(x, pv, id, thd, use_thd, weighted, dsr, s_dcnt, sub, with_dprobs,
+                         store_x, dp);
+      }
+      if (bulk) {
+        __syncwarp();   // every thread of the row has read its probs
+        if (valid && sub == 0) s_prob[rr] = dp;
+      } else if (with_dprobs && valid && sub == 0) {
+        reinterpret_cast<float4*>(dprobs)[row0 + rr] = dp;
+      }
+    }
+    if (bulk) slcl::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) slcl::mbar_arrive(&empty[stage]);
+    if (threadIdx.x == 0) {
+      const int next = tile + nstages * gridDim.x;
+      if (bulk) {
+        slcl::mbar_wait(&empty[stage], parity);
+        slcl::bulk_store(dfeats + (size_t)row0 * F, st, rows * G::kRowBytes);
+        if (with_dprobs) slcl::bulk_store(dprobs + (size_t)row0 * C, s_prob, rows * 16);
+        slcl::bulk_commit();
+        if (next < ntiles) {
+          slcl::bulk_wait_read<0>();   // the store has read the stage
+          fill(stage, next);
+        }
+      } else if (next < ntiles) {
+        slcl::mbar_wait(&empty[stage], parity);
+        fill(stage, next);
+      }
+    }
+    if (++stage == nstages) {
+      stage = 0;
+      parity ^= 1u;
+    }
+  }
+  // the block's shared memory must outlive its last stores
+  if (bulk && threadIdx.x == 0) slcl::bulk_wait_all();
+}
+
+// The std-free backward: dfeats, and with soft weights dprobs.
+template <typename T, int F, int P, int C>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
+centroids_bwd(const T* __restrict__ feats, const float* __restrict__ probs,
+              const int* __restrict__ assign, int M, float thd, int use_thd,
+              int weighted, const float* __restrict__ dcents,
+              const float* __restrict__ cents, const float* __restrict__ counts,
+              T* __restrict__ dfeats, float* __restrict__ dprobs) {
+  bwd_ring<T, F, P, C, false>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
+                              counts, dfeats, dprobs, nullptr, nullptr, nullptr);
+}
+
+// The std backward: the same with the std's terms.
 template <typename T, int F, int P, int C>
 __global__ void __launch_bounds__(kThreads, kBwdStdBlocksPerSM)
 centroids_bwd_std(const T* __restrict__ feats, const float* __restrict__ probs,
@@ -879,94 +1092,16 @@ centroids_bwd_std(const T* __restrict__ feats, const float* __restrict__ probs,
                   T* __restrict__ dfeats, float* __restrict__ dprobs,
                   const float* __restrict__ gstd, const float* __restrict__ s2,
                   const float* __restrict__ stdv) {
-  static_assert(C == 4, "a row's probs and dprobs are one float4");
-  using G = BwdStdTiles<T, F, P>;
-  constexpr int TPR = F / 8;
-  constexpr int RPB = kThreads / TPR;
-  constexpr int NPC = P * C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s_dsum = reinterpret_cast<float*>(smem);
-  float* s_a = s_dsum + NPC * F;
-  float* s_aw = s_a + C * F;
-  float* s_dcnt = s_aw + C * F;
-  unsigned char* ring = smem + G::kCoefPad;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kStages * G::kStageBytes);
-  uint64_t* empty = full + G::kStages;
-  const int ntiles = (M + G::kRows - 1) / G::kRows;
-  const int lane = threadIdx.x % 32;
-  auto fill = [&](int stage, int tile) {
-    const int row0 = tile * G::kRows;
-    const int rows = min(G::kRows, M - row0);
-    unsigned char* st = ring + stage * G::kStageBytes;
-    const uint32_t fbytes = rows * G::kRowBytes;
-    const uint32_t pbytes = rows * 16;
-    const uint32_t ibytes = P > 1 ? (rows & ~3) * 4 : 0;
-    slcl::mbar_expect_tx(&full[stage], fbytes + pbytes + ibytes);
-    slcl::bulk_copy(st, feats + (size_t)row0 * F, fbytes, &full[stage]);
-    slcl::bulk_copy(st + G::kFeatBytes, probs + (size_t)row0 * C, pbytes, &full[stage]);
-    if (ibytes)
-      slcl::bulk_copy(st + G::kFeatBytes + G::kProbBytes, assign + row0, ibytes, &full[stage]);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < G::kStages; ++s) {
-      slcl::mbar_init(&full[s], 1);
-      slcl::mbar_init(&empty[s], kWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int s = 0; s < G::kStages; ++s) {
-      const int tile = blockIdx.x + s * gridDim.x;
-      if (tile < ntiles) fill(s, tile);
-    }
-  }
-  std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);
-  const int sub = threadIdx.x % TPR;
-  const int r = threadIdx.x / TPR;
-  float aw[C][8];
-  float dsr[P == 1 ? C : 1][8];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    slcl::load8(s_aw + c * F + sub * 8, aw[c]);
-    if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);
-  }
-  int it = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
-    const int stage = it % G::kStages;
-    const uint32_t parity = (it / G::kStages) & 1;
-    const int row0 = tile * G::kRows;
-    const int rows = min(G::kRows, M - row0);
-    slcl::mbar_wait(&full[stage], parity);
-    const unsigned char* st = ring + stage * G::kStageBytes;
-    const T* s_feat = reinterpret_cast<const T*>(st);
-    const float4* s_prob = reinterpret_cast<const float4*>(st + G::kFeatBytes);
-    const int* s_id = reinterpret_cast<const int*>(st + G::kFeatBytes + G::kProbBytes);
-#pragma unroll 1
-    for (int q = 0; q < G::kRows / RPB; ++q) {
-      const int rr = q * RPB + r;
-      const bool valid = rr < rows;
-      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      float4 pv = make_float4(0.f, 0.f, 0.f, 0.f);
-      int id = 0;
-      if (valid) {
-        slcl::load8(s_feat + rr * F + sub * 8, x);
-        pv = s_prob[rr];
-        if constexpr (P > 1) id = rr < (rows & ~3) ? s_id[rr] : __ldg(assign + row0 + rr);
-      }
-      std_bwd_row<T, F, P, C>(x, pv, id, (long long)row0 + rr, valid, thd, use_thd, weighted,
-                              aw, dsr, s_dsum, s_dcnt, sub, dfeats, dprobs);
-    }
-    __syncwarp();
-    if (lane == 0) slcl::mbar_arrive(&empty[stage]);
-    if (threadIdx.x == 0) {
-      const int next = tile + G::kStages * gridDim.x;
-      if (next < ntiles) {
-        slcl::mbar_wait(&empty[stage], parity);
-        fill(stage, next);
-      }
-    }
-  }
+  bwd_ring<T, F, P, C, true>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
+                             counts, dfeats, dprobs, gstd, s2, stdv);
 }
 
-// The std backward's persistent grid.
+// The backwards' persistent grids.
+template <typename T, int F, int P>
+int bwd_grid_of(int M, int* g) {
+  return slcl::ring_grid<BwdTiles<T, F, P>, centroids_bwd<T, F, P, slcl::kC>>(M, g);
+}
+
 template <typename T, int F, int P>
 int std_bwd_grid_of(int M, int* g) {
   return slcl::ring_grid<BwdStdTiles<T, F, P>, centroids_bwd_std<T, F, P, slcl::kC>>(M, g);
@@ -1028,19 +1163,21 @@ int launch_bwd(const void* feats, const float* probs, const int* assign, int M,
                void* dfeats, float* dprobs, const float* gstd, const float* s2,
                const float* stdv, cudaStream_t st) {
   SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(gstd != nullptr, {
-    if constexpr (kS) {
-      int grid = 0;
+    int grid = 0;
+    if constexpr (!kS) {
+      const int rc = bwd_grid_of<T, kF, kP>(M, &grid);
+      if (rc != 0) return rc;
+      constexpr int kSmem = BwdTiles<T, kF, kP>::kSmemBytes;
+      centroids_bwd<T, kF, kP, kC><<<grid, kThreads, kSmem, st>>>(
+          static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
+          dcents, cents, counts, static_cast<T*>(dfeats), dprobs);
+    } else {
       const int rc = std_bwd_grid_of<T, kF, kP>(M, &grid);
       if (rc != 0) return rc;
       constexpr int kSmem = BwdStdTiles<T, kF, kP>::kSmemBytes;
       centroids_bwd_std<T, kF, kP, kC><<<grid, kThreads, kSmem, st>>>(
           static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
           dcents, cents, counts, static_cast<T*>(dfeats), dprobs, gstd, s2, stdv);
-    } else {
-      const int grid = slcl::grid_for(M, kThreads / (kF / 8));
-      centroids_bwd<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
-          static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted,
-          dcents, cents, counts, static_cast<T*>(dfeats), dprobs);
     }
   })));
   return static_cast<int>(cudaGetLastError());
@@ -1060,7 +1197,8 @@ int occupancy_of(int bwd, int F, int P, int with_std, int* blocks_per_sm,
       if (!bwd)
         return slcl::occupancy(centroids_fwd_partial<T, kF, kP, kC>, 0, blocks_per_sm,
                                smem_bytes);
-      return slcl::occupancy(centroids_bwd<T, kF, kP, kC>, 0, blocks_per_sm, smem_bytes);
+      return slcl::occupancy(centroids_bwd<T, kF, kP, kC>, BwdTiles<T, kF, kP>::kSmemBytes,
+                             blocks_per_sm, smem_bytes);
     }
   })));
   return -1;

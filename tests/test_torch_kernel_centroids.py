@@ -10,9 +10,12 @@ Tolerances are those of tests/test_pallas.py: centroids rtol 1e-4 / atol
 exact except on rows whose top1-top2 gap lies within 1e-6 of a tie or of
 the threshold; with this seed there are 0 such rows, and the test asserts
 that every differing row is one of them. M = 2500 is not a multiple of any
-tile. The centroid version is also held at F = 16 and F = 64 with an odd M
-(2491 = 47 * 53), and with partition ids outside [0, P): the Pallas kernel
-gives such rows no weight and counts them in the ratio, as the port does.
+tile. The centroid version and its autograd backward are also held at
+F = 16, 32 and 64 with an odd M (2491 = 47 * 53, so the rows past the last
+whole group of four, whose ids the backward kernel reads from memory, are
+there at P = 2, soft weights and thd 0 and 0.4), and with partition ids
+outside [0, P): the Pallas kernel gives such rows no weight and counts them
+in the ratio, as the port does.
 """
 import jax
 import jax.numpy as jnp
@@ -155,12 +158,9 @@ def _port_centroids(feats, probs, assign, P, weighted, thd, dc):
             gx.numpy().reshape(-1, f), gp.numpy().reshape(-1, C))
 
 
-@pytest.mark.parametrize("f", [16, 64])
-@pytest.mark.parametrize("P", [1, 2])
-@pytest.mark.parametrize("weighted", [True, False])
-def test_soft_centroids_plain_other_widths_match_jnp(rng, f, P, weighted):
+def _check_other_width(rng, f, P, weighted, thd):
     feats, probs, dcents = _wide_data(rng, f)
-    dc, thd = dcents[:P], 0.4
+    dc = dcents[:P]
     key = jax.random.PRNGKey(5)
     # the draw target_soft_centroids makes from its rng (centroids.py:124)
     assign = np.array(jax.random.randint(key, (H2 * W2,), 0, P))
@@ -178,6 +178,20 @@ def test_soft_centroids_plain_other_widths_match_jnp(rng, f, P, weighted):
     assert ratio == pytest.approx(float(want_ratio), rel=1e-5)
     np.testing.assert_allclose(gx, np.asarray(want_gx), rtol=2e-3, atol=1e-7)
     np.testing.assert_allclose(gp, np.asarray(want_gp), rtol=2e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("f", [16, 32, 64])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_soft_centroids_plain_other_widths_match_jnp(rng, f, P, weighted):
+    _check_other_width(rng, f, P, weighted, 0.4)
+
+
+@pytest.mark.parametrize("f", [16, 32, 64])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_soft_centroids_plain_other_widths_without_threshold_match_jnp(rng, f, P, weighted):
+    _check_other_width(rng, f, P, weighted, 0.0)
 
 
 @pytest.mark.parametrize("f", [16, 64])

@@ -25,7 +25,12 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
   functions and tile types (``*std*`` / ``*Std*``) are taken out no std
   arithmetic is left, so the std-free instantiations are the code they
   were; both std kernels take a persistent grid from ``ring_grid``; no sum
-  there uses a float atomic.
+  there uses a float atomic;
+- the soft centroids' two backwards run on one ring loop, the std-free one
+  with a persistent grid from ``ring_grid`` and its tile type's shared
+  memory (the first grid-stride body is gone), and every shared -> global
+  bulk store is fenced for the async proxy before it and read out of its
+  stage before the stage is filled again.
 
 Reads files only: no CUDA, no nvcc.
 """
@@ -297,6 +302,56 @@ def test_std_kernels_take_their_grid_from_ring_grid(kernel, grid):
     launch = src.split(f"{grid}<T, kF, kP>(M, &grid)", 1)[1].split("<<<", 1)[0]
     assert launch.rstrip().endswith(f"{kernel}<T, kF, kP, kC>"), launch
     assert "kSmem = " in launch
+
+
+def test_centroid_backward_takes_its_grid_from_ring_grid():
+    """The std-free backward runs on the std backward's ring loop, on a
+    persistent grid of its own: its grid function asks ring_grid for the
+    kernel's slots, and its launch and occupancy query take that grid and
+    the tile type's dynamic shared memory. The first grid-stride body and the
+    grid it sized are gone."""
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    body = src.split("int bwd_grid_of(", 1)[1].split("\n}", 1)[0]
+    assert re.search(r"ring_grid<BwdTiles<T, F, P>,\s*centroids_bwd<T, F, P, slcl::kC>>\(M,", body)
+    launch = re.split(r"\bbwd_grid_of<T, kF, kP>\(M, &grid\)", src)[1].split("<<<", 1)[0]
+    assert launch.rstrip().endswith("centroids_bwd<T, kF, kP, kC>"), launch
+    assert "kSmem = BwdTiles<T, kF, kP>::kSmemBytes" in launch
+    assert re.search(r"occupancy\(centroids_bwd<T, kF, kP, kC>,\s*BwdTiles<T, kF, kP>::kSmemBytes",
+                     src)
+    for kernel, std in (("centroids_bwd", "false"), ("centroids_bwd_std", "true")):
+        body = re.split(rf"\n{kernel}\(", src)[1].split("\n}", 1)[0]
+        assert f"bwd_ring<T, F, P, C, {std}>(" in body, kernel
+    all_src = "".join(_strip_comments(f.read_text()) for f in CSRC.glob("*.cu*"))
+    assert "bwd_rows" not in all_src and "grid_for(" not in all_src
+
+
+@pytest.mark.parametrize("name", LIBS)
+def test_bulk_stores_are_fenced_and_read_out_before_the_next_fill(name):
+    """A shared -> global bulk store follows, in its tile, the async-proxy
+    fence of the threads that wrote the stage and the empty barrier that
+    orders those writes before it; before the stage is filled again its
+    thread waits until the store has read it, and before the block exits
+    until every store has completed."""
+    src = _strip_comments(_source_with_includes(name))
+    stores = [m.start() for m in re.finditer(r"\bbulk_store\(", src)]
+    ring = _strip_comments((CSRC / "ring.cuh").read_text())
+    assert "cp.async.bulk.global.shared::cta.bulk_group" in ring
+    assert "cp.async.bulk.wait_group.read" in ring and "fence.proxy.async.shared::cta" in ring
+    if name == "soft_centroids":
+        assert len(stores) == 3   # the helper's definition, dfeats and dprobs
+    for at in stores:
+        if re.match(r"bulk_store\(void\* dst", src[at:]):
+            continue   # the helper itself, in ring.cuh
+        before = src[:at]
+        tile = before[before.rindex("mbar_wait(&full"):]
+        fence = tile.index("fence_proxy_async()")
+        arrive = tile.index("mbar_arrive(&empty", fence)
+        tile.index("mbar_wait(&empty", arrive)
+        after = src[at:]
+        nxt = after.index("fill(")
+        assert "bulk_wait_read<" in after[:nxt], "a stage refilled before its store read it"
+        assert "bulk_commit()" in after[:nxt]
+        assert "bulk_wait_all()" in after, "the block may exit before its stores complete"
 
 
 def test_centroid_sums_use_no_float_atomics():

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 tools/ring_variants.py [bwd | fwd | variant ...]
+    python3 tools/ring_variants.py [bwd | fwd | std | bwd_soft | variant ...]
+                                   [--parent DIR]
 
 Each variant is a set of text edits of ``slcl_torch/csrc``; the script
 copies the sources into ``slcl_torch/_build/variants/<name>`` (git-ignored),
@@ -26,15 +27,26 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
   ``std_half`` is the forward on direct loads with half-width ownership (4
   features a thread), ``std_bwd_direct*`` the backward on direct loads with
   rows in flight (the design the ring replaced).
+- ``bwd_soft_*`` variants edit ``soft_centroids.cu`` and time the
+  centroids' backward ring: the std-free kernel's three forms (the slcl
+  step's hard P = 1 call, the mccl step's soft P = 1 and P = 2 calls with
+  dprobs) and, where the edit reaches them, the std backward's two rows:
+  ``bwd_soft_direct`` stores each thread's values directly instead of one
+  bulk store a tile, ``bwd_soft_bulk_p2`` stores the std backward's in bulk
+  at P = 2 too, ``bwd_soft_thick`` gives the hard form its features' stages, and
+  ``bwd_soft_dsum_smem`` reads a row's dsums from shared memory instead of
+  picking them from every partition's in registers.
   With ``--parent DIR`` (a checkout of an earlier commit), the variant
-  ``parent`` builds that checkout's sources unedited and times the same
-  calls: the design they replaced.
+  ``parent`` builds that checkout's sources unedited and times the std
+  kernels and the three std-free backward forms: the designs they replaced.
+  A ptxas report is looked up by the current source's symbols.
 
 A variant that does not compile is reported and left out; the others run.
 
 Yardsticks for what the card's memory allows, timed the same way: one
 ``copy_`` of the features into a tensor of their shape (read + write) and
-one ``torch.sum`` over them (read only). Prints one JSON line per variant
+one ``torch.sum`` over them (read only), and a ``copy_`` of as many bytes
+as each centroid backward form moves. Prints one JSON line per variant
 and the card's name and power limit.
 """
 from __future__ import annotations
@@ -61,15 +73,20 @@ _CEN_MEMONLY = (CEN, "        acc.add(x[j], p, id[j], sub == 0, thd, use_thd, we
 BWD_KERNELS = ("mpcl_bwd", "mpcl_pseudo_bwd")
 STD_KERNELS = ("soft_centroids_fwd_std", "soft_centroids_fwd_std_p2", "soft_centroids_bwd_std",
                "soft_centroids_bwd_std_p2")
+# the std-free centroid backward's three forms: the slcl step's call (hard,
+# P = 1, no features read, no dprobs) and the mccl step's two (soft weights,
+# dprobs, P = 1 on img_t_aug and P = 2 on img_t)
+CEN_BWD = ("soft_centroids_bwd", "soft_centroids_bwd_soft", "soft_centroids_bwd_p2")
 MPCL_FWD = ("mpcl_fwd", "mpcl_fwd_sel")   # labels given: without sel, with sel
 ROW_FWD = ("mpcl_pseudo_fwd", *MPCL_FWD, "pseudo_label")   # on mpcl_fwd_tile.cuh
 CEN_FWD = ("soft_centroids_fwd", "soft_centroids_fwd_p2")
 FWD_KERNELS = ROW_FWD + CEN_FWD
+PARENT_KERNELS = STD_KERNELS + CEN_BWD   # what --parent times
 LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
           "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
           "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
           "soft_centroids_fwd_p2": "soft_centroids",
-          **dict.fromkeys(STD_KERNELS, "soft_centroids")}
+          **dict.fromkeys(STD_KERNELS + CEN_BWD, "soft_centroids")}
 # ptxas entry-function name parts of each timed kernel's instantiation
 SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
@@ -83,14 +100,10 @@ SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "soft_centroids_fwd_std_p2":
                  "centroids_fwd_std_partialI13__nv_bfloat16Li32ELi2ELi4EE",
              "soft_centroids_bwd_std": "centroids_bwd_stdI13__nv_bfloat16Li32ELi1ELi4EE",
-             "soft_centroids_bwd_std_p2": "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE"}
-# the same in a parent checkout whose std forward was an instantiation of the
-# std-free kernel (kStd)
-PARENT_SYMBOL_OF = {
-    "soft_centroids_fwd": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb0E",
-    "soft_centroids_fwd_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb0E",
-    "soft_centroids_fwd_std": "centroids_fwd_partialI13__nv_bfloat16Li32ELi1ELi4ELb1E",
-    "soft_centroids_fwd_std_p2": "centroids_fwd_partialI13__nv_bfloat16Li32ELi2ELi4ELb1E"}
+             "soft_centroids_bwd_std_p2": "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE",
+             "soft_centroids_bwd": "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE",
+             "soft_centroids_bwd_soft": "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE",
+             "soft_centroids_bwd_p2": "centroids_bwdI13__nv_bfloat16Li32ELi2ELi4EE"}
 
 
 def _section(f: str, start: str, end: str) -> str:
@@ -308,10 +321,128 @@ centroids_fwd_std_partial(const T* __restrict__ feats, const float* __restrict__
 # before it computes the first, on a persistent grid of tiles of that many
 # passes, with the coefficients alone in dynamic shared memory.
 _STD_BWD_DIRECT = [
-    (CEN, _section(CEN, "constexpr int kBwdStdBlocksPerSM = 2;\n", "};\n"), "// Rows a thread of the std backward loads before it computes the first:\n// what 128 registers hold beside its coefficients (a / W at its 8\n// features; at P = 1 the dsums too)\ntemplate <int P>\nconstexpr int kBwdStdRows = P == 1 ? 2 : 4;\nconstexpr int kBwdStdBlocksPerSM = 2;\n\n// Tiles of the std backward's persistent grid, and its dynamic shared\n// memory: dsums (P*C, F), a and a / W (C, F), dcounts (P*C).\ntemplate <typename T, int F, int P>\nstruct BwdStdTiles {\n  static constexpr int kRows = kBwdStdRows<P> * (kThreads / (F / 8));\n  static constexpr int kSmemBytes = (P * slcl::kC * F + 2 * slcl::kC * F + P * slcl::kC) * 4;\n};\n\n// 8 values of T as loaded, unconverted: one 16-byte vector of bf16 or two\n// of f32. A bf16 is the top half of an f32, so its conversion is exact.\ntemplate <typename T>\nconstexpr int kRaw = static_cast<int>(sizeof(T)) / 2;\n\ntemplate <typename T>\n__device__ __forceinline__ void std_raw_load(const T* p, uint4 (&u)[kRaw<T>]) {\n#pragma unroll\n  for (int v = 0; v < kRaw<T>; ++v) u[v] = __ldg(reinterpret_cast<const uint4*>(p) + v);\n}\n\n__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[1], float (&x)[8]) {\n  const uint32_t h[4] = {u[0].x, u[0].y, u[0].z, u[0].w};\n#pragma unroll\n  for (int i = 0; i < 4; ++i) {\n    x[2 * i] = __uint_as_float(h[i] << 16);\n    x[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);\n  }\n}\n\n__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[2], float (&x)[8]) {\n#pragma unroll\n  for (int v = 0; v < 2; ++v) {\n    x[4 * v] = __uint_as_float(u[v].x);\n    x[4 * v + 1] = __uint_as_float(u[v].y);\n    x[4 * v + 2] = __uint_as_float(u[v].z);\n    x[4 * v + 3] = __uint_as_float(u[v].w);\n  }\n}\n"),
-    (CEN, _section(CEN, "  extern __shared__ __align__(128) unsigned char smem[];\n"
-                        "  float* s_dsum = reinterpret_cast<float*>(smem);",
-                   "\n}\n\n// The std backward's persistent grid."), "  constexpr int R = kBwdStdRows<P>;\n  extern __shared__ __align__(16) float s_co[];\n  float* s_dsum = s_co;\n  float* s_a = s_dsum + NPC * F;\n  float* s_aw = s_a + C * F;\n  float* s_dcnt = s_aw + C * F;\n  std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);\n  const int sub = threadIdx.x % TPR;\n  const int r = threadIdx.x / TPR;\n  // the same for every row: a / W at this thread's features, and at P = 1\n  // the dsums\n  float aw[C][8];\n  float dsr[P == 1 ? C : 1][8];\n#pragma unroll\n  for (int c = 0; c < C; ++c) {\n    slcl::load8(s_aw + c * F + sub * 8, aw[c]);\n    if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);\n  }\n  // every thread of the block runs the same number of iterations, so the\n  // shuffles below always see the whole warp\n  for (long long base = (long long)blockIdx.x * G::kRows; base < M;\n       base += (long long)gridDim.x * G::kRows) {\n    uint4 raw[R][kRaw<T>];\n    float4 pv[R];\n    int id[R];\n#pragma unroll\n    for (int j = 0; j < R; ++j) {\n      const long long row = base + j * RPB + r;\n      id[j] = 0;\n      pv[j] = make_float4(0.f, 0.f, 0.f, 0.f);\n#pragma unroll\n      for (int v = 0; v < kRaw<T>; ++v) raw[j][v] = make_uint4(0u, 0u, 0u, 0u);\n      if (row < M) {\n        std_raw_load(feats + (size_t)row * F + sub * 8, raw[j]);\n        pv[j] = __ldg(reinterpret_cast<const float4*>(probs) + row);\n        if constexpr (P > 1) id[j] = __ldg(assign + row);\n      }\n    }\n#pragma unroll\n    for (int j = 0; j < R; ++j) {\n      const long long row = base + j * RPB + r;\n      float x[8];\n      std_raw_unpack(raw[j], x);\n      std_bwd_row<T, F, P, C>(x, pv[j], id[j], row, row < M, thd, use_thd, weighted, aw, dsr,\n                              s_dsum, s_dcnt, sub, dfeats, dprobs);\n    }\n  }\n}\n\n// The std backward's persistent grid.")]
+    (CEN, "template <typename T, int F, int P>\nusing BwdStdTiles = BwdRing<T, F, P, true>;\n", """\
+// Rows a thread of the std backward loads before it computes the first:
+// what 128 registers hold beside its coefficients (a / W at its 8
+// features; at P = 1 the dsums too)
+template <int P>
+constexpr int kBwdStdRows = P == 1 ? 2 : 4;
+
+// Tiles of the std backward's persistent grid, and its dynamic shared
+// memory: dsums (P*C, F), a and a / W (C, F), dcounts (P*C).
+template <typename T, int F, int P>
+struct BwdStdTiles {
+  static constexpr int kRows = kBwdStdRows<P> * (kThreads / (F / 8));
+  static constexpr int kSmemBytes = (P * slcl::kC * F + 2 * slcl::kC * F + P * slcl::kC) * 4;
+};
+
+// 8 values of T as loaded, unconverted: one 16-byte vector of bf16 or two
+// of f32. A bf16 is the top half of an f32, so its conversion is exact.
+template <typename T>
+constexpr int kRaw = static_cast<int>(sizeof(T)) / 2;
+
+template <typename T>
+__device__ __forceinline__ void std_raw_load(const T* p, uint4 (&u)[kRaw<T>]) {
+#pragma unroll
+  for (int v = 0; v < kRaw<T>; ++v) u[v] = __ldg(reinterpret_cast<const uint4*>(p) + v);
+}
+
+__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[1], float (&x)[8]) {
+  const uint32_t h[4] = {u[0].x, u[0].y, u[0].z, u[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(h[i] << 16);
+    x[2 * i + 1] = __uint_as_float(h[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void std_raw_unpack(const uint4 (&u)[2], float (&x)[8]) {
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    x[4 * v] = __uint_as_float(u[v].x);
+    x[4 * v + 1] = __uint_as_float(u[v].y);
+    x[4 * v + 2] = __uint_as_float(u[v].z);
+    x[4 * v + 3] = __uint_as_float(u[v].w);
+  }
+}
+"""),
+    (CEN, """  bwd_ring<T, F, P, C, true>(feats, probs, assign, M, thd, use_thd, weighted, dcents, cents,
+                             counts, dfeats, dprobs, gstd, s2, stdv);
+""", """\
+  constexpr int TPR = F / 8;
+  constexpr int RPB = kThreads / TPR;
+  constexpr int NPC = P * C;
+  constexpr int R = kBwdStdRows<P>;
+  using G = BwdStdTiles<T, F, P>;
+  extern __shared__ __align__(16) float s_co[];
+  float* s_dsum = s_co;
+  float* s_a = s_dsum + NPC * F;
+  float* s_aw = s_a + C * F;
+  float* s_dcnt = s_aw + C * F;
+  std_bwd_coefs<F, P, C>(dcents, cents, counts, gstd, s2, stdv, s_dsum, s_a, s_aw, s_dcnt);
+  const int sub = threadIdx.x % TPR;
+  const int r = threadIdx.x / TPR;
+  float aw[C][8];
+  float dsr[P == 1 ? C : 1][8];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    slcl::load8(s_aw + c * F + sub * 8, aw[c]);
+    if constexpr (P == 1) slcl::load8(s_dsum + c * F + sub * 8, dsr[c]);
+  }
+  for (long long base = (long long)blockIdx.x * G::kRows; base < M;
+       base += (long long)gridDim.x * G::kRows) {
+    uint4 raw[R][kRaw<T>];
+    float4 pv[R];
+    int id[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const long long row = base + j * RPB + r;
+      id[j] = 0;
+      pv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int v = 0; v < kRaw<T>; ++v) raw[j][v] = make_uint4(0u, 0u, 0u, 0u);
+      if (row < M) {
+        std_raw_load(feats + (size_t)row * F + sub * 8, raw[j]);
+        pv[j] = __ldg(reinterpret_cast<const float4*>(probs) + row);
+        if constexpr (P > 1) id[j] = __ldg(assign + row);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const long long row = base + j * RPB + r;
+      float x[8];
+      float4 dp = make_float4(0.f, 0.f, 0.f, 0.f);
+      std_raw_unpack(raw[j], x);
+      std_bwd_row<F, P, C>(x, pv[j], id[j], thd, use_thd, weighted, aw, dsr, s_dsum, s_dcnt,
+                           sub, dprobs != nullptr, [&](const float (&dx)[8]) {
+                             if (row < M) slcl::store8(dfeats + (size_t)row * F + sub * 8, dx);
+                           }, dp);
+      if (dprobs != nullptr && row < M && sub == 0) reinterpret_cast<float4*>(dprobs)[row] = dp;
+    }
+  }
+""")]
+
+# The centroid backward's rows reading their partition's dsums from shared
+# memory instead of picking them from every partition's in registers
+_BWD_DSUM_SMEM = [
+    (CEN, "const float (&dsr)[P * C][8], const float* s_dcnt,\n",
+     "const float (&dsr)[P * C][8], const float* s_dsum,\n"
+     "                                        const float* s_dcnt,\n"),
+    (CEN, """#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[j] = dsr[c][j];
+#pragma unroll
+      for (int pp = 1; pp < P; ++pp)
+        if (part == pp) ds[j] = dsr[pp * C + c][j];
+    }
+""", "    slcl::load8(s_dsum + (part * C + c) * F + sub * 8, ds);\n"),
+    (CEN, "bwd_row<F, P, C>(x, pv, id, thd, use_thd, weighted, dsr, s_dcnt,",
+     "bwd_row<F, P, C>(x, pv, id, thd, use_thd, weighted, dsr, s_dsum, s_dcnt,")]
+
+_BWD_STORE = "constexpr bool kBulkStore = !kStd || P == 1;"
+_BWD_DIRECT = (CEN, _BWD_STORE, "constexpr bool kBulkStore = false;")
+_BWD_BUDGET = "kBudget = kStd ? 49152 : (kBulkStore<P, kStd> ? 81920 : 65536);"
+_BWD_MAX = "kMaxStages = kStd ? 3 : (kBulkStore<P, kStd> ? 5 : 4);"
 
 _STD_ROW = "        std_fwd_row<P, C, V>(acc, sq, x, s_wp[warp][l], s_cert[warp][l], sub == 0);\n"
 _STD_PASS = "#pragma unroll 2\n    for (int q = 0; q < 32 / RPW; ++q) {\n"
@@ -320,7 +451,7 @@ _STD_SQ = ("#pragma unroll\n  for (int j = 0; j < V; ++j) {\n    const float x2 
 
 # name -> (kernels it concerns, [(file, old text, new text)])
 VARIANTS = {
-    "base": (BWD_KERNELS + FWD_KERNELS + STD_KERNELS, []),
+    "base": (BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD, []),
     # the ring alone: each row is scaled and written back, no MPCL math
     "memonly": (BWD_KERNELS, [
         (BWD, "  // one chunk at a time, and the row and prototypes read again below: held\n",
@@ -391,8 +522,18 @@ VARIANTS = {
         *_STD_BWD_DIRECT, (CEN, "constexpr int kBwdStdRows = P == 1 ? 2 : 4;",
                            "constexpr int kBwdStdRows = P == 1 ? 3 : 5;")]),
     "std_bwd_stages4": (STD_KERNELS[2:], [
-        (CEN, "49152 / kFeatBytes < 2 ? 2 : (49152 / kFeatBytes > 3 ? 3 : 49152 / kFeatBytes);",
-         "4;")]),
+        (CEN, _BWD_BUDGET, _BWD_BUDGET.replace("kStd ? 49152", "kStd ? 65536")),
+        (CEN, _BWD_MAX, _BWD_MAX.replace("kStd ? 3", "kStd ? 4"))]),
+    # the centroids' backward ring (both kernels share it): each thread
+    # storing its dfeats and dprobs directly (no bulk store a tile); the std
+    # one's bulk stores at P = 2 too; the hard form's thin stages as thick ones; the
+    # std-free one's dsums read from shared memory
+    "bwd_soft_direct": (CEN_BWD + STD_KERNELS[2:], [_BWD_DIRECT]),
+    "bwd_soft_bulk_p2": (STD_KERNELS[3:], [
+        (CEN, _BWD_STORE, "constexpr bool kBulkStore = true;")]),
+    "bwd_soft_thick": (CEN_BWD[:1], [(CEN, "const bool thin = !read_feats && !bulk;",
+                                      "const bool thin = false;")]),
+    "bwd_soft_dsum_smem": (CEN_BWD, _BWD_DSUM_SMEM),
 }
 
 
@@ -419,7 +560,7 @@ def build_variants(names, parent=None):
     shutil.rmtree(out, ignore_errors=True)
     procs = []
     for name in names:
-        kernels, edits = VARIANTS[name] if name != "parent" else (STD_KERNELS, [])
+        kernels, edits = VARIANTS[name] if name != "parent" else (PARENT_KERNELS, [])
         d = out / name
         shutil.copytree(Path(parent) / "slcl_torch" / "csrc" if name == "parent" else build.CSRC,
                         d)
@@ -463,10 +604,10 @@ def main() -> int:
         i = args.index("--parent")
         parent = args[i + 1]
         del args[i:i + 2]
-    group = {"fwd": "fwd_", "std": "std_"}
+    group = {"fwd": "fwd_", "std": "std_", "bwd_soft": "bwd_soft_"}
     names = []
     for arg in args or list(VARIANTS):
-        if arg in ("bwd", "fwd", "std"):
+        if arg in ("bwd", "fwd", "std", "bwd_soft"):
             names += [n for n in VARIANTS if n != "base" and (
                 n.startswith(group[arg]) if arg in group
                 else not n.startswith(tuple(group.values())))]
@@ -476,7 +617,7 @@ def main() -> int:
     if parent:
         names.append("parent")
     out, names = build_variants(names, parent)
-    kernels_of = {n: VARIANTS[n][0] if n != "parent" else STD_KERNELS for n in names}
+    kernels_of = {n: VARIANTS[n][0] if n != "parent" else PARENT_KERNELS for n in names}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
@@ -512,6 +653,14 @@ def main() -> int:
         std_in[P] = (cents, counts, std, s2, torch.randn(P, C, F, generator=g, device=dev),
                      torch.randn(C, generator=g, device=dev))
     std_d = {P: (torch.empty_like(feats), torch.empty_like(probs)) for P in (1, 2)}
+    # the std-free backward's: the forward's results, dcents from the seed
+    bwd_in = {}
+    for kernel in CEN_BWD:
+        P, soft = (2 if kernel.endswith("_p2") else 1), kernel != "soft_centroids_bwd"
+        cents, counts, _ = KC.soft_centroids_fwd_cuda(feats, probs, assign if P > 1 else None,
+                                                      P, 0.0, soft)
+        bwd_in[kernel] = (P, soft, cents, counts, torch.randn(P, C, F, generator=g, device=dev),
+                          torch.empty_like(feats), torch.empty_like(probs) if soft else None)
     # what each kernel leaves behind, to hold a variant against base
     result = {"mpcl_bwd": lambda: d1, "mpcl_pseudo_bwd": lambda: d2,
               "mpcl_pseudo_fwd": lambda: fstats, "mpcl_fwd": lambda: mstats["mpcl_fwd"],
@@ -521,7 +670,10 @@ def main() -> int:
               "soft_centroids_fwd_std": lambda: std_out[1][0],
               "soft_centroids_fwd_std_p2": lambda: std_out[2][0],
               "soft_centroids_bwd_std": lambda: std_d[1][0],
-              "soft_centroids_bwd_std_p2": lambda: std_d[2][0]}
+              "soft_centroids_bwd_std_p2": lambda: std_d[2][0],
+              **{k: (lambda k=k: torch.cat([bwd_in[k][5].float().flatten(), *(
+                  [] if bwd_in[k][6] is None else [bwd_in[k][6].flatten()])]))
+                 for k in CEN_BWD}}
 
     def loaded(path, sigs):
         lib = ctypes.CDLL(str(path))
@@ -579,6 +731,13 @@ def main() -> int:
                     ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C, P,
                     0.0, 1, ptr(parts), ptr(o[0]), ptr(o[1]), ptr(cen_out[P][2]),
                     ptr(std_out[P][1]), ptr(std_out[P][0]), stream)
+            elif kernel in CEN_BWD:
+                P, soft, cents, counts, dc, dfe, dpr = bwd_in[kernel]
+                call = lambda lib=lib, P=P, soft=soft, cents=cents, counts=counts, dc=dc, \
+                    dfe=dfe, dpr=dpr: lib.soft_centroids_bwd(  # noqa: E731
+                        ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C,
+                        P, 0.0, int(soft), ptr(dc), ptr(cents), ptr(counts), ptr(dfe),
+                        ptr(dpr), None, None, None, stream)
             elif kernel.startswith("soft_centroids_bwd_std"):
                 P = 2 if kernel.endswith("_p2") else 1
                 cents, counts, std, s2, dc, dstd = std_in[P]
@@ -601,6 +760,18 @@ def main() -> int:
     print(json.dumps({"variant": "copy_ yardstick (read + write)",
                       "ms": [time_ms(lambda: d1.copy_(feats), iters=50) for _ in range(3)]}),
           flush=True)
+    # a copy_ of as many bytes as each centroid backward form moves: the hard
+    # form reads probs and writes dfeats, the soft ones also read the
+    # features and write dprobs (and at P = 2 read the ids)
+    for kernel, nbytes in (("soft_centroids_bwd", M * (2 * F + 16)),
+                           ("soft_centroids_bwd_soft", 2 * M * (2 * F + 16)),
+                           ("soft_centroids_bwd_p2", 2 * M * (2 * F + 16) + 4 * M)):
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        print(json.dumps({"variant": f"copy_ yardstick of {kernel}'s bytes",
+                          "ms": [time_ms(lambda: dst.copy_(src), iters=50) for _ in range(3)]}),
+              flush=True)
+        del src, dst
     print(json.dumps({"variant": "torch.sum yardstick (read only)",
                       "ms": [time_ms(lambda: torch.sum(feats, dtype=torch.float32), iters=50)
                              for _ in range(3)]}), flush=True)
@@ -616,8 +787,7 @@ def main() -> int:
             rec[kernel] = {
                 "ms": [time_ms(run, iters=50) for _ in range(3)],
                 "max_diff_from_base": float((got.float() - ref[kernel].float()).abs().max()),
-                "registers_spills": ptxas_of(log, (PARENT_SYMBOL_OF if name == "parent"
-                                                   else {}).get(kernel, SYMBOL_OF[kernel]))}
+                "registers_spills": ptxas_of(log, SYMBOL_OF[kernel])}
         print(json.dumps(rec), flush=True)
     for name in reversed(names):
         print(json.dumps({"variant": name, "again_ms": {
