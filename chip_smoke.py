@@ -56,7 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``slcl`` steps on the full UNet with ``model.filters=64`` (the F = 64
      kernels on a step): on the card (kernels) against the same steps on
      the CPU (plain versions), from the same weights and batches, in f32,
-     with each run's launch counts;
+     with each run's launch counts; then RAIN at 64x64, the same way and
+     with one shared noise: two ``pretrain_rain`` steps, a ``rain`` step
+     fresh then carried with the epsilon ascent, and two MCCL + RAIN
+     iterations of one batch with ``rain.eps_clip=3`` through the centroid
+     kernels, the carried sampling held beside the metrics;
   4. train: the full-width ``method=slcl model.multilvl=true
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
@@ -74,6 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the ResNet-50 U-Net (the paper's train_SLCL.py cell; 20 timed steps),
      the ``mccl`` preset on it, ``advent`` and ``adaptseg`` multilvl on the
      full DeepLabV2 (no kernel; 5 timed steps) and ``baseline`` on UNet;
+     then RAIN (``train_rain``): the ``mccl`` preset with ``rain.enabled
+     rain.update_eps rain.eps_iters=2 rain.eps_clip=3`` (``bench.py:148-160``'s
+     JAX cell, random RAIN weights from seed 1234: one epoch, 10 batches = 20
+     timed steps, a step being one epsilon iteration) and ``pretrain_rain``
+     (bs16 content + 16 style, 10 timed steps);
   5. protocol: the SLCL protocol at the same width through the port's entry
      points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
      epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
@@ -84,6 +93,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``mccl`` from the same AdvEnt checkpoint (which must keep the fresh
      projection head) with a centre file of its own, two epochs, test and
      the same restore check (the rMC draw follows the seed and the step);
+     then RAIN: ``pretrain_rain`` one epoch (the four component ``.npz``
+     files exported), ``mccl`` with ``rain.enabled=true`` loading them, a
+     warmup epoch and one with the ascent (``rain.eps_iters=2``), launch
+     counts and the test; a configured component file that is missing
+     must raise;
   6. real-format data: an MMWHS raw NIfTI tree and an MS-CMRSeg PNG tree
      written with the port's own writers (256x256 int16 slices and
      224x224 PNGs, 128 training and 64 test slices a domain), then
@@ -103,7 +117,8 @@ Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
 kernel's launches from its own path: the ``slcl`` cell, or the stdmin cell
 for the std kernels) as one JSON line, the three step cells' timing, the
-protocol, the real-format phase and the backbones (``train_backbones``:
+protocol, the RAIN cells (``train_rain``: phase 4's two and phase 3's RAIN
+runs), the real-format phase and the backbones (``train_backbones``:
 phase 4's backbone cells and phase 3's runs) as one JSON line each, the
 card's name
 and power limit as nvidia-smi gives them, and last
@@ -137,9 +152,14 @@ PER_STEP_MCCL = {**dict.fromkeys(PER_STEP, 0), "soft_centroids_fwd": 2,
 # ... with contrastive.stdmin: img_t's centroids (P = 2) take the std kernels
 PER_STEP_MCCL_STD = {**PER_STEP_MCCL, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1,
                      "soft_centroids_fwd_std": 1, "soft_centroids_bwd_std": 1}
+# (MCCL + RAIN: per epsilon iteration, the mccl step's; the RAIN net's own
+# steps launch no port kernel)
 PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL, "mccl_stdmin": PER_STEP_MCCL_STD,
               "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0),
-              "adaptseg": dict.fromkeys(PER_STEP, 0)}
+              "adaptseg": dict.fromkeys(PER_STEP, 0), "mccl_rain": PER_STEP_MCCL,
+              "rain": dict.fromkeys(PER_STEP, 0), "pretrain_rain": dict.fromkeys(PER_STEP, 0)}
+# the full-width MCCL + RAIN cell's overrides (bench.py:148-160's JAX cell)
+MCCL_RAIN = {"enabled": True, "update_eps": True, "eps_iters": 2, "eps_clip": 3.0}
 # the step cell whose launch counts each kernel's row reports (its path)
 PATH_OF = {"soft_centroids_fwd_std": "train_mccl_stdmin",
            "soft_centroids_bwd_std": "train_mccl_stdmin"}
@@ -1174,22 +1194,107 @@ def check_small_steps() -> dict:
     return out
 
 
+def shared_noise(seed: int):
+    """RAIN noise for ``build_step``'s ``draw_noise``: from a CPU generator
+    seeded per call, then moved to the step's device, so that a step on the
+    card and one on the CPU stylise alike."""
+    import torch
+    calls = [0]
+
+    def draw(shape, device):
+        g = torch.Generator().manual_seed(seed + calls[0])
+        calls[0] += 1
+        return torch.randn(shape, generator=g).to(device)
+    return draw
+
+
+# phase 3's RAIN runs: (label, method, rain overrides, (fresh, eps_on) of each
+# step in turn, the launch counts per step)
+SMALL_RAIN_RUNS = (
+    ("pretrain_rain", "pretrain_rain", {}, ((1.0, 0.0), (1.0, 0.0)), "pretrain_rain"),
+    ("rain", "rain", {"update_eps": True}, ((1.0, 0.0), (0.0, 1.0)), "rain"),
+    # two epsilon iterations of one batch through the centroid kernels
+    ("mccl rain", "mccl", {**MCCL_RAIN, "eps_clip": 3.0}, ((1.0, 1.0), (0.0, 1.0)),
+     "mccl_rain"),
+)
+
+
+def check_small_rain_steps() -> dict:
+    """Phase 3, RAIN: ``pretrain_rain``'s step twice, ``rain``'s fresh then
+    carried with the ascent, and two MCCL + RAIN iterations of one batch with
+    ``eps_clip=3``, on the card against the CPU from the same weights (the
+    RAIN net and DRUNet from ``run.seed``), batch, rMC draw and noise at
+    64x64 in f32; each metric and the carried sampling at phase 3's
+    tolerance. Returns each run's launch counts."""
+    import torch
+    from slcl_torch.data import to_device
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.steps import build_step
+    from slcl_torch.train.trainer import Trainer
+
+    out = {}
+    for label, method, rain, scheds, per in SMALL_RAIN_RUNS:
+        cfg = small_config(method)
+        cfg.data.crop, cfg.model.multilvl = 64, False
+        cfg.optim.lr = 1e-4 if method == "pretrain_rain" else cfg.optim.lr
+        for k, v in rain.items():
+            setattr(cfg.rain, k, v)
+        cpu = Trainer(cfg, device="cpu")
+        gpu = Trainer(cfg, device="cuda")
+        for t in (cpu, gpu):
+            t.step_fn = build_step(cfg, t.centroids_loaded, draw_assign=shared_draw(5),
+                                   draw_noise=shared_noise(9))
+        batch = next(iter(cpu._epoch_batches()))
+        base = cpu._sched(0)
+        reset_launch_counts()
+        for i, (fresh, eps_on) in enumerate(scheds):
+            sched = {**base, "fresh": fresh, "eps_on": eps_on}
+            m_cpu = cpu.step_fn(cpu.state, to_device(batch, torch.device("cpu")), sched)
+            m_gpu = gpu.step_fn(gpu.state, to_device(batch, torch.device("cuda")), sched)
+            if set(m_cpu) != set(m_gpu):
+                raise AssertionError(f"small {label} step {i}: metric keys differ")
+            for k, v in m_cpu.items():
+                close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {label} step {i} {k}")
+            if cpu.state.sampling is not None:
+                close(gpu.state.sampling.cpu(), cpu.state.sampling, 5e-3, 1e-4,
+                      f"small {label} step {i} sampling")
+        counts = launch_counts()
+        for name, n in PER_METHOD[per].items():
+            if counts[name] != len(scheds) * n:
+                raise AssertionError(f"small {label}: {name} launched {counts[name]} "
+                                     f"times, expected {len(scheds) * n}")
+        torch.cuda.synchronize()
+        out[label] = {"steps": len(scheds), "crop": cfg.data.crop, "launches": counts,
+                      "params": sum(p.numel() for p in gpu.state.seg.parameters()),
+                      "metrics": {k: float(v) for k, v in m_gpu.items()}}
+        log(f"small {label}: card matches CPU over {len(scheds)} step(s)")
+    return out
+
+
 def is_std_kernel(name: str) -> bool:
     """One of the std variant's kernels, by the profiler's name."""
     return any(all(p in name for p in parts) for parts in STD_KERNELS)
 
 
-def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
+def iterations(batches, scheds, n: int):
+    """``n`` (batch, sched) pairs as an epoch runs them: each batch once per
+    sched of ``scheds`` in turn (RAIN's epsilon iterations), cycling."""
+    for i in range(n):
+        yield batches[(i // len(scheds)) % len(batches)], scheds[i % len(scheds)]
+
+
+def profile_steps(trainer, batches, scheds, n: int = 3) -> dict:
     """Device time of ``n`` steps by kernel, from torch.profiler's CUDA
-    events: busy share of the wall time, and the kernels that take most."""
+    events: busy share of the wall time, and the kernels that take most.
+    ``scheds``: one sched per step of a batch in turn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(n):
-            trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+        for batch, sched in iterations(batches, scheds, n):
+            trainer.step_fn(trainer.state, batch, sched)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -1227,7 +1332,8 @@ def profile_steps(trainer, batches, sched, n: int = 3) -> dict:
 # (slcl), phead without the aux head (mccl's preset); the backbones' equal
 # the JAX models' (tests/test_torch_backbones.py computes them with
 # jax.eval_shape)
-N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036,
+N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036, "mccl_rain": 13_488_036,
+            "pretrain_rain": 12_784_271,
             "resnet50_slcl": 32_522_216, "resnet50_mccl": 32_526_276,
             "deeplabv2_advent": 42_942_560, "deeplabv2_adaptseg": 42_942_560,
             "unet_baseline": 31_037_828}
@@ -1242,12 +1348,16 @@ BACKBONE_CELLS = (("resnet50_slcl", "slcl", "resnet50", 20),
 
 def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
                      n_timed: int = 20, backbone: str = "drunet",
-                     name: str = "") -> dict:
+                     name: str = "", rain: dict = None) -> dict:
     """Phase 4: one full-width recipe through the port's Trainer: ``slcl``
     with multilvl (the main path), or the ``mccl`` preset, with ``stdmin``
-    its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``); on
-    ``backbone``, with ``advent``/``adaptseg`` (multilvl) and ``baseline``
-    too. ``name`` keys N_PARAMS (default: the method)."""
+    its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``) or
+    ``rain`` its RAIN overrides (``rain.eps_iters`` steps a batch, a fresh
+    sampling on the first); on ``backbone``, with ``advent``/``adaptseg``
+    (multilvl) and ``baseline`` too; or ``pretrain_rain`` (bs16 content +
+    16 style). ``name`` keys N_PARAMS and PER_METHOD (default: the
+    method). A step is one call of the step function: an epsilon iteration
+    under RAIN."""
     import torch
     from slcl_torch.config import Config, apply_recipe
     from slcl_torch.data import device_prefetch
@@ -1261,6 +1371,10 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     cfg.model.multilvl = method in ("slcl", "advent", "adaptseg")
     if stdmin:
         cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
+    for k, v in (rain or {}).items():
+        setattr(cfg.rain, k, v)
+    if method == "pretrain_rain":
+        cfg.optim.lr = 1e-4
     cfg.data.dataset = "synthetic"
     cfg.optim.epochs = 1
     cfg.run.out_dir = str(work)
@@ -1270,7 +1384,10 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     n_params = sum(p.numel() for p in trainer.state.seg.parameters())
     if n_params != N_PARAMS[name or method]:
         raise AssertionError(f"{name or method}: {backbone} has {n_params} parameters")
-    steps_per_epoch = len(trainer.datasets["train_s"]) // cfg.data.bs
+    sched = trainer._sched(0)
+    eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
+    scheds = [sched] + [{**sched, "fresh": 0.0}] * (eps_iters - 1)
+    steps_per_epoch = len(trainer.datasets["train_s"]) // cfg.data.bs * eps_iters
 
     reset_launch_counts()
     t1 = time.perf_counter()
@@ -1278,10 +1395,11 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t1
     counts = launch_counts()
-    for name, per in PER_METHOD[method + ("_stdmin" if stdmin else "")].items():
-        if counts[name] != steps_per_epoch * per:
-            raise AssertionError(f"train {method}: {name} launched {counts[name]} times in "
-                                 f"{steps_per_epoch} steps, expected "
+    per_method = name or (method + ("_stdmin" if stdmin else ""))
+    for kname, per in PER_METHOD.get(per_method, PER_METHOD[method]).items():
+        if counts[kname] != steps_per_epoch * per:
+            raise AssertionError(f"train {per_method}: {kname} launched {counts[kname]} "
+                                 f"times in {steps_per_epoch} steps, expected "
                                  f"{steps_per_epoch * per}")
     bad = {k: v for k, v in means.items() if not math.isfinite(v)}
     if bad:
@@ -1289,25 +1407,25 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     log(f"train {method} epoch: {steps_per_epoch} steps in {epoch_s:.2f} s, means {means}")
 
     batches = list(device_prefetch(trainer._epoch_batches(), trainer.device))
-    sched = trainer._sched(0)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    for i in range(n_timed):
-        metrics = trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+    for batch, s in iterations(batches, scheds, n_timed):
+        metrics = trainer.step_fn(trainer.state, batch, s)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t2) / n_timed * 1e3
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError("timed steps: non-finite losses")
     # each step alone, synchronised: its spread (no overlap with the next)
     each = []
-    for i in range(n_timed):
+    for batch, s in iterations(batches, scheds, n_timed):
         t3 = time.perf_counter()
-        trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+        trainer.step_fn(trainer.state, batch, s)
         torch.cuda.synchronize()
         each.append((time.perf_counter() - t3) * 1e3)
     each.sort()
-    prof = profile_steps(trainer, batches, sched)
-    return {"method": method, "backbone": backbone, "stdmin": stdmin, "step_ms": step_ms,
+    prof = profile_steps(trainer, batches, scheds, n=max(3, eps_iters))
+    return {"method": method, "backbone": backbone, "stdmin": stdmin, "rain": rain,
+            "eps_iters": eps_iters, "step_ms": step_ms,
             "timed_steps": n_timed,
             "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
             "profile": prof,
@@ -1465,6 +1583,71 @@ def protocol_full_width(work: Path) -> dict:
             "resume_max_param_diff": diff, "launches": counts}
 
 
+def protocol_rain(work: Path) -> dict:
+    """Phase 5, RAIN: ``pretrain_rain`` one epoch through the CLI at full width
+    (its four component files exported), then ``mccl`` with
+    ``rain.enabled=true`` loading them: a warmup epoch, then one with the
+    ascent (``rain.eps_iters=2``, ``rain.eps_clip=3``), launch counts set to
+    0 just before and read just after, and the test; a configured component
+    file that is missing must raise."""
+    import numpy as np
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train import __main__ as train_cli
+    from slcl_torch.train.trainer import RAIN_PARTS, Trainer
+
+    t0 = time.perf_counter()
+    base = ["data.dataset=synthetic", "data.gap=0.5", "run.eval_frequency=1",
+            f"run.out_dir={work / 'rain'}"]
+    pre = train_cli.main(["method=pretrain_rain", *base, "optim.epochs=1", "optim.lr=1e-4"])
+    files = pre["component_ckpts"]
+    if set(files) != {p for p, _ in RAIN_PARTS} or not all(
+            Path(f).is_file() for f in files.values()):
+        raise AssertionError(f"protocol rain: component files {files}")
+    losses = {k: pre["history"][0][k] for k in ("loss_c", "loss_s", "loss_l", "loss_r")}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"protocol rain: pretraining losses {losses}")
+    parts = [f"rain.{key}={files[p]}" for p, key in RAIN_PARTS]
+    args = ["method=mccl", *base, "rain.enabled=true", "rain.update_eps=true",
+            "rain.eps_iters=2", "rain.eps_clip=3", "contrastive.warmup_epochs=1",
+            "optim.epochs=2", *parts]
+    cfg, _, _ = train_cli.parse_args(args[:-1] + [f"rain.fc_decoder_ckpt={work}/absent.npz"],
+                                     "mccl")
+    try:
+        Trainer(cfg)
+        raise AssertionError("protocol rain: a missing component file did not raise")
+    except FileNotFoundError:
+        pass
+    reset_launch_counts()
+    run = train_cli.main(args)
+    counts = launch_counts()
+    steps = 8 + 8 * 2          # the warmup epoch, then two iterations a batch
+    for name, per in PER_STEP_MCCL.items():
+        if counts[name] != steps * per:
+            raise AssertionError(f"protocol rain: {name} launched {counts[name]} times "
+                                 f"in {steps} steps, expected {steps * per}")
+    warmup, warm = run["history"]
+    if warmup["eps_step_norm"] != 0.0 or not 0.0 < warm["eps_step_norm"] <= 3.0 + 1e-5:
+        raise AssertionError(f"protocol rain: ascent norms {warmup['eps_step_norm']}, "
+                             f"{warm['eps_step_norm']}")
+    for split in ("test", "test_s"):
+        vals = [v for k in ("dc", "hd", "asd") for v in run[split][k]]
+        if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"protocol rain: {split} metrics {run[split]}")
+    return {"seconds": time.perf_counter() - t0, "pretrain_losses": losses,
+            "pretrain_epoch_s": pre["history"][0]["epoch_time_s"],
+            "val_dice": [r["val_dice"] for r in run["history"]],
+            "eps_step_norm": [r["eps_step_norm"] for r in run["history"]],
+            "sampling_norm": [r["sampling_norm"] for r in run["history"]],
+            "seg_style": [r["seg_style"] for r in run["history"]],
+            "epoch_s": [r["epoch_time_s"] for r in run["history"]],
+            "test_dice_hd95_assd": [run["test"][k][0::2] for k in ("dc", "hd", "asd")],
+            "launches": counts,
+            "component_bytes": {p: Path(f).stat().st_size for p, f in files.items()},
+            "exported": {p: str(Path(f).name) for p, f in files.items()},
+            "npz_layers": {p: len(np.load(f, allow_pickle=True)["params"].item())
+                           for p, f in files.items()}}
+
+
 # phase 6's trees: patients that the fold-0 / split-0 tables put where each
 # split needs them (CT test ids carry the +32 offset), SLICES slices each,
 # so each domain has 128 training slices (one 8-step epoch at bs16) and 64
@@ -1593,7 +1776,7 @@ def _host_figures(trainer, steps: int) -> dict:
         trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
     torch.cuda.synchronize()
     out["step_ms"] = (time.perf_counter() - t2) / 20 * 1e3
-    prof = profile_steps(trainer, batches, sched)
+    prof = profile_steps(trainer, batches, [sched])
     out["device_busy_ms_per_step"] = prof["device_busy_ms_per_step"]
     out["idle_share"] = prof["idle_share"]
     return out
@@ -1738,6 +1921,7 @@ def main() -> int:
                                  f"{digest}, before the std variant {STD_FREE_DIGEST}")
         log("std-free centroid kernels: outputs bit-identical to commit 98d6b0e's")
         small = check_small_steps()
+        small_rain = check_small_rain_steps()
         (ROOT / "runs").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
         try:
@@ -1745,11 +1929,18 @@ def main() -> int:
             train_mccl = train_full_width(work, "mccl")
             # the std kernels' path, in a short cell
             train_std = train_full_width(work, "mccl", stdmin=True, n_timed=10)
+            # RAIN: MCCL + RAIN with the ascent (10 batches = 20 steps), and
+            # the style net's pretraining
+            rain_cells = {"mccl_rain": train_full_width(work, "mccl", n_timed=20,
+                                                        name="mccl_rain", rain=MCCL_RAIN),
+                          "pretrain_rain": train_full_width(work, "pretrain_rain",
+                                                            n_timed=10)}
             # the backbones, the paper's ResNet-50 U-Net first
             backbones = {name: train_full_width(work, method, n_timed=n, backbone=bb,
                                                 name=name)
                          for name, method, bb, n in BACKBONE_CELLS}
             protocol = protocol_full_width(work)
+            protocol["rain"] = protocol_rain(work)
             real = train_real(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -1769,6 +1960,12 @@ def main() -> int:
                                             / train_mccl["steps_per_epoch"]),
                  "mccl_stdmin_launches_per_step": (train_std["launches"][kname]
                                                    / train_std["steps_per_epoch"]),
+                 # per epsilon iteration (two a batch)
+                 "mccl_rain_launches_per_step": (
+                     rain_cells["mccl_rain"]["launches"][kname]
+                     / rain_cells["mccl_rain"]["steps_per_epoch"]),
+                 "launches_protocol_rain": protocol["rain"]["launches"][kname],
+                 "launches_small_rain": small_rain["mccl rain"]["launches"][kname],
                  "launches_protocol": protocol["launches"][kname],
                  "launches_protocol_mccl": protocol["mccl_launches"][kname],
                  "launches_real": {run: real[run]["launches"][kname]
@@ -1817,6 +2014,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"train_mccl": train_mccl}))
     print(json.dumps({"train_mccl_stdmin": train_std}))
+    print(json.dumps({"train_rain": {"cells": rain_cells, "small_steps": small_rain}}))
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"train_real": real}))
     print(json.dumps({"train_backbones": {"cells": backbones, "small_steps": small}}))

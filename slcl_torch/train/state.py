@@ -4,7 +4,10 @@ The JAX package keeps one immutable PyTree; here the state is the modules
 and optimizers themselves, updated in place, plus the EMA class centres,
 the step counter and the run's seed. In place of JAX's ``TrainState.rng``
 the seed and the step fix every random draw a step makes (MCCL's rMC
-partition), so the checkpoint carries no generator state.
+partition, RAIN's noise), so the checkpoint carries no generator state.
+With RAIN (``rain.enabled``, ``method=rain``) the state also holds the
+frozen style net (``extra["rain"]`` in JAX's state: no gradient, in no
+optimizer) and the carried epsilon ``sampling``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ class TrainState:
     centroids: Optional[torch.Tensor] = None   # (C, F) EMA class centres
     step: int = 0
     seed: int = 0                              # run.seed: the steps' draws
+    rain: Optional[nn.Module] = None           # the frozen RAIN net
+    sampling: Optional[torch.Tensor] = None    # (n_sty, 512) float32
 
 
 # top-level submodules trained at 10x the base LR on the DeepLab backbones:
@@ -96,4 +101,22 @@ def create_train_state(cfg, seg: nn.Module, *, disc: Optional[nn.Module] = None,
               if disc_aux is not None else None)
     return TrainState(seg=seg, opt_seg=opt_seg, d_main=disc, opt_d_main=opt_d,
                       d_aux=disc_aux, opt_d_aux=opt_da, centroids=centroids,
+                      seed=cfg.run.seed)
+
+
+def rain_sampling_rows(cfg) -> int:
+    """Rows of the carried sampling: one per stylised image, ``data.bs``
+    under ``mulstyle`` (whole-batch styles) and 1 otherwise, ``mulstyle2``
+    winning (``slcl_tpu/train/trainer.py:219-226``)."""
+    return cfg.data.bs if (cfg.rain.mulstyle and not cfg.rain.mulstyle2) else 1
+
+
+def create_pretrain_rain_state(cfg, rain: nn.Module) -> TrainState:
+    """``pretrain_rain``'s state: the RAIN net is the trained network, Adam
+    at ``optim.lr`` over its decoder and fc nets. Its encoder is frozen:
+    JAX zeroes the encoder's gradients, so its Adam moments and updates stay
+    zero, which is what leaving it out of the optimizer gives."""
+    rain.encoder.requires_grad_(False)
+    params = [p for p in rain.parameters() if p.requires_grad]
+    return TrainState(seg=rain, opt_seg=make_optimizer("adam", params, cfg.optim.lr),
                       seed=cfg.run.seed)

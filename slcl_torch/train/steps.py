@@ -1,11 +1,12 @@
 """Per-method train steps: baseline, AdaptSeg, AdvEnt, SLCL (MPSCL path)
-and MCCL.
+and MCCL (with RAIN); ``rain`` and ``pretrain_rain`` are in
+:mod:`.steps_rain`.
 
-Counterpart of ``slcl_tpu/train/steps.py`` ``make_baseline_step``,
-``_gan_step``, ``make_adaptseg_step``, ``make_advent_step``,
-``make_mpscl_step``, ``make_mccl_step`` (without RAIN) and ``build_step``
-for ``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/
-``mccl``.
+Counterpart of ``slcl_tpu/train/steps.py`` ``clip_step_norm``,
+``make_baseline_step``, ``_gan_step``, ``make_adaptseg_step``,
+``make_advent_step``, ``make_mpscl_step``, ``make_mccl_step`` and
+``build_step`` for ``method`` in ``baseline``/``adaptseg``/``advent``/
+``mpscl``/``slcl``/``mccl``/``rain``/``pretrain_rain``.
 ``step(state, batch, sched) -> metrics`` updates ``state`` in place and
 returns 0-d float32 tensors on the device (no host sync); the trainer
 reduces them once per epoch.
@@ -24,9 +25,10 @@ soft centroids, and the entropy-map adversarial terms.
 MCCL (no discriminators) takes one segmentor step on CE + Jaccard on
 source, source centroids, rMC soft target centroids with P partitions on
 ``img_t`` and one on ``img_t_aug``, and the centroid contrastive, CNR and
-stdmin terms. Its rMC draw at step n is a function of the state's seed and
-n alone, made on the step's device, so a restored checkpoint repeats the
-uninterrupted run's draws.
+stdmin terms; under ``rain.enabled`` also the stylised branch and the
+epsilon ascent. Its rMC draw at step n is a function of the state's seed
+and n alone, made on the step's device, so a restored checkpoint repeats
+the uninterrupted run's draws; RAIN's noise likewise.
 """
 from __future__ import annotations
 
@@ -282,33 +284,69 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
 DrawAssign = Callable[[int, int, torch.device], torch.Tensor]
 
 
-def rmc_seed(seed: int, step: int) -> int:
-    """The rMC draw's generator seed at ``step`` of a run seeded ``seed``:
-    splitmix64 of (seed, step), a bijection, so every pair seeds its own
-    stream, and mixed into the low 32 bits, which are all that the CPU's
-    generator keeps."""
+def splitmix64(x: int) -> int:
+    """splitmix64's output function of a 64-bit ``x``: a bijection that mixes
+    every input bit into the low 32 bits, which are all that the CPU's
+    generator keeps of a seed."""
     mask = (1 << 64) - 1
-    z = ((((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & mask
+    z = (x + 0x9E3779B97F4A7C15) & mask
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
     return z ^ (z >> 31)
 
 
+def rmc_seed(seed: int, step: int) -> int:
+    """The rMC draw's generator seed at ``step`` of a run seeded ``seed``:
+    splitmix64 of (seed, step), so every pair seeds its own stream."""
+    return splitmix64(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def clip_step_norm(step_vec: torch.Tensor, clip: float) -> torch.Tensor:
+    """Cap ``step_vec``'s L2 (Frobenius) norm at ``clip``; non-finite entries
+    are zeroed first, so an overflowed ascent step (1 / loss -> inf) is
+    clipped rather than turned into NaN (``slcl_tpu/train/steps.py:39-49``)."""
+    step_vec = torch.where(torch.isfinite(step_vec), step_vec,
+                           torch.zeros_like(step_vec))
+    sn = torch.linalg.vector_norm(step_vec)
+    return step_vec * torch.clamp(clip / (sn + 1e-12), max=1.0)
+
+
+def rain_pair(rain_cfg, img_s: torch.Tensor, img_t: torch.Tensor):
+    """(content, style) of the stylisation (Trainer_MCCL.py:196-202): one
+    image of each by default; ``mulstyle`` the whole batches; ``mulstyle2``
+    the whole content batch and one style image. ``mulstyle2`` wins, as the
+    reference's if/elif order has it."""
+    if rain_cfg.mulstyle2:
+        return img_s, img_t[0:1]
+    if rain_cfg.mulstyle:
+        return img_s, img_t
+    return img_s[0:1], img_t[0:1]
+
+
 def make_mccl_step(cfg, centroids_loaded: bool = False,
-                   draw_assign: Optional[DrawAssign] = None) -> Callable:
-    """MCCL, "SLCL proper" (``slcl_tpu/train/steps.py:414-673`` without the
-    RAIN branches). ``draw_assign(m, P, device)`` replaces the rMC draw
-    (int32 partition ids of the ``img_t`` pixels): by default
+                   draw_assign: Optional[DrawAssign] = None,
+                   draw_noise=None) -> Callable:
+    """MCCL, "SLCL proper" (``slcl_tpu/train/steps.py:414-673``), with RAIN
+    under ``rain.enabled``. ``draw_assign(m, P, device)`` replaces the rMC
+    draw (int32 partition ids of the ``img_t`` pixels): by default
     ``torch.randint`` from a generator on the step's device seeded with
-    :func:`rmc_seed` of (``state.seed``, ``state.step``)."""
-    if cfg.rain.enabled:
-        raise NotImplementedError(
-            "method 'mccl' with rain.enabled=true: slcl_torch has no RAIN yet "
-            "(models/rain.py, train/steps_rain.py; ROADMAP queue 1, RAIN)")
+    :func:`rmc_seed` of (``state.seed``, ``state.step``). ``draw_noise``
+    replaces RAIN's noise (``steps_rain.RainNoise``).
+
+    With RAIN the frozen ``state.rain`` stylises :func:`rain_pair`'s
+    content (blended with it by ``rain.style_alpha`` < 1), the stylised
+    images join the source forward, ``seg_style`` (CE + Jaccard on them
+    against the content's labels) and ``rain.consist_w`` times the
+    bottleneck consistency join the loss, and the sampling takes the
+    epsilon ascent on ``seg_style`` alone."""
     c = cfg.contrastive
     P = max(int(c.part), 1)
     n_class = cfg.model.num_classes
     gens: Dict[torch.device, torch.Generator] = {}
+    use_rain = cfg.rain.enabled
+    if use_rain:
+        from . import steps_rain as R
+        noise = R.RainNoise(draw_noise)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              sched: Dict[str, float]) -> Metrics:
@@ -317,26 +355,56 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
         dev = img_s.device
         s_size, t_size = img_s.shape[0], img_t.shape[0]
         state.seg.train()
+        style_size = 0
+        x_src = img_s
+        if use_rain:
+            # the style net in float32, before the segmentor's autocast
+            img_style, sampling = R.stylize(state, *rain_pair(cfg.rain, img_s, img_t),
+                                            sched, noise)
+            style_size = img_style.shape[0]
+            if cfg.rain.style_alpha < 1.0:
+                a = cfg.rain.style_alpha
+                img_style = a * img_style + (1.0 - a) * img_s[:style_size]
+            x_src = torch.cat([img_style, img_s])
+        seg_sz = style_size + s_size
+        btl_src = None
         with autocast(cfg.model.dtype, dev):
             if c.concat_forward:
-                # one forward over all three (Trainer_MCCL.py:217/:246):
-                # BatchNorm statistics mix the domains
-                out = state.seg(torch.cat([img_s, img_t, img_t_aug]))
-                pred_s, pred_t_all = out.pred[:s_size], out.pred[s_size:]
-                dcdr_s = out.dcdr_ft[:s_size]
-                dcdr_t = out.dcdr_ft[s_size:s_size + t_size]
-                dcdr_t_aug = out.dcdr_ft[s_size + t_size:]
+                # one forward over all (Trainer_MCCL.py:217/:246): BatchNorm
+                # statistics mix the domains
+                out = state.seg(torch.cat([x_src, img_t, img_t_aug]))
+                pred_src_all, pred_t_all = out.pred[:seg_sz], out.pred[seg_sz:]
+                dcdr_s = out.dcdr_ft[style_size:seg_sz]
+                dcdr_t = out.dcdr_ft[seg_sz:seg_sz + t_size]
+                dcdr_t_aug = out.dcdr_ft[seg_sz + t_size:]
+                if use_rain:
+                    btl_src = out.bottleneck[:seg_sz]
             else:
                 # two domain-pure forwards; running statistics carry over
-                out_s = state.seg(img_s)
+                out_s = state.seg(x_src)
                 out_t = state.seg(torch.cat([img_t, img_t_aug]))
-                pred_s, pred_t_all = out_s.pred, out_t.pred
-                dcdr_s = out_s.dcdr_ft
+                pred_src_all, pred_t_all = out_s.pred, out_t.pred
+                dcdr_s = out_s.dcdr_ft[style_size:]
                 dcdr_t, dcdr_t_aug = out_t.dcdr_ft[:t_size], out_t.dcdr_ft[t_size:]
+                btl_src = out_s.bottleneck
+        pred_s = pred_src_all[style_size:seg_sz]
 
         loss_seg = L.loss_calc(pred_s, labels_s, jaccard=True)
         metrics: Metrics = {"seg_s": loss_seg}
         total = loss_seg
+        if use_rain:
+            # the stylised branch's seg loss and the bottleneck consistency
+            # (Trainer_MCCL.py:221-244)
+            loss_style = L.loss_calc(pred_src_all[:style_size], labels_s[:style_size],
+                                     jaccard=True)
+            loss_consist = R.consistency(btl_src[style_size:2 * style_size],
+                                         btl_src[:style_size])
+            metrics["seg_style"] = loss_style
+            metrics["loss_consist"] = loss_consist
+            total = total + loss_style + cfg.rain.consist_w * loss_consist
+            metrics.update(R.style_diagnostics(img_style, img_s[:style_size],
+                                               pred_src_all[:style_size], pred_s,
+                                               labels_s, n_class))
         probs_t_all = torch.softmax(pred_t_all.float(), dim=-1)
         probs_t, probs_t_aug = probs_t_all[:t_size], probs_t_all[t_size:]
         if c.seg_pseudo:
@@ -407,6 +475,14 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
             total = total + warm * c.CNR_w * cnr
         if c.stdmin:
             total = total + warm * c.w_stdmin * res_t.stddevs.sum()
+        if use_rain:
+            # the ascent differentiates the stylised seg loss alone (the
+            # reference's samp_loss, Trainer_MCCL.py:229-241)
+            state.sampling, step_vec = R.epsilon_ascent(cfg, sampling, loss_style, sched)
+            metrics["eps_step_norm"] = (sched.get("eps_on", 0.0)
+                                        * torch.linalg.vector_norm(step_vec))
+            metrics["sampling_norm"] = torch.linalg.vector_norm(state.sampling)
+            metrics["seg_style_val"] = loss_style
         _seg_update(state, total, sched["lr"])
         state.centroids = centroid_s
         state.step += 1
@@ -416,7 +492,9 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
 
 
 def build_step(cfg, centroids_loaded: bool = False,
-               draw_assign: Optional[DrawAssign] = None) -> Callable:
+               draw_assign: Optional[DrawAssign] = None, draw_noise=None) -> Callable:
+    """The step of ``cfg.method``; ``draw_assign`` and ``draw_noise`` replace
+    the rMC draw and RAIN's noise (tests share the JAX package's)."""
     m = cfg.method
     if m == "baseline":
         return make_baseline_step(cfg)
@@ -428,7 +506,13 @@ def build_step(cfg, centroids_loaded: bool = False,
         return make_mpscl_step(cfg, centroids_loaded=centroids_loaded)
     if m == "mccl":
         return make_mccl_step(cfg, centroids_loaded=centroids_loaded,
-                              draw_assign=draw_assign)
+                              draw_assign=draw_assign, draw_noise=draw_noise)
+    if m == "rain":
+        from .steps_rain import make_rain_seg_step
+        return make_rain_seg_step(cfg, draw_noise=draw_noise)
+    if m == "pretrain_rain":
+        from .steps_rain import make_pretrain_rain_step
+        return make_pretrain_rain_step(cfg, draw_noise=draw_noise)
     raise NotImplementedError(
-        f"method {m!r}: slcl_torch ports baseline, adaptseg, advent, mpscl, slcl "
-        "and mccl only")
+        f"method {m!r}: slcl_torch ports baseline, adaptseg, advent, mpscl, slcl, "
+        "mccl, rain and pretrain_rain only")

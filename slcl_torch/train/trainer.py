@@ -1,5 +1,6 @@
 """Training orchestration (counterpart of ``slcl_tpu/train/trainer.py``) for
-``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/``mccl``.
+``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/``mccl``/
+``rain``/``pretrain_rain``.
 
 ``Trainer(cfg, device=None)`` builds the segmentor (``model.backbone``:
 DRUNet, UNet, DeepLabV2 or the ResNet-50 U-Net; with ``model.pretrained``
@@ -21,9 +22,24 @@ seed (which with the step fixes MCCL's rMC draws), loadable
 with ``torch.load(..., weights_only=True)``. ``run.init_from`` warm-starts
 the networks from any such file (weights and BatchNorm buffers only,
 merged by name across methods); ``run.restore_from`` resumes the full state.
+
+RAIN (``rain.enabled``, ``method=rain``): the frozen style net starts from
+``run.seed + 7`` and loads each configured component file
+(``rain.vgg_ckpt``, ``decoder_ckpt``, ``fc_encoder_ckpt``,
+``fc_decoder_ckpt``: the reference's ``.pth``/``.pt`` or the JAX package's
+``.npz``; a configured file that is missing raises). After warmup each
+batch runs ``rain.eps_iters`` epsilon iterations, every one counted in the
+epoch mean. ``method=pretrain_rain`` trains the style net itself with no
+validation, keeps the checkpoint of the least summed loss, and exports
+``rain_{encoder,decoder,fc_encoder,fc_decoder}.npz`` in the JAX layout.
+``baseline`` on MMWHS also tests the other cross-validation fold.
+
+Config keys the port does not honour yet raise at construction:
+``run.scan_steps`` other than 1, ``model.remat`` and ``run.profile_dir``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -38,17 +54,97 @@ from ..config import Config, build_apdx
 from ..data import Loader, device_prefetch, prepare_datasets, zip_domains
 from ..eval.evaluator import Evaluator, mean_fg_dice
 from ..models import UncertaintyDiscriminator, build_segmentor
+from ..models.rain import LATENT, RAIN
+from ..utils.convert import read_rain_component, save_tree_npz, state_dict_to_flax
 from ..utils.pretrained import load_pretrained_encoder
 from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
 from . import schedules
-from .state import create_train_state
+from .state import create_pretrain_rain_state, create_train_state, rain_sampling_rows
 from .steps import autocast, build_step
 
-_PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl")
+_PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
+           "pretrain_rain")
 _ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
 _CONTRASTIVE = ("mpscl", "slcl", "mccl")
-_NETS = ("seg", "d_main", "d_aux")
+_NETS = ("seg", "d_main", "d_aux", "rain")
 _OPTS = ("opt_seg", "opt_d_main", "opt_d_aux")
+# RAIN's component files: (the net's part, its config key)
+RAIN_PARTS = (("encoder", "vgg_ckpt"), ("decoder", "decoder_ckpt"),
+              ("fc_encoder", "fc_encoder_ckpt"), ("fc_decoder", "fc_decoder_ckpt"))
+PRETRAIN_LOSSES = ("loss_c", "loss_s", "loss_l", "loss_r")
+
+
+def check_ported_keys(cfg: Config) -> None:
+    """Raise on a config key the port would accept and then ignore (the JAX
+    package honours each): the scan over several steps, rematerialisation
+    and the profiler trace. Each names the ROADMAP item that ports it."""
+    if int(cfg.run.scan_steps) != 1:
+        raise NotImplementedError(
+            f"run.scan_steps={cfg.run.scan_steps}: slcl_torch runs one step per "
+            "dispatch (CUDA-graph replay of the step: ROADMAP queue 1, the "
+            "host-bound step)")
+    if str(cfg.model.remat).lower() not in ("", "0", "false", "off"):
+        raise NotImplementedError(
+            f"model.remat={cfg.model.remat!r}: slcl_torch has no rematerialisation "
+            "yet (torch.utils.checkpoint: ROADMAP queue 1, small utilities)")
+    if cfg.run.profile_dir:
+        raise NotImplementedError(
+            f"run.profile_dir={cfg.run.profile_dir!r}: slcl_torch writes no "
+            "profiler trace yet (torch.profiler: ROADMAP queue 1, small utilities)")
+
+
+def build_rain(cfg: Config, device: torch.device) -> RAIN:
+    """The RAIN net from ``run.seed + 7`` on ``device``, each component that
+    ``cfg.rain`` names loaded from its file (JAX trainer.py:114-163): the
+    reference's Sequential ``.pth``/``.pt`` or the JAX package's ``.npz``
+    tree. A configured file that is missing raises ``FileNotFoundError``."""
+    gen = torch.Generator().manual_seed(cfg.run.seed + 7)
+    rain = RAIN(gen).to(device, memory_format=torch.channels_last)
+    for name, key in RAIN_PARTS:
+        path = getattr(cfg.rain, key)
+        if not path:
+            continue
+        if not os.path.exists(path):
+            # a random style net would silently invalidate the run
+            raise FileNotFoundError(f"rain.{key}={path!r}: the {name} checkpoint "
+                                    "does not exist")
+        part = getattr(rain, name)
+        entries, unmatched = read_rain_component(path, name, part)
+        part.load_state_dict(entries, strict=False)
+        print(f"[rain] loaded {len(entries)} tensors into {name} from {path}"
+              + (f"; unmatched: {unmatched}" if unmatched else ""))
+    return rain
+
+
+def stylized_branch_triggers(history, first_epochs: int = 6,
+                             style_floor: float = 0.05,
+                             src_ceiling: float = 0.85):
+    """Warnings for the unlearnable-stylised-class signature of an MCCL +
+    RAIN run (``slcl_tpu/train/trainer.py:34-69``): a class whose stylised-
+    branch Dice stays under ``style_floor`` through epochs 1 to
+    ``first_epochs - 1`` while its source Dice passes ``src_ceiling``.
+    ``history`` is the trainer's per-epoch records; empty when healthy or
+    when the diagnostics are absent."""
+    early = [r for r in history if 0 < r.get("epoch", -1) < first_epochs]
+    if len(early) < first_epochs - 1:
+        return []
+    out = []
+    for c in (1, 2, 3):
+        sty = [r.get(f"dice_style_c{c}") for r in early]
+        src = [r.get(f"dice_src_c{c}") for r in early]
+        if any(v is None for v in sty + src):
+            continue
+        if max(sty) < style_floor and max(src) > src_ceiling:
+            out.append(
+                f"stylized-branch warning: dice_style_c{c} never exceeded "
+                f"{max(sty):.3f} over epochs 1-{first_epochs - 1} while "
+                f"dice_src_c{c} reached {max(src):.3f} — the stylized view "
+                "of this class is unlearnable at the current strength and "
+                "the run is at risk of source-overfit collapse; set "
+                "rain.style_alpha=0.5 (or lower) or fine-tune from a "
+                "converged plain-MCCL checkpoint (examples/README.md, "
+                "'Round-5 root cause').")
+    return out
 
 
 class Trainer:
@@ -60,6 +156,7 @@ class Trainer:
         if cfg.method not in _PORTED:
             raise NotImplementedError(
                 f"method {cfg.method!r}: slcl_torch ports {_PORTED} only")
+        check_ported_keys(cfg)
         self.cfg = cfg
         # method-implied data: MCCL pairs each target image with a second
         # view (JAX trainer.py:89-90); before the datasets are built
@@ -81,6 +178,16 @@ class Trainer:
     def _build(self):
         cfg = self.cfg
         dev = self.device
+        rain = None
+        if cfg.rain.enabled or cfg.method in ("rain", "pretrain_rain"):
+            rain = build_rain(cfg, self.device)
+        if cfg.method == "pretrain_rain":
+            # the style net itself is the trained network; no evaluator
+            self.centroids_loaded = False
+            self.state = create_pretrain_rain_state(cfg, rain)
+            self.step_fn = build_step(cfg)
+            self.evaluator = None
+            return
         gen = torch.Generator().manual_seed(cfg.run.seed)
         fmt = torch.channels_last
         seg = build_segmentor(cfg.model, generator=gen).to(dev, memory_format=fmt)
@@ -106,6 +213,10 @@ class Trainer:
             centroids = self._initial_centroids()
         self.state = create_train_state(cfg, seg, disc=disc, disc_aux=disc_aux,
                                         centroids=centroids)
+        if rain is not None:
+            self.state.rain = rain.requires_grad_(False).eval()
+            self.state.sampling = torch.zeros(rain_sampling_rows(cfg), LATENT,
+                                              device=dev)
         self.step_fn = build_step(cfg, centroids_loaded=self.centroids_loaded)
         self.evaluator = Evaluator(seg, dev, eval_bs=cfg.data.eval_bs, klc=cfg.run.klc,
                                    num_classes=cfg.model.num_classes,
@@ -145,7 +256,11 @@ class Trainer:
         else:
             lr_dis = cfg.optim.lr_dis
         warm = 1.0 if epoch >= cfg.contrastive.warmup_epochs else 0.0
-        return {"lr": float(lr), "lr_dis": float(lr_dis), "warm": warm}
+        # RAIN: a fresh sampling at a batch's first epsilon iteration, the
+        # ascent once warm
+        eps_on = 1.0 if warm > 0 and cfg.rain.enabled and cfg.rain.update_eps else 0.0
+        return {"lr": float(lr), "lr_dis": float(lr_dis), "warm": warm, "fresh": 1.0,
+                "eps_on": eps_on}
 
     def _epoch_batches(self) -> Iterable[Dict[str, Any]]:
         cfg = self.cfg
@@ -165,16 +280,23 @@ class Trainer:
         yield from zip_domains(train_s, train_t, aug_counter=cfg.data.aug_counter)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One epoch; returns the mean of each metric (one host sync)."""
+        """One epoch; returns the mean of each metric (one host sync). Under
+        RAIN's ascent each batch runs ``rain.eps_iters`` iterations after
+        warmup, a fresh sampling on the first (Trainer_MCCL.py:189-192);
+        each counts in the mean."""
+        cfg = self.cfg
         sched = self._sched(epoch)
+        carried = {**sched, "fresh": 0.0}
+        eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
         acc: Dict[str, torch.Tensor] = {}
         n = 0
         for batch in device_prefetch(self._epoch_batches(), self.device,
                                      size=self.cfg.data.prefetch):
-            metrics = self.step_fn(self.state, batch, sched)
-            for k, v in metrics.items():
-                acc[k] = acc[k] + v if k in acc else v
-            n += 1
+            for it in range(eps_iters):
+                metrics = self.step_fn(self.state, batch, carried if it else sched)
+                for k, v in metrics.items():
+                    acc[k] = acc[k] + v if k in acc else v
+                n += 1
         if not acc:
             return {}
         values = torch.stack(list(acc.values())).cpu().tolist()
@@ -202,7 +324,7 @@ class Trainer:
         s = self.state
         ckpt = {name: getattr(s, name).state_dict() if getattr(s, name) is not None
                 else None for name in _NETS + _OPTS}
-        ckpt.update(centroids=s.centroids, step=s.step, seed=s.seed,
+        ckpt.update(centroids=s.centroids, sampling=s.sampling, step=s.step, seed=s.seed,
                     method=self.cfg.method)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         path = self.out_dir / f"ckpt_{tag}.pt"
@@ -231,6 +353,10 @@ class Trainer:
                 if ckpt.get("centroids") is None:
                     raise KeyError(f"checkpoint {path} has no class centres")
                 s.centroids = ckpt["centroids"].to(self.device, torch.float32)
+            if s.sampling is not None:
+                if ckpt.get("sampling") is None:
+                    raise KeyError(f"checkpoint {path} has no RAIN sampling")
+                s.sampling = ckpt["sampling"].to(self.device, torch.float32)
             s.step = int(ckpt["step"])
             s.seed = int(ckpt.get("seed", s.seed))
             return
@@ -297,6 +423,7 @@ class Trainer:
             # weights would invalidate the recipe
             self.restore_checkpoint(cfg.run.init_from, params_only=True)
             print(f"warm-started networks from '{cfg.run.init_from}'")
+        if cfg.run.init_from and cfg.method != "pretrain_rain":
             # the init's own validation ("epoch -1") seeds best-checkpoint
             # selection, so a fine-tune that never beats its init ships it
             dice = mean_fg_dice(self.eval("valid_t", ifhd=False, ifasd=False,
@@ -315,7 +442,14 @@ class Trainer:
         for epoch in range(cfg.optim.epochs):
             t0 = time.time()
             record: Dict[str, Any] = {"epoch": epoch, **self.train_epoch(epoch)}
-            if (epoch + 1) % cfg.run.eval_frequency == 0 or epoch == cfg.optim.epochs - 1:
+            if cfg.method == "pretrain_rain":
+                # no validation: the least summed loss is the best
+                # (Pretrainer_RAIN.py:216-227)
+                record["score"] = -sum(record.get(k, 0.0) for k in PRETRAIN_LOSSES)
+                if mcp.step(record["score"], epoch):
+                    self.best_score = record["score"]
+                    self.best_epoch = epoch
+            elif (epoch + 1) % cfg.run.eval_frequency == 0 or epoch == cfg.optim.epochs - 1:
                 # per-epoch validation is Dice only; HD95/ASSD at the final test
                 dice = mean_fg_dice(self.eval("valid_t", ifhd=False, ifasd=False,
                                               fast=cfg.run.fast_val))
@@ -331,6 +465,10 @@ class Trainer:
             epoch_time = time.time() - t0
             record["epoch_time_s"] = round(epoch_time, 3)
             self._log(log_path, record)
+            if epoch == 5 and "dice_style_c1" in record:
+                # the early window is complete: the MCCL + RAIN collapse check
+                for w in stylized_branch_triggers(self.history):
+                    print(f"[{self.apdx}] {w}")
             print(f"[{self.apdx}] " + " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in record.items()), flush=True)
@@ -339,6 +477,8 @@ class Trainer:
                 mcp.finalize()
                 break
         self.save_checkpoint("last")
+        if cfg.method == "pretrain_rain":
+            return self._export_rain()
         # final test with the best checkpoint, target and source domains
         if mcp.wrote_best:
             # the best may be the epoch -1 warm-start eval (init_from)
@@ -353,7 +493,36 @@ class Trainer:
                           if "test_s" in self.datasets else None)
         summary = {"best_epoch": self.best_epoch, "best_val_dice": self.best_score,
                    "test": test_results, "test_s": test_s_results,
-                   "test_t_other_fold": None, "history": self.history}
+                   "test_t_other_fold": self.test_other_fold(), "history": self.history}
+        with open(self.out_dir / "summary.json", "w") as f:
+            json.dump(summary, f, indent=2)
+        return summary
+
+    def test_other_fold(self) -> Optional[Dict[str, list]]:
+        """``baseline`` on MMWHS: the test of the other cross-validation fold
+        (Trainer_baseline.py:308-339; JAX trainer.py:925-934), or None, with
+        a note, when its files are absent or it cannot be evaluated."""
+        cfg = self.cfg
+        if cfg.method != "baseline" or cfg.data.dataset != "mmwhs":
+            return None
+        other = copy.deepcopy(cfg)
+        other.data.fold = 1 - cfg.data.fold
+        try:
+            self.datasets["test_t_other_fold"] = prepare_datasets(other)["test_t"]
+            return self.eval("test_t_other_fold", toprint=True)
+        except Exception as e:  # the JAX trainer's: any failure is a skip
+            print(f"other-fold eval skipped ({e})")
+            return None
+
+    def _export_rain(self) -> Dict[str, Any]:
+        """``pretrain_rain``'s end: each part of the trained net as the JAX
+        package's ``.npz`` tree (what ``rain.*_ckpt`` load), and the summary."""
+        params = state_dict_to_flax(self.state.seg)["params"]
+        paths = {name: str(self.out_dir / f"rain_{name}.npz") for name, _ in RAIN_PARTS}
+        for name, path in paths.items():
+            save_tree_npz(path, params=params[name])
+        summary = {"best_epoch": self.best_epoch, "best_score": self.best_score,
+                   "history": self.history, "component_ckpts": paths}
         with open(self.out_dir / "summary.json", "w") as f:
             json.dump(summary, f, indent=2)
         return summary

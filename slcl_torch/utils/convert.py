@@ -7,6 +7,7 @@ port module whose submodule names are flax's (``DRUNet``, ``UNet``,
 rules are those of ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
 
   conv kernel (kH, kW, I, O)   -> weight (O, I, kH, kW)
+  Dense kernel (I, O)          -> Linear weight (O, I)
   ConvTranspose kernel (kH, kW, I, O) -> weight (I, O, kH, kW), flipped
                                   in both spatial axes (flax's
                                   ConvTranspose does not flip its kernel,
@@ -16,10 +17,16 @@ rules are those of ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
 
 It raises on any flax leaf it leaves unused, any module entry it leaves
 unset, and any shape that does not match.
+
+It also reads the RAIN component checkpoints: the reference's
+Sequential-index ``.pth`` files (:func:`read_rain_component`) and the JAX
+package's ``.npz`` trees (:func:`load_tree_npz`, written by
+:func:`save_tree_npz`: object arrays of nested dicts).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import re
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +55,8 @@ def _transposed_paths(module: nn.Module) -> set:
 def _torch_layout(leaf: str, arr: np.ndarray, transposed: bool) -> np.ndarray:
     if leaf != "kernel":
         return arr
+    if arr.ndim == 2:
+        return arr.T
     if transposed:
         return np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
     return np.transpose(arr, (3, 2, 0, 1))
@@ -124,7 +133,9 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
             tree, fleaf = params, "scale"
         elif leaf == "weight":
             tree, fleaf = params, "kernel"
-            if path in transposed:
+            if arr.ndim == 2:
+                arr = np.ascontiguousarray(arr.T)
+            elif path in transposed:
                 arr = np.ascontiguousarray(np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1])
             else:
                 arr = np.transpose(arr, (2, 3, 1, 0))
@@ -135,3 +146,63 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
             node = node.setdefault(part, {})
         node[fleaf] = arr
     return {"params": params, "batch_stats": stats}
+
+
+def save_tree_npz(path, **trees: Any) -> None:
+    """Write parameter trees as the JAX package's ``save_tree_npz`` does
+    (``slcl_tpu/utils/torch_convert.py``): one object array per tree, read
+    back with ``np.load(path, allow_pickle=True)[name].item()``."""
+    np.savez(path, **{k: np.array(v, dtype=object) for k, v in trees.items()})
+
+
+def load_tree_npz(path) -> Dict[str, Any]:
+    """The trees of a :func:`save_tree_npz` file (pickled object arrays)."""
+    with np.load(path, allow_pickle=True) as z:
+        return {k: z[k].item() for k in z.files}
+
+
+# Sequential index of each conv or Linear in the reference's RAIN nets
+# (model/RAIN.py: get_encoder() through relu4_1, get_decoder(), the fc
+# Sequentials) -> the port's submodule name
+RAIN_SEQUENTIAL = {
+    "encoder": {0: "conv0", 2: "conv1_1", 5: "conv1_2", 9: "conv2_1", 12: "conv2_2",
+                16: "conv3_1", 19: "conv3_2", 22: "conv3_3", 25: "conv3_4",
+                29: "conv4_1"},
+    "decoder": {1: "d1", 5: "d2_0", 8: "d2_1", 11: "d2_2", 14: "d3", 18: "d4",
+                21: "d5", 25: "d6", 28: "d7"},
+    "fc_encoder": {0: "Dense_0", 2: "Dense_1", 4: "Dense_2"},
+    "fc_decoder": {0: "Dense_0", 2: "Dense_1", 4: "Dense_2"},
+}
+_SEQ_KEY = re.compile(r"^(\d+)\.(weight|bias)$")
+
+
+def read_rain_component(path, name: str, module: nn.Module
+                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """``(state_dict entries of module, file entries it has no place for)``
+    from one RAIN component file: a ``.pth``/``.pt`` in the reference's
+    Sequential layout (torch layouts already; VGG layers past relu4_1 are
+    skipped), else the JAX package's ``.npz`` tree (its ``params``). A shape
+    mismatch raises ``ValueError``."""
+    if not str(path).endswith((".pth", ".pt")):
+        return map_flax(module, load_tree_npz(path)["params"])
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("model_state_dict", "state_dict"):
+        if isinstance(sd, dict) and wrapper in sd:
+            sd = sd[wrapper]
+    index = RAIN_SEQUENTIAL[name]
+    target = module.state_dict()
+    out, unmatched = {}, []
+    for key, val in sd.items():
+        m = _SEQ_KEY.match(key)
+        if not m:
+            unmatched.append(key)
+            continue
+        if int(m.group(1)) not in index:
+            continue        # e.g. vgg_normalised's layers past relu4_1
+        tkey = f"{index[int(m.group(1))]}.{m.group(2)}"
+        ref = target[tkey]
+        if tuple(val.shape) != tuple(ref.shape):
+            raise ValueError(f"{path}: {key} -> {tkey}: shape {tuple(val.shape)} != "
+                             f"{tuple(ref.shape)}")
+        out[tkey] = val.detach().to(dtype=ref.dtype, device=ref.device)
+    return out, unmatched

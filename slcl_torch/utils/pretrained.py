@@ -24,11 +24,10 @@ import os
 import re
 from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
-from .convert import map_flax
+from .convert import load_tree_npz, map_flax
 
 # the JAX trainer's (trainer.py:243): its resnet101 alias has no import
 ENCODER_BACKBONES = ("resnet50", "resnet50_unet", "deeplabv2")
@@ -58,9 +57,7 @@ def read_encoder(path: str, seg: nn.Module) -> Tuple[Dict[str, torch.Tensor], Li
     counterpart)`` from ``path``."""
     target = seg.state_dict()
     if str(path).endswith(".npz"):
-        # object arrays of nested dicts (save_tree_npz): pickled
-        with np.load(path, allow_pickle=True) as z:
-            trees = {k: z[k].item() for k in z.files}
+        trees = load_tree_npz(path)
         return map_flax(seg, trees["params"], trees.get("batch_stats"))
     sd = torch.load(path, map_location="cpu", weights_only=True)
     for wrapper in ("model_state_dict", "state_dict"):

@@ -1,6 +1,8 @@
 """Guards of the port: it imports nothing of JAX or ``slcl_tpu`` (the
 ``scripts`` entry points included), it never falls back to the CPU on its
-own, and its CLI trains, validates and tests on the CPU when asked.
+own, it refuses the config keys it would otherwise ignore, and its CLI
+trains, validates and tests on the CPU when asked (``baseline`` on MMWHS
+also the other fold, as the JAX package does).
 """
 import json
 import os
@@ -50,7 +52,9 @@ def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
         "        'slcl_torch.data.mmwhs', 'slcl_torch.data.mscmrseg', 'slcl_torch.data.png',\n"
         "        'slcl_torch.data.imgproc', 'slcl_torch.data.slic',\n"
         "        'slcl_torch.models.resnet_unet', 'slcl_torch.models.deeplabv2',\n"
-        "        'slcl_torch.models.unet', 'slcl_torch.utils.pretrained'} <= set(mods)\n"
+        "        'slcl_torch.models.unet', 'slcl_torch.utils.pretrained',\n"
+        "        'slcl_torch.models.rain', 'slcl_torch.train.steps_rain',\n"
+        "        'slcl_torch.scripts.stylize_samples'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -182,3 +186,87 @@ def test_contrastive_method_on_a_wider_backbone_raises(backbone, width):
     if backbone == "unet":
         cfg.model.filters = 64
         assert Trainer(cfg, device="cpu").state.centroids.shape == (4, 64)
+
+
+@pytest.mark.parametrize("key,value,raises", [
+    ("run.scan_steps", "4", True), ("model.remat", "dots", True),
+    ("run.profile_dir", "prof", True), ("model.remat", "false", False)])
+def test_config_keys_the_port_ignores_raise(tmp_path, key, value, raises):
+    """``run.scan_steps``, ``model.remat`` and ``run.profile_dir`` raise at
+    construction, naming the key, until the port honours them (no port test
+    and no phase of chip_smoke.py sets one); remat's off values build."""
+    from slcl_torch.train.trainer import Trainer
+    cfg = Config.from_cli(["method=baseline", "data.dataset=synthetic", "data.crop=32",
+                           "data.bs=2", "model.filters=8", "model.n_block=2",
+                           "model.bottleneck_depth=2", f"run.out_dir={tmp_path}",
+                           f"{key}={value}"])
+    if raises:
+        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+            Trainer(cfg, device="cpu")
+    else:
+        Trainer(cfg, device="cpu")
+
+
+def _mmwhs_both_folds(tmp_path) -> Path:
+    """The fixture's raw MMWHS tree plus MR patient 2 (a copy of patient 1),
+    whom split 0 puts in fold 1's test set: both folds then have a test."""
+    import shutil
+    tree = tmp_path / "mmwhs"
+    shutil.copytree(ROOT / "tests" / "fixtures" / "mini_mmwhs", tree)
+    gt = tree / "MR_withGT"
+    for f in sorted(gt.glob("*1_*slice*.nii")):
+        if f.name.startswith(("img1_", "lab1_")):
+            shutil.copy(f, gt / f.name.replace("1_", "2_", 1))
+    with open(tree / "MRminmax99.csv", "a") as f:
+        f.write("img2,420.87,1313.0\n")
+    return tree
+
+
+@pytest.mark.parametrize("both_folds", [True, False])
+def test_baseline_tests_the_other_mmwhs_fold_as_jax(tmp_path, both_folds):
+    """``baseline`` on MMWHS writes ``test_t_other_fold`` as the JAX
+    package's trainer does: the other fold's test with the final weights
+    (the port's from the JAX run's weights, dc/hd/asd within 1e-4), or None
+    with the note "other-fold eval skipped" when that fold has no test
+    files (the fixture tree). The port's CLI epoch writes the same entry."""
+    from slcl_torch.config import Config as TConfig
+    from slcl_torch.train.trainer import Trainer
+    from slcl_torch.utils.convert import load_flax_weights
+    from slcl_tpu.config import Config as JConfig
+    from slcl_tpu.train.trainer import Trainer as JTrainer
+
+    tree = _mmwhs_both_folds(tmp_path) if both_folds else ROOT / "tests" / "fixtures" / \
+        "mini_mmwhs"
+    over = ["method=baseline", "data.dataset=mmwhs", f"data.data_dir={tree}", "data.raw=true",
+            "optim.epochs=1", "data.bs=2", "data.eval_bs=4", "data.crop=32",
+            "model.filters=8", "model.n_block=2", "model.bottleneck_depth=2",
+            "model.dtype=float32", "data.num_workers=1"]
+    out = subprocess.run([sys.executable, "-m", "slcl_torch.train", *over,
+                          f"run.out_dir={tmp_path / 'port'}", "--device", "cpu"],
+                         cwd=ROOT, env=ENV, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec == json.loads((Path(rec["out_dir"]) / "summary.json").read_text()) | {
+        "device": "cpu", "out_dir": rec["out_dir"]}
+
+    jcfg = JConfig.from_cli([*over, f"run.out_dir={tmp_path / 'jax'}"])
+    jt = JTrainer(jcfg)
+    want = jt.train()["test_t_other_fold"]
+    if not both_folds:
+        assert want is None and rec["test_t_other_fold"] is None
+        assert "other-fold eval skipped" in out.stdout
+        return
+    for r in (want, rec["test_t_other_fold"]):
+        assert len(r["dc"]) == 6 and np.isfinite(r["dc"]).all()
+    # the port's branch on the JAX run's final weights
+    t = Trainer(TConfig.from_cli([*over, f"run.out_dir={tmp_path / 'port2'}"]), device="cpu")
+    load_flax_weights(t.state.seg, jax_tree(jt.state.seg.params),
+                      jax_tree(jt.state.seg.batch_stats))
+    got = t.test_other_fold()
+    for k in ("dc", "hd", "asd"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def jax_tree(tree):
+    import jax
+    return jax.tree.map(np.asarray, tree)

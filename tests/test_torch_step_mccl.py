@@ -5,7 +5,8 @@ JAX package's ``make_mccl_step`` from the same converted weights, batches,
 ``draw_assign``), on the CPU in f32; then the port's own machinery: the
 draw as a function of the seed and the step (a restored checkpoint steps
 as the uninterrupted run), the warm start from an AdvEnt checkpoint that
-keeps the fresh projection head, the CLI, and RAIN's refusal.
+keeps the fresh projection head, the CLI, and RAIN's build and its refusal
+of a missing component file.
 
 Runs: the preset (phead, P = 2, soft weights, clda, CNR, intra) with two
 domain-pure forwards; the one concatenated forward with stdmin and
@@ -221,9 +222,16 @@ def test_advent_checkpoint_warm_starts_mccl_with_a_fresh_phead(tmp_path):
 
 
 def test_mccl_with_rain_raises(tmp_path):
+    """MCCL + RAIN is ported (tests/test_torch_step_mccl_rain*.py): with no
+    component file it builds the frozen style net and a (1, 512) sampling;
+    a configured component file that is missing raises."""
     cfg = _tcfg("mccl", tmp_path)
     cfg.rain.enabled = True
-    with pytest.raises(NotImplementedError, match="RAIN"):
+    t = Trainer(cfg, device="cpu")
+    assert t.state.sampling.shape == (1, 512) and not any(
+        p.requires_grad for p in t.state.rain.parameters())
+    cfg.rain.decoder_ckpt = str(tmp_path / "absent.pth")
+    with pytest.raises(FileNotFoundError, match="rain.decoder_ckpt"):
         Trainer(cfg, device="cpu")
 
 

@@ -15,7 +15,7 @@ import torch
 
 from slcl_torch.config import Config as TConfig
 from slcl_torch.config import apply_recipe as t_apply_recipe
-from slcl_torch.data import Loader
+from slcl_torch.data import Loader, to_device
 from slcl_torch.scripts import evaluate, gen_class_centers
 from slcl_torch.train.trainer import Trainer
 from slcl_torch.utils.convert import state_dict_to_flax
@@ -213,3 +213,100 @@ def test_gen_class_centers_matches_jax_arithmetic(tmp_path):
     want = np.asarray(sums / jnp.maximum(counts, 1.0), np.float32)
     assert got.dtype == np.float32 and got.shape == (4, 8)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ---- RAIN ------------------------------------------------------------------
+RAIN_KEYS = ("vgg_ckpt", "decoder_ckpt", "fc_encoder_ckpt", "fc_decoder_ckpt")
+RAIN_SMALL = ["data.dataset=synthetic", "data.bs=2", "data.eval_bs=4", "data.crop=32",
+              "model.filters=8", "model.n_block=2", "model.bottleneck_depth=2",
+              "model.dtype=float32", "data.num_workers=1"]
+
+
+def _run_cli(args, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-m", "slcl_torch.train", *args, *RAIN_SMALL,
+                          f"run.out_dir={tmp_path}", "--device", "cpu"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=400)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout, json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_pretrain_rain_then_mccl_rain_cli_chain(tmp_path):
+    """``method=pretrain_rain`` one epoch (no validation; the four component
+    files exported in the JAX layout), then ``method=mccl rain.enabled=true``
+    loading them with the ascent on after a warmup epoch, and its test."""
+    _, pre = _run_cli(["method=pretrain_rain", "optim.epochs=1", "optim.lr=1e-4"],
+                      tmp_path / "pre")
+    (epoch,) = pre["history"]
+    assert "val_dice" not in epoch and epoch["score"] == pytest.approx(
+        -sum(epoch[k] for k in ("loss_c", "loss_s", "loss_l", "loss_r")))
+    files = pre["component_ckpts"]
+    assert set(files) == {"encoder", "decoder", "fc_encoder", "fc_decoder"}
+    parts = [f"rain.{k}={files[p]}" for k, p in zip(
+        RAIN_KEYS, ("encoder", "decoder", "fc_encoder", "fc_decoder"))]
+    stdout, rec = _run_cli(["method=mccl", "rain.enabled=true", "rain.update_eps=true",
+                            "rain.eps_iters=2", "rain.eps_clip=3", "optim.epochs=2",
+                            "contrastive.warmup_epochs=1", *parts], tmp_path / "mccl")
+    for p in ("encoder", "decoder", "fc_encoder", "fc_decoder"):
+        assert f"[rain] loaded" in stdout and f"into {p} from {files[p]}" in stdout, p
+    warmup, warm = rec["history"]
+    assert warmup["eps_step_norm"] == 0.0 and 0.0 < warm["eps_step_norm"] <= 3.0
+    for k in ("seg_s", "seg_style", "loss_consist", "style_hist_d", "dice_style_c1",
+              "sampling_norm", "CNR", "inter_c_loss"):
+        assert np.isfinite(warm[k]), k
+    assert len(rec["test"]["dc"]) == 6 and np.isfinite(rec["test"]["dc"]).all()
+
+
+@pytest.mark.parametrize("method", ["mccl", "rain", "pretrain_rain"])
+@pytest.mark.parametrize("key", RAIN_KEYS)
+def test_missing_rain_component_raises(tmp_path, key, method):
+    cfg = _cfg(method, tmp_path, multilvl=False)
+    cfg.rain.enabled = True
+    setattr(cfg.rain, key, str(tmp_path / "absent.npz"))
+    with pytest.raises(FileNotFoundError, match=f"rain.{key}"):
+        Trainer(cfg, device="cpu")
+
+
+def test_restored_mccl_rain_checkpoint_repeats_the_next_steps(tmp_path):
+    """The carried sampling is in the checkpoint and the noise follows
+    (seed, step): save -> restore -> a fresh and a carried iteration equal
+    the uninterrupted run's bit for bit, in a trainer built with another
+    seed, whose own noise differs."""
+    def cfg_(seed):
+        cfg = _cfg("mccl", tmp_path, multilvl=False)
+        cfg.rain.enabled, cfg.rain.update_eps, cfg.rain.eps_clip = True, True, 3.0
+        cfg.run.seed = seed
+        return cfg
+
+    a = Trainer(cfg_(1234), device="cpu")
+    batches = [to_device(b, torch.device("cpu")) for _, b in zip(range(2), a._epoch_batches())]
+    sched = a._sched(0)
+    carried = {**sched, "fresh": 0.0}
+    assert sched["eps_on"] == 1.0 and sched["fresh"] == 1.0
+    a.step_fn(a.state, batches[0], sched)
+    a.step_fn(a.state, batches[0], carried)
+    path = a.save_checkpoint("mid")
+    b = Trainer(cfg_(3), device="cpu")
+    b.restore_checkpoint(str(path))
+    assert b.state.seed == 1234 and b.state.step == 2
+    assert torch.equal(a.state.sampling, b.state.sampling)
+    for s in (sched, carried):
+        ma = a.step_fn(a.state, batches[1], s)
+        mb = b.step_fn(b.state, batches[1], s)
+        assert ma.keys() == mb.keys()
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), k
+        assert torch.equal(a.state.sampling, b.state.sampling)
+    _assert_same_state_dict(a.state.seg.state_dict(), b.state.seg.state_dict())
+    _assert_same_state_dict(a.state.rain.state_dict(), b.state.rain.state_dict())
+    # another seed draws other noise: the same state stylises elsewhere
+    c = Trainer(cfg_(3), device="cpu")
+    c.restore_checkpoint(str(path))
+    c.state.seed = 3
+    c.step_fn(c.state, batches[1], sched)
+    assert not torch.equal(c.state.sampling, a.state.sampling)
