@@ -60,7 +60,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      with one shared noise: two ``pretrain_rain`` steps, a ``rain`` step
      fresh then carried with the epsilon ascent, and two MCCL + RAIN
      iterations of one batch with ``rain.eps_clip=3`` through the centroid
-     kernels, the carried sampling held beside the metrics;
+     kernels, the carried sampling held beside the metrics; then two steps
+     each of ``ddfseg`` (a slim DDFNet, ``ddfseg.filters=4 style_filters=4
+     ngf=8``), ``adaptevery`` (ResNetUNetPoint with one block a stage at
+     base 8, a base-8 PointNet) and ``bcl`` (BCLDeepLab likewise, the CPU's
+     pseudo-label round given to both) at 64x64 with one shared dropout
+     draw (``shared_dropout``), no port kernel launched;
   4. train: the full-width ``method=slcl model.multilvl=true
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
@@ -82,7 +87,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      rain.update_eps rain.eps_iters=2 rain.eps_clip=3`` (``bench.py:148-160``'s
      JAX cell, random RAIN weights from seed 1234: one epoch, 10 batches = 20
      timed steps, a step being one epsilon iteration) and ``pretrain_rain``
-     (bs16 content + 16 style, 10 timed steps);
+     (bs16 content + 16 style, 10 timed steps); then DDFSeg, AdaptEvery
+     and BCL at full width on their recipes' networks (``train_extra``):
+     ``ddfseg`` (DDFNet 16/8/32 + SegDecoder, three PatchGANs, Adam 2e-4),
+     ``adaptevery`` (the ResNet-50 U-Net multilvl with the 300-vertex head,
+     three entropy-map discriminators, a PointNet at base 64) and ``bcl``
+     (BCLDeepLab on ResNet-101, its epoch after a pseudo-label round), one
+     epoch each with the parameter count (``N_PARAMS``) and no port kernel
+     launched, 10 timed steps and 3 profiled;
   5. protocol: the SLCL protocol at the same width through the port's entry
      points (``data.gap=0.5 optim.optimizer=adam``): ``advent`` for two
      epochs, ``gen_class_centers`` from its best checkpoint, ``slcl``
@@ -97,7 +109,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      files exported), ``mccl`` with ``rain.enabled=true`` loading them, a
      warmup epoch and one with the ascent (``rain.eps_iters=2``), launch
      counts and the test; a configured component file that is missing
-     must raise;
+     must raise; then through the CLI ``bcl`` for two epochs with
+     ``run.bcl_round_epochs=1`` (two pseudo-label rounds), ``ddfseg`` and
+     ``adaptevery`` one epoch each, each with its final test, and DDFSeg's
+     last checkpoint restored and continued as the uninterrupted run
+     (every network and optimizer bit for bit, the next step's metrics);
   6. real-format data: an MMWHS raw NIfTI tree and an MS-CMRSeg PNG tree
      written with the port's own writers (256x256 int16 slices and
      224x224 PNGs, 128 training and 64 test slices a domain), then
@@ -118,8 +134,10 @@ memory per block of each kernel; the centroids' per instantiation; each
 kernel's launches from its own path: the ``slcl`` cell, or the stdmin cell
 for the std kernels) as one JSON line, the three step cells' timing, the
 protocol, the RAIN cells (``train_rain``: phase 4's two and phase 3's RAIN
-runs), the real-format phase and the backbones (``train_backbones``:
-phase 4's backbone cells and phase 3's runs) as one JSON line each, the
+runs), the real-format phase, the backbones (``train_backbones``:
+phase 4's backbone cells and phase 3's runs) and DDFSeg / AdaptEvery / BCL
+(``train_extra``: phase 4's cells, phase 3's steps, phase 5's runs) as one
+JSON line each, the
 card's name
 and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
@@ -158,6 +176,9 @@ PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL, "mccl_stdmin": PER_STEP_M
               "advent": dict.fromkeys(PER_STEP, 0), "baseline": dict.fromkeys(PER_STEP, 0),
               "adaptseg": dict.fromkeys(PER_STEP, 0), "mccl_rain": PER_STEP_MCCL,
               "rain": dict.fromkeys(PER_STEP, 0), "pretrain_rain": dict.fromkeys(PER_STEP, 0)}
+# DDFSeg, AdaptEvery and BCL: no port kernel on their paths
+EXTRA_METHODS = ("ddfseg", "adaptevery", "bcl")
+PER_METHOD.update({m: dict.fromkeys(PER_STEP, 0) for m in EXTRA_METHODS})
 # the full-width MCCL + RAIN cell's overrides (bench.py:148-160's JAX cell)
 MCCL_RAIN = {"enabled": True, "update_eps": True, "eps_iters": 2, "eps_clip": 3.0}
 # the step cell whose launch counts each kernel's row reports (its path)
@@ -1271,6 +1292,68 @@ def check_small_rain_steps() -> dict:
     return out
 
 
+def shared_dropout(seed: int):
+    """Dropout masks for ``build_step``'s ``draw_dropout``: from a CPU
+    generator seeded by (seed, step, module path, call), then moved to the
+    step's device, so that a step on the card and one on the CPU drop alike."""
+    import torch
+    from slcl_torch.train.steps_extra import dropout_seed
+
+    def draw(step, path, call, shape, keep, device):
+        g = torch.Generator().manual_seed(dropout_seed(seed, step, path, call))
+        return (torch.rand(shape, generator=g) < keep).to(device)
+    return draw
+
+
+def check_small_extra_steps() -> dict:
+    """Phase 3, DDFSeg / AdaptEvery / BCL: two steps of each on the card
+    against the CPU from the same weights, batches and dropout masks
+    (``shared_dropout``) at 64x64 in f32: a slim DDFNet (``ddfseg.filters=4
+    style_filters=4 ngf=8``), ResNetUNetPoint with one block a stage at base
+    8 and a base-8 PointNet, BCLDeepLab likewise (the CPU's pseudo-label
+    round given to both); each metric at phase 3's tolerance, and no port
+    kernel launched."""
+    import torch
+    from slcl_torch.data import to_device
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.steps import build_step
+    from slcl_torch.train.trainer import Trainer
+
+    out = {}
+    for method in EXTRA_METHODS:
+        cfg = small_config(method)
+        cfg.data.crop = 64
+        cfg.model.layers, cfg.model.base = (1, 1, 1, 1), 8
+        d = cfg.ddfseg
+        d.filters, d.style_filters, d.ngf, d.slim = 4, 4, 8, True
+        cpu = Trainer(cfg, device="cpu")
+        gpu = Trainer(cfg, device="cuda")
+        for t in (cpu, gpu):
+            t.step_fn = build_step(cfg, draw_dropout=shared_dropout(7))
+        if method == "bcl":
+            cpu.bcl_update_plabels(cfg.run.bcl_prop)
+            gpu.bcl_plabels = cpu.bcl_plabels
+        batches = [b for _, b in zip(range(2), cpu._epoch_batches())]
+        sched = cpu._sched(0)
+        reset_launch_counts()
+        for i, b in enumerate(batches):
+            m_cpu = cpu.step_fn(cpu.state, to_device(b, torch.device("cpu")), sched)
+            m_gpu = gpu.step_fn(gpu.state, to_device(b, torch.device("cuda")), sched)
+            if set(m_cpu) != set(m_gpu):
+                raise AssertionError(f"small {method} step {i}: metric keys differ")
+            for k, v in m_cpu.items():
+                close(m_gpu[k].cpu(), v, 5e-3, 1e-4, f"small {method} step {i} {k}")
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"small {method}: port kernels launched {counts}")
+        torch.cuda.synchronize()
+        out[method] = {"steps": len(batches), "crop": cfg.data.crop, "launches": counts,
+                       "params": sum(p.numel() for p in gpu.state.seg.parameters()),
+                       "metrics": {k: float(v) for k, v in m_gpu.items()}}
+        log(f"small {method}: card matches CPU over {len(batches)} steps")
+    return out
+
+
 def is_std_kernel(name: str) -> bool:
     """One of the std variant's kernels, by the profiler's name."""
     return any(all(p in name for p in parts) for parts in STD_KERNELS)
@@ -1336,7 +1419,13 @@ N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036, "mccl_rain": 13_488_036,
             "pretrain_rain": 12_784_271,
             "resnet50_slcl": 32_522_216, "resnet50_mccl": 32_526_276,
             "deeplabv2_advent": 42_942_560, "deeplabv2_adaptseg": 42_942_560,
-            "unet_baseline": 31_037_828}
+            "unet_baseline": 31_037_828,
+            # DDFNet + SegDecoder (16/8/32, not slim); ResNetUNetPoint (the
+            # ResNet-50 U-Net multilvl + the 300-vertex head); BCLDeepLab
+            # (ResNet-101, one feature-returning ASPP head)
+            "ddfseg": 39_665_640, "adaptevery": 37_834_348, "bcl": 42_795_088}
+# phase 4's cells of DDFSeg, AdaptEvery and BCL: (method, timed steps)
+EXTRA_CELLS = (("ddfseg", 10), ("adaptevery", 10), ("bcl", 10))
 # phase 4's backbone cells: (name, method, backbone, timed steps); the paper's
 # cell first (train_SLCL.py: resnet50, multilvl)
 BACKBONE_CELLS = (("resnet50_slcl", "slcl", "resnet50", 20),
@@ -1355,7 +1444,9 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     ``rain`` its RAIN overrides (``rain.eps_iters`` steps a batch, a fresh
     sampling on the first); on ``backbone``, with ``advent``/``adaptseg``
     (multilvl) and ``baseline`` too; or ``pretrain_rain`` (bs16 content +
-    16 style). ``name`` keys N_PARAMS and PER_METHOD (default: the
+    16 style); or ``ddfseg``/``adaptevery``/``bcl`` on their recipes' own
+    networks (BCL's epoch begins with a pseudo-label round). ``name`` keys
+    N_PARAMS and PER_METHOD (default: the
     method). A step is one call of the step function: an epsilon iteration
     under RAIN."""
     import torch
@@ -1367,8 +1458,9 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     cfg = Config()
     cfg.method = method
     cfg = apply_recipe(cfg)
-    cfg.model.backbone = backbone
-    cfg.model.multilvl = method in ("slcl", "advent", "adaptseg")
+    if method not in EXTRA_METHODS:      # those build their own networks
+        cfg.model.backbone = backbone
+        cfg.model.multilvl = method in ("slcl", "advent", "adaptseg")
     if stdmin:
         cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
     for k, v in (rain or {}).items():
@@ -1424,7 +1516,8 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
         each.append((time.perf_counter() - t3) * 1e3)
     each.sort()
     prof = profile_steps(trainer, batches, scheds, n=max(3, eps_iters))
-    return {"method": method, "backbone": backbone, "stdmin": stdmin, "rain": rain,
+    net = (backbone if method not in EXTRA_METHODS else type(trainer.state.seg).__name__)
+    return {"method": method, "backbone": net, "stdmin": stdmin, "rain": rain,
             "eps_iters": eps_iters, "step_ms": step_ms,
             "timed_steps": n_timed,
             "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
@@ -1442,17 +1535,25 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
 
 
 def _same_state(a, b) -> None:
-    """Raise unless two trainers hold bit-identical networks, centres, step."""
+    """Raise unless two trainers hold bit-identical networks, optimizers,
+    centres and step."""
     import torch
-    for net in ("seg", "d_main", "d_aux"):
+    from slcl_torch.train.trainer import _NETS, _OPTS
+    for net in _NETS + _OPTS:
         if getattr(a.state, net) is None:
             continue
         sa, sb = getattr(a.state, net).state_dict(), getattr(b.state, net).state_dict()
+        if net.startswith("opt_"):
+            sa = {f"{i}.{k}": v for i, st in sa["state"].items() for k, v in st.items()}
+            sb = {f"{i}.{k}": v for i, st in sb["state"].items() for k, v in st.items()}
         bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
         if bad:
             raise AssertionError(f"restore: {net} differs in {bad[:4]}")
-    if not torch.equal(a.state.centroids, b.state.centroids) or a.state.step != b.state.step:
-        raise AssertionError("restore: centres or step differ")
+    if a.state.centroids is not None and not torch.equal(a.state.centroids,
+                                                         b.state.centroids):
+        raise AssertionError("restore: centres differ")
+    if a.state.step != b.state.step:
+        raise AssertionError("restore: step differs")
 
 
 def resumed_step_diff(args, method: str) -> float:
@@ -1646,6 +1747,56 @@ def protocol_rain(work: Path) -> dict:
             "exported": {p: str(Path(f).name) for p, f in files.items()},
             "npz_layers": {p: len(np.load(f, allow_pickle=True)["params"].item())
                            for p, f in files.items()}}
+
+
+def protocol_extra(work: Path) -> dict:
+    """Phase 5, DDFSeg / AdaptEvery / BCL through the training CLI at full
+    width on the synthetic set: ``bcl`` two epochs with
+    ``run.bcl_round_epochs=1`` (a pseudo-label round at the start of each),
+    ``ddfseg`` and ``adaptevery`` one epoch each, each with its final test
+    (Dice / HD95 / ASSD finite on both domains) and no port kernel launched;
+    then DDFSeg's last checkpoint restored and continued against the
+    uninterrupted run (the three discriminators, every optimizer and the
+    dropout draw included)."""
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train import __main__ as train_cli
+
+    t0 = time.perf_counter()
+    base = ["data.dataset=synthetic", "data.gap=0.5", "run.eval_frequency=1",
+            f"run.out_dir={work / 'extra'}"]
+    runs = {"bcl": ["method=bcl", *base, "run.bcl_round_epochs=1", "optim.epochs=2"],
+            "ddfseg": ["method=ddfseg", *base, "optim.epochs=1"],
+            "adaptevery": ["method=adaptevery", *base, "optim.epochs=1"]}
+    out = {}
+    for method, args in runs.items():
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        run = train_cli.main(args)
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"protocol {method}: port kernels launched {counts}")
+        for split in ("test", "test_s"):
+            vals = [v for k in ("dc", "hd", "asd") for v in run[split][k]]
+            if len(vals) != 18 or not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"protocol {method}: {split} metrics {run[split]}")
+        for r in run["history"]:
+            bad = {k: v for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"protocol {method}: non-finite {bad}")
+        out[method] = {"seconds": time.perf_counter() - t1,
+                       "val_dice": [r["val_dice"] for r in run["history"]],
+                       "epoch_s": [r["epoch_time_s"] for r in run["history"]],
+                       "test_dice_hd95_assd": [run["test"][k][0::2]
+                                               for k in ("dc", "hd", "asd")]}
+        if method == "bcl":
+            # a round at the start of each epoch, each leaving some labels
+            kept = [r.get("plabel_kept") for r in run["history"]]
+            if len(kept) != 2 or not all(k is not None and 0.0 < k <= 1.0 for k in kept):
+                raise AssertionError(f"protocol bcl: pseudo-label rounds {kept}")
+            out[method]["plabel_kept"] = kept
+    out["ddfseg"]["resume_max_param_diff"] = resumed_step_diff(runs["ddfseg"], "ddfseg")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # phase 6's trees: patients that the fold-0 / split-0 tables put where each
@@ -1922,6 +2073,7 @@ def main() -> int:
         log("std-free centroid kernels: outputs bit-identical to commit 98d6b0e's")
         small = check_small_steps()
         small_rain = check_small_rain_steps()
+        small_extra = check_small_extra_steps()
         (ROOT / "runs").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "runs"))
         try:
@@ -1939,8 +2091,12 @@ def main() -> int:
             backbones = {name: train_full_width(work, method, n_timed=n, backbone=bb,
                                                 name=name)
                          for name, method, bb, n in BACKBONE_CELLS}
+            # DDFSeg, AdaptEvery and BCL (after one pseudo-label round)
+            extra_cells = {m: train_full_width(work, m, n_timed=n, name=m)
+                           for m, n in EXTRA_CELLS}
             protocol = protocol_full_width(work)
             protocol["rain"] = protocol_rain(work)
+            extra_protocol = protocol_extra(work)
             real = train_real(work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -1972,6 +2128,9 @@ def main() -> int:
                                    for run in ("slcl_mmwhs_raw", "mccl_mscmrseg")},
                  "launches_backbones": {cell: backbones[cell]["launches"][kname]
                                         for cell in backbones},
+                 # DDFSeg, AdaptEvery, BCL: none on their paths
+                 "launches_extra": {cell: extra_cells[cell]["launches"][kname]
+                                    for cell in extra_cells},
                  # phase 3's two UNet steps at F = 64 (the 64-wide instantiations)
                  "launches_small_f64": small["unet slcl F=64"]["launches"][kname],
                  "max_abs_err": rec["max_abs_err"],
@@ -2018,6 +2177,8 @@ def main() -> int:
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"train_real": real}))
     print(json.dumps({"train_backbones": {"cells": backbones, "small_steps": small}}))
+    print(json.dumps({"train_extra": {"cells": extra_cells, "small_steps": small_extra,
+                                      "protocol": extra_protocol}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

@@ -6,8 +6,9 @@ views of that memory (free ``permute``s), as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +55,18 @@ def normal_conv_init_(conv: nn.Conv2d, generator: Optional[torch.Generator] = No
             conv.bias.zero_()
 
 
+def trunc_normal_init_(module: nn.Module, std: float,
+                       generator: Optional[torch.Generator] = None):
+    """flax ``truncated_normal(std)`` kernel, zero bias: N(0, std^2) cut at
+    +-2 std, not rescaled (``torch.nn.init.trunc_normal_``'s default bounds
+    are absolute, so they are given here)."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        if module.bias is not None:
+            module.bias.zero_()
+
+
 def conv2d(in_ch: int, out_ch: int, kernel: int = 3, *, dilation: int = 1,
            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
     """Stride-1 Conv2d with 'same' symmetric padding and the flax init."""
@@ -72,7 +85,11 @@ class BatchNorm(nn.Module):
     variance, as flax does. ``F.batch_norm`` updates the running variance
     with the unbiased one; with n reduced elements its result r relates to
     flax's by ``flax = r * (n-1)/n + 0.9 * old / n``, applied in place on
-    the (C,) buffer after the call, so the activations take one pass."""
+    the (C,) buffer after the call, so the activations take one pass. At
+    one value per channel (n = 1), where ``F.batch_norm`` raises, flax's own
+    formula runs: the output is the bias, the batch variance 0. With
+    ``track`` False (:func:`running_stats_frozen`) train mode normalises
+    with the batch statistics and leaves the running ones as they are."""
 
     momentum = 0.9      # flax convention: the weight of the old value
     eps = 1e-5
@@ -83,6 +100,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.track = True
 
     def affine(self):
         return self.weight, self.bias
@@ -93,6 +111,10 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
         n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._flax_train(x, weight, bias)
+        if not self.track:
+            return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
         # F.batch_norm updates the copies in place and autograd keeps them,
         # so the buffers themselves are written only after the call
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -102,6 +124,37 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.momentum / n).add_(var, alpha=(n - 1) / n)
             self.running_mean.copy_(mean)
         return y
+
+    def _flax_train(self, x, weight, bias):
+        """flax's train-mode arithmetic: E[x^2] - E[x]^2 clipped at 0."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.to(weight.dtype)
+        mean = xf.mean(dims, keepdim=True)
+        var = ((xf * xf).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * weight.view(shape) + bias.view(shape)
+        if self.track:
+            with torch.no_grad():
+                a = self.momentum
+                self.running_mean.mul_(a).add_(mean.reshape(-1), alpha=1.0 - a)
+                self.running_var.mul_(a).add_(var.reshape(-1), alpha=1.0 - a)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within the block, every :class:`BatchNorm` of ``module`` normalises
+    with batch statistics in train mode and keeps its running ones (the JAX
+    steps that drop a ``mutable=['batch_stats']`` result)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.track for m in norms]
+    for m in norms:
+        m.track = False
+    try:
+        yield
+    finally:
+        for m, t in zip(norms, before):
+            m.track = t
 
 
 class FrozenBatchNorm(BatchNorm):
@@ -171,3 +224,69 @@ def upsample_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``size`` with
     ``align_corners=True``, the reference ``nn.Upsample`` (DRUNet.py:156)."""
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+
+
+# ---------------------------------------------------------------------------
+# Dropout with masks keyed by (module path, call within a pass)
+# ---------------------------------------------------------------------------
+# (path, call, shape, keep probability, device) -> bool mask of ``shape``
+DrawMask = Callable[[str, int, Tuple[int, ...], float, torch.device], torch.Tensor]
+_PASSES: List["_Pass"] = []
+
+
+class _Pass:
+    def __init__(self, draw: DrawMask):
+        self.draw = draw
+        self.calls: Dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def dropout_pass(draw: DrawMask):
+    """One pass of a network (a flax ``apply``): each :class:`Dropout` in
+    train mode takes its mask from ``draw(path, call, shape, keep, device)``,
+    ``call`` counting that module's calls since the pass began. Two passes
+    with the same ``draw`` so drop alike, as two ``apply`` calls with one
+    dropout key do in flax."""
+    _PASSES.append(_Pass(draw))
+    try:
+        yield
+    finally:
+        _PASSES.pop()
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode ``where(mask, x / keep, 0)`` with
+    ``mask`` true at probability ``keep = 1 - rate``. The mask has the JAX
+    package's layout (NHWC for a 4-d NCHW input) and comes from the active
+    :func:`dropout_pass`, keyed by ``path``, the module's flax path below the
+    network that :func:`name_dropouts` named (``'encoders/_ResBlock_0/
+    Dropout_1'``); in train mode outside a pass it raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.path = ""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = tuple(nhwc(x).shape) if x.dim() == 4 else tuple(x.shape)
+        if not _PASSES:
+            raise RuntimeError(f"Dropout {self.path!r} in train mode outside a "
+                               "dropout_pass: its mask would have no key")
+        p = _PASSES[-1]
+        call = p.calls.get(self.path, 0)
+        p.calls[self.path] = call + 1
+        mask = p.draw(self.path, call, shape, keep, x.device)
+        if x.dim() == 4:
+            mask = nchw(mask)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def name_dropouts(root: nn.Module) -> None:
+    """Set each :class:`Dropout`'s ``path``: its name below ``root`` in
+    flax's form (``/`` between modules)."""
+    for name, m in root.named_modules():
+        if isinstance(m, Dropout):
+            m.path = name.replace(".", "/")

@@ -12,6 +12,12 @@ upsampled to the input with ``align_corners=True``; ``dcdr_ft`` is layer
 4's 2048 channels at 1/8 of the input. 42,942,560 parameters with the aux
 head.
 
+``BCLDeepLab`` (BCL's ResNetPair5, reference BCL_DeeplabV2.py:100-177) is the
+same trunk at stage width ``base`` with one ASPP head ``layer5`` that also
+returns its four branches concatenated (4 C channels at 1/8: the space of
+BCL's prototypes); ``pair`` adds a target-domain stem (``target_conv1``,
+``target_bn1``, ``target_layer1_*``) chosen by ``source=False``.
+
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
 memory.
 """
@@ -77,6 +83,64 @@ class _ASPP(nn.Module):
         for i in range(1, self.n):
             out = out + getattr(self, f"aspp{i}")(x)
         return out
+
+
+class _ASPPWithFeature(_ASPP):
+    """The ASPP sum and the concatenation of its branches (BCL_DeeplabV2.py:86-97)."""
+
+    def forward(self, x):
+        feats = [getattr(self, f"aspp{i}")(x) for i in range(self.n)]
+        out = feats[0]
+        for y in feats[1:]:
+            out = out + y
+        return out, torch.cat(feats, dim=1)
+
+
+class BCLDeepLab(nn.Module):
+    """``slcl_tpu/models/deeplabv2.py::BCLDeepLab``: ``forward(x, source)`` ->
+    (logits upsampled to the input with ``align_corners=True``, the 4 C
+    ASPP features at 1/8), NHWC."""
+
+    def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3),
+                 pair: bool = False, base: int = 64, in_channels: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.layers = tuple(layers)
+        self.pair = pair
+        b = base
+        prefixes = ("", "target_") if pair else ("",)
+        for pre in prefixes:
+            self.add_module(f"{pre}conv1", _conv(in_channels, b, 7, 2, generator=g))
+            self.add_module(f"{pre}bn1", FrozenBatchNorm(b))
+            self._add_stage(f"{pre}layer1", b, b, self.layers[0], 1, 1, g)
+        prev = b * 4
+        for li, (stride, dil) in zip((2, 3, 4), ((2, 1), (1, 2), (1, 4))):
+            planes = b * 2 ** (li - 1)
+            self._add_stage(f"layer{li}", prev, planes, self.layers[li - 1], stride, dil, g)
+            prev = planes * 4
+        self.layer5 = _ASPPWithFeature(prev, num_classes, generator=g)
+
+    def _add_stage(self, name, in_ch, planes, blocks, stride, dilation, g):
+        for i in range(blocks):
+            self.add_module(f"{name}_{i}", _Bottleneck(
+                in_ch if i == 0 else planes * 4, planes, stride if i == 0 else 1,
+                dilation, downsample=i == 0, generator=g))
+
+    def _stage(self, x, name: str, blocks: int):
+        for i in range(blocks):
+            x = getattr(self, f"{name}_{i}")(x)
+        return x
+
+    def forward(self, x: torch.Tensor, source: bool = True):
+        in_size = x.shape[1:3]
+        pre = "" if (source or not self.pair) else "target_"
+        x = F.relu(getattr(self, f"{pre}bn1")(getattr(self, f"{pre}conv1")(nchw(x))))
+        x = self._stage(stem_pool(x, ceil=True), f"{pre}layer1", self.layers[0])
+        for li in (2, 3, 4):
+            x = self._stage(x, f"layer{li}", self.layers[li - 1])
+        pred, feature = self.layer5(x)
+        return nhwc(upsample_bilinear(pred, in_size)), nhwc(feature)
 
 
 class DeepLabV2(nn.Module):

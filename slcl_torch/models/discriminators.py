@@ -1,7 +1,7 @@
-"""Entropy-map discriminator (counterpart of
-``slcl_tpu/models/discriminators.py::UncertaintyDiscriminator``).
+"""Discriminators (counterparts of ``slcl_tpu/models/discriminators.py``):
+the entropy-map ``UncertaintyDiscriminator`` and DDFSeg's ``PatchGAN``.
 
-Returns raw logits (BCE-with-logits is applied in the loss). Input and
+Each returns raw logits (BCE-with-logits is applied in the loss). Input and
 output are NHWC.
 """
 from __future__ import annotations
@@ -34,9 +34,67 @@ class UncertaintyDiscriminator(nn.Module):
         self.n_convs = len(widths)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = nchw(x)
+        x = nchw(x).to(self.conv1.weight.dtype)     # flax's x.astype(dtype)
         for i in range(self.n_convs):
             x = getattr(self, f"conv{i + 1}")(x)
             if i < self.n_convs - 1:
                 x = F.leaky_relu(x, 0.2)
         return nhwc(x)
+
+
+class PatchGAN(nn.Module):
+    """DDFSeg's InstanceNorm PatchGAN (reference GAN.py:213-295): C64(s2) -
+    C128(s2)+IN - C256(s2)+IN - C512(s1)+IN - C1(s1), 4x4 kernels with
+    padding 1, LeakyReLU(0.2), N(0, 0.02) kernels and zero biases. The
+    instance norms have no scale or bias and flax's default epsilon 1e-6.
+    ``aux`` adds a second head on the last features: (out, out_aux).
+    Submodule names are flax's (``c0``, ``c{n}``/``in{n}``, ``c_last``,
+    ``in_last``, ``head``, ``head_aux``). An input too small for the head
+    to keep a pixel raises ``ValueError``."""
+
+    def __init__(self, in_channels: int = 1, ndf: int = 64, n_layers: int = 3,
+                 aux: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_layers = n_layers
+        self.aux = aux
+
+        def conv(i, o, stride):
+            c = nn.Conv2d(i, o, 4, stride=stride, padding=1)
+            normal_conv_init_(c, generator)
+            return c
+
+        self.c0 = conv(in_channels, ndf, 2)
+        prev = ndf
+        for n in range(1, n_layers):
+            mult = min(2 ** n, 8)
+            self.add_module(f"c{n}", conv(prev, ndf * mult, 2))
+            self.add_module(f"in{n}", nn.GroupNorm(ndf * mult, ndf * mult, eps=1e-6,
+                                                   affine=False))
+            prev = ndf * mult
+        mult = min(2 ** n_layers, 8)
+        self.c_last = conv(prev, ndf * mult, 1)
+        self.in_last = nn.GroupNorm(ndf * mult, ndf * mult, eps=1e-6, affine=False)
+        self.head = conv(ndf * mult, 1, 1)
+        if aux:
+            self.head_aux = conv(ndf * mult, 1, 1)
+
+    def _head_size(self, size: int) -> int:
+        """The head's output side for an input side ``size``."""
+        for _ in range(self.n_layers):
+            size = (size - 2) // 2 + 1
+        return size - 2
+
+    def forward(self, x: torch.Tensor):
+        h, w = x.shape[1:3]
+        if self._head_size(h) <= 0 or self._head_size(w) <= 0:
+            # the patch map would be empty and every mean over it NaN
+            raise ValueError(f"PatchGAN input too small: {h}x{w} leaves the head "
+                             f"{self._head_size(h)}x{self._head_size(w)}")
+        x = F.leaky_relu(self.c0(nchw(x).to(self.c0.weight.dtype)), 0.2)
+        for n in range(1, self.n_layers):
+            x = F.leaky_relu(getattr(self, f"in{n}")(getattr(self, f"c{n}")(x)), 0.2)
+        x = F.leaky_relu(self.in_last(self.c_last(x)), 0.2)
+        out = nhwc(self.head(x))
+        if self.aux:
+            return out, nhwc(self.head_aux(x))
+        return out

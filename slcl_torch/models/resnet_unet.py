@@ -11,11 +11,16 @@ the half-resolution 32-channel stage, bilinearly upsampled with
 is not 16) and ``phead1/2``. ``layers`` and ``base`` shrink the encoder
 (64 is reference-exact).
 
+``ResNetUNetPoint`` (AdaptEvery's segmentor) adds a point-cloud head on the
+bottleneck: ``point_conv`` (3x3, stride 2), ReLU, global average pool,
+``point_fc1`` (8 base), ReLU, ``point_fc2`` -> (N, n_points, 3).
+
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
 memory.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -136,3 +141,34 @@ class ResNetUNet(nn.Module):
             dcdr_ft = self.phead2(F.relu(self.phead1(dcdr_ft)))
         return SegOutput(pred=nhwc(pred), aux=None if aux is None else nhwc(aux),
                          dcdr_ft=nhwc(dcdr_ft), bottleneck=nhwc(l4))
+
+
+class ResNetUNetPoint(nn.Module):
+    """``slcl_tpu/models/resnet_unet.py::ResNetUNetPoint``: the U-Net as
+    ``unet`` and a vertex regression head on its bottleneck; returns
+    (SegOutput, vertices (N, n_points, 3))."""
+
+    def __init__(self, num_classes: int = 4, n_points: int = 300, multilvl: bool = True,
+                 layers: Sequence[int] = (3, 4, 6, 3), base: int = 64,
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 in_channels: int = 3, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.n_points = n_points
+        self.unet = ResNetUNet(num_classes, layers, decoder_channels, multilvl=multilvl,
+                               base=base, in_channels=in_channels, generator=g)
+        self.point_conv = nn.Conv2d(base * 32, base * 4, 3, stride=2, padding=1)
+        torch_conv_init_(self.point_conv, g)
+        self.point_fc1 = nn.Linear(base * 4, base * 8)
+        self.point_fc2 = nn.Linear(base * 8, n_points * 3)
+        for fc in (self.point_fc1, self.point_fc2):
+            bound = 1.0 / math.sqrt(fc.in_features)
+            with torch.no_grad():
+                nn.init.uniform_(fc.weight, -bound, bound, generator=g)
+                fc.bias.zero_()
+
+    def forward(self, x: torch.Tensor):
+        out = self.unet(x)
+        h = F.relu(self.point_conv(nchw(out.bottleneck))).mean(dim=(2, 3))
+        v = self.point_fc2(F.relu(self.point_fc1(h)))
+        return out, v.reshape(-1, self.n_points, 3)

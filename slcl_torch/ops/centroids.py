@@ -1,4 +1,4 @@
-"""Class-centroid / pseudo-label engine, main-path subset.
+"""Class-centroid / pseudo-label engine.
 
 Counterpart of ``slcl_tpu/ops/centroids.py``: EMA source class centres
 (``update_class_center_iter`` for MPSCL/SLCL, ``source_centroids`` for
@@ -6,12 +6,16 @@ MCCL), cosine pseudo-labels, and soft (or hard) target centroids, with
 their per-class stddevs on request, given the partition assignment as an
 input. The pseudo-labels and the target
 centroids go to CUDA kernels for CUDA tensors and to their plain versions
-for CPU tensors. All reductions accumulate in float32.
+for CPU tensors. All reductions accumulate in float32. BCL's per-round
+pseudo-labels: class-balanced thresholds (``gene_thres``, numpy on the
+host), ``thres_cb_plabel``, ``gene_plabel_prop``, ``mask_fusion`` and
+``pseudo_label_accuracy``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -107,3 +111,58 @@ def target_soft_centroids(decoder_ft: torch.Tensor, soft_label: torch.Tensor, *,
     return CentroidResult(*soft_centroids(feats.contiguous(), probs.contiguous(), assign,
                                           partition=partition, threshold=threshold,
                                           weighted=weighted_ave, with_std=with_std))
+
+
+# ---------------------------------------------------------------------------
+# BCL pseudo-labels (reference utils_.py:1179-1296, Trainer_BCL.py:165-220)
+# ---------------------------------------------------------------------------
+def thres_cb_plabel(probs: torch.Tensor, thresholds: torch.Tensor,
+                    num_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-balanced pseudo-labels from NHWC softmax ``probs`` and (C,)
+    thresholds: the argmax where its probability reaches its class's
+    threshold, else 255; returns (plabel NHW int64, mask NHW float32)."""
+    conf, pred = probs.max(dim=-1)
+    th = torch.as_tensor(thresholds, dtype=torch.float32, device=probs.device)[pred]
+    mask = conf.float() >= th
+    return torch.where(mask, pred, torch.full_like(pred, 255)), mask.float()
+
+
+def gene_plabel_prop(probs: torch.Tensor, prop: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each image's most confident ``prop`` fraction of pixels keeps its
+    argmax (ties at the k-th value kept too), 255 elsewhere; probs NHWC."""
+    conf, pred = probs.max(dim=-1)
+    flat = conf.reshape(conf.shape[0], -1)
+    k = max(int(prop * flat.shape[1]), 1)
+    kth = flat.topk(k, dim=1).values[:, -1:]
+    mask = (flat >= kth).reshape(conf.shape)
+    return torch.where(mask, pred, torch.full_like(pred, 255)), mask.float()
+
+
+def mask_fusion(plabel_a: torch.Tensor, plabel_b: torch.Tensor) -> torch.Tensor:
+    """Agreement of two pseudo-label maps, 255 where they differ."""
+    return torch.where(plabel_a == plabel_b, plabel_a, torch.full_like(plabel_a, 255))
+
+
+def pseudo_label_accuracy(plabel: torch.Tensor, label: torch.Tensor,
+                          ignore: int = 255) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(accuracy over the non-ignored pixels, their share of all pixels)."""
+    valid = plabel != ignore
+    correct = valid & (plabel == label)
+    return (correct.sum() / torch.clamp(valid.sum(), min=1),
+            valid.float().mean())
+
+
+def gene_thres(probs_flat, labels_flat, prop: float, num_classes: int) -> np.ndarray:
+    """Per-class thresholds on the host (numpy): for each class, the linear
+    ``1 - prop`` quantile of the max-probabilities of the pixels predicted as
+    it, capped at 0.999; 1.0 for a class no pixel predicts. (C,) float32."""
+    probs_flat = np.asarray(probs_flat)
+    labels_flat = np.asarray(labels_flat)
+    th = np.zeros((num_classes,), np.float32)
+    for k in range(num_classes):
+        vals = probs_flat[labels_flat == k]
+        if vals.size == 0:
+            th[k] = 1.0
+        else:
+            th[k] = min(float(np.quantile(vals, max(0.0, 1.0 - prop))), 0.999)
+    return th

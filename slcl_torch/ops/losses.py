@@ -1,4 +1,4 @@
-"""Segmentation / adversarial / contrastive losses, main-path subset.
+"""Segmentation / adversarial / contrastive / BCL / Chamfer losses.
 
 Counterpart of ``slcl_tpu/ops/losses.py``: logits and features NHWC, labels
 NHW, class centres (C, F); every loss accumulates in float32 whatever the
@@ -34,6 +34,17 @@ def jaccard_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = _EPS) 
     intersection = (probs * onehot).sum(dim=dims)
     union = (probs + onehot).sum(dim=dims) - intersection
     return 1.0 - (intersection / (union + eps)).mean()
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = 255) -> torch.Tensor:
+    """Mean CE over the pixels whose label is not ``ignore_index`` (BCL's
+    pseudo-label CE); 0 when every pixel is ignored. logits NHWC, labels NHW."""
+    valid = (labels != ignore_index).float()
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None].long())[..., 0]
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 def loss_calc(logits: torch.Tensor, labels: torch.Tensor, jaccard: bool = False) -> torch.Tensor:
@@ -91,6 +102,59 @@ def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
     """Mean binary cross entropy with logits against a constant target."""
     x = logits.float()
     return (torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference, in float32."""
+    return ((a.float() - b.float()) ** 2).mean()
+
+
+def bcl_entropy_loss(logits: torch.Tensor) -> torch.Tensor:
+    """BCL's per-pixel entropy map (NHW) from NHWC logits: the softmax p,
+    then ``-sum p * log_softmax(p)`` -- the log-softmax *of the
+    probabilities*, as the reference (utils/loss.py:121-130) has it."""
+    p = torch.softmax(logits.float(), dim=-1)
+    return -(p * F.log_softmax(p, dim=-1)).sum(dim=-1)
+
+
+def bcl_prototype_similarity(feature: torch.Tensor, label_small: torch.Tensor,
+                             feature2: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(C, h, w): the class prototypes of ``feature`` (h, w, F) under
+    ``label_small`` (h, w; 255 ignored; an absent class has a zero
+    prototype), unit rows, against ``feature2``'s pixels, each feature
+    column normalised over the *pixels* (axis 0, as the reference's
+    cosine_similarity_BCL does); exact-zero cosines become -1, then x10."""
+    h, w, f = feature.shape
+    lab = label_small.reshape(-1).long()
+    feat = feature.float().reshape(-1, f)
+    onehot = F.one_hot(torch.where(lab == 255, torch.full_like(lab, num_classes), lab),
+                       num_classes + 1).float()[:, :num_classes]
+    counts = onehot.sum(dim=0)
+    protos = (onehot.T @ feat) / torch.clamp(counts[:, None], min=1.0)
+    protos = torch.where(counts[:, None] > 0, protos, torch.zeros_like(protos))
+    protos_n = protos / (torch.linalg.vector_norm(protos, dim=1, keepdim=True) + 1e-12)
+    feat2 = feature2.float().reshape(-1, f)
+    feat2_n = feat2 / (torch.linalg.vector_norm(feat2, dim=0, keepdim=True) + 1e-12)
+    cs = protos_n @ feat2_n.T
+    cs = torch.where(cs == 0, torch.full_like(cs, -1.0), cs)
+    return (cs * 10.0).reshape(num_classes, h, w)
+
+
+def batch_pairwise_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances (B, N, M) between point sets (B, N, D) and (B, M, D),
+    ``|x|^2 + |y|^2 - 2 x.y`` clipped at 0 (reference utils/loss.py:608-620)."""
+    x, y = x.float(), y.float()
+    xx = (x * x).sum(dim=-1)[:, :, None]
+    yy = (y * y).sum(dim=-1)[:, None, :]
+    zz = torch.einsum("bnd,bmd->bnm", x, y)
+    return torch.clamp(xx + yy - 2.0 * zz, min=0.0)
+
+
+def chamfer_loss(x: torch.Tensor, y: torch.Tensor, smooth: float = 1e-7) -> torch.Tensor:
+    """Symmetric nearest-neighbour (Chamfer) loss of two point sets, the
+    distances ``sqrt(d^2 + smooth)`` (reference ``batch_NN_loss``)."""
+    d = torch.sqrt(batch_pairwise_dist(x, y) + smooth)
+    return d.min(dim=2).values.mean(dim=1).mean() + d.min(dim=1).values.mean(dim=1).mean()
 
 
 def _safe_norm(x: torch.Tensor, dim: int = 1, tiny: float = 1e-12) -> torch.Tensor:

@@ -14,8 +14,16 @@ Usage:
   python -m slcl_torch.train method=adaptseg model.backbone=deeplabv2 \\
       model.multilvl=true model.pretrained=true \\
       model.pretrained_ckpt=/weights/resnet101.pth data.dataset=synthetic
+  python -m slcl_torch.train method=ddfseg data.dataset=mscmrseg \\
+      data.data_dir=/data/mscmrseg
+  python -m slcl_torch.train method=adaptevery data.dataset=mmwhs \\
+      data.raw=false data.data_dir=/data/mmwhs_png
+  python -m slcl_torch.train method=bcl data.dataset=synthetic \\
+      run.bcl_round_epochs=10
 
-``method`` is one of baseline, adaptseg, advent, mpscl, slcl and mccl;
+``method`` is one of baseline, adaptseg, advent, mpscl, slcl, mccl, rain,
+pretrain_rain, ddfseg, adaptevery and bcl (the last three build their own
+networks and ignore ``model.backbone``);
 ``model.backbone`` one of drunet (default), unet, deeplabv2 (alias
 resnet101) and resnet50 (alias resnet50_unet). The contrastive methods
 need ``model.filters`` equal to the backbone's feature width (UNet's 64;

@@ -7,7 +7,9 @@ the seed and the step fix every random draw a step makes (MCCL's rMC
 partition, RAIN's noise), so the checkpoint carries no generator state.
 With RAIN (``rain.enabled``, ``method=rain``) the state also holds the
 frozen style net (``extra["rain"]`` in JAX's state: no gradient, in no
-optimizer) and the carried epsilon ``sampling``.
+optimizer) and the carried epsilon ``sampling``. The discriminators that
+JAX keeps in ``extra`` have fields of their own, each with its Adam:
+``d_seg`` (DDFSeg), ``d_ent`` and ``d_point`` (AdaptEvery).
 """
 from __future__ import annotations
 
@@ -31,6 +33,12 @@ class TrainState:
     seed: int = 0                              # run.seed: the steps' draws
     rain: Optional[nn.Module] = None           # the frozen RAIN net
     sampling: Optional[torch.Tensor] = None    # (n_sty, 512) float32
+    d_seg: Optional[nn.Module] = None          # DDFSeg's prediction PatchGAN
+    opt_d_seg: Optional[torch.optim.Optimizer] = None
+    d_ent: Optional[nn.Module] = None          # AdaptEvery's entropy-map D
+    opt_d_ent: Optional[torch.optim.Optimizer] = None
+    d_point: Optional[nn.Module] = None        # AdaptEvery's PointNet D
+    opt_d_point: Optional[torch.optim.Optimizer] = None
 
 
 # top-level submodules trained at 10x the base LR on the DeepLab backbones:

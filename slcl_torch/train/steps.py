@@ -1,12 +1,12 @@
 """Per-method train steps: baseline, AdaptSeg, AdvEnt, SLCL (MPSCL path)
 and MCCL (with RAIN); ``rain`` and ``pretrain_rain`` are in
-:mod:`.steps_rain`.
+:mod:`.steps_rain`, ``ddfseg``, ``adaptevery`` and ``bcl`` in
+:mod:`.steps_extra`.
 
 Counterpart of ``slcl_tpu/train/steps.py`` ``clip_step_norm``,
 ``make_baseline_step``, ``_gan_step``, ``make_adaptseg_step``,
 ``make_advent_step``, ``make_mpscl_step``, ``make_mccl_step`` and
-``build_step`` for ``method`` in ``baseline``/``adaptseg``/``advent``/
-``mpscl``/``slcl``/``mccl``/``rain``/``pretrain_rain``.
+``build_step`` for every ``method`` of the JAX package.
 ``step(state, batch, sched) -> metrics`` updates ``state`` in place and
 returns 0-d float32 tensors on the device (no host sync); the trainer
 reduces them once per epoch.
@@ -70,19 +70,24 @@ def _d_input(logits: torch.Tensor, kind: str) -> torch.Tensor:
     return L.prob_2_entropy(probs)
 
 
-def _seg_update(state: TrainState, total: torch.Tensor, lr: float) -> None:
-    """One optimizer step of the segmentor on ``total``'s gradient. A
+def net_update(net, opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float) -> None:
+    """One optimizer step of ``net`` alone on ``loss``'s gradient. A
     parameter the loss does not reach (FrozenBatchNorm's affine, DRUNet's
     dead ``conv1_1``) gets a zero gradient, not none: the optimizer still
     applies its weight decay to it, as optax does to every leaf."""
-    params = [p for p in state.seg.parameters() if p.requires_grad]
-    state.opt_seg.zero_grad(set_to_none=True)
-    total.backward(inputs=params)
+    params = [p for p in net.parameters() if p.requires_grad]
+    opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    set_lr(state.opt_seg, lr)
-    state.opt_seg.step()
+    set_lr(opt, lr)
+    opt.step()
+
+
+def _seg_update(state: TrainState, total: torch.Tensor, lr: float) -> None:
+    """One optimizer step of the segmentor on ``total``'s gradient."""
+    net_update(state.seg, state.opt_seg, total, lr)
 
 
 def _d_update(disc, opt, lr: float, pred_s: torch.Tensor, pred_t: torch.Tensor,
@@ -492,9 +497,11 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
 
 
 def build_step(cfg, centroids_loaded: bool = False,
-               draw_assign: Optional[DrawAssign] = None, draw_noise=None) -> Callable:
-    """The step of ``cfg.method``; ``draw_assign`` and ``draw_noise`` replace
-    the rMC draw and RAIN's noise (tests share the JAX package's)."""
+               draw_assign: Optional[DrawAssign] = None, draw_noise=None,
+               draw_dropout=None) -> Callable:
+    """The step of ``cfg.method``; ``draw_assign``, ``draw_noise`` and
+    ``draw_dropout`` replace the rMC draw, RAIN's noise and the dropout
+    masks of DDFSeg and AdaptEvery (tests share the JAX package's)."""
     m = cfg.method
     if m == "baseline":
         return make_baseline_step(cfg)
@@ -513,6 +520,11 @@ def build_step(cfg, centroids_loaded: bool = False,
     if m == "pretrain_rain":
         from .steps_rain import make_pretrain_rain_step
         return make_pretrain_rain_step(cfg, draw_noise=draw_noise)
-    raise NotImplementedError(
-        f"method {m!r}: slcl_torch ports baseline, adaptseg, advent, mpscl, slcl, "
-        "mccl, rain and pretrain_rain only")
+    from . import steps_extra
+    if m == "ddfseg":
+        return steps_extra.make_ddfseg_step(cfg, draw_dropout=draw_dropout)
+    if m == "adaptevery":
+        return steps_extra.make_adaptevery_step(cfg, draw_dropout=draw_dropout)
+    if m == "bcl":
+        return steps_extra.make_bcl_step(cfg)
+    raise ValueError(f"unknown method {m!r}")

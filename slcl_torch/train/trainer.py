@@ -1,6 +1,7 @@
 """Training orchestration (counterpart of ``slcl_tpu/train/trainer.py``) for
-``method`` in ``baseline``/``adaptseg``/``advent``/``mpscl``/``slcl``/``mccl``/
-``rain``/``pretrain_rain``.
+every ``method`` of the JAX package: ``baseline``/``adaptseg``/``advent``/
+``mpscl``/``slcl``/``mccl``/``rain``/``pretrain_rain``/``ddfseg``/
+``adaptevery``/``bcl``.
 
 ``Trainer(cfg, device=None)`` builds the segmentor (``model.backbone``:
 DRUNet, UNet, DeepLabV2 or the ResNet-50 U-Net; with ``model.pretrained``
@@ -34,6 +35,17 @@ validation, keeps the checkpoint of the least summed loss, and exports
 ``rain_{encoder,decoder,fc_encoder,fc_decoder}.npz`` in the JAX layout.
 ``baseline`` on MMWHS also tests the other cross-validation fold.
 
+DDFSeg, AdaptEvery and BCL build their own networks (JAX trainer.py:306-
+484): DDFSeg a :class:`DDFSeg` (``cfg.ddfseg``; Adam at ``optim.lr``) and
+three PatchGANs, evaluated as SegDecoder(content_s(x)); AdaptEvery a
+:class:`ResNetUNetPoint` (``model.layers``/``model.base``;
+``optim.optimizer``), three entropy-map discriminators and a PointNet, its
+vertices dropped at evaluation (``data.vert`` is implied); BCL a
+:class:`BCLDeepLab` (plain SGD, no 10x group) whose pseudo-labels are
+renewed at the start of every epoch that ``run.bcl_round_epochs`` divides,
+a target image without one taking an all-255 map. Every discriminator
+takes Adam at ``optim.lr_dis`` with betas ``(adv.mmt1, adv.mmt)``.
+
 Config keys the port does not honour yet raise at construction:
 ``run.scan_steps`` other than 1, ``model.remat`` and ``run.profile_dir``.
 """
@@ -48,26 +60,36 @@ from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..config import Config, build_apdx
 from ..data import Loader, device_prefetch, prepare_datasets, zip_domains
 from ..eval.evaluator import Evaluator, mean_fg_dice
 from ..models import UncertaintyDiscriminator, build_segmentor
+from ..models.common import SegOutput
+from ..models.ddfseg import DDFSeg
+from ..models.deeplabv2 import BCLDeepLab
+from ..models.discriminators import PatchGAN
+from ..models.pointnet import PointNetCls
 from ..models.rain import LATENT, RAIN
+from ..models.resnet_unet import ResNetUNetPoint
+from ..ops.centroids import gene_thres
 from ..utils.convert import read_rain_component, save_tree_npz, state_dict_to_flax
 from ..utils.pretrained import load_pretrained_encoder
 from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
 from . import schedules
-from .state import create_pretrain_rain_state, create_train_state, rain_sampling_rows
+from .state import (TrainState, create_pretrain_rain_state, create_train_state,
+                    make_optimizer, rain_sampling_rows)
 from .steps import autocast, build_step
 
 _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
-           "pretrain_rain")
+           "pretrain_rain", "ddfseg", "adaptevery", "bcl")
 _ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
 _CONTRASTIVE = ("mpscl", "slcl", "mccl")
-_NETS = ("seg", "d_main", "d_aux", "rain")
-_OPTS = ("opt_seg", "opt_d_main", "opt_d_aux")
+_OWN_NETS = ("ddfseg", "adaptevery", "bcl")     # built by _build_<method>
+_NETS = ("seg", "d_main", "d_aux", "d_seg", "d_ent", "d_point", "rain")
+_OPTS = ("opt_seg", "opt_d_main", "opt_d_aux", "opt_d_seg", "opt_d_ent", "opt_d_point")
 # RAIN's component files: (the net's part, its config key)
 RAIN_PARTS = (("encoder", "vgg_ckpt"), ("decoder", "decoder_ckpt"),
               ("fc_encoder", "fc_encoder_ckpt"), ("fc_decoder", "fc_decoder_ckpt"))
@@ -147,6 +169,19 @@ def stylized_branch_triggers(history, first_epochs: int = 6,
     return out
 
 
+class SegView(nn.Module):
+    """The evaluator's view of a network whose forward does not return a
+    :class:`SegOutput`: ``fn(net, x)`` gives one."""
+
+    def __init__(self, net: nn.Module, fn):
+        super().__init__()
+        self.net = net
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> SegOutput:
+        return self.fn(self.net, x)
+
+
 class Trainer:
     def __init__(self, cfg: Config, datasets: Optional[Dict[str, Any]] = None,
                  device: DeviceLike = None):
@@ -162,6 +197,8 @@ class Trainer:
         # view (JAX trainer.py:89-90); before the datasets are built
         if cfg.method == "mccl":
             cfg.data.aug_counter = True
+        if cfg.method == "adaptevery":
+            cfg.data.vert = True        # the source vertices (JAX trainer.py:91)
         self.device = resolve_device(device)
         self.apdx = build_apdx(cfg)
         # created on first write: eval-only users (gen_class_centers,
@@ -178,6 +215,10 @@ class Trainer:
     def _build(self):
         cfg = self.cfg
         dev = self.device
+        if cfg.method in _OWN_NETS:
+            self.centroids_loaded = False
+            getattr(self, f"_build_{cfg.method}")()
+            return
         rain = None
         if cfg.rain.enabled or cfg.method in ("rain", "pretrain_rain"):
             rain = build_rain(cfg, self.device)
@@ -189,8 +230,7 @@ class Trainer:
             self.evaluator = None
             return
         gen = torch.Generator().manual_seed(cfg.run.seed)
-        fmt = torch.channels_last
-        seg = build_segmentor(cfg.model, generator=gen).to(dev, memory_format=fmt)
+        seg = self._on_device(build_segmentor(cfg.model, generator=gen))
         if cfg.method in _CONTRASTIVE and seg.feat_dim != cfg.model.filters:
             raise ValueError(
                 f"method {cfg.method!r} on backbone {cfg.model.backbone!r}: its decoder "
@@ -202,11 +242,11 @@ class Trainer:
             load_pretrained_encoder(seg, cfg.model.pretrained_ckpt, cfg.model.backbone)
         disc = disc_aux = None
         if cfg.method in _ADVERSARIAL:
-            disc = UncertaintyDiscriminator(cfg.model.num_classes, generator=gen).to(
-                dev, memory_format=fmt)
+            disc = self._on_device(UncertaintyDiscriminator(cfg.model.num_classes,
+                                                            generator=gen))
             if cfg.model.multilvl:
-                disc_aux = UncertaintyDiscriminator(cfg.model.num_classes,
-                                                    generator=gen).to(dev, memory_format=fmt)
+                disc_aux = self._on_device(UncertaintyDiscriminator(cfg.model.num_classes,
+                                                                    generator=gen))
         centroids = None
         self.centroids_loaded = False
         if cfg.method in ("mpscl", "slcl", "mccl"):
@@ -218,9 +258,107 @@ class Trainer:
             self.state.sampling = torch.zeros(rain_sampling_rows(cfg), LATENT,
                                               device=dev)
         self.step_fn = build_step(cfg, centroids_loaded=self.centroids_loaded)
-        self.evaluator = Evaluator(seg, dev, eval_bs=cfg.data.eval_bs, klc=cfg.run.klc,
-                                   num_classes=cfg.model.num_classes,
-                                   autocast=lambda: autocast(cfg.model.dtype, dev))
+        self.evaluator = self._evaluator(seg)
+
+    def _on_device(self, net: nn.Module) -> nn.Module:
+        return net.to(self.device, memory_format=torch.channels_last)
+
+    def _adam_d(self, net: nn.Module) -> torch.optim.Optimizer:
+        cfg = self.cfg
+        return make_optimizer("adam", net.parameters(), cfg.optim.lr_dis,
+                              betas=(cfg.adv.mmt1, cfg.adv.mmt))
+
+    def _evaluator(self, model: nn.Module) -> Evaluator:
+        cfg = self.cfg
+        return Evaluator(model, self.device, eval_bs=cfg.data.eval_bs, klc=cfg.run.klc,
+                         num_classes=cfg.model.num_classes,
+                         autocast=lambda: autocast(cfg.model.dtype, self.device))
+
+    def _build_ddfseg(self):
+        """DDFNet + SegDecoder and three PatchGANs (Trainer_DDFSeg:55-112)."""
+        cfg, d = self.cfg, self.cfg.ddfseg
+        gen = torch.Generator().manual_seed(cfg.run.seed)
+        seg = self._on_device(DDFSeg(cfg.model.num_classes, d.filters, d.style_filters,
+                                     d.ngf, d.slim, generator=gen))
+        d_t = self._on_device(PatchGAN(1, generator=gen))
+        d_s = self._on_device(PatchGAN(1, aux=True, generator=gen))
+        d_seg = self._on_device(PatchGAN(cfg.model.num_classes, generator=gen))
+        self.state = TrainState(
+            seg=seg, opt_seg=make_optimizer("adam", seg.parameters(), cfg.optim.lr),
+            d_main=d_t, opt_d_main=self._adam_d(d_t), d_aux=d_s,
+            opt_d_aux=self._adam_d(d_s), d_seg=d_seg, opt_d_seg=self._adam_d(d_seg),
+            seed=cfg.run.seed)
+        self.step_fn = build_step(cfg)
+        self.evaluator = self._evaluator(seg)
+
+    def _build_adaptevery(self):
+        """ResNetUNetPoint and four discriminators (Trainer_AdaptEvery:51-110);
+        ``model.base`` other than 64 scales the decoder too, as JAX does."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(cfg.run.seed)
+        base = cfg.model.base
+        kw = {} if base == 64 else {
+            "base": base, "decoder_channels": tuple(max(2, base * 4 >> i) for i in range(5))}
+        seg = self._on_device(ResNetUNetPoint(
+            cfg.model.num_classes, layers=tuple(cfg.model.layers) or (3, 4, 6, 3),
+            generator=gen, **kw))
+        d_main, d_aux, d_ent = (self._on_device(UncertaintyDiscriminator(
+            cfg.model.num_classes, base=base, generator=gen)) for _ in range(3))
+        d_point = PointNetCls(k=1, base=base, generator=gen).to(self.device)
+        self.state = TrainState(
+            seg=seg, opt_seg=make_optimizer(cfg.optim.optimizer, seg.parameters(),
+                                            cfg.optim.lr, momentum=cfg.optim.momentum,
+                                            weight_decay=cfg.optim.weight_decay),
+            d_main=d_main, opt_d_main=self._adam_d(d_main), d_aux=d_aux,
+            opt_d_aux=self._adam_d(d_aux), d_ent=d_ent, opt_d_ent=self._adam_d(d_ent),
+            d_point=d_point, opt_d_point=self._adam_d(d_point), seed=cfg.run.seed)
+        self.step_fn = build_step(cfg)
+        self.evaluator = self._evaluator(SegView(seg, lambda net, x: net(x)[0]))
+
+    def _build_bcl(self):
+        """BCLDeepLab with plain SGD (Trainer_BCL); pseudo-labels per round."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(cfg.run.seed)
+        seg = self._on_device(BCLDeepLab(
+            cfg.model.num_classes, layers=tuple(cfg.model.layers) or (3, 4, 23, 3),
+            base=cfg.model.base, generator=gen))
+        self.state = TrainState(
+            seg=seg, opt_seg=make_optimizer("sgd", seg.parameters(), cfg.optim.lr,
+                                            momentum=cfg.optim.momentum,
+                                            weight_decay=cfg.optim.weight_decay),
+            seed=cfg.run.seed)
+        self.step_fn = build_step(cfg)
+        self.bcl_plabels: Dict[str, np.ndarray] = {}
+
+        def view(net, x):
+            pred, feat = net(x, source=False)
+            return SegOutput(pred=pred, aux=None, dcdr_ft=feat)
+        self.evaluator = self._evaluator(SegView(seg, view))
+
+    def bcl_update_plabels(self, prop: float) -> float:
+        """The round's class-balanced pseudo-labels of every ``train_t`` image
+        (Trainer_BCL.gene_thres + save_pred, :102-220; JAX trainer.py:486-
+        517): the model in eval mode on the target stem, each pixel's max
+        probability and argmax gathered on the host, per-class thresholds by
+        :func:`gene_thres`, then the argmax where it reaches its class's
+        threshold, else 255. Returns the share of pixels that keep a label."""
+        cfg = self.cfg
+        loader = Loader(self.datasets["train_t"], cfg.data.eval_bs, shuffle=False,
+                        drop_last=False, num_threads=cfg.data.num_workers)
+        confs, preds, names = [], [], []
+        with self.evaluator.eval_mode():
+            for img, _lab, batch_names in loader:
+                with autocast(cfg.model.dtype, self.device):
+                    logits, _ = self.state.seg(self.evaluator.to_device(img), source=False)
+                conf, pred = torch.softmax(logits.float(), dim=-1).max(dim=-1)
+                confs.append(conf.cpu().numpy())
+                preds.append(pred.to(torch.uint8).cpu().numpy())
+                names.extend(batch_names)
+        conf, pred = np.concatenate(confs), np.concatenate(preds)
+        th = gene_thres(conf.ravel(), pred.ravel(), prop, cfg.model.num_classes)
+        plabels = np.where(conf >= th[pred], pred, 255).astype(np.int32)
+        self.bcl_plabels = dict(zip(names, plabels))
+        return float((plabels != 255).mean())
 
     def _initial_centroids(self) -> torch.Tensor:
         """The centre file when ``contrastive.init_centers`` names one (a
@@ -277,14 +415,25 @@ class Trainer:
             for batch in train_s:
                 yield {"img_s": batch[0], "lab_s": batch[1]}
             return
-        yield from zip_domains(train_s, train_t, aug_counter=cfg.data.aug_counter)
+        for batch in zip_domains(train_s, train_t, aug_counter=cfg.data.aug_counter):
+            if cfg.method == "bcl":
+                # the round's pseudo-labels; an image without one is ignored
+                blank = np.full(batch["img_t"].shape[1:3], 255, np.int32)
+                batch["plabel_t"] = np.stack([self.bcl_plabels.get(n, blank)
+                                              for n in batch["names_t"]])
+            yield batch
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; returns the mean of each metric (one host sync). Under
         RAIN's ascent each batch runs ``rain.eps_iters`` iterations after
         warmup, a fresh sampling on the first (Trainer_MCCL.py:189-192);
-        each counts in the mean."""
+        each counts in the mean. BCL renews its pseudo-labels first on a
+        round's epoch; ``plabel_kept`` is then the share of target pixels
+        that have one."""
         cfg = self.cfg
+        kept = None
+        if cfg.method == "bcl" and epoch % max(cfg.run.bcl_round_epochs, 1) == 0:
+            kept = self.bcl_update_plabels(cfg.run.bcl_prop)
         sched = self._sched(epoch)
         carried = {**sched, "fresh": 0.0}
         eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
@@ -297,10 +446,13 @@ class Trainer:
                 for k, v in metrics.items():
                     acc[k] = acc[k] + v if k in acc else v
                 n += 1
-        if not acc:
-            return {}
-        values = torch.stack(list(acc.values())).cpu().tolist()
-        return {k: v / n for k, v in zip(acc, values)}
+        out = {}
+        if acc:
+            values = torch.stack(list(acc.values())).cpu().tolist()
+            out = {k: v / n for k, v in zip(acc, values)}
+        if kept is not None:
+            out["plabel_kept"] = kept
+        return out
 
     def eval(self, split: str = "valid_t", toprint: bool = False, ifhd: bool = True,
              ifasd: bool = True, fast: bool = False) -> Dict[str, list]:

@@ -3,8 +3,10 @@
 Turns the JAX package's variables, given as nested dicts of numpy arrays
 (``params`` and optionally ``batch_stats``), into a ``state_dict`` for a
 port module whose submodule names are flax's (``DRUNet``, ``UNet``,
-``ResNetUNet``, ``DeepLabV2``, ``UncertaintyDiscriminator``). The layout
-rules are those of ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
+``ResNetUNet``, ``DeepLabV2``, ``UncertaintyDiscriminator``; DDFSeg's
+``DDFNet``/``SegDecoder``, ``PatchGAN``, ``PointNetCls``,
+``ResNetUNetPoint``, ``BCLDeepLab``). The layout rules are those of
+``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
 
   conv kernel (kH, kW, I, O)   -> weight (O, I, kH, kW)
   Dense kernel (I, O)          -> Linear weight (O, I)
@@ -12,7 +14,8 @@ rules are those of ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:
                                   in both spatial axes (flax's
                                   ConvTranspose does not flip its kernel,
                                   torch's ConvTranspose2d does)
-  BatchNorm params scale/bias  -> weight/bias (FrozenBatchNorm too)
+  BatchNorm / GroupNorm scale/bias -> weight/bias (FrozenBatchNorm too)
+  a scalar parameter (DDFSeg's attention ``gamma``) keeps its name
   batch_stats mean/var         -> running_mean/running_var
 
 It raises on any flax leaf it leaves unused, any module entry it leaves
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -122,7 +125,7 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, Dict[str, Any]]:
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     bn_paths = {name for name, m in module.named_modules()
-                if hasattr(m, "running_var")}
+                if hasattr(m, "running_var") or isinstance(m, nn.GroupNorm)}
     transposed = _transposed_paths(module)
     for key, t in module.state_dict().items():
         path, _, leaf = key.rpartition(".")

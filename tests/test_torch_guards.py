@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
         "        'slcl_torch.models.resnet_unet', 'slcl_torch.models.deeplabv2',\n"
         "        'slcl_torch.models.unet', 'slcl_torch.utils.pretrained',\n"
         "        'slcl_torch.models.rain', 'slcl_torch.train.steps_rain',\n"
-        "        'slcl_torch.scripts.stylize_samples'} <= set(mods)\n"
+        "        'slcl_torch.scripts.stylize_samples', 'slcl_torch.models.ddfseg',\n"
+        "        'slcl_torch.models.pointnet', 'slcl_torch.train.steps_extra'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -205,6 +206,30 @@ def test_config_keys_the_port_ignores_raise(tmp_path, key, value, raises):
             Trainer(cfg, device="cpu")
     else:
         Trainer(cfg, device="cpu")
+
+
+def test_adaptevery_on_the_raw_mmwhs_tree_raises(tmp_path):
+    """AdaptEvery needs the vertices of the PNG tree: on the raw NIfTI tree
+    (no ``vert{MOD}/`` files) the build raises, as the JAX package's does."""
+    from slcl_torch.train.trainer import Trainer
+    cfg = Config.from_cli(["method=adaptevery", "data.dataset=mmwhs", "data.raw=true",
+                           f"data.data_dir={ROOT / 'tests' / 'fixtures' / 'mini_mmwhs'}",
+                           f"run.out_dir={tmp_path}"])
+    with pytest.raises(ValueError, match="data.vert requires the preprocessed-PNG"):
+        Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("side,ok", [(16, False), (23, False), (24, True)])
+def test_patchgan_on_an_input_too_small_for_its_head_raises(side, ok):
+    """Below 24 px the PatchGAN's head keeps no pixel: it raises (JAX
+    asserts) rather than return an empty map whose mean is NaN."""
+    from slcl_torch.models.discriminators import PatchGAN
+    x = torch.zeros(1, side, side, 1)
+    if ok:
+        assert tuple(PatchGAN(1, aux=True)(x)[1].shape) == (1, 1, 1, 1)
+        return
+    with pytest.raises(ValueError, match="PatchGAN input too small"):
+        PatchGAN(1)(x)
 
 
 def _mmwhs_both_folds(tmp_path) -> Path:
