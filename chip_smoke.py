@@ -127,7 +127,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      loader in the loop, 20 steps back to back and 3 profiled, and the
      same for the synthetic ``slcl`` cell beside them; and heavy2's host
      path: the C++ SLIC built with g++, superpixels held to their
-     contract, a heavy2 Loader epoch timed.
+     contract, a heavy2 Loader epoch timed;
+  7. serve: phase 5's best ``slcl`` checkpoint exported through ``python
+     -m slcl_torch.scripts.export ... smoke=1`` (bf16, on the card) and
+     again with probabilities, and a full-width ResNet-50 U-Net from random
+     init with probabilities; a process without slcl_torch on its path
+     loads each artifact with ``torch.export.load`` and runs batch sizes
+     1, 5 and 16 of the synthetic test images: labels equal the live
+     evaluator's at >= 99.9% of pixels, probabilities within 2e-3; the
+     batch server (``python -m slcl_torch.serve``) on 57 of phase 6's
+     MS-CMRSeg PNGs at bs=16 (a ragged last batch); ``python -m
+     slcl_torch.scripts.predict`` on the same checkpoint, its Dice / HD95 /
+     ASSD within 1e-6 of ``Trainer.eval("test_t")``; images per second at
+     bs 1 and 16 through the artifact and the live model in turns, the
+     export times and the artifacts' sizes;
+  8. run utilities: ``model.remat`` off, ``full`` and ``dots`` on the
+     full-width ``slcl`` multilvl cell and on ``resnet50_slcl``, two steps
+     each from the same init and batches (parameters, BatchNorm buffers,
+     centres and metrics against the run without remat: rtol 1e-3 / atol
+     1e-5 on DRUNet, rtol 1e-2 on the ResNet, whose centre norms run away;
+     the six kernel launches of each step unchanged), then ten timed steps
+     and the peak memory of each mode; a two-epoch ``slcl`` run with
+     ``run.profile_dir`` whose Chrome trace must parse and name the kernels
+     of mpcl.cu, mpcl_pseudo.cu and soft_centroids.cu among its device
+     events; the offline tools' CLI (``python -m slcl_torch.data.preprocess
+     minmax-csv`` / ``nii-to-png-mmwhs``) on ``tests/fixtures/mini_mmwhs``
+     and one augmented batch each of the legacy bSSFP / LGE datasets on
+     ``tests/fixtures/mini_mscmrseg``, with no cv2, pandas or PIL imported.
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
@@ -136,19 +162,20 @@ for the std kernels) as one JSON line, the three step cells' timing, the
 protocol, the RAIN cells (``train_rain``: phase 4's two and phase 3's RAIN
 runs), the real-format phase, the backbones (``train_backbones``:
 phase 4's backbone cells and phase 3's runs) and DDFSeg / AdaptEvery / BCL
-(``train_extra``: phase 4's cells, phase 3's steps, phase 5's runs) as one
-JSON line each, the
-card's name
-and power limit as nvidia-smi gives them, and last
+(``train_extra``: phase 4's cells, phase 3's steps, phase 5's runs),
+``serve`` (phase 7) and ``run_utils`` (phase 8) as one JSON line each, the
+card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1681,7 +1708,9 @@ def protocol_full_width(work: Path) -> dict:
             "slcl_best_epoch": fine["best_epoch"],
             "test_dice_hd95_assd": [fine["test"][k][0::2] for k in ("dc", "hd", "asd")],
             "centre_norms": np.linalg.norm(centres, axis=1).tolist(),
-            "resume_max_param_diff": diff, "launches": counts}
+            "resume_max_param_diff": diff, "launches": counts,
+            # phase 7 serves this run's best checkpoint (popped before printing)
+            "slcl_args": slcl_args, "slcl_best": str(Path(fine["out_dir"]) / "ckpt_best.pt")}
 
 
 def protocol_rain(work: Path) -> dict:
@@ -2023,6 +2052,404 @@ def train_real(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving
+# ---------------------------------------------------------------------------
+SERVE_BATCHES = (1, 5, 16)
+# the artifact's labels against the live evaluator's (the JAX export
+# script's smoke threshold), its probabilities within PROBS_ATOL (the same
+# bf16 ops; cuDNN may pick other algorithms in another process)
+LABEL_AGREEMENT = 0.999
+PROBS_ATOL = 2e-3
+# (PROBS_ATOL holds each batch size against the live model at that size:
+# across sizes cuDNN's algorithms, and so bf16 rounding, differ)
+# a consumer with PyTorch alone: neither the checkout nor slcl_torch on its
+# path; it parses the header, loads the program and runs each batch size
+CONSUMER = r"""
+import importlib.util, io, json, struct, sys
+import numpy as np, torch
+assert importlib.util.find_spec("slcl_torch") is None, "slcl_torch is importable"
+for name in sys.argv[1:]:
+    raw = open(name + ".slclt", "rb").read()
+    assert raw[:6] == b"SLCLT\x01", raw[:6]
+    (n,) = struct.unpack(">I", raw[6:10])
+    meta = json.loads(raw[10:10 + n])
+    prog = torch.export.load(io.BytesIO(raw[10 + n:])).module()
+    x = torch.from_numpy(np.load("images.npy")).to(meta["device"])
+    for bs in (1, 5, 16):
+        with torch.no_grad():
+            out = prog(x[:bs])
+        labels, probs = out if isinstance(out, tuple) else (out, None)
+        np.save(f"{name}_{bs}_labels.npy", labels.cpu().numpy())
+        if probs is not None:
+            np.save(f"{name}_{bs}_probs.npy", probs.float().cpu().numpy())
+assert not [m for m in sys.modules if m.startswith("slcl")]
+print("consumer ok")
+"""
+
+
+def run_cli(args, cwd: Path = ROOT, env=None, timeout: int = 900) -> str:
+    """Run ``python <args>`` to its end; its stdout, or raise with its stderr."""
+    out = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:3])}: exit {out.returncode}\n"
+                             f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def card_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _throughput(fn, bs: int, n: int, crop: int, device, repeats: int = 5) -> list:
+    """Images per second of ``fn`` on (bs, crop, crop, 3) inputs: a warm-up,
+    then ``repeats`` runs of ``n`` batches, each ending in a synchronise;
+    [min, median, max] over the runs."""
+    import torch
+    x = torch.randn(bs, crop, crop, 3, device=device)
+    with torch.no_grad():
+        for _ in range(5):
+            fn(x)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x)
+            torch.cuda.synchronize()
+            rates.append(bs * n / (time.perf_counter() - t0))
+    rates.sort()
+    return [rates[0], rates[len(rates) // 2], rates[-1]]
+
+
+def _consumer_results(cell: Path, names) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = run_cli(["-c", CONSUMER, *names], cwd=cell, env=env, timeout=600)
+    if "consumer ok" not in out:
+        raise AssertionError(f"serve consumer: {out[-500:]}")
+    import numpy as np
+    res = {}
+    for name in names:
+        for bs in SERVE_BATCHES:
+            probs = cell / f"{name}_{bs}_probs.npy"
+            res[name, bs] = (np.load(cell / f"{name}_{bs}_labels.npy"),
+                             np.load(probs) if probs.exists() else None)
+    return res
+
+
+def _hold_artifact(res, name: str, labels, probs, crop: int) -> dict:
+    """The consumer's outputs of artifact ``name`` against the live ones at
+    the same batch size (``labels[bs]``, ``probs[bs]``): labels at >=
+    LABEL_AGREEMENT of pixels, probabilities within PROBS_ATOL."""
+    import numpy as np
+    agree, perr = [], []
+    for bs in SERVE_BATCHES:
+        got_l, got_p = res[name, bs]
+        if got_l.shape != (bs, crop, crop) or got_l.dtype != np.int32:
+            raise AssertionError(f"serve {name} bs {bs}: labels {got_l.shape} {got_l.dtype}")
+        a = float((got_l == labels[bs]).mean())
+        if a < LABEL_AGREEMENT:
+            raise AssertionError(f"serve {name} bs {bs}: labels agree at {a}")
+        agree.append(a)
+        if probs is not None:
+            e = float(np.abs(got_p - probs[bs]).max())
+            if not e <= PROBS_ATOL:
+                raise AssertionError(f"serve {name} bs {bs}: probabilities off by {e}")
+            perr.append(e)
+    return {"label_agreement": agree, "probs_max_abs_err": perr or None}
+
+
+def _live_labels(evaluator, images) -> dict:
+    """``Evaluator.predict``'s labels of ``images[:bs]`` at each batch size."""
+    return {bs: evaluator.predict([(images[:bs], images[:bs, ..., 0], None)])[0]
+            for bs in SERVE_BATCHES}
+
+
+def _live_probs(model, x, dtype: str) -> dict:
+    """The live model's softmax probabilities of ``x[:bs]`` at each batch
+    size of SERVE_BATCHES."""
+    import torch
+    from slcl_torch import serve
+    infer = serve.make_infer_fn(model, with_probs=True, dtype=dtype)
+    with torch.no_grad():
+        return {bs: infer(x[:bs])[1].float().cpu().numpy() for bs in SERVE_BATCHES}
+
+
+def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
+    """Phase 7: the trained ``slcl`` DRUNet of phase 5 exported through
+    ``python -m slcl_torch.scripts.export ... smoke=1`` (bf16, on the card)
+    and with probabilities in-process, a full-width ResNet-50 U-Net from
+    random init likewise; both served at batch 1, 5 and 16 by a process
+    without slcl_torch and held to the live evaluator; the batch server on
+    57 of phase 6's PNGs at bs=16; ``predict`` against ``Trainer.eval``;
+    images per second through the artifact and the live model."""
+    import numpy as np
+    import torch
+    from slcl_torch import serve
+    from slcl_torch.data import Loader
+    from slcl_torch.train import __main__ as train_cli
+    from slcl_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cell = work / "serve"
+    cell.mkdir()
+    best = protocol["slcl_best"]
+    cfg, _, _ = train_cli.parse_args(protocol["slcl_args"], "slcl")
+    trainer = Trainer(cfg)
+    dev, crop = trainer.device, cfg.data.crop
+    args = [*protocol["slcl_args"], f"run.restore_from={best}", "--device", dev.type]
+    t1 = time.perf_counter()
+    printed = run_cli(["-m", "slcl_torch.scripts.export", *args,
+                       f"out={cell / 'drunet.slclt'}", "smoke=1"])
+    cli_export_s = time.perf_counter() - t1
+    if "smoke ok" not in printed:
+        raise AssertionError(f"export CLI: {printed[-500:]}")
+
+    trainer.restore_checkpoint(best, params_only=True)
+    test = trainer.datasets["test_t"]
+    images = np.stack([test[i][0] for i in range(16)]).astype(np.float32)
+    np.save(cell / "images.npy", images)
+    loader = Loader(test, cfg.data.eval_bs, shuffle=False, drop_last=False, num_threads=1)
+    labels = _live_labels(trainer.evaluator, images)
+    # the evaluator over the test set (batches of eval_bs) against batches of 16
+    split = trainer.evaluator.predict(loader)[0][:16]
+    if len(np.unique(split)) < 2 or (split == labels[16]).mean() < LABEL_AGREEMENT:
+        raise AssertionError(f"serve: the trained model's labels: classes {np.unique(split)}, "
+                             f"agreement across batch sizes {(split == labels[16]).mean()}")
+    model = trainer.evaluator.model
+    t1 = time.perf_counter()
+    exported = serve.export_segmentor(model, crop=crop, with_probs=True, dtype=cfg.model.dtype)
+    export_s = time.perf_counter() - t1
+    serve.save_artifact(cell / "drunet_probs.slclt", exported, {"crop": crop},
+                        dtype=cfg.model.dtype)
+    x = torch.from_numpy(images).to(dev)
+    probs = _live_probs(model, x, cfg.model.dtype)
+
+    rcfg, _, _ = train_cli.parse_args(["method=slcl", "model.backbone=resnet50",
+                                       "model.multilvl=true", "data.dataset=synthetic",
+                                       f"run.out_dir={work}"], "slcl")
+    rtrainer = Trainer(rcfg)
+    rmodel = rtrainer.evaluator.model
+    t1 = time.perf_counter()
+    rexported = serve.export_segmentor(rmodel, crop=crop, with_probs=True,
+                                       dtype=rcfg.model.dtype)
+    rexport_s = time.perf_counter() - t1
+    serve.save_artifact(cell / "resnet50.slclt", rexported, {"crop": crop},
+                        dtype=rcfg.model.dtype)
+    rlabels = _live_labels(rtrainer.evaluator, images)
+    rprobs = _live_probs(rmodel, x, rcfg.model.dtype)
+
+    for a in ("drunet", "drunet_probs", "resnet50"):
+        meta = serve.read_artifact(cell / f"{a}.slclt")[0]
+        if (meta["device"], meta["dtype"]) != (dev.type, cfg.model.dtype):
+            raise AssertionError(f"serve {a}: header {meta}")
+    res = _consumer_results(cell, ("drunet", "drunet_probs", "resnet50"))
+    held = {"drunet": _hold_artifact(res, "drunet", labels, None, crop),
+            "drunet_probs": _hold_artifact(res, "drunet_probs", labels, probs, crop),
+            "resnet50": _hold_artifact(res, "resnet50", rlabels, rprobs, crop)}
+    log(f"serve: artifacts agree with the live evaluator {held}")
+
+    # the batch server: 57 PNGs (a ragged last batch of 9) at bs=16
+    src = cell / "pngs"
+    src.mkdir()
+    pngs = sorted(Path(trees["mscmrseg"], "testB").glob("*.png"))[:57]
+    for p in pngs:
+        shutil.copy(p, src / p.name)
+    run_cli(["-m", "slcl_torch.serve", str(cell / "drunet.slclt"), str(src),
+             str(cell / "masks"), "bs=16", "--device", dev.type])
+    from slcl_torch.data.png import read_png_gray
+    masks = sorted((cell / "masks").glob("*_pred.png"))
+    if {m.name for m in masks} != {f"{p.stem}_pred.png" for p in pngs}:
+        raise AssertionError(f"serve CLI: {len(masks)} masks for {len(pngs)} images")
+    values = set()
+    for m in masks:
+        values |= set(np.unique(read_png_gray(m)).tolist())
+    if not values <= {0, 60, 120, 180}:
+        raise AssertionError(f"serve CLI: mask values {sorted(values)}")
+
+    # predict: its table against Trainer.eval on the same weights
+    printed = run_cli(["-m", "slcl_torch.scripts.predict", *args,
+                       f"out_dir={cell / 'pred'}"])
+    pred = json.loads(printed.strip().splitlines()[-1])["test"]
+    want = trainer.eval("test_t")
+    for k in ("dc", "hd", "asd"):
+        close(torch.tensor(pred[k]), torch.tensor(want[k]), 0.0, 1e-6, f"predict {k}")
+    if len(list((cell / "pred").glob("*_pred.png"))) != len(test):
+        raise AssertionError("predict: a mask per test image")
+
+    # images per second at 224x224: the artifact and the live model in turns
+    fn, _ = serve.load_artifact(cell / "drunet.slclt", dev)
+    live = serve.make_infer_fn(model, dtype=cfg.model.dtype)
+    speed = {}
+    for bs, n in ((1, 40), (16, 10)):
+        speed[f"bs{bs}"] = {"artifact_img_per_s": _throughput(fn, bs, n, crop, dev),
+                            "live_img_per_s": _throughput(live, bs, n, crop, dev),
+                            "artifact_img_per_s_again": _throughput(fn, bs, n, crop, dev)}
+    del trainer, rtrainer
+    torch.cuda.synchronize()
+    return {"card": card_line(), "seconds": time.perf_counter() - t0,
+            "cli_export_and_smoke_s": cli_export_s, "export_s": export_s,
+            "resnet50_export_s": rexport_s,
+            "artifact_mb": {p.stem: p.stat().st_size / 1e6 for p in cell.glob("*.slclt")},
+            "classes_in_trained_labels": int(len(np.unique(split))),
+            "held": held, "serve_cli_masks": len(masks), "serve_cli_values": sorted(values),
+            "predict_dice": pred["dc"][0::2], "throughput": speed}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: run utilities
+# ---------------------------------------------------------------------------
+# (cell, backbone, rtol, atol): the run without remat against the remat ones;
+# resnet50_slcl's centre norms run away (ROADMAP queue 3 item 2), so its
+# values are held relatively
+REMAT_CELLS = (("slcl", "drunet", 1e-3, 1e-5), ("resnet50_slcl", "resnet50", 1e-2, 1e-6))
+REMAT_TIMED = 10
+
+
+def remat_cell(work: Path, name: str, backbone: str, rtol: float, atol: float) -> dict:
+    """Two steps of the full-width ``slcl`` multilvl cell with ``model.remat``
+    off, ``full`` and ``dots`` from the same init and batches: parameters,
+    BatchNorm buffers and centres against the run without remat, the port
+    kernels' launches, then REMAT_TIMED synchronised steps and the peak."""
+    import torch
+    from slcl_torch.config import Config, apply_recipe
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.trainer import Trainer
+
+    out, base = {}, None
+    for mode in ("", "full", "dots"):
+        cfg = apply_recipe(Config(method="slcl"))
+        cfg.model.backbone, cfg.model.multilvl, cfg.model.remat = backbone, True, mode
+        cfg.data.dataset, cfg.run.out_dir = "synthetic", str(work)
+        # the last mode's trainer is a reference cycle (its evaluator's
+        # autocast closure): free it before reading what stays resident
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg)
+        batches = [b for _, b in zip(range(2), device_prefetch(trainer._epoch_batches(),
+                                                              trainer.device))]
+        sched = trainer._sched(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        for b in batches:
+            metrics = trainer.step_fn(trainer.state, b, sched)
+        counts = launch_counts()
+        for kname, per in PER_STEP.items():
+            if counts[kname] != 2 * per:
+                raise AssertionError(f"remat {name} {mode or 'off'}: {kname} launched "
+                                     f"{counts[kname]} times in 2 steps")
+        state = {**{f"seg.{k}": v.detach().clone()
+                    for k, v in trainer.state.seg.state_dict().items()},
+                 "centroids": trainer.state.centroids.clone(),
+                 **{f"metric.{k}": v.reshape(1) for k, v in metrics.items()}}
+        err = 0.0
+        if base is None:
+            base = state
+        else:
+            for k, v in base.items():
+                err = max(err, close(state[k], v, rtol, atol, f"remat {name} {mode} {k}"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REMAT_TIMED):
+            trainer.step_fn(trainer.state, batches[i % 2], sched)
+        torch.cuda.synchronize()
+        out[mode or "off"] = {"step_ms": (time.perf_counter() - t0) / REMAT_TIMED * 1e3,
+                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "peak_above_resident_gb":
+                                  (torch.cuda.max_memory_allocated() - resident) / 1e9,
+                              "max_abs_diff_vs_off": err, "launches": counts}
+        del trainer, batches
+    log(f"remat {name}: {out}")
+    return out
+
+
+def profile_run(work: Path) -> dict:
+    """A two-epoch full-width ``slcl`` run with ``run.profile_dir``: the
+    second epoch's trace exists, parses, and names the port's kernels of
+    mpcl.cu, mpcl_pseudo.cu and soft_centroids.cu among its device events."""
+    from slcl_torch.config import Config, apply_recipe
+    from slcl_torch.train.trainer import Trainer
+
+    cfg = apply_recipe(Config(method="slcl"))
+    cfg.model.multilvl, cfg.data.dataset, cfg.optim.epochs = True, "synthetic", 2
+    prof = work / "prof"
+    cfg.run.out_dir, cfg.run.profile_dir = str(work), str(prof)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg)
+    trainer.train()
+    traces = list(prof.glob("trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile: {len(traces)} traces under {prof}")
+    t1 = time.perf_counter()
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    parse_s = time.perf_counter() - t1
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {src: sum(any(p in k for p in PORT_KERNELS[src]) for k in kernels)
+             for src in ("mpcl", "mpcl_pseudo", "soft_centroids")}
+    if not all(found.values()):
+        raise AssertionError(f"profile: port kernels in the trace {found}")
+    epochs = [r["epoch_time_s"] for r in trainer.history]
+    return {"seconds": time.perf_counter() - t0, "trace_mb": traces[0].stat().st_size / 1e6,
+            "parse_s": parse_s, "device_kernel_events": len(kernels),
+            "port_kernel_events": found, "epoch_time_s": epochs,
+            "tb_written": (trainer.out_dir / "tb").exists()}
+
+
+def data_tools(work: Path) -> dict:
+    """The offline tools through their CLI on the MMWHS fixture tree, and one
+    augmented batch each of the legacy bSSFP / LGE datasets on the MS-CMRSeg
+    fixture tree: no cv2 or pandas on this host."""
+    import numpy as np
+    from slcl_torch.data import Loader
+    from slcl_torch.data.legacy import BSSFPDataset, LGEDataset
+
+    fix = ROOT / "tests" / "fixtures"
+    out_dir = work / "pre"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    printed = run_cli(["-m", "slcl_torch.data.preprocess", "minmax-csv", "--data_dir",
+                       str(fix / "mini_mmwhs"), "--modality", "CT", "--out_dir", str(out_dir)])
+    if (out_dir / "CTminmax99.csv").read_bytes() != (fix / "mini_mmwhs" / "CTminmax99.csv"
+                                                      ).read_bytes():
+        raise AssertionError(f"minmax-csv: {printed}")
+    run_cli(["-m", "slcl_torch.data.preprocess", "nii-to-png-mmwhs", "--data_dir",
+             str(fix / "mini_mmwhs"), "--out", str(out_dir / "png"), "--modality", "MR"])
+    n_png = len(list((out_dir / "png").glob("*.png")))
+    if n_png != len(list((fix / "mini_mmwhs" / "MR_woGT").glob("*.nii"))):
+        raise AssertionError(f"nii-to-png-mmwhs: {n_png} PNGs")
+    shapes = {}
+    for name, ds in (("bssfp", BSSFPDataset(str(fix / "mini_mscmrseg"), augmentation=True)),
+                     ("lge", LGEDataset(str(fix / "mini_mscmrseg"), pat_id=6,
+                                        augmentation=True, virtual_len=4))):
+        batch = next(iter(Loader(ds, 2, num_threads=1)))
+        if not all(np.isfinite(b).all() for b in batch[:-1]):
+            raise AssertionError(f"{name}: non-finite batch")
+        shapes[name] = [list(b.shape) for b in batch[:-1]]
+    bad = [m for m in ("cv2", "pandas", "PIL") if m in sys.modules]
+    if bad:
+        raise AssertionError(f"data tools imported {bad}")
+    return {"seconds": time.perf_counter() - t0, "mmwhs_pngs": n_png, "batch_shapes": shapes}
+
+
+def run_utils_phase(work: Path) -> dict:
+    """Phase 8: ``model.remat`` on two full-width cells, the profiler trace
+    of a two-epoch run, and the offline data tools."""
+    t0 = time.perf_counter()
+    remat = {name: remat_cell(work, name, bb, rtol, atol)
+             for name, bb, rtol, atol in REMAT_CELLS}
+    out = {"card": card_line(), "remat": remat, "profile": profile_run(work),
+           "data_tools": data_tools(work)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2098,6 +2525,10 @@ def main() -> int:
             protocol["rain"] = protocol_rain(work)
             extra_protocol = protocol_extra(work)
             real = train_real(work)
+            served = serve_phase(work, protocol, {"mscmrseg": work / "data" / "mscmrseg"})
+            run_utils = run_utils_phase(work)
+            for k in ("slcl_args", "slcl_best"):
+                protocol.pop(k)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
@@ -2179,10 +2610,9 @@ def main() -> int:
     print(json.dumps({"train_backbones": {"cells": backbones, "small_steps": small}}))
     print(json.dumps({"train_extra": {"cells": extra_cells, "small_steps": small_extra,
                                       "protocol": extra_protocol}}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"serve": served}))
+    print(json.dumps({"run_utils": run_utils}))
+    print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

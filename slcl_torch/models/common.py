@@ -113,16 +113,17 @@ class BatchNorm(nn.Module):
         n = x.numel() // x.shape[1]
         if n == 1:
             return self._flax_train(x, weight, bias)
-        if not self.track:
-            return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
         # F.batch_norm updates the copies in place and autograd keeps them,
-        # so the buffers themselves are written only after the call
+        # so the buffers themselves are written only after the call. With
+        # track off the copies are dropped: the op is the same either way,
+        # so a checkpointed forward saves the same tensors when it recomputes
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, weight, bias, True,
                          1.0 - self.momentum, self.eps)
-        with torch.no_grad():
-            self.running_var.mul_(self.momentum / n).add_(var, alpha=(n - 1) / n)
-            self.running_mean.copy_(mean)
+        if self.track:
+            with torch.no_grad():
+                self.running_var.mul_(self.momentum / n).add_(var, alpha=(n - 1) / n)
+                self.running_mean.copy_(mean)
         return y
 
     def _flax_train(self, x, weight, bias):

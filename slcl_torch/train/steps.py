@@ -37,6 +37,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..models.common import running_stats_frozen
 from ..ops import centroids as cen
 from ..ops import losses as L
 from .state import TrainState, set_lr
@@ -45,10 +46,80 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def autocast(dtype: str, device: torch.device):
-    """bf16 activations with fp32 parameters when ``model.dtype`` is bf16."""
+    """bf16 activations with fp32 parameters when ``model.dtype`` is bf16.
+    Each use of a weight takes its own cast, as flax's modules cast theirs
+    (no autocast weight cache): a weight's gradients from the source and
+    target forwards then sum in float32, and a rematerialised forward
+    recomputes the same casts it made."""
     if dtype == "bfloat16":
-        return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
+        return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
+                              cache_enabled=False)
     return contextlib.nullcontext()
+
+
+def remat_mode(remat) -> str:
+    """``model.remat`` as ``""`` (off: ``""``, ``false``, ``off``, ``0``),
+    ``"full"`` (``true``, ``full``, ``1``) or ``"dots"``; another value
+    raises."""
+    mode = str(remat).strip().lower()
+    if mode in ("", "0", "false", "off", "none"):
+        return ""
+    if mode in ("1", "true", "full"):
+        return "full"
+    if mode == "dots":
+        return "dots"
+    raise ValueError(f"model.remat={remat!r}: off, full (true) or dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy of ``dots``: save what JAX's
+    ``dots_saveable`` saves (``conv_general_dilated``, ``dot_general``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    saved = (aten.convolution.default, aten.mm.default, aten.addmm.default,
+             aten.bmm.default, aten.baddbmm.default)
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Recompute:
+    """The recompute half of the checkpoint's contexts: ``inner`` (the
+    selective policy's cache, if any) with the segmentor's BatchNorm running
+    statistics frozen. Entered anew at each recompute."""
+
+    def __init__(self, seg: torch.nn.Module, inner=None):
+        self.seg, self.inner = seg, inner
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        if self.inner is not None:
+            self._stack.enter_context(self.inner)
+        self._stack.enter_context(running_stats_frozen(self.seg))
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+
+def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
+    """``seg(x)``, rematerialised per ``remat`` (:func:`remat_mode`) with
+    ``torch.utils.checkpoint`` (non-reentrant). The recompute sees the
+    forward's autocast state and RNG state (the segmentors draw no noise of
+    their own) and leaves the running statistics as the forward set them.
+    Under autocast, ``dots`` needs :func:`autocast`'s uncached weight casts:
+    a cached cast would serve the target forward without the casts its
+    recompute makes, and selective checkpointing refuses a differing op
+    sequence."""
+    mode = remat_mode(remat)
+    if not mode:
+        return seg(x)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    def contexts():
+        if mode == "full":
+            return contextlib.nullcontext(), _Recompute(seg)
+        fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+        return fwd, _Recompute(seg, rec)
+
+    return checkpoint(seg, x, use_reentrant=False, context_fn=contexts)
 
 
 def _d_acc(logits: torch.Tensor, is_source: bool) -> torch.Tensor:
@@ -176,7 +247,7 @@ def make_baseline_step(cfg) -> Callable:
              sched: Dict[str, float]) -> Metrics:
         state.seg.train()
         with autocast(cfg.model.dtype, batch[img_key].device):
-            out = state.seg(batch[img_key])
+            out = seg_forward(state.seg, batch[img_key], cfg.model.remat)
         metrics: Metrics = {}
         loss = _seg_loss_jaccard(cfg, out, batch[lab_key], loss_key, metrics)
         _seg_update(state, loss, sched["lr"])
@@ -194,8 +265,8 @@ def make_adaptseg_step(cfg) -> Callable:
 
     def gen_loss(state, batch, sched, amp):
         with amp:
-            out_s = state.seg(batch["img_s"])
-            out_t = state.seg(batch["img_t"])
+            out_s = seg_forward(state.seg, batch["img_s"], cfg.model.remat)
+            out_t = seg_forward(state.seg, batch["img_t"], cfg.model.remat)
         metrics: Metrics = {}
         total = _seg_loss_jaccard(cfg, out_s, batch["lab_s"], "seg_s", metrics)
         total = total + _adv_terms(cfg, state, out_t, "softmax", amp, metrics)
@@ -210,8 +281,8 @@ def make_advent_step(cfg) -> Callable:
 
     def gen_loss(state, batch, sched, amp):
         with amp:
-            out_s = state.seg(batch["img_s"])
-            out_t = state.seg(batch["img_t"])
+            out_s = seg_forward(state.seg, batch["img_s"], cfg.model.remat)
+            out_t = seg_forward(state.seg, batch["img_t"], cfg.model.remat)
         metrics: Metrics = {}
         total = _seg_loss_jaccard(cfg, out_s, batch["lab_s"], "seg_s", metrics)
         total = total + _adv_terms(cfg, state, out_t, "advent", amp, metrics)
@@ -238,8 +309,8 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
 
     def gen_loss(state, batch, sched, amp):
         with amp:
-            out_s = state.seg(batch["img_s"])
-            out_t = state.seg(batch["img_t"])
+            out_s = seg_forward(state.seg, batch["img_s"], cfg.model.remat)
+            out_t = seg_forward(state.seg, batch["img_t"], cfg.model.remat)
         labels_s = batch["lab_s"]
 
         # seg loss: CE + dice (Trainer_MPSCL.py:125)
@@ -377,7 +448,8 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
             if c.concat_forward:
                 # one forward over all (Trainer_MCCL.py:217/:246): BatchNorm
                 # statistics mix the domains
-                out = state.seg(torch.cat([x_src, img_t, img_t_aug]))
+                out = seg_forward(state.seg, torch.cat([x_src, img_t, img_t_aug]),
+                                  cfg.model.remat)
                 pred_src_all, pred_t_all = out.pred[:seg_sz], out.pred[seg_sz:]
                 dcdr_s = out.dcdr_ft[style_size:seg_sz]
                 dcdr_t = out.dcdr_ft[seg_sz:seg_sz + t_size]
@@ -386,8 +458,9 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
                     btl_src = out.bottleneck[:seg_sz]
             else:
                 # two domain-pure forwards; running statistics carry over
-                out_s = state.seg(x_src)
-                out_t = state.seg(torch.cat([img_t, img_t_aug]))
+                out_s = seg_forward(state.seg, x_src, cfg.model.remat)
+                out_t = seg_forward(state.seg, torch.cat([img_t, img_t_aug]),
+                                    cfg.model.remat)
                 pred_src_all, pred_t_all = out_s.pred, out_t.pred
                 dcdr_s = out_s.dcdr_ft[style_size:]
                 dcdr_t, dcdr_t_aug = out_t.dcdr_ft[:t_size], out_t.dcdr_ft[t_size:]

@@ -46,8 +46,13 @@ renewed at the start of every epoch that ``run.bcl_round_epochs`` divides,
 a target image without one taking an all-255 map. Every discriminator
 takes Adam at ``optim.lr_dis`` with betas ``(adv.mmt1, adv.mmt)``.
 
-Config keys the port does not honour yet raise at construction:
-``run.scan_steps`` other than 1, ``model.remat`` and ``run.profile_dir``.
+``model.remat`` (``full`` / ``dots``) recomputes the segmentor's
+activations in the backward (``train/steps.py::seg_forward``);
+``run.profile_dir`` records epoch ``run.profile_epoch`` (clamped to the
+last epoch that runs) as a ``torch.profiler`` trace under that directory;
+``train()`` writes each epoch's record as TensorBoard scalars under
+``<out_dir>/tb`` when ``tensorboardX`` is installed. ``run.scan_steps``
+other than 1 raises at construction: the port does not honour it yet.
 """
 from __future__ import annotations
 
@@ -78,10 +83,12 @@ from ..ops.centroids import gene_thres
 from ..utils.convert import read_rain_component, save_tree_npz, state_dict_to_flax
 from ..utils.pretrained import load_pretrained_encoder
 from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
+from ..utils.tb import TBWriter
+from ..utils.timer import profile_trace
 from . import schedules
 from .state import (TrainState, create_pretrain_rain_state, create_train_state,
                     make_optimizer, rain_sampling_rows)
-from .steps import autocast, build_step
+from .steps import autocast, build_step, remat_mode
 
 _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
            "pretrain_rain", "ddfseg", "adaptevery", "bcl")
@@ -98,21 +105,21 @@ PRETRAIN_LOSSES = ("loss_c", "loss_s", "loss_l", "loss_r")
 
 def check_ported_keys(cfg: Config) -> None:
     """Raise on a config key the port would accept and then ignore (the JAX
-    package honours each): the scan over several steps, rematerialisation
-    and the profiler trace. Each names the ROADMAP item that ports it."""
+    package honours it): the scan over several steps, which names the
+    ROADMAP item that ports it. Also on a ``model.remat`` the port cannot
+    run: an unknown mode, or ``dots`` under MCCL + RAIN, whose ascent
+    backpropagates the forward twice (selective checkpointing allows one
+    backward; ``full`` allows both)."""
     if int(cfg.run.scan_steps) != 1:
         raise NotImplementedError(
             f"run.scan_steps={cfg.run.scan_steps}: slcl_torch runs one step per "
             "dispatch (CUDA-graph replay of the step: ROADMAP queue 1, the "
             "host-bound step)")
-    if str(cfg.model.remat).lower() not in ("", "0", "false", "off"):
+    if remat_mode(cfg.model.remat) == "dots" and cfg.method == "mccl" and cfg.rain.enabled:
         raise NotImplementedError(
-            f"model.remat={cfg.model.remat!r}: slcl_torch has no rematerialisation "
-            "yet (torch.utils.checkpoint: ROADMAP queue 1, small utilities)")
-    if cfg.run.profile_dir:
-        raise NotImplementedError(
-            f"run.profile_dir={cfg.run.profile_dir!r}: slcl_torch writes no "
-            "profiler trace yet (torch.profiler: ROADMAP queue 1, small utilities)")
+            "model.remat=dots with rain.enabled: the epsilon ascent backpropagates "
+            "the segmentor twice, which selective checkpointing refuses; use "
+            "model.remat=full")
 
 
 def build_rain(cfg: Config, device: torch.device) -> RAIN:
@@ -570,6 +577,7 @@ class Trainer:
             save_every_epochs=cfg.run.save_every_epochs, n_epochs=cfg.optim.epochs,
             apdx=self.apdx[:60])
         early = EarlyStopCallback(cfg.run.early_stop_patience, mode="max")
+        tb = TBWriter(str(self.out_dir / "tb"))
         if cfg.run.init_from:
             # warm start of the networks; raises on failure, since random
             # weights would invalidate the recipe
@@ -591,9 +599,19 @@ class Trainer:
                 print(f"resumed from checkpoint '{cfg.run.restore_from}'")
             except (OSError, KeyError, ValueError, RuntimeError) as e:
                 print(f"restore failed ({e}); training from scratch")
+        profile_epoch = cfg.run.profile_epoch
+        if cfg.run.profile_dir and profile_epoch >= cfg.optim.epochs:
+            # a run shorter than profile_epoch would write no trace: clamp to
+            # the last epoch that runs (JAX trainer.py:825-831)
+            profile_epoch = cfg.optim.epochs - 1
+            print(f"run.profile_epoch clamped to {profile_epoch} "
+                  f"(run has only {cfg.optim.epochs} epoch(s))")
         for epoch in range(cfg.optim.epochs):
             t0 = time.time()
-            record: Dict[str, Any] = {"epoch": epoch, **self.train_epoch(epoch)}
+            profiled = cfg.run.profile_dir if epoch == profile_epoch else None
+            with profile_trace(profiled, cuda=self.device.type == "cuda"):
+                train_metrics = self.train_epoch(epoch)
+            record: Dict[str, Any] = {"epoch": epoch, **train_metrics}
             if cfg.method == "pretrain_rain":
                 # no validation: the least summed loss is the best
                 # (Pretrainer_RAIN.py:216-227)
@@ -616,6 +634,7 @@ class Trainer:
                     record["early_stop"] = True
             epoch_time = time.time() - t0
             record["epoch_time_s"] = round(epoch_time, 3)
+            tb.scalars(record, epoch + 1)
             self._log(log_path, record)
             if epoch == 5 and "dice_style_c1" in record:
                 # the early window is complete: the MCCL + RAIN collapse check
@@ -628,6 +647,7 @@ class Trainer:
                 print("early stop / wall-clock budget reached")
                 mcp.finalize()
                 break
+        tb.close()
         self.save_checkpoint("last")
         if cfg.method == "pretrain_rain":
             return self._export_rain()

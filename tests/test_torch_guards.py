@@ -55,7 +55,11 @@ def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
         "        'slcl_torch.models.unet', 'slcl_torch.utils.pretrained',\n"
         "        'slcl_torch.models.rain', 'slcl_torch.train.steps_rain',\n"
         "        'slcl_torch.scripts.stylize_samples', 'slcl_torch.models.ddfseg',\n"
-        "        'slcl_torch.models.pointnet', 'slcl_torch.train.steps_extra'} <= set(mods)\n"
+        "        'slcl_torch.models.pointnet', 'slcl_torch.train.steps_extra',\n"
+        "        'slcl_torch.serve', 'slcl_torch.scripts.export', 'slcl_torch.scripts.predict',\n"
+        "        'slcl_torch.data.legacy', 'slcl_torch.data.preprocess',\n"
+        "        'slcl_torch.utils.tables', 'slcl_torch.utils.timer',\n"
+        "        'slcl_torch.utils.tb'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -190,12 +194,13 @@ def test_contrastive_method_on_a_wider_backbone_raises(backbone, width):
 
 
 @pytest.mark.parametrize("key,value,raises", [
-    ("run.scan_steps", "4", True), ("model.remat", "dots", True),
-    ("run.profile_dir", "prof", True), ("model.remat", "false", False)])
+    ("run.scan_steps", "4", True), ("model.remat", "dots", False),
+    ("run.profile_dir", "prof", False), ("model.remat", "false", False)])
 def test_config_keys_the_port_ignores_raise(tmp_path, key, value, raises):
-    """``run.scan_steps``, ``model.remat`` and ``run.profile_dir`` raise at
-    construction, naming the key, until the port honours them (no port test
-    and no phase of chip_smoke.py sets one); remat's off values build."""
+    """``run.scan_steps`` raises at construction, naming the key, until the
+    port honours it (no port test and no phase of chip_smoke.py sets it);
+    ``model.remat`` (any mode) and ``run.profile_dir``, which the port
+    honours, build."""
     from slcl_torch.train.trainer import Trainer
     cfg = Config.from_cli(["method=baseline", "data.dataset=synthetic", "data.crop=32",
                            "data.bs=2", "model.filters=8", "model.n_block=2",
@@ -206,6 +211,25 @@ def test_config_keys_the_port_ignores_raise(tmp_path, key, value, raises):
             Trainer(cfg, device="cpu")
     else:
         Trainer(cfg, device="cpu")
+
+
+def test_bf16_artifact_refuses_another_device_type(tmp_path):
+    """torch.export records the evaluator's autocast region with its device
+    type, so a bf16 artifact exported on the CPU must not be moved to CUDA
+    (its regions would run in float32 there): ``load_artifact`` raises
+    before loading, and serves it on its own device type."""
+    from slcl_torch import serve
+    from slcl_torch.models import build_segmentor
+    cfg = Config.from_cli(["model.filters=8", "model.n_block=2", "model.bottleneck_depth=2"])
+    net = build_segmentor(cfg.model, generator=torch.Generator().manual_seed(0))
+    path = tmp_path / "bf16.slclt"
+    serve.save_artifact(path, serve.export_segmentor(net, crop=32, dtype="bfloat16"),
+                        {"crop": 32}, dtype="bfloat16")
+    with pytest.raises(ValueError, match="bfloat16 autocast.*cannot serve on cuda"):
+        serve.load_artifact(path, "cuda")
+    fn, meta = serve.load_artifact(path, "cpu")
+    assert meta["device"] == "cpu" and meta["dtype"] == "bfloat16"
+    assert fn(torch.zeros(1, 32, 32, 3)).shape == (1, 32, 32)
 
 
 def test_adaptevery_on_the_raw_mmwhs_tree_raises(tmp_path):
