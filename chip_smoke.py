@@ -154,6 +154,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      minmax-csv`` / ``nii-to-png-mmwhs``) on ``tests/fixtures/mini_mmwhs``
      and one augmented batch each of the legacy bSSFP / LGE datasets on
      ``tests/fixtures/mini_mscmrseg``, with no cv2, pandas or PIL imported.
+  9. parallel (``slcl_torch/parallel``): the forwards' two-call entries
+     (streaming pass, a caller's reduction of the partials, final pass),
+     which the wrappers take, of the soft centroids (P = 1, P = 2, the std
+     variant), the MPCL forward (sel and none) and the fused target loss at
+     the main shape: equal to the one-call entry bit for bit, and with the
+     rows in two halves, the first half's partials added to the second's,
+     equal to the one-call entry on all rows (phase 2's tolerances); (a) NCCL at
+     one rank, through the Trainer under a ``(1, 1)`` mesh: two steps of
+     the full-width ``slcl`` multilvl cell and of the ``mccl`` preset (and
+     ``slcl`` with ``mesh.fsdp=true``, which at one model rank shards
+     nothing, as in JAX) against the plain Trainer's two steps from the
+     same init and batches, bit for bit (metrics, every network's state,
+     centres), the kernels' launches per step unchanged, then twenty steps
+     of each timed, plain, mesh, mesh, plain; (b) two gloo ranks sharing the card, in two processes:
+     ``slcl`` and ``mccl`` at full width in f32, global bs16 (8 rows a
+     rank), two steps against one process's two steps on the same 16 rows
+     (segmentor parameters, BatchNorm buffers and centres rtol 1e-4 /
+     atol 1e-6, metrics rel 1e-5; the discriminators' parameters, Adam's,
+     within 2 * lr_dis a step and their change from the init within a
+     cosine of 0.9 of one process's), each rank's launches per step the
+     one-process step's; and the first ``d_main`` update (the BCE's global
+     means, ``net_update``'s share, ``reduce_grads`` over gloo) redone in
+     float64 on the card from the one process's recorded inputs, each
+     rank on its rows: the summed gradients elementwise rtol 1e-4 with an
+     atol of 1e-5 of the tensor's largest entry and within 1e-4 in norm
+     (in float32 the source and target terms' gradients nearly cancel, so
+     the main path's float32 gradients are reported, not held, beside the
+     cancellation factor).
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
@@ -163,7 +191,8 @@ protocol, the RAIN cells (``train_rain``: phase 4's two and phase 3's RAIN
 runs), the real-format phase, the backbones (``train_backbones``:
 phase 4's backbone cells and phase 3's runs) and DDFSeg / AdaptEvery / BCL
 (``train_extra``: phase 4's cells, phase 3's steps, phase 5's runs),
-``serve`` (phase 7) and ``run_utils`` (phase 8) as one JSON line each, the
+``serve`` (phase 7), ``run_utils`` (phase 8) and ``parallel`` (phase 9) as
+one JSON line each, the
 card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
@@ -2450,6 +2479,449 @@ def run_utils_phase(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data parallelism
+# ---------------------------------------------------------------------------
+def one_call(src: str, *args):
+    """A forward through its one-call C entry (``soft_centroids_fwd``,
+    ``mpcl_fwd``, ``mpcl_pseudo_fwd``), which launches both kernels; the
+    wrappers take the two-call entries. Returns what the wrapper returns."""
+    import ctypes
+    import torch
+    from slcl_torch.ops.cuda import build, ptr, raise_on_error, stream_of
+    mod = importlib.import_module(f"slcl_torch.ops.cuda.{src}")
+    lib = build.load(src, mod._SIGS)
+    feats = args[0]
+    dev, bf16, n = feats.device, int(feats.dtype == torch.bfloat16), ctypes.c_int()
+    f32 = dict(dtype=torch.float32, device=dev)
+    if src == "soft_centroids":
+        probs, a, P, thd, weighted, std = args[1:]
+        m, f = feats.shape
+        raise_on_error(lib.soft_centroids_partials_size(bf16, m, f, P, C, int(std),
+                                                        ctypes.byref(n)), src)
+        out = [torch.empty((P, C, f), **f32), torch.empty(P * C, **f32),
+               torch.empty((), **f32)] + ([torch.empty(C, **f32), torch.empty((C, f), **f32)]
+                                          if std else [None, None])
+        raise_on_error(lib.soft_centroids_fwd(
+            ptr(feats), bf16, ptr(probs), ptr(a), m, f, C, P, float(thd), int(weighted),
+            ptr(torch.empty(n.value, **f32)), *map(ptr, out[:3]), ptr(out[4]), ptr(out[3]),
+            stream_of(feats)), src)      # out: cents, counts, ratio, std, s2
+        return tuple(out[:5] if std else out[:3])
+    raise_on_error(getattr(lib, f"{src}_num_partials")(bf16, *feats.shape,
+                                                       ctypes.byref(n)), src)
+    stats = torch.empty(3, **f32)
+    raise_on_error(getattr(lib, f"{src}_fwd")(
+        *mod._args(*args), ptr(torch.empty(2 * n.value, **f32)), ptr(stats),
+        stream_of(feats)), src)
+    return stats
+
+
+def split_entries() -> dict:
+    """The forwards' two-call entries at the main shape, as the wrappers
+    launch them: bit-identical to the one-call entry; and with the rows in
+    two halves, the first half's partials added to the second's, against the
+    one-call entry on all rows (phase 2's tolerances). Returns the max
+    errors."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl, mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dev = torch.device("cuda")
+    feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
+    probs = torch.softmax(3 * torch.randn(M, C, generator=g, device=dev), -1)
+    assign = torch.randint(0, 2, (M,), generator=g, device=dev, dtype=torch.int32)
+    labels = torch.randint(0, C, (M,), generator=g, device=dev, dtype=torch.int32)
+    sel = (torch.rand(M, generator=g, device=dev) > 0.3).float()
+    cen = torch.nn.functional.normalize(torch.randn(C, F, generator=g, device=dev), dim=1)
+    h = M // 2
+    out = {}
+
+    def halves(call, cut):
+        """call(rows, reduce, m_total) on each half, the first's partials
+        added to the second's before its final pass."""
+        kept = []
+        call(cut(0, h), lambda t: kept.append(t.clone()), M)
+        return call(cut(h, M), lambda t: t.add_(kept[0]), M)
+
+    for P, std in ((1, False), (2, False), (2, True)):
+        tag = f"soft_centroids P={P}" + (" std" if std else "")
+        a = assign if P > 1 else None
+
+        def call(rows, reduce=None, m_total=0):
+            f, p, aa = rows
+            return K_sc.soft_centroids_fwd_cuda(f, p, aa, P, 0.9, True, std,
+                                                reduce=reduce, m_total=m_total)
+        one = call((feats, probs, a))
+        fused = one_call("soft_centroids", feats, probs, a, P, 0.9, True, std)
+        if not all(torch.equal(x, y) for x, y in zip(one, fused)):
+            raise AssertionError(f"{tag}: two-call entry differs from the one-call one")
+        two = halves(call, lambda i, j: (feats[i:j], probs[i:j],
+                                         None if a is None else a[i:j]))
+        out[tag] = {"cents": close(two[0], one[0], 1e-4, 1e-5, tag + " cents"),
+                    "ratio": close(two[2], one[2], 1e-5, 0.0, tag + " ratio")}
+        if std:
+            out[tag]["std"] = close(two[3], one[3], 1e-4, 1e-5, tag + " std")
+    T, scale = 0.1, 0.1
+    for s_ in (None, sel):
+        tag = "mpcl_fwd" + (" sel" if s_ is not None else "")
+
+        def call(rows, reduce=None, m_total=0):
+            f, lab, ss = rows
+            return K_mpcl.mpcl_fwd_cuda(f, lab, cen, ss, T, 0.4, False, scale,
+                                        reduce=reduce, m_total=m_total)
+        one = call((feats, labels, s_))
+        if not torch.equal(one, one_call("mpcl", feats, labels, cen, s_, T, 0.4, False,
+                                         scale)):
+            raise AssertionError(f"{tag}: two-call entry differs from the one-call one")
+        two = halves(call, lambda i, j: (feats[i:j], labels[i:j],
+                                         None if s_ is None else s_[i:j]))
+        out[tag] = close(two, one, 1e-4, 0.0, tag)
+
+    def call(f, reduce=None, m_total=0):
+        return K_mp.mpcl_pseudo_fwd_cuda(f, cen, T, 0.2, False, scale, 0.25, reduce=reduce)
+    one = call(feats)
+    if not torch.equal(one, one_call("mpcl_pseudo", feats, cen, T, 0.2, False, scale, 0.25)):
+        raise AssertionError("mpcl_pseudo_fwd: two-call entry differs from the one-call one")
+    out["mpcl_pseudo_fwd"] = close(halves(call, lambda i, j: feats[i:j]), one, 1e-4, 0.0,
+                                   "mpcl_pseudo_fwd")
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_config(work: Path, method: str, fsdp: bool = False, dtype: str = ""):
+    """The full-width ``slcl`` multilvl cell or the ``mccl`` preset."""
+    from slcl_torch.config import Config, apply_recipe
+    cfg = Config()
+    cfg.method = method
+    cfg = apply_recipe(cfg)
+    cfg.model.multilvl = method == "slcl"
+    cfg.mesh.fsdp = fsdp
+    if dtype:
+        cfg.model.dtype = dtype
+    cfg.data.dataset = "synthetic"
+    cfg.optim.epochs = 1
+    cfg.run.out_dir = str(work)
+    return cfg
+
+
+def state_of(trainer) -> dict:
+    """Every network's whole state, the centres and the step, on the card."""
+    from slcl_torch.parallel import mesh as dp
+    from slcl_torch.train.trainer import _NETS
+    s = trainer.state
+    out = {f"{n}/{k}": v.detach().clone() for n in _NETS if getattr(s, n) is not None
+           for k, v in dp.full_state_dict(getattr(s, n)).items()}
+    out["centroids"] = s.centroids.detach().clone()
+    return out
+
+
+def dp_steps(trainer, batches, sched, mesh) -> tuple:
+    """Two steps of ``trainer`` under ``mesh``: (metrics of each, launches)."""
+    import torch
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.parallel import mesh as dp
+    reset_launch_counts()
+    metrics = []
+    with dp.use(mesh):
+        for b in batches:
+            metrics.append({k: v.clone() for k, v in trainer.step_fn(trainer.state, b,
+                                                                     sched).items()})
+    torch.cuda.synchronize()
+    return metrics, launch_counts()
+
+
+def step_ms(trainer, batches, sched, mesh, n: int = 10) -> float:
+    """Mean wall time of ``n`` back-to-back steps (one sync at the end)."""
+    import torch
+    from slcl_torch.parallel import mesh as dp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dp.use(mesh):
+        for i in range(n):
+            trainer.step_fn(trainer.state, batches[i % len(batches)], sched)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def dp_one_rank(work: Path, mesh, method: str, fsdp: bool) -> dict:
+    """(a): the plain Trainer and the Trainer under the one-rank NCCL mesh,
+    from the same seed, two steps on the same batches: bit for bit."""
+    import torch
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.parallel import mesh as dp
+    from slcl_torch.train.trainer import Trainer
+    plain = Trainer(dp_config(work, method, fsdp))
+    with dp.use(mesh):
+        ranked = Trainer(dp_config(work, method, fsdp))
+    if ranked.mesh is not mesh:
+        raise AssertionError("the Trainer did not take the mesh")
+    batches = []
+    for b in device_prefetch(plain._epoch_batches(), plain.device):
+        batches.append(b)
+        if len(batches) == 2:
+            break
+    sched = plain._sched(0)
+    m_plain, c_plain = dp_steps(plain, batches, sched, None)
+    m_rank, c_rank = dp_steps(ranked, batches, sched, mesh)
+    per = PER_METHOD[method]
+    for counts, who in ((c_plain, "plain"), (c_rank, "mesh")):
+        for k, v in per.items():
+            if counts[k] != 2 * v:
+                raise AssertionError(f"parallel {method} {who}: {k} launched {counts[k]} "
+                                     f"times in 2 steps, expected {2 * v}")
+    for i, (a, b) in enumerate(zip(m_plain, m_rank)):
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        if diff:
+            raise AssertionError(f"parallel {method} step {i}: metrics differ: {diff}")
+    sa, sb = state_of(plain), state_of(ranked)
+    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if diff:
+        raise AssertionError(f"parallel {method}: state differs: {diff[:8]}")
+    # twenty steps of each, in the order plain, mesh, mesh, plain
+    times = {"plain": [], "mesh": []}
+    for who in ("plain", "mesh", "mesh", "plain"):
+        t, m_ = (plain, None) if who == "plain" else (ranked, mesh)
+        times[who].append(step_ms(t, batches, sched, m_, n=20))
+    rec = {"bit_identical": True, "launches_per_step": {k: c_rank[k] / 2 for k in per},
+           "plain_step_ms": times["plain"], "mesh_step_ms": times["mesh"],
+           "fsdp": fsdp, "sharded_params": sum(
+               1 for p in ranked.state.seg.parameters() if dp.is_dtensor(p))}
+    del plain, ranked, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def two_rank_entry(mesh, method: str, work: str, d_step: str = "") -> dict:
+    """(b), in each rank (and with ``mesh`` None in one process): two f32
+    steps of the full-width cell on the first global batch of 16 rows,
+    this rank's 8; metrics, state (on the host), launches, each
+    discriminator's first-step gradient as its optimizer receives it (summed
+    over the ranks), and the first ``d_main`` update's inputs. With
+    ``d_step`` (a file of such inputs), also :func:`disc_update_f64`."""
+    import torch
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.ops.cuda import build, launch_counts, reset_launch_counts
+    from slcl_torch.parallel import mesh as dp
+    from slcl_torch.train import steps as S
+    from slcl_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()       # built by the parent: loads the libraries
+    with dp.use(mesh):
+        trainer = Trainer(dp_config(Path(work), method, dtype="float32"),
+                          device=torch.device("cuda", torch.cuda.current_device()))
+    s = trainer.state
+    batches = []
+    for b in device_prefetch(trainer._epoch_batches(), trainer.device):
+        batches.append(b)
+        if len(batches) == 2:
+            break
+    sched = trainer._sched(0)
+    grads, first = {}, {}
+
+    def first_grads(name):
+        def hook(opt, args, kwargs):
+            if name not in grads:
+                grads[name] = [p.grad.detach().float().cpu().clone()
+                               for g in opt.param_groups for p in g["params"]]
+        return hook
+    for name in ("opt_d_main", "opt_d_aux"):
+        if getattr(s, name, None) is not None:
+            getattr(s, name).register_step_pre_hook(first_grads(name))
+    init = {k: v.cpu() for k, v in state_of(trainer).items() if k.startswith("d_")}
+    d_update = S._d_update
+
+    def recorded(disc, opt, lr, pred_s, pred_t, kind, amp):
+        if disc is s.d_main and not first:
+            first.update(pred_s=pred_s.detach().cpu().clone(),
+                         pred_t=pred_t.detach().cpu().clone(), kind=kind, lr=lr,
+                         n_class=int(pred_s.shape[-1]),
+                         init={k: v.detach().cpu().clone()
+                               for k, v in s.d_main.state_dict().items()})
+        return d_update(disc, opt, lr, pred_s, pred_t, kind, amp)
+    S._d_update = recorded
+    reset_launch_counts()
+    metrics = []
+    try:
+        with dp.use(mesh):
+            for b in batches:
+                metrics.append({k: float(v) for k, v in trainer.step_fn(s, b,
+                                                                         sched).items()})
+        torch.cuda.synchronize()
+    finally:
+        S._d_update = d_update
+    out = {"metrics": metrics, "launches": launch_counts(),
+           "rows": int(batches[0]["img_s"].shape[0]),
+           "state": {k: v.cpu() for k, v in state_of(trainer).items()},
+           "init": init, "lr_dis": sched["lr_dis"], "disc_grads": grads,
+           "d_step": first}
+    if d_step:
+        out["disc_f64"] = disc_update_f64(mesh, d_step)
+    return out
+
+
+def disc_update_f64(mesh, path: str) -> dict:
+    """The main path's first ``d_main`` update (``train/steps.py::_d_update``:
+    the BCE's global means, ``net_update``'s share and ``reduce_grads``)
+    redone in float64 on the card from the one process's recorded inputs
+    and initial weights, on this rank's rows: its summed gradients (on the
+    host); in one process also the norms of the source and the target
+    terms' gradients, whose near cancellation turns float32 rounding of the
+    inputs into a larger error of their sum."""
+    import contextlib
+
+    import torch
+    from slcl_torch.models import UncertaintyDiscriminator
+    from slcl_torch.ops import losses as L
+    from slcl_torch.parallel import mesh as dp
+    from slcl_torch.train import steps as S
+    rec = torch.load(path, weights_only=False)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d = UncertaintyDiscriminator(rec["n_class"]).to(dev, torch.float64)
+    d.load_state_dict(rec["init"])
+    opt = torch.optim.Adam(d.parameters(), lr=rec["lr"])
+    grads = []
+    opt.register_step_pre_hook(lambda o, a, k: grads.extend(
+        p.grad.detach().cpu().clone() for p in d.parameters()))
+    with dp.use(mesh):
+        ps, pt = (dp.local_rows(rec[k].to(dev, torch.float64)) for k in ("pred_s", "pred_t"))
+        S._d_update(d, opt, rec["lr"], ps, pt, rec["kind"], contextlib.nullcontext())
+    out = {"grads": grads}
+    if mesh is None:
+        d.load_state_dict(rec["init"])
+        params = list(d.parameters())
+        norms = []
+        for pred, target in ((ps, 1.0), (pt, 0.0)):
+            loss = 0.5 * L.bce_with_logits(d(S._d_input(pred, rec["kind"])), target)
+            g = torch.autograd.grad(loss, params)
+            norms.append(float(torch.linalg.vector_norm(torch.cat([x.flatten() for x in g]))))
+        total = float(torch.linalg.vector_norm(torch.cat([x.flatten() for x in grads])))
+        out["cancellation"] = total / sum(norms)
+    return out
+
+
+def grad_rel_err(got, want, what: str) -> float:
+    """A gradient tensor held as the CPU tests hold gradients: elementwise
+    rtol 1e-4 with an atol of 1e-5 of its largest entry, and its error's
+    norm within 1e-4 of its norm; returns that norm ratio."""
+    import torch
+    scale = float(want.abs().max())
+    bad = (got - want).abs() > 1e-5 * scale + 1e-4 * want.abs()
+    rel = float(torch.linalg.vector_norm(got - want) /
+                max(float(torch.linalg.vector_norm(want)), 1e-30))
+    if bool(bad.any()) or rel > 1e-4:
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} entries off, "
+                             f"error norm {rel:.3g} of the norm")
+    return rel
+
+
+def norm_rel_err(got, want) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(got - want) /
+                 max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+def dp_two_ranks(work: Path, method: str) -> dict:
+    """(b): two gloo ranks on the card against one process on the card (the
+    one process first: the ranks redo its first discriminator update in
+    float64)."""
+    import torch
+    from slcl_torch.parallel.dryrun import spawn
+    t0 = time.perf_counter()
+    want = two_rank_entry(None, method, str(work))
+    d_step = ""
+    if want["d_step"]:
+        d_step = str(work / f"d_step_{method}.pt")
+        torch.save(want["d_step"], d_step)
+        want["disc_f64"] = disc_update_f64(None, d_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(2, "two_rank_entry", (method, str(work), d_step), module="chip_smoke",
+                  device="cuda:0", timeout=400)
+    per = PER_METHOD[method]
+    rec = {"rows_per_rank": [r["rows"] for r in ranks], "rows_one": want["rows"],
+           "seconds": round(time.perf_counter() - t0, 1)}
+    if d_step:
+        rec["disc_f64_cancellation"] = want["disc_f64"]["cancellation"]
+    for r, got in enumerate(ranks):
+        for k, v in per.items():
+            if got["launches"][k] != 2 * v:
+                raise AssertionError(f"two ranks {method} rank {r}: {k} launched "
+                                     f"{got['launches'][k]} times in 2 steps, expected {2 * v}")
+        err = {}
+        for i in range(2):
+            for k, w in want["metrics"][i].items():
+                g = got["metrics"][i][k]
+                if not abs(g - w) <= max(1e-5 * abs(w), 1e-6):
+                    raise AssertionError(f"two ranks {method} rank {r} step {i} {k}: "
+                                         f"{g} vs {w}")
+        cosines = {}
+        for k, w in want["state"].items():
+            g = got["state"][k]
+            if not torch.is_floating_point(w):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"two ranks {method} rank {r}: {k} differs")
+                continue
+            if k.startswith("d_"):
+                # Adam's first steps move a parameter whose gradient is
+                # rounding noise by up to lr_dis each: the float64 update
+                # below holds the discriminators' gradients to the tolerance
+                err[k] = close(g, w, 0.0, 2 * 2 * want["lr_dis"], f"two ranks {method} {k}")
+                dg, dw = (g - got["init"][k]).double(), (w - want["init"][k]).double()
+                if dw.abs().max() > 0:
+                    cosines[k] = float((dg * dw).sum() / (torch.linalg.vector_norm(dg) *
+                                                          torch.linalg.vector_norm(dw)))
+            else:
+                err[k] = close(g, w, 1e-4, 1e-6, f"two ranks {method} {k}")
+        if cosines and min(cosines.values()) < 0.9:
+            bad = min(cosines, key=cosines.get)
+            raise AssertionError(f"two ranks {method} rank {r}: {bad} moved unlike one "
+                                 f"process's (cosine {cosines[bad]:.3g})")
+        if d_step:
+            rec[f"rank{r}_disc_f64_grad_rel_err"] = max(
+                grad_rel_err(g_, w_, f"two ranks {method} rank {r} d_main f64 gradient {j}")
+                for j, (g_, w_) in enumerate(zip(got["disc_f64"]["grads"],
+                                                 want["disc_f64"]["grads"])))
+        if set(got["disc_grads"]) != set(want["disc_grads"]):
+            raise AssertionError(f"two ranks {method} rank {r}: discriminators "
+                                 f"{sorted(got['disc_grads'])} vs {sorted(want['disc_grads'])}")
+        rec[f"rank{r}_disc_grad_f32_rel_err"] = max(
+            [norm_rel_err(g_, w_) for name, ws in want["disc_grads"].items()
+             for g_, w_ in zip(got["disc_grads"][name], ws)], default=0.0)
+        rec[f"rank{r}_disc_min_cosine"] = min(cosines.values(), default=None)
+        seg = [v for k, v in err.items() if not k.startswith("d_")]
+        rec[f"rank{r}_max_abs_err"] = max(seg)
+        rec[f"rank{r}_disc_max_abs_err"] = max([v for k, v in err.items()
+                                                if k.startswith("d_")], default=0.0)
+        rec[f"rank{r}_launches_per_step"] = {k: got["launches"][k] / 2 for k in per}
+    return rec
+
+
+def parallel_phase(work: Path) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import torch
+    from slcl_torch.parallel import mesh as dp
+    out = {"split_entries": split_entries()}
+    mesh = dp.make_mesh(1, backend="nccl", device=torch.device("cuda"),
+                        init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        out["nccl_one_rank"] = {
+            "slcl": dp_one_rank(work, mesh, "slcl", False),
+            "mccl": dp_one_rank(work, mesh, "mccl", False),
+            "slcl_fsdp": dp_one_rank(work, mesh, "slcl", True)}
+    finally:
+        dp.release()
+    out["gloo_two_ranks_one_card"] = {m: dp_two_ranks(work, m) for m in ("slcl", "mccl")}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2527,6 +2999,7 @@ def main() -> int:
             real = train_real(work)
             served = serve_phase(work, protocol, {"mscmrseg": work / "data" / "mscmrseg"})
             run_utils = run_utils_phase(work)
+            parallel = parallel_phase(work)
             for k in ("slcl_args", "slcl_best"):
                 protocol.pop(k)
         finally:
@@ -2612,6 +3085,7 @@ def main() -> int:
                                       "protocol": extra_protocol}}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"run_utils": run_utils}))
+    print(json.dumps({"parallel": parallel}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -98,17 +98,27 @@ int fwd_grid(int M, int F, int* grid) {
   return -1;
 }
 
+// The streaming pass alone; *grid = its blocks (the pairs it wrote).
+template <typename T>
+int launch_partial(const void* feats, const int* labels, const float* sel,
+                   const float* centers, int M, int F, Margin mg, float* part, int* grid,
+                   cudaStream_t st) {
+  const int rc = fwd_grid<T>(M, F, grid);
+  if (rc != 0) return rc;
+  SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC>
+                     <<<*grid, kThreads, slcl::FwdTile<T, kF>::kSmemBytes, st>>>(
+                         static_cast<const T*>(feats), labels, sel, centers, M, mg,
+                         part));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_fwd(const void* feats, const int* labels, const float* sel,
                const float* centers, int M, int F, Margin mg, float scale,
                float* part, float* out, cudaStream_t st) {
   int grid = 0;
-  const int rc = fwd_grid<T>(M, F, &grid);
+  const int rc = launch_partial<T>(feats, labels, sel, centers, M, F, mg, part, &grid, st);
   if (rc != 0) return rc;
-  SLCL_DISPATCH_F(F, mpcl_fwd_partial<T, kF, kC>
-                     <<<grid, kThreads, slcl::FwdTile<T, kF>::kSmemBytes, st>>>(
-                         static_cast<const T*>(feats), labels, sel, centers, M, mg,
-                         part));
   slcl::mpcl_fwd_final<<<1, kThreads, 0, st>>>(part, grid, M, sel != nullptr, scale, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -170,6 +180,34 @@ int mpcl_fwd(const void* feats, int feats_bf16, const void* labels,
   return feats_bf16
              ? launch_fwd<__nv_bfloat16>(feats, lab, s, cen, M, F, mg, scale, part, o, st)
              : launch_fwd<float>(feats, lab, s, cen, M, F, mg, scale, part, o, st);
+}
+
+// The forward in two calls, for a caller that sums the partial pairs of
+// several processes in between (data parallelism): the streaming pass
+// (*nparts = the pairs it wrote), then the final pass over nparts pairs
+// with M the rows of all of them. Together they give mpcl_fwd's out.
+int mpcl_fwd_partial(const void* feats, int feats_bf16, const void* labels,
+                     const void* sel, const void* centers, int M, int F, int C, float T,
+                     float cos_m, float sin_m, float th, float mm, int easy,
+                     void* partials, int* nparts, void* stream) {
+  if (C != kC) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const int*>(labels);
+  auto s = static_cast<const float*>(sel);
+  auto cen = static_cast<const float*>(centers);
+  auto part = static_cast<float*>(partials);
+  return feats_bf16
+             ? launch_partial<__nv_bfloat16>(feats, lab, s, cen, M, F, mg, part, nparts, st)
+             : launch_partial<float>(feats, lab, s, cen, M, F, mg, part, nparts, st);
+}
+
+int mpcl_fwd_final(const void* partials, int nparts, int M, int use_sel, float scale,
+                   void* out, void* stream) {
+  slcl::mpcl_fwd_final<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partials), nparts, M, use_sel, scale,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // stats is the forward's out (stats[2] = den); grad_out one float.

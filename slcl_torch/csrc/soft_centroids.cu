@@ -1120,12 +1120,12 @@ int std_bwd_grid_of(int M, int* g) {
 
 using slcl::kC;
 
+// The streaming pass alone; *nparts = its blocks (the partials it wrote).
 template <typename T>
-int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
-               int F, int P, float thd, int use_thd, int weighted, float* partials,
-               float* cents, float* counts, float* ratio, float* s2, float* stdv,
-               cudaStream_t st) {
-  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(s2 != nullptr, {
+int launch_partial(const void* feats, const float* probs, const int* assign, int M,
+                   int F, int P, float thd, int use_thd, int weighted, int with_std,
+                   float* partials, int* nparts, cudaStream_t st) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(with_std, {
     int grid = 0;
     if constexpr (kS) {
       const int rc = std_fwd_grid_of<T, kF, kP>(M, &grid);
@@ -1139,12 +1139,33 @@ int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
       centroids_fwd_partial<T, kF, kP, kC><<<grid, kThreads, 0, st>>>(
           static_cast<const T*>(feats), probs, assign, M, thd, use_thd, weighted, partials);
     }
+    *nparts = grid;
+  })));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The final pass over nparts blocks' partials of M rows in all.
+int launch_final(const float* partials, int nparts, int M, int F, int P, float* cents,
+                 float* counts, float* ratio, float* s2, float* stdv, cudaStream_t st) {
+  SLCL_DISPATCH_F(F, SLCL_DISPATCH_P(P, SLCL_DISPATCH_STD(s2 != nullptr, {
     constexpr int kNV = kP * kC * kF + kP * kC + 1;
     constexpr int kBlocks = (kNV + kWarps - 1) / kWarps + (kS ? kC : 0);
     centroids_fwd_final<kF, kP, kC, kS><<<kBlocks, kThreads, 0, st>>>(
-        partials, grid, M, cents, counts, ratio, s2, stdv);
+        partials, nparts, M, cents, counts, ratio, s2, stdv);
   })));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fwd(const void* feats, const float* probs, const int* assign, int M,
+               int F, int P, float thd, int use_thd, int weighted, float* partials,
+               float* cents, float* counts, float* ratio, float* s2, float* stdv,
+               cudaStream_t st) {
+  int grid = 0;
+  const int rc = launch_partial<T>(feats, probs, assign, M, F, P, thd, use_thd, weighted,
+                                   s2 != nullptr, partials, &grid, st);
+  if (rc != 0) return rc;
+  return launch_final(partials, grid, M, F, P, cents, counts, ratio, s2, stdv, st);
 }
 
 template <typename T>
@@ -1245,6 +1266,38 @@ int soft_centroids_fwd(const void* feats, int feats_bf16, const void* probs,
                                          weighted, pt, ce, co, ra, q, sd, st)
              : launch_fwd<float>(feats, pr, as, M, F, P, threshold, use_thd, weighted,
                                  pt, ce, co, ra, q, sd, st);
+}
+
+// The forward in two calls, for a caller that sums the partials of several
+// processes in between (data parallelism): the streaming pass (*nparts =
+// the blocks whose partials it wrote; the same on every process for the
+// same M and card), then the final pass over nparts blocks' partials with M
+// the rows of all processes. Together they give soft_centroids_fwd.
+int soft_centroids_fwd_partial(const void* feats, int feats_bf16, const void* probs,
+                               const void* assign, int M, int F, int C, int P,
+                               float threshold, int weighted, int with_std, void* partials,
+                               int* nparts, void* stream) {
+  if (C != kC) return -1;
+  const int use_thd = threshold > 0.f && threshold < 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pr = static_cast<const float*>(probs);
+  auto as = static_cast<const int*>(assign);
+  auto pt = static_cast<float*>(partials);
+  return feats_bf16
+             ? launch_partial<__nv_bfloat16>(feats, pr, as, M, F, P, threshold, use_thd,
+                                             weighted, with_std, pt, nparts, st)
+             : launch_partial<float>(feats, pr, as, M, F, P, threshold, use_thd, weighted,
+                                     with_std, pt, nparts, st);
+}
+
+int soft_centroids_fwd_final(const void* partials, int nparts, int M, int F, int C, int P,
+                             void* cents, void* counts, void* ratio, void* s2, void* stdv,
+                             void* stream) {
+  if (C != kC || (s2 == nullptr) != (stdv == nullptr)) return -1;
+  return launch_final(static_cast<const float*>(partials), nparts, M, F, P,
+                      static_cast<float*>(cents), static_cast<float*>(counts),
+                      static_cast<float*>(ratio), static_cast<float*>(s2),
+                      static_cast<float*>(stdv), static_cast<cudaStream_t>(stream));
 }
 
 // dprobs may be null (hard weights, or probs needs no gradient). dstd (C,)

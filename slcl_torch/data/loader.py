@@ -5,13 +5,18 @@ and threads only) plus the torch host->device copy: pinned host memory and
 ``non_blocking=True`` copies, a few batches ahead of the consumer. Epoch
 pairing of the two domains follows the reference's ``zip(content_loader,
 style_loader)`` semantics — epoch length = min of the two loaders.
+
+Under data parallelism each rank's Loader takes ``rows=(rank, n)``: it
+draws the global batches of the one-process Loader (the same shuffle) and
+decodes only its ``batch_size / n`` rows of each; with the per-sample RNG
+of (seed, epoch, index) those rows are the one-process batch's.
 """
 from __future__ import annotations
 
 import collections
 import queue as queue_mod
 import threading
-from typing import Any, Dict, Iterator, Sequence
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +38,10 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_threads: int = 4,
-                 prefetch: int = 4):
+                 prefetch: int = 4, rows: Tuple[int, int] = (0, 1)):
         self.ds = dataset
         self.bs = batch_size
+        self.rows = rows
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -63,6 +69,12 @@ class Loader:
         self.epoch += 1
         n_batches = len(self)
         batches = [idx[i * self.bs:(i + 1) * self.bs] for i in range(n_batches)]
+        rank, n = self.rows
+        if n > 1:
+            if self.bs % n:
+                raise ValueError(f"batch size {self.bs} not divisible by {n} ranks")
+            per = self.bs // n
+            batches = [b[rank * per:(rank + 1) * per] for b in batches]
 
         if self.num_threads == 1:
             for b in batches:
@@ -96,8 +108,10 @@ class Loader:
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """Copy the numpy arrays of ``batch`` to ``device``. Integer label maps
-    become int32 (the kernels' label type); on CUDA the copy goes through
-    pinned host memory and does not block the host."""
+    become int32 (the kernels' label type), floating arrays take torch's
+    default dtype (float32 unless a caller, such as the float64 dry run,
+    sets another); on CUDA the copy goes through pinned host memory and
+    does not block the host."""
     cuda = device.type == "cuda"
     out = {}
     for k, v in batch.items():
@@ -108,7 +122,8 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
         t = torch.from_numpy(np.ascontiguousarray(v))
         if cuda:
             t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=cuda)
+        dtype = torch.get_default_dtype() if t.is_floating_point() else None
+        out[k] = t.to(device, dtype=dtype, non_blocking=cuda)
     return out
 
 

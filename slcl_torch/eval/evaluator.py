@@ -76,11 +76,13 @@ class Evaluator:
         self.autocast = autocast or contextlib.nullcontext
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the evaluator's device (pinned, non-blocking)."""
+        """A host array on the evaluator's device (pinned, non-blocking); a
+        floating one in torch's default dtype, as the Loader's batches."""
         t = torch.from_numpy(np.ascontiguousarray(a))
+        dtype = torch.get_default_dtype() if t.is_floating_point() else None
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            return t.pin_memory().to(self.device, dtype=dtype, non_blocking=True)
+        return t.to(self.device, dtype=dtype)
 
     @contextlib.contextmanager
     def eval_mode(self):

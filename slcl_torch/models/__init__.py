@@ -4,7 +4,10 @@ import torch
 
 from .common import BatchNorm, ConvBNAct, FrozenBatchNorm, SegOutput  # noqa: F401
 from .deeplabv2 import DeepLabV2  # noqa: F401
-from .discriminators import UncertaintyDiscriminator  # noqa: F401
+from .discriminators import (  # noqa: F401
+    BoundaryDiscriminator, MLPDiscriminator, OutputDiscriminator, PatchGAN,
+    UncertaintyDiscriminator,
+)
 from .drunet import DRUNet  # noqa: F401
 from .resnet_unet import ResNetUNet  # noqa: F401
 from .unet import UNet  # noqa: F401

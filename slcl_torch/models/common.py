@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as dp
+
 
 class SegOutput(NamedTuple):
     """Uniform segmentor output (reference ``(pred, aux, dcdr_ft)``)."""
@@ -87,7 +89,11 @@ class BatchNorm(nn.Module):
     flax's by ``flax = r * (n-1)/n + 0.9 * old / n``, applied in place on
     the (C,) buffer after the call, so the activations take one pass. At
     one value per channel (n = 1), where ``F.batch_norm`` raises, flax's own
-    formula runs: the output is the bias, the batch variance 0. With
+    formula runs: the output is the bias, the batch variance 0. Under data
+    parallelism the moments are the global batch's, in two differentiable
+    all-reduces over the data ranks: the per-channel sums and the count (the
+    count too, since RAIN's stylised rows sit on one rank), then the squared
+    deviations from the global mean; the running statistics take them. With
     ``track`` False (:func:`running_stats_frozen`) train mode normalises
     with the batch statistics and leaves the running ones as they are."""
 
@@ -111,7 +117,7 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
         n = x.numel() // x.shape[1]
-        if n == 1:
+        if n == 1 or dp.data_parallel():
             return self._flax_train(x, weight, bias)
         # F.batch_norm updates the copies in place and autograd keeps them,
         # so the buffers themselves are written only after the call. With
@@ -127,12 +133,21 @@ class BatchNorm(nn.Module):
         return y
 
     def _flax_train(self, x, weight, bias):
-        """flax's train-mode arithmetic: E[x^2] - E[x]^2 clipped at 0."""
+        """flax's train-mode arithmetic: E[x^2] - E[x]^2 clipped at 0, over
+        the global batch under data parallelism."""
         dims = [d for d in range(x.dim()) if d != 1]
         xf = x.to(weight.dtype)
-        mean = xf.mean(dims, keepdim=True)
-        var = ((xf * xf).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
         shape = [1, -1] + [1] * (x.dim() - 2)
+        if dp.data_parallel():
+            # two passes, as F.batch_norm on one process: E[x^2] - E[x]^2
+            # loses the variance of a few values far from zero (one per rank)
+            c = x.shape[1]
+            tot = dp.all_sum(torch.cat([xf.sum(dims), xf.new_tensor([float(x.numel() // c)])]))
+            mean = (tot[:c] / tot[c]).view(shape)
+            var = (dp.all_sum((xf - mean).square().sum(dims)) / tot[c]).view(shape)
+        else:
+            mean = xf.mean(dims, keepdim=True)
+            var = ((xf * xf).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps) * weight.view(shape) + bias.view(shape)
         if self.track:
             with torch.no_grad():

@@ -1,5 +1,7 @@
 """Discriminators (counterparts of ``slcl_tpu/models/discriminators.py``):
-the entropy-map ``UncertaintyDiscriminator`` and DDFSeg's ``PatchGAN``.
+the entropy-map ``UncertaintyDiscriminator``, DDFSeg's ``PatchGAN``, and
+the reference's ``OutputDiscriminator``, ``BoundaryDiscriminator`` and
+``MLPDiscriminator`` (GAN.py:8-87,148-210), which no model factory calls.
 
 Each returns raw logits (BCE-with-logits is applied in the loss). Input and
 output are NHWC.
@@ -40,6 +42,86 @@ class UncertaintyDiscriminator(nn.Module):
             if i < self.n_convs - 1:
                 x = F.leaky_relu(x, 0.2)
         return nhwc(x)
+
+
+class _ConvStack(nn.Module):
+    """5x [4x4 stride-2 pad-2 conv, no bias] with LeakyReLU(0.2) between,
+    widths (64, 128, 256, 512, 1), N(0, 0.02) kernels (GAN.py:90-145); NCHW
+    in and out."""
+
+    def __init__(self, in_channels: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        prev = in_channels
+        for i, w in enumerate((64, 128, 256, 512, 1)):
+            conv = nn.Conv2d(prev, w, 4, stride=2, padding=2, bias=False)
+            normal_conv_init_(conv, generator)
+            self.add_module(f"conv{i + 1}", conv)
+            prev = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.conv1.weight.dtype)
+        for i in range(5):
+            x = getattr(self, f"conv{i + 1}")(x)
+            if i < 4:
+                x = F.leaky_relu(x, 0.2)
+        return x
+
+
+class OutputDiscriminator(nn.Module):
+    """The conv stack on the predictions resized bilinearly to ``size`` x
+    ``size`` (half-pixel centres, as ``jax.image.resize``), optionally
+    softmaxed over the classes (GAN.py:53-87). Shrinking, it antialiases as
+    JAX does, with filter weights at the image edges that differ from JAX's
+    slightly (``tests/test_torch_discriminators.py``)."""
+
+    def __init__(self, in_channels: int = 4, softmax: bool = False, size: int = 224,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.softmax = softmax
+        self.size = size
+        self._ConvStack_0 = _ConvStack(in_channels, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nchw(x)
+        shrink = x.shape[2] > self.size or x.shape[3] > self.size
+        x = F.interpolate(x, size=(self.size, self.size), mode="bilinear",
+                          align_corners=False, antialias=shrink)
+        if self.softmax:
+            x = torch.softmax(x, dim=1)
+        return nhwc(self._ConvStack_0(x))
+
+
+class BoundaryDiscriminator(nn.Module):
+    """The conv stack on a 1- or 3-channel map (GAN.py:148-210)."""
+
+    def __init__(self, in_channels: int = 1, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._ConvStack_0 = _ConvStack(in_channels, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nhwc(self._ConvStack_0(nchw(x)))
+
+
+class MLPDiscriminator(nn.Module):
+    """4096-2048-1024-1 MLP with LeakyReLU(0.2) on the flattened (NHWC order)
+    input, N(0, 0.02) weights and zero biases (GAN.py:8-50)."""
+
+    def __init__(self, in_features: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        prev = in_features
+        for i, w in enumerate((4096, 2048, 1024, 1)):
+            fc = nn.Linear(prev, w)
+            with torch.no_grad():
+                nn.init.normal_(fc.weight, 0.0, 0.02, generator=generator)
+                fc.bias.zero_()
+            self.add_module(f"fc{i + 1}", fc)
+            prev = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1).to(self.fc1.weight.dtype)
+        for i in range(1, 4):
+            x = F.leaky_relu(getattr(self, f"fc{i}")(x), 0.2)
+        return self.fc4(x)
 
 
 class PatchGAN(nn.Module):

@@ -10,6 +10,10 @@ for CPU tensors. All reductions accumulate in float32. BCL's per-round
 pseudo-labels: class-balanced thresholds (``gene_thres``, numpy on the
 host), ``thres_cb_plabel``, ``gene_plabel_prop``, ``mask_fusion`` and
 ``pseudo_label_accuracy``.
+
+Under data parallelism the source centres' per-class sums and counts are
+all-summed over the data ranks before the division (the global batch's
+means); the target centroids reduce inside :func:`soft_centroids`.
 """
 from __future__ import annotations
 
@@ -21,9 +25,21 @@ import torch.nn.functional as F
 
 from .cuda.pseudo_label import pseudo_label
 from .cuda.soft_centroids import soft_centroids
+from ..parallel import mesh as dp
 from .losses import nearest_resize_labels
 
 _EPS = 1e-7
+
+
+def _class_sums(onehot: torch.Tensor, feats: torch.Tensor):
+    """(sums (C, F), counts (C, 1)) of the rows per class, over the global
+    batch under data parallelism (one all-reduce)."""
+    sums = onehot.T @ feats
+    counts = onehot.sum(dim=0)[:, None]
+    if dp.data_parallel():
+        sums, counts = dp.all_sum(torch.cat([sums, counts], dim=1)).split(
+            [feats.shape[1], 1], dim=1)
+    return sums, counts
 
 
 class CentroidResult(NamedTuple):
@@ -53,8 +69,7 @@ def source_centroids(decoder_ft: torch.Tensor, labels: torch.Tensor, *,
     if tuple(labels.shape[1:]) != (h, w):
         labels = nearest_resize_labels(labels, (h, w))
     onehot = F.one_hot(labels.reshape(-1).long(), num_classes).float()
-    sums = onehot.T @ feats
-    counts = onehot.sum(dim=0)[:, None]
+    sums, counts = _class_sums(onehot, feats)
     cents = sums / (counts + _EPS)
     if previous is None or bootstrap:
         return cents
@@ -74,8 +89,7 @@ def update_class_center_iter(decoder_ft: torch.Tensor, labels: torch.Tensor,
     if tuple(labels.shape[1:]) != (h, w):
         labels = nearest_resize_labels(labels, (h, w))
     onehot = F.one_hot(labels.reshape(-1).long(), num_classes).float()
-    sums = onehot.T @ feats
-    counts = onehot.sum(dim=0)[:, None]
+    sums, counts = _class_sums(onehot, feats)
     prev = class_centers.float()
     batch_means = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), prev)
     if bootstrap:

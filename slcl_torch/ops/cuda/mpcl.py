@@ -6,6 +6,13 @@ The kernel (``slcl_torch/csrc/mpcl.cu``) replaces
 (M, F) features, normalises them per row, and returns the scalar loss; its
 backward is a second kernel that recomputes each row and returns dfeats
 (zero for the detached prototypes).
+
+Under data parallelism (:mod:`slcl_torch.parallel.mesh`) the forward's
+streaming pass and final pass run apart: the per-block (num, den) pairs are
+all-reduced over the data ranks in between, so the loss is the global
+batch's (the mean over all ranks' rows, or the weighted sum over the global
+``sum(sel) + 1e-4``), and the backward takes the global ``den`` and the sum
+of the ranks' cotangents. The plain version reduces the same two sums.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from ...parallel import mesh as dp
 
 FWD = register("mpcl_fwd", "slcl_torch/csrc/mpcl.cu",
                "slcl_tpu/ops/pallas/mpcl_kernel.py:134")
@@ -28,6 +36,9 @@ _SIGS = {
     "mpcl_num_partials": (I32, [I32, I32, I32, IP]),
     "mpcl_fwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP]),
     "mpcl_bwd": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, *_MARGIN, VP, VP, VP, VP]),
+    "mpcl_fwd_partial": (I32, [VP, I32, VP, VP, VP, I32, I32, I32, F32, F32, F32, F32, F32,
+                               I32, VP, IP, VP]),
+    "mpcl_fwd_final": (I32, [VP, I32, I32, I32, F32, VP, VP]),
     "mpcl_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
 
@@ -73,8 +84,11 @@ def mpcl_loss_normalized(features: torch.Tensor, labels: torch.Tensor,
     scale = temperature / base_temperature
     if pixel_sel_loc is not None:
         sel = pixel_sel_loc.float().reshape(-1)
-        return -scale * (sel * mean_log_prob_pos).sum() / (sel.sum() + 1e-4)
-    return -scale * mean_log_prob_pos.mean()
+        num, den = (sel * mean_log_prob_pos).sum(), sel.sum()
+        if dp.data_parallel():
+            num, den = dp.all_sum(torch.stack([num, den]))
+        return -scale * num / (den + 1e-4)
+    return -scale * dp.gmean(mean_log_prob_pos)
 
 
 def mpcl_plain(feats: torch.Tensor, labels: torch.Tensor, centers: torch.Tensor,
@@ -112,8 +126,14 @@ def _args(feats, labels, centers, sel, T, margin, easy, scale):
             int(easy), scale)
 
 
-def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale) -> torch.Tensor:
-    """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
+def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
+                  reduce=None, m_total: int = 0) -> torch.Tensor:
+    """Launch the forward's streaming pass and final pass (the C entries
+    ``mpcl_fwd_partial`` / ``_final``, which together launch what
+    ``mpcl_fwd`` does); returns ``stats`` = [loss, sum(sel*mlpp), den].
+    ``reduce`` (data parallelism) takes the streaming pass's (num, den)
+    pairs in place between the two (their sum over the ranks), and the
+    final pass averages over ``m_total`` rows when there is no ``sel``."""
     _check_inputs(feats, labels, centers, sel)
     lib = build.load("mpcl", _SIGS)
     n_pairs = ctypes.c_int()
@@ -123,9 +143,15 @@ def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale) -> torch.
             "mpcl_num_partials")
         parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
         stats = torch.empty(3, dtype=torch.float32, device=feats.device)
-        rc = lib.mpcl_fwd(*_args(feats, labels, centers, sel, T, margin, easy, scale),
-                          ptr(parts), ptr(stats), stream_of(feats))
-    raise_on_error(rc, "mpcl_fwd")
+        args = _args(feats, labels, centers, sel, T, margin, easy, scale)
+        grid = ctypes.c_int()
+        raise_on_error(lib.mpcl_fwd_partial(*args[:-1], ptr(parts), ctypes.byref(grid),
+                                            stream_of(feats)), "mpcl_fwd_partial")
+        if reduce is not None:
+            reduce(parts)
+        rc = lib.mpcl_fwd_final(ptr(parts), grid.value, int(m_total or feats.shape[0]),
+                                int(sel is not None), scale, ptr(stats), stream_of(feats))
+    raise_on_error(rc, "mpcl_fwd_final")
     FWD.launches += 1
     return stats
 
@@ -150,9 +176,12 @@ class _MPCLFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, labels, centers, sel, T, base_T, margin, easy):
         scale = T / base_T
-        stats = mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale)
+        mesh = dp.kernel_mesh()
+        stats = mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
+                              m_total=feats.shape[0] * dp.data_size(), **dp.kernel_forward(mesh))
         ctx.save_for_backward(feats, labels, centers, sel, stats)
         ctx.consts = (T, margin, easy, scale)
+        ctx.mesh = mesh
         return stats[0].clone()
 
     @staticmethod
@@ -160,7 +189,7 @@ class _MPCLFn(torch.autograd.Function):
         feats, labels, centers, sel, stats = ctx.saved_tensors
         T, margin, easy, scale = ctx.consts
         dfeats = mpcl_bwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
-                               grad.float().reshape(1).contiguous(), stats)
+                               dp.kernel_grad(ctx.mesh, grad), stats)
         dcenters = torch.zeros_like(centers) if ctx.needs_input_grad[2] else None
         return dfeats, None, dcenters, None, None, None, None, None
 

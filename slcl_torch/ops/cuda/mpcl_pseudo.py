@@ -8,6 +8,8 @@ row's first-occurrence argmax label and top1-top2 gap mask from its own
 cosines, and returns the scalar MPCL loss weighted by that mask. Its
 backward is a second kernel that recomputes each row and returns dfeats;
 labels and mask are selections and get no gradient, nor do the prototypes.
+Under data parallelism its forward splits as MPCL's does (``mpcl.py``): the
+denominator ``sum(sel) + 1e-4`` is the global batch's.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import torch
 
 from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from ...parallel import mesh as dp
 from .mpcl import _MARGIN, margin_consts, mpcl_plain
 from .pseudo_label import pseudo_label_plain
 
@@ -29,6 +32,9 @@ _SIGS = {
     "mpcl_pseudo_fwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP]),
     "mpcl_pseudo_bwd": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN, F32, VP, VP, VP,
                               VP]),
+    "mpcl_pseudo_fwd_partial": (I32, [VP, I32, VP, I32, I32, I32, *_MARGIN[:-1], F32, VP,
+                                      IP, VP]),
+    "mpcl_pseudo_fwd_final": (I32, [VP, I32, I32, F32, VP, VP]),
     "mpcl_pseudo_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
 
@@ -61,8 +67,13 @@ def _args(feats, centers, T, margin, easy, scale, sel_th):
             float(sel_th))
 
 
-def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th) -> torch.Tensor:
-    """Launch the forward; returns ``stats`` = [loss, sum(sel*mlpp), den]."""
+def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
+                         reduce=None) -> torch.Tensor:
+    """Launch the forward's streaming pass and final pass (the C entries
+    ``mpcl_pseudo_fwd_partial`` / ``_final``, which together launch what
+    ``mpcl_pseudo_fwd`` does); returns ``stats`` = [loss, sum(sel*mlpp),
+    den]. ``reduce`` (data parallelism) takes the streaming pass's (num,
+    den) pairs in place between the two (their sum over the ranks)."""
     _check_inputs(feats, centers)
     lib = build.load("mpcl_pseudo", _SIGS)
     n_pairs = ctypes.c_int()
@@ -72,9 +83,16 @@ def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th) -> torc
             "mpcl_pseudo_num_partials")
         parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
         stats = torch.empty(3, dtype=torch.float32, device=feats.device)
-        rc = lib.mpcl_pseudo_fwd(*_args(feats, centers, T, margin, easy, scale, sel_th),
-                                 ptr(parts), ptr(stats), stream_of(feats))
-    raise_on_error(rc, "mpcl_pseudo_fwd")
+        args = _args(feats, centers, T, margin, easy, scale, sel_th)
+        grid = ctypes.c_int()
+        raise_on_error(lib.mpcl_pseudo_fwd_partial(
+            *args[:-2], args[-1], ptr(parts), ctypes.byref(grid), stream_of(feats)),
+            "mpcl_pseudo_fwd_partial")
+        if reduce is not None:
+            reduce(parts)
+        rc = lib.mpcl_pseudo_fwd_final(ptr(parts), grid.value, feats.shape[0], scale,
+                                       ptr(stats), stream_of(feats))
+    raise_on_error(rc, "mpcl_pseudo_fwd_final")
     FWD.launches += 1
     return stats
 
@@ -99,9 +117,12 @@ class _MPCLPseudoFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, centers, T, base_T, margin, easy, sel_th):
         scale = T / base_T
-        stats = mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th)
+        mesh = dp.kernel_mesh()
+        stats = mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
+                                     **dp.kernel_forward(mesh))
         ctx.save_for_backward(feats, centers, stats)
         ctx.consts = (T, margin, easy, scale, sel_th)
+        ctx.mesh = mesh
         return stats[0].clone()
 
     @staticmethod
@@ -109,7 +130,7 @@ class _MPCLPseudoFn(torch.autograd.Function):
         feats, centers, stats = ctx.saved_tensors
         T, margin, easy, scale, sel_th = ctx.consts
         dfeats = mpcl_pseudo_bwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
-                                      grad.float().reshape(1).contiguous(), stats)
+                                      dp.kernel_grad(ctx.mesh, grad), stats)
         dcenters = torch.zeros_like(centers) if ctx.needs_input_grad[1] else None
         return dfeats, dcenters, None, None, None, None, None
 

@@ -9,6 +9,14 @@ jnp autodiff does on the JAX main path, so the port adds a backward kernel.
 With ``with_std`` both kernels also take MCCL's per-class feature spread
 around partition 0's centroid (``CentroidResult.stddevs``,
 ``slcl_tpu/ops/centroids.py:137-146``) and its gradient, in the same pass.
+
+Under data parallelism (:mod:`slcl_torch.parallel.mesh`) the forward splits
+where the TPU kernel ends: the streaming pass gives each block's partition
+sums, weight totals, certain-pixel count (and with the std Σw·x², raw
+moments, so one reduction serves), those are all-reduced over the data
+ranks, and the final pass divides by the global totals; the backward sums
+the cotangents over the ranks and runs on the global centroids and counts.
+The plain version takes the same split.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from ...parallel import mesh as dp
 
 FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
                "slcl_tpu/ops/pallas/centroid_kernel.py:64")
@@ -39,6 +48,9 @@ _SIGS = {
                                  VP, VP, VP, VP, VP, VP, VP]),
     "soft_centroids_bwd": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32,
                                  VP, VP, VP, VP, VP, VP, VP, VP, VP]),
+    "soft_centroids_fwd_partial": (I32, [VP, I32, VP, VP, I32, I32, I32, I32, F32, I32, I32,
+                                         VP, IP, VP]),
+    "soft_centroids_fwd_final": (I32, [VP, I32, I32, I32, I32, I32, VP, VP, VP, VP, VP, VP]),
     "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, I32, IP, IP]),
 }
 
@@ -61,12 +73,13 @@ def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
     assignment given: the stddevs take the weights of all partitions,
     W = sum w + 1e-7 and S2 = sum w f^2, around partition 0's centroid,
     std = sqrt(mean_f max(S2 / W - c0^2, 0) + 1e-7). A row whose id lies
-    outside [0, P) has no weight in either."""
+    outside [0, P) has no weight in either. Under data parallelism the sums
+    (sums, counts, certain rows, and W and S2) are all-summed over the data
+    ranks before the divisions: the global batch's centroids."""
     feats = feats.float()
     probs = probs.float()
     C = probs.shape[1]
     certain = certain_mask(probs, threshold)
-    ratio = certain.mean()
     if weighted:
         weights = probs * certain[:, None]
     else:
@@ -82,16 +95,32 @@ def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
         w_flat = w_pc.reshape(-1, partition * C)
         sums = (w_flat.T @ feats).reshape(partition, C, -1)
         counts = w_flat.sum(dim=0).reshape(partition, C, 1)
-        cents = sums / (counts + _EPS)
         weights = w_pc.sum(dim=1)       # the rows' weights in any partition
     else:
-        sums = weights.T @ feats
-        counts = weights.sum(dim=0)[:, None]
-        cents = (sums / (counts + _EPS))[None]
+        sums = (weights.T @ feats)[None]
+        counts = weights.sum(dim=0)[None, :, None]
+    if with_std:
+        w_total = weights.sum(dim=0)[:, None]
+        s2 = weights.T @ (feats * feats)
+    if dp.data_parallel():
+        f = feats.shape[1]
+        parts = [sums.reshape(-1), counts.reshape(-1), certain.sum()[None]]
+        if with_std:
+            parts += [w_total.reshape(-1), s2.reshape(-1)]
+        flat = dp.all_sum(torch.cat(parts))
+        n = [partition * C * f, partition * C, 1] + ([C, C * f] if with_std else [])
+        pieces = torch.split(flat, n)
+        sums = pieces[0].reshape(partition, C, f)
+        counts = pieces[1].reshape(partition, C, 1)
+        ratio = pieces[2][0] / (feats.shape[0] * dp.data_size())
+        if with_std:
+            w_total, s2 = pieces[3].reshape(C, 1), pieces[4].reshape(C, f)
+    else:
+        ratio = certain.mean()
+    cents = sums / (counts + _EPS)
     if not with_std:
         return cents, ratio
-    w_total = weights.sum(dim=0)[:, None] + _EPS
-    mean_sq = (weights.T @ (feats * feats)) / w_total
+    mean_sq = s2 / (w_total + _EPS)
     var = torch.maximum(mean_sq - cents[0] * cents[0], torch.zeros_like(mean_sq))
     return cents, ratio, torch.sqrt(var.mean(dim=-1) + _EPS)
 
@@ -110,9 +139,15 @@ def _check_inputs(feats, probs, assign, partition):
 
 
 def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted,
-                            with_std: bool = False):
-    """Launch the forward; returns (centroids (P, C, F), counts (P*C,), ratio),
-    and with ``with_std`` also (stddevs (C,), S2 (C, F)): the std variant."""
+                            with_std: bool = False, reduce=None, m_total: int = 0):
+    """Launch the forward's two kernels, the streaming pass and the final
+    pass (the C entries ``soft_centroids_fwd_partial`` / ``_final``, which
+    together launch what ``soft_centroids_fwd`` does); returns (centroids
+    (P, C, F), counts (P*C,), ratio), and with ``with_std`` also (stddevs
+    (C,), S2 (C, F)): the std variant. ``reduce`` (data parallelism) takes
+    the streaming pass's partials in place between the two (their sum over
+    the ranks), and the final pass divides by the totals of ``m_total``
+    rows."""
     _check_inputs(feats, probs, assign, partition)
     m, f = feats.shape
     C = probs.shape[1]
@@ -131,12 +166,17 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
         ratio = torch.empty((), dtype=torch.float32, device=dev)
         std = torch.empty(C, dtype=torch.float32, device=dev) if with_std else None
         s2 = torch.empty((C, f), dtype=torch.float32, device=dev) if with_std else None
-        rc = lib.soft_centroids_fwd(
-            ptr(feats), bf16, ptr(probs),
-            ptr(assign) if partition > 1 else None, m, f, C, partition,
-            float(threshold), int(weighted), ptr(parts), ptr(cents), ptr(counts),
-            ptr(ratio), ptr(s2), ptr(std), stream_of(feats))
-    raise_on_error(rc, "soft_centroids_fwd")
+        grid = ctypes.c_int()
+        raise_on_error(lib.soft_centroids_fwd_partial(
+            ptr(feats), bf16, ptr(probs), ptr(assign) if partition > 1 else None, m, f, C,
+            partition, float(threshold), int(weighted), int(with_std), ptr(parts),
+            ctypes.byref(grid), stream_of(feats)), "soft_centroids_fwd_partial")
+        if reduce is not None:
+            reduce(parts)
+        rc = lib.soft_centroids_fwd_final(
+            ptr(parts), grid.value, int(m_total or m), f, C, partition, ptr(cents),
+            ptr(counts), ptr(ratio), ptr(s2), ptr(std), stream_of(feats))
+    raise_on_error(rc, "soft_centroids_fwd_final")
     (FWD_STD if with_std else FWD).launches += 1
     if with_std:
         return cents, counts, ratio, std, s2
@@ -178,11 +218,15 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
 class _SoftCentroidsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, probs, assign, partition, threshold, weighted, with_std):
+        mesh = dp.kernel_mesh()
         out = soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold,
-                                      weighted, with_std)
+                                      weighted, with_std,
+                                      m_total=feats.shape[0] * dp.data_size(),
+                                      **dp.kernel_forward(mesh))
         cents, counts, ratio = out[:3]
         ctx.save_for_backward(feats, probs, assign, cents, counts, *out[3:])
         ctx.consts = (partition, threshold, weighted)
+        ctx.mesh = mesh
         ctx.mark_non_differentiable(ratio)
         # an output the loss does not use gets None, not zeros: the backward
         # then takes the std variant only when the std has a gradient
@@ -197,6 +241,11 @@ class _SoftCentroidsFn(torch.autograd.Function):
         std_args = {}
         if dstd is not None:
             std_args = dict(dstd=dstd.float().contiguous(), std=std_s2[0], s2=std_s2[1])
+        if ctx.mesh is not None:
+            # the global centroids' cotangent: the sum of every rank's
+            dcents = dp.sum_over(ctx.mesh, dcents.clone())
+            if dstd is not None:
+                std_args["dstd"] = dp.sum_over(ctx.mesh, std_args["dstd"].clone())
         dfeats, dprobs = soft_centroids_bwd_cuda(
             feats, probs, assign, partition, threshold, weighted, dcents, cents, counts,
             ctx.needs_input_grad[1], **std_args)

@@ -4,6 +4,11 @@ Counterpart of ``slcl_tpu/ops/losses.py``: logits and features NHWC, labels
 NHW, class centres (C, F); every loss accumulates in float32 whatever the
 activation dtype. ``mpcl_loss_calc`` and ``mpcl_pseudo_loss`` send CUDA
 tensors to their kernels and CPU tensors to the plain versions.
+
+Under data parallelism (:mod:`slcl_torch.parallel.mesh`) each loss over
+batch rows is the global batch's on every rank: its sums and counts go
+through one differentiable all-reduce before the division (``gmean``,
+``global_sums``). With one data rank the arithmetic is the one-process one.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch.nn.functional as F
 
 from .cuda.mpcl import mpcl, mpcl_loss_normalized as mpcl_loss  # noqa: F401
 from .cuda.mpcl_pseudo import mpcl_pseudo
+from ..parallel.mesh import all_sum, data_parallel, global_sums, gmean
 
 _EPS = 1e-7
 
@@ -22,7 +28,7 @@ _EPS = 1e-7
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean pixel-wise CE; logits NHWC, labels NHW int."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None].long()).mean()
+    return -gmean(logp.gather(-1, labels[..., None].long()))
 
 
 def jaccard_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
@@ -32,7 +38,10 @@ def jaccard_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = _EPS) 
     onehot = F.one_hot(labels.long(), num_classes).float()
     dims = tuple(range(labels.dim()))
     intersection = (probs * onehot).sum(dim=dims)
-    union = (probs + onehot).sum(dim=dims) - intersection
+    total = (probs + onehot).sum(dim=dims)
+    if data_parallel():
+        intersection, total = all_sum(torch.cat([intersection, total])).split(num_classes)
+    union = total - intersection
     return 1.0 - (intersection / (union + eps)).mean()
 
 
@@ -44,7 +53,8 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None].long())[..., 0]
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    num, den = global_sums((nll * valid).sum(), valid.sum())
+    return num / torch.clamp(den, min=1.0)
 
 
 def loss_calc(logits: torch.Tensor, labels: torch.Tensor, jaccard: bool = False) -> torch.Tensor:
@@ -67,6 +77,9 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-5) -> 
     den1 = (probs * probs).sum(dim=spatial)
     den2 = (onehot * onehot).sum(dim=spatial)
     dice = 2.0 * num / (den1 + den2 + eps)
+    if data_parallel():
+        total, rows = global_sums(dice.sum(), dice.shape[0])
+        return 1.0 - total / rows / num_classes
     return 1.0 - dice.sum() / dice.shape[0] / num_classes
 
 
@@ -77,9 +90,9 @@ def loss_entropy(probs: torch.Tensor, smooth: float = 1e-7, mode: str = "mean") 
     probs = probs.float()
     pix = (-1.0 / math.log(probs.shape[-1])) * (probs * torch.log(probs + smooth)).sum(dim=-1)
     if mode == "mean":
-        return pix.mean()
+        return gmean(pix)
     if mode == "sum":
-        return pix.sum(dim=tuple(range(1, pix.dim()))).mean()
+        return gmean(pix.sum(dim=tuple(range(1, pix.dim()))))
     raise NotImplementedError(mode)
 
 
@@ -87,7 +100,13 @@ def loss_class_prior(probs: torch.Tensor, prior, w: float) -> torch.Tensor:
     """Hinge on the predicted class marginals: ``sum(relu(w*prior - mean))``,
     the mean over every axis but the class one. probs NHWC."""
     probs = probs.float()
-    marginal = probs.mean(dim=tuple(range(probs.dim() - 1)))
+    dims = tuple(range(probs.dim() - 1))
+    if data_parallel():
+        n = probs.numel() // probs.shape[-1]
+        total = all_sum(torch.cat([probs.sum(dim=dims), probs.new_tensor([float(n)])]))
+        marginal = total[:-1] / total[-1]
+    else:
+        marginal = probs.mean(dim=dims)
     prior = torch.as_tensor(prior, dtype=torch.float32, device=probs.device)
     return torch.relu(w * prior - marginal).sum()
 
@@ -101,12 +120,12 @@ def prob_2_entropy(probs: torch.Tensor) -> torch.Tensor:
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
     """Mean binary cross entropy with logits against a constant target."""
     x = logits.float()
-    return (torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+    return gmean(torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-x.abs())))
 
 
 def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Mean squared difference, in float32."""
-    return ((a.float() - b.float()) ** 2).mean()
+    return gmean((a.float() - b.float()) ** 2)
 
 
 def bcl_entropy_loss(logits: torch.Tensor) -> torch.Tensor:
@@ -154,7 +173,7 @@ def chamfer_loss(x: torch.Tensor, y: torch.Tensor, smooth: float = 1e-7) -> torc
     """Symmetric nearest-neighbour (Chamfer) loss of two point sets, the
     distances ``sqrt(d^2 + smooth)`` (reference ``batch_NN_loss``)."""
     d = torch.sqrt(batch_pairwise_dist(x, y) + smooth)
-    return d.min(dim=2).values.mean(dim=1).mean() + d.min(dim=1).values.mean(dim=1).mean()
+    return gmean(d.min(dim=2).values.mean(dim=1)) + gmean(d.min(dim=1).values.mean(dim=1))
 
 
 def _safe_norm(x: torch.Tensor, dim: int = 1, tiny: float = 1e-12) -> torch.Tensor:
@@ -213,7 +232,7 @@ def seg_pseudo_loss(probs_t: torch.Tensor, threshold: float,
     cal = p * num_classes / math.e
     loss = -cal.detach() * torch.log(cal)
     mask = (p.max(dim=-1, keepdim=True).values > threshold).float()
-    return (loss * mask).mean()
+    return gmean(loss * mask)
 
 
 def nearest_resize_labels(labels: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -266,3 +285,97 @@ def mpcl_pseudo_loss(feats: torch.Tensor, class_centers: torch.Tensor, *,
     return mpcl_pseudo(flat, _unit_centers(class_centers).contiguous(),
                        temperature=temperature, base_temperature=base_temperature,
                        margin=margin, easy_margin=easy_margin, pixel_sel_th=pixel_sel_th)
+
+
+# ---------------------------------------------------------------------------
+# Pixel-level supervised contrastive (SupCon / Local / Block), mixup SupCon
+# and soft-target CE (``slcl_tpu/ops/losses.py:335-429,500-503``). No step
+# calls them; the contrastive ones pair the pixels of the rows they are
+# given (under data parallelism, a rank's own).
+# ---------------------------------------------------------------------------
+def _supcon_from_mask(feats: torch.Tensor, mask: torch.Tensor, temperature: float):
+    """Per-row mean log-probability of the positives in ``mask`` (self-pairs
+    dropped) over the (n, n) logits of ``feats``."""
+    n = feats.shape[0]
+    logits = (feats @ feats.T) / temperature
+    logits_mask = 1.0 - torch.eye(n, dtype=feats.dtype, device=feats.device)
+    mask = mask * logits_mask
+    exp_logits = torch.exp(logits) * logits_mask
+    log_prob = logits - torch.log(exp_logits.sum(dim=1, keepdim=True))
+    return (mask * log_prob).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1e-12)
+
+
+def supcon_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None, *,
+                temperature: float = 0.07) -> torch.Tensor:
+    """Supervised contrastive loss over pre-normalised pixel features of
+    several views (reference utils/loss.py:315-387): features (B, V, H, W,
+    F), labels (B, V, H, W). Positives share a label (the background's
+    anchors left out of the mean), or without labels are the same pixel in
+    another view."""
+    b, v = features.shape[:2]
+    f = features.shape[-1]
+    feats = features.float().transpose(0, 1).reshape(-1, f)
+    n = feats.shape[0]
+    if labels is not None:
+        lab = labels.transpose(0, 1).reshape(-1, 1)
+        mask = (lab == lab.T).float()
+        non_bg = (lab.reshape(-1) != 0).float()
+    else:
+        eye = torch.eye(n // v, dtype=torch.float32, device=feats.device)
+        mask = eye.repeat(v, v)
+        non_bg = None
+    loss = -_supcon_from_mask(feats, mask, temperature)
+    if non_bg is not None:
+        return (loss * non_bg).sum() / torch.clamp(non_bg.sum(), min=1e-12)
+    return loss.mean()
+
+
+def local_con_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None, *,
+                   temperature: float = 0.7, stride: int = 4) -> torch.Tensor:
+    """:func:`supcon_loss` on every ``stride``-th pixel of each axis
+    (reference utils/loss.py:390-413)."""
+    feats = features[:, :, ::stride, ::stride, :]
+    labs = None if labels is None else labels[:, :, ::stride, ::stride]
+    return supcon_loss(feats, labs, temperature=temperature)
+
+
+def block_con_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None, *,
+                   temperature: float = 0.7, block_size: int = 32) -> torch.Tensor:
+    """:func:`supcon_loss` over non-overlapping ``block_size`` tiles,
+    averaged over the tiles with a non-zero label (all tiles without labels),
+    0 when there is none (reference utils/loss.py:416-466)."""
+    div = features.shape[2] // block_size
+    total = features.new_zeros((), dtype=torch.float32)
+    denom = features.new_zeros((), dtype=torch.float32)
+    for i in range(div):
+        for j in range(div):
+            rows = slice(i * block_size, (i + 1) * block_size)
+            cols = slice(j * block_size, (j + 1) * block_size)
+            fb = features[:, :, rows, cols, :]
+            if labels is not None:
+                lb = labels[:, :, rows, cols]
+                nonzero = (lb.sum() > 0).float()
+                total = total + supcon_loss(fb, lb, temperature=temperature) * nonzero
+                denom = denom + nonzero
+            else:
+                total = total + supcon_loss(fb, temperature=temperature)
+                denom = denom + 1.0
+    return torch.where(denom > 0, total / torch.clamp(denom, min=1.0), torch.zeros_like(total))
+
+
+def interpolated_supcon_loss(features: torch.Tensor, labels_a: torch.Tensor,
+                             labels_b: torch.Tensor, lam: float, *,
+                             temperature: float = 0.07) -> torch.Tensor:
+    """Mixup SupCon: positives weighted ``lam`` by ``labels_a``'s equality and
+    ``1 - lam`` by ``labels_b``'s (reference utils/losses.py:6-68). features
+    (N, F) normalised; labels (N,)."""
+    la, lb = labels_a.reshape(-1, 1), labels_b.reshape(-1, 1)
+    mask = lam * (la == la.T).float() + (1.0 - lam) * (lb == lb.T).float()
+    return -_supcon_from_mask(features.float(), mask, temperature).mean()
+
+
+def softmax_cross_entropy_soft(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:
+    """Mean over the rows of the CE against soft targets (reference
+    utils/losses.py:70-92); the global batch's mean under data parallelism."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return gmean((-soft_targets.float() * logp).sum(dim=-1))

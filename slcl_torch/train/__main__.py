@@ -40,6 +40,13 @@ Recipe presets are applied first (``apply_recipe``), then the
 ``--device`` names another device: checkpoints, ``log.jsonl`` and
 ``summary.json`` go to ``<run.out_dir>/<apdx>/``. Prints the summary, with
 the device and that directory, as one JSON line last.
+
+Data parallelism: launch N processes with torchrun, e.g. on 8 cards
+  torchrun --nproc_per_node=8 -m slcl_torch.train method=slcl \
+      model.multilvl=true data.bs=16 [mesh.model_axis=2 mesh.fsdp=true]
+(NCCL, one card per process, ``cuda:LOCAL_RANK``), or on the CPU over gloo
+with ``--device cpu``. ``data.bs`` is the global batch; rank 0 writes and
+prints.
 """
 from __future__ import annotations
 
@@ -79,11 +86,17 @@ def main(argv):
         print(__doc__)
         return {}
     cfg, device, _ = parse_args(argv, "slcl")
+    from ..parallel import mesh as dp
     from .trainer import Trainer
-    trainer = Trainer(cfg, device=device)
-    result = {"device": str(trainer.device), "out_dir": str(trainer.out_dir),
-              **trainer.train()}
-    print(json.dumps(result), flush=True)
+    try:
+        trainer = Trainer(cfg, device=device)
+        result = {"device": str(trainer.device), "out_dir": str(trainer.out_dir),
+                  **trainer.train()}
+        if trainer.writer:
+            print(json.dumps(result), flush=True)
+    finally:
+        if dp.launched():
+            dp.release()
     return result
 
 

@@ -29,6 +29,14 @@ stdmin terms; under ``rain.enabled`` also the stylised branch and the
 epsilon ascent. Its rMC draw at step n is a function of the state's seed
 and n alone, made on the step's device, so a restored checkpoint repeats
 the uninterrupted run's draws; RAIN's noise likewise.
+
+Under data parallelism (a step inside ``parallel.mesh.use``) each rank holds
+its rows of the global batch: the losses and metrics are the global
+batch's (``ops/losses.py``), :func:`net_update` backpropagates the rank's
+share and sums the gradients over the ranks, the rMC draw is made for the
+global batch and each rank keeps its pixels, and RAIN's stylised pair is
+the global batch's first rows (stylised on every rank, fed to the
+segmentor on data rank 0 alone).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 from ..models.common import running_stats_frozen
 from ..ops import centroids as cen
 from ..ops import losses as L
+from ..parallel import mesh as dp
 from .state import TrainState, set_lr
 
 Metrics = Dict[str, torch.Tensor]
@@ -124,7 +133,7 @@ def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
 
 def _d_acc(logits: torch.Tensor, is_source: bool) -> torch.Tensor:
     """Discriminator accuracy bookkeeping (Trainer_AdaptSeg.py:196-228)."""
-    m = (torch.sigmoid(logits.float()) >= 0.5).float().mean()
+    m = dp.gmean((torch.sigmoid(logits.float()) >= 0.5).float())
     return m if is_source else 1.0 - m
 
 
@@ -145,13 +154,18 @@ def net_update(net, opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float) -
     """One optimizer step of ``net`` alone on ``loss``'s gradient. A
     parameter the loss does not reach (FrozenBatchNorm's affine, DRUNet's
     dead ``conv1_1``) gets a zero gradient, not none: the optimizer still
-    applies its weight decay to it, as optax does to every leaf."""
-    params = [p for p in net.parameters() if p.requires_grad]
+    applies its weight decay to it, as optax does to every leaf. Under a
+    mesh the rank backpropagates its share of the global ``loss`` (over the
+    data ranks) and the gradients are summed over the ranks."""
     opt.zero_grad(set_to_none=True)
-    loss.backward(inputs=params)
+    (loss / dp.data_size()).backward(inputs=[p for p in net.parameters() if p.requires_grad])
+    # taken again: FSDP's modules hold their gathered weights from the
+    # forward until the backward has reduced the gradients into the shards
+    params = [p for p in net.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    dp.reduce_grads(params)
     set_lr(opt, lr)
     opt.step()
 
@@ -168,10 +182,7 @@ def _d_update(disc, opt, lr: float, pred_s: torch.Tensor, pred_t: torch.Tensor,
         o_s = disc(_d_input(pred_s, kind))
         o_t = disc(_d_input(pred_t, kind))
     loss = 0.5 * L.bce_with_logits(o_s, 1.0) + 0.5 * L.bce_with_logits(o_t, 0.0)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    set_lr(opt, lr)
-    opt.step()
+    net_update(disc, opt, loss, lr)
     return {"loss": loss.detach(), "acc_s": _d_acc(o_s.detach(), True),
             "acc_t": _d_acc(o_t.detach(), False)}
 
@@ -391,12 +402,30 @@ def rain_pair(rain_cfg, img_s: torch.Tensor, img_t: torch.Tensor):
     """(content, style) of the stylisation (Trainer_MCCL.py:196-202): one
     image of each by default; ``mulstyle`` the whole batches; ``mulstyle2``
     the whole content batch and one style image. ``mulstyle2`` wins, as the
-    reference's if/elif order has it."""
+    reference's if/elif order has it. Under data parallelism "one image" is
+    the global batch's first, on every rank; ``mulstyle`` (a sampling row
+    per image of the global batch) raises there."""
     if rain_cfg.mulstyle2:
-        return img_s, img_t[0:1]
+        return img_s, dp.first_rows(img_t[0:1])
     if rain_cfg.mulstyle:
+        if dp.data_parallel():
+            raise NotImplementedError(
+                "rain.mulstyle under data parallelism: the carried sampling has a row "
+                "per image of the global batch; run it on one process")
         return img_s, img_t
-    return img_s[0:1], img_t[0:1]
+    return dp.first_rows(img_s[0:1]), dp.first_rows(img_t[0:1])
+
+
+def rain_rows(img_style: torch.Tensor, whole_batch: bool) -> torch.Tensor:
+    """The stylised rows this rank feeds the segmentor: all of them, except
+    under data parallelism with one content image (not ``whole_batch``: the
+    global batch's first), which data rank 0 alone feeds; the others keep an
+    empty slice of the same graph, so every rank's backward runs the same
+    collectives."""
+    m = dp.current()
+    if m is None or m.data_size == 1 or whole_batch or m.data_rank == 0:
+        return img_style
+    return img_style[:0]
 
 
 def make_mccl_step(cfg, centroids_loaded: bool = False,
@@ -437,6 +466,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
             # the style net in float32, before the segmentor's autocast
             img_style, sampling = R.stylize(state, *rain_pair(cfg.rain, img_s, img_t),
                                             sched, noise)
+            img_style = rain_rows(img_style, cfg.rain.mulstyle2 or cfg.rain.mulstyle)
             style_size = img_style.shape[0]
             if cfg.rain.style_alpha < 1.0:
                 a = cfg.rain.style_alpha
@@ -499,7 +529,8 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
 
         assign = None
         if P > 1:
-            m = dcdr_t.shape[0] * dcdr_t.shape[1] * dcdr_t.shape[2]
+            # the global batch's draw; each rank keeps its images' pixels
+            m = dcdr_t.shape[0] * dcdr_t.shape[1] * dcdr_t.shape[2] * dp.data_size()
             if draw_assign is not None:
                 assign = draw_assign(m, P, dev)
             else:
@@ -509,6 +540,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
                 g.manual_seed(rmc_seed(state.seed, state.step))
                 assign = torch.randint(0, P, (m,), generator=g, device=dev,
                                        dtype=torch.int32)
+            assign = dp.local_rows(assign)
         res_t = cen.target_soft_centroids(
             dcdr_t, probs_t, partition=P, assign=assign, threshold=c.thd,
             weighted_ave=c.wtd_ave, num_classes=n_class, with_std=c.stdmin)
@@ -521,7 +553,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
 
         # diagnostics: pseudo-label maturity, source-target alignment and
         # the spread of the target centroids (foreground classes)
-        metrics["conf_t"] = probs_t.max(dim=-1).values.mean()
+        metrics["conf_t"] = dp.gmean(probs_t.max(dim=-1).values)
         t0 = res_t.centroids[0].detach()
         t0 = t0 / (torch.linalg.vector_norm(t0, dim=-1, keepdim=True) + 1e-12)
         s0 = centroid_s / (torch.linalg.vector_norm(centroid_s, dim=-1, keepdim=True)

@@ -27,6 +27,11 @@ from a generator on the step's device seeded by splitmix64 of the salted
 (seed, step, path, call), so a restored checkpoint repeats them. The JAX
 step throws away ``d_point``'s updated running statistics: here its
 BatchNorms use batch statistics and keep their running ones.
+
+Under data parallelism the masks are drawn at the global batch's shape and
+each rank keeps its rows, and BCL's metric loss (on the global batch's
+first image of each domain) is data rank 0's: the other ranks ignore every
+pixel of it.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 
 from ..models.common import dropout_pass, running_stats_frozen
 from ..ops import losses as L
+from ..parallel import mesh as dp
 from .state import TrainState
 from .steps import Metrics, _d_acc, _seg_update, autocast, net_update, splitmix64
 
@@ -64,17 +70,17 @@ class Dropouts:
         self.gens: Dict[torch.device, torch.Generator] = {}
 
     def for_step(self, seed: int, step: int):
-        """The ``dropout_pass`` draw of step ``step``."""
-        if self.hook is not None:
-            return lambda path, call, shape, keep, device: self.hook(
-                step, path, call, shape, keep, device)
-
+        """The ``dropout_pass`` draw of step ``step``: the global batch's
+        mask, this rank's rows of it."""
         def draw(path, call, shape, keep, device):
+            shape = dp.global_shape(shape)
+            if self.hook is not None:
+                return dp.local_rows(self.hook(step, path, call, shape, keep, device))
             g = self.gens.get(device)
             if g is None:
                 g = self.gens[device] = torch.Generator(device=device)
             g.manual_seed(dropout_seed(seed, step, path, call))
-            return torch.rand(shape, generator=g, device=device) < keep
+            return dp.local_rows(torch.rand(shape, generator=g, device=device) < keep)
         return draw
 
 
@@ -113,8 +119,8 @@ def make_ddfseg_step(cfg, draw_dropout: Optional[DrawDropout] = None) -> Callabl
         seg_loss = L.cross_entropy_loss(pred_s, labels_s) + L.dice_loss(pred_s, labels_s)
         recon_seg_loss = (L.cross_entropy_loss(pred_recon_s, labels_s)
                           + L.dice_loss(pred_recon_s, labels_s))
-        zero_s = (out["style_s_from_t"].float() ** 2).mean()
-        zero_t = (out["style_t_from_s"].float() ** 2).mean()
+        zero_s = dp.gmean(out["style_s_from_t"].float() ** 2)
+        zero_t = dp.gmean(out["style_t_from_s"].float() ** 2)
         cyc_s = L.mse_loss(out["recon_imgs"], img_s[..., 1:2])
         cyc_t = L.mse_loss(out["recon_imgt"], img_t[..., 1:2])
         with amp:
@@ -272,15 +278,20 @@ def make_bcl_step(cfg) -> Callable:
             pred_t, feat_t = state.seg(img_t, source=False)
         ce_s = L.cross_entropy_loss(pred_s, labels_s)
         ce_t = L.cross_entropy_ignore(pred_t, plabel_t, 255)
-        ent = (L.bcl_entropy_loss(pred_s).mean()
-               + lambt * L.bcl_entropy_loss(pred_t).mean())
+        ent = (dp.gmean(L.bcl_entropy_loss(pred_s))
+               + lambt * dp.gmean(L.bcl_entropy_loss(pred_t)))
         size = tuple(feat_s.shape[1:3])
         lab_small = L.nearest_resize_labels(labels_s, size)[0]
         plab_small = L.nearest_resize_labels(plabel_t, size)[0]
         cs1 = L.bcl_prototype_similarity(feat_s[0], lab_small, feat_t[0], n_class)
         cs2 = L.bcl_prototype_similarity(feat_t[0], plab_small, feat_s[0], n_class)
-        metric = (L.cross_entropy_ignore(cs1.permute(1, 2, 0)[None], plab_small[None], 255)
-                  + L.cross_entropy_ignore(cs2.permute(1, 2, 0)[None], lab_small[None], 255))
+        tgt1, tgt2 = plab_small[None], lab_small[None]
+        m = dp.current()
+        if m is not None and m.data_rank > 0:
+            # the global batch's first images are data rank 0's
+            tgt1, tgt2 = torch.full_like(tgt1, 255), torch.full_like(tgt2, 255)
+        metric = (L.cross_entropy_ignore(cs1.permute(1, 2, 0)[None], tgt1, 255)
+                  + L.cross_entropy_ignore(cs2.permute(1, 2, 0)[None], tgt2, 255))
         total = ce_s + lambt * ce_t + lamb * ent + metric
         metrics: Metrics = {"seg_s": ce_s, "seg_t_pseudo": ce_t, "loss_ent": ent,
                             "metric_loss": metric}

@@ -25,6 +25,12 @@ The noise of a step is standard normal from a generator on the step's
 device seeded with :func:`noise_seed` of (``state.seed``, ``state.step``),
 so a restored checkpoint repeats every later draw; ``draw_noise(shape,
 device)`` replaces it (tests share the JAX package's noise through it).
+
+Under data parallelism the stylised pair is the global batch's first rows
+(``steps.rain_pair``), stylised alike on every rank and fed to the
+segmentor on data rank 0; the ascent's gradient is the sum of the ranks'
+gradients of their shares, and the consistency and diagnostics are the
+global batch's.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import torch
 
 from ..models.rain import LATENT
 from ..ops import losses as L
+from ..parallel import mesh as dp
 from .state import TrainState
-from .steps import Metrics, _seg_update, autocast, clip_step_norm, splitmix64
+from .steps import Metrics, _seg_update, autocast, clip_step_norm, rain_rows, splitmix64
 
 DrawNoise = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
 
@@ -96,7 +103,10 @@ def epsilon_ascent(cfg, sampling: torch.Tensor, seg_loss: torch.Tensor,
     d sampling`` (Trainer_RAIN.py:133-147), its norm capped at
     ``rain.eps_clip`` when that is positive, added when ``sched["eps_on"]``
     is set. Keeps the graph for the parameters' backward that follows."""
-    (g,) = torch.autograd.grad(seg_loss, sampling, retain_graph=True)
+    # the sampling is replicated: the global loss's gradient is the sum of
+    # the data ranks' gradients of their shares
+    (g,) = torch.autograd.grad(seg_loss / dp.data_size(), sampling, retain_graph=True)
+    g = dp.sum_over(dp.current(), g.contiguous())
     step_vec = (cfg.optim.lr_eps / seg_loss.detach()) * g
     if cfg.rain.eps_clip > 0:
         step_vec = clip_step_norm(step_vec, cfg.rain.eps_clip)
@@ -106,17 +116,21 @@ def epsilon_ascent(cfg, sampling: torch.Tensor, seg_loss: torch.Tensor,
 
 def consistency(b_src: torch.Tensor, b_style: torch.Tensor) -> torch.Tensor:
     """Bottleneck consistency MSE in float32."""
-    return ((b_src.float() - b_style.float()) ** 2).mean()
+    return dp.gmean((b_src.float() - b_style.float()) ** 2)
+
+
+def _counts32(x: torch.Tensor) -> torch.Tensor:
+    """32-bin histogram counts of intensities in [0, 1), the ends clamped. A
+    scatter of ones, not ``bincount``, which reads its input's maximum back
+    to the host; the sums are whole numbers, exact in any order."""
+    idx = (x.float() * 32.0).to(torch.int32).clamp(0, 31).reshape(-1).long()
+    return torch.zeros(32, device=x.device, dtype=torch.float32).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.float32))
 
 
 def _hist32(x: torch.Tensor) -> torch.Tensor:
-    """32-bin histogram of intensities in [0, 1), the ends clamped, as
-    shares. A scatter of ones, not ``bincount``, which reads its input's
-    maximum back to the host; the sums are whole numbers, exact in any
-    order."""
-    idx = (x.float() * 32.0).to(torch.int32).clamp(0, 31).reshape(-1).long()
-    h = torch.zeros(32, device=x.device).scatter_add_(0, idx, torch.ones_like(idx,
-                                                                       dtype=torch.float32))
+    """:func:`_counts32` as shares."""
+    h = _counts32(x)
     return h / torch.clamp(h.sum(), min=1.0)
 
 
@@ -130,6 +144,9 @@ def style_diagnostics(img_style: torch.Tensor, src_ref: torch.Tensor,
     ``src_mean``; and the hard per-class Dice of each branch against the
     source labels, ``dice_style_c{k}`` / ``dice_src_c{k}``."""
     sty = img_style.detach().float()
+    if dp.data_parallel():
+        return _style_diagnostics_global(sty, src_ref.float(), pred_style, pred_s,
+                                         labels_s, n_class)
     m: Metrics = {
         "style_hist_d": 0.5 * (_hist32(sty) - _hist32(src_ref)).abs().sum(),
         "style_mean": sty.mean(), "style_std": sty.std(correction=0),
@@ -144,6 +161,39 @@ def style_diagnostics(img_style: torch.Tensor, src_ref: torch.Tensor,
             lk = (lab_map == k).float()
             m[f"dice_{tag}_c{k}"] = (2.0 * (pk * lk).sum()
                                      / torch.clamp(pk.sum() + lk.sum(), min=1.0))
+    return m
+
+
+def _style_diagnostics_global(sty, src_ref, pred_style, pred_s, labels_s,
+                              n_class: int) -> Metrics:
+    """:func:`style_diagnostics` over the global batch: every count and sum
+    all-summed over the data ranks in one call, then the same formulas
+    (the stds from E[x^2] - E[x]^2)."""
+    lab_sty = labels_s[:sty.shape[0]]
+    cls_sty = pred_style.detach().argmax(-1)
+    cls_src = pred_s.detach().argmax(-1)
+    dice = []
+    for k in range(1, n_class):
+        for cls_map, lab_map in ((cls_sty, lab_sty), (cls_src, labels_s)):
+            pk, lk = (cls_map == k).float(), (lab_map == k).float()
+            dice += [(pk * lk).sum(), pk.sum() + lk.sum()]
+    moments = [sty.sum(), (sty * sty).sum(), sty.new_tensor(float(sty.numel())),
+               src_ref.sum(), src_ref.new_tensor(float(src_ref.numel()))]
+    tot = dp.all_sum(torch.cat([_counts32(sty), _counts32(src_ref),
+                                torch.stack(moments + dice)]))
+    h_sty, h_src, rest = tot[:32], tot[32:64], tot[64:]
+    mean = rest[0] / rest[2]
+    m: Metrics = {
+        "style_hist_d": 0.5 * (h_sty / torch.clamp(h_sty.sum(), min=1.0)
+                               - h_src / torch.clamp(h_src.sum(), min=1.0)).abs().sum(),
+        "style_mean": mean,
+        "style_std": torch.sqrt(torch.clamp(rest[1] / rest[2] - mean * mean, min=0.0)),
+        "src_mean": rest[3] / rest[4]}
+    i = 5
+    for k in range(1, n_class):
+        for tag in ("style", "src"):
+            m[f"dice_{tag}_c{k}"] = 2.0 * rest[i] / torch.clamp(rest[i + 1], min=1.0)
+            i += 2
     return m
 
 
@@ -181,7 +231,9 @@ def make_rain_seg_step(cfg, draw_noise: Optional[DrawNoise] = None) -> Callable:
              sched: Dict[str, float]) -> Metrics:
         img_s, labels_s, img_t = batch["img_s"], batch["lab_s"], batch["img_t"]
         state.seg.train()
-        img_style, sampling = stylize(state, img_s[0:1], img_t[0:1], sched, noise)
+        img_style, sampling = stylize(state, dp.first_rows(img_s[0:1]),
+                                      dp.first_rows(img_t[0:1]), sched, noise)
+        img_style = rain_rows(img_style, False)
         n = img_style.shape[0]
         with autocast(cfg.model.dtype, img_s.device):
             out = state.seg(torch.cat([img_style, img_s]))

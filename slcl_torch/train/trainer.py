@@ -53,6 +53,22 @@ last epoch that runs) as a ``torch.profiler`` trace under that directory;
 ``train()`` writes each epoch's record as TensorBoard scalars under
 ``<out_dir>/tb`` when ``tensorboardX`` is installed. ``run.scan_steps``
 other than 1 raises at construction: the port does not honour it yet.
+
+Data parallelism (``slcl_torch/parallel/mesh.py``): under ``torchrun
+--nproc_per_node=N`` (``WORLD_SIZE`` > 1), or inside ``parallel.mesh.use``,
+the Trainer runs on ``cuda:LOCAL_RANK`` (or the CPU with ``device=cpu``,
+over gloo) on a ``(data, model)`` mesh with ``mesh.model_axis`` model
+ranks. Each rank's Loaders decode its ``data.bs / W_data`` rows of every
+global batch, the steps give the one-process step on the global batch,
+and with ``mesh.fsdp`` the networks' large modules are sharded over the
+model ranks. Every rank runs the validation and the BCL pseudo-label
+round; rank 0's score decides the best epoch and the early stop for all,
+and rank 0 alone writes the checkpoints (gathered whole, in the
+one-process format), logs and summary. ``pretrain_rain`` stays unsharded
+(every rank steps on the whole batch). Where JAX would fall back to one
+device, the Trainer raises ``ValueError``: processes not divisible by
+``mesh.model_axis``, or ``data.bs`` not divisible by the data ranks;
+``mesh.spatial`` with model ranks raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,6 +82,7 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed import barrier, is_initialized as dist_initialized
 
 from .. import DeviceLike, resolve_device
 from ..config import Config, build_apdx
@@ -80,6 +97,7 @@ from ..models.pointnet import PointNetCls
 from ..models.rain import LATENT, RAIN
 from ..models.resnet_unet import ResNetUNetPoint
 from ..ops.centroids import gene_thres
+from ..parallel import mesh as dp
 from ..utils.convert import read_rain_component, save_tree_npz, state_dict_to_flax
 from ..utils.pretrained import load_pretrained_encoder
 from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
@@ -206,18 +224,60 @@ class Trainer:
             cfg.data.aug_counter = True
         if cfg.method == "adaptevery":
             cfg.data.vert = True        # the source vertices (JAX trainer.py:91)
+        if device is None and dp.launched() and torch.cuda.is_available():
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            torch.cuda.set_device(torch.device(device))
         self.device = resolve_device(device)
+        self.mesh = self._setup_mesh()
+        self.writer = dp.is_writer()
         self.apdx = build_apdx(cfg)
         # created on first write: eval-only users (gen_class_centers,
         # evaluate) leave no empty run directories
         self.out_dir = Path(cfg.run.out_dir) / self.apdx
         self.datasets = datasets or prepare_datasets(cfg)
         self._build()
+        self._replicate()
         self.history: list = []
         self.best_score = -np.inf
         self.best_epoch = -1
         self.start_time = time.time()
         self.longest_epoch = 0.0
+
+    def _setup_mesh(self) -> Optional["dp.Mesh"]:
+        """The active mesh (``parallel.mesh.use``), else under torchrun a new
+        one, checked against the config; None for one process and for
+        ``pretrain_rain``, which stays unsharded as in JAX."""
+        cfg = self.cfg
+        mesh = dp.current()
+        if mesh is None and dp.launched():
+            mesh = dp.make_mesh(cfg.mesh.model_axis, device=self.device)
+        if mesh is None or cfg.method == "pretrain_rain":
+            return None
+        if cfg.mesh.spatial and cfg.mesh.model_axis > 1 and mesh.world > 1:
+            raise NotImplementedError(
+                "mesh.spatial=true: image rows sharded over the model ranks need "
+                "GSPMD's halo exchange, which slcl_torch does not port; use "
+                "mesh.spatial=false (data parallelism and mesh.fsdp)")
+        if mesh.model_size != max(cfg.mesh.model_axis, 1):
+            raise ValueError(f"mesh.model_axis={cfg.mesh.model_axis}, the mesh has "
+                             f"{mesh.model_size} model ranks")
+        if cfg.data.bs % mesh.data_size:
+            raise ValueError(f"global batch data.bs={cfg.data.bs} is not divisible by "
+                             f"{mesh.data_size} data ranks")
+        return mesh
+
+    def _replicate(self):
+        """Under a process group every network, the centres and the sampling
+        from rank 0; then, with ``mesh.fsdp`` and model ranks, the networks'
+        large modules sharded (their optimizers pointed at the shards)."""
+        s = self.state
+        dp.replicate(*(getattr(s, n) for n in _NETS), s.centroids, s.sampling)
+        if self.mesh is not None and self.cfg.mesh.fsdp and self.mesh.model_size > 1:
+            for net, opt in zip(_NETS, _OPTS):     # the frozen rain net has none
+                module = getattr(s, net)
+                if module is not None:
+                    dp.fsdp_shard(module, [getattr(s, opt)], self.mesh,
+                                  self.cfg.mesh.fsdp_min_size)
 
     def _build(self):
         cfg = self.cfg
@@ -408,11 +468,14 @@ class Trainer:
                 "eps_on": eps_on}
 
     def _epoch_batches(self) -> Iterable[Dict[str, Any]]:
+        """This rank's rows of each global batch (all of it on one process)."""
         cfg = self.cfg
+        rows = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data_size)
         train_s = Loader(self.datasets["train_s"], cfg.data.bs, seed=cfg.data.seed,
-                         num_threads=cfg.data.num_workers)
+                         num_threads=cfg.data.num_workers, rows=rows)
         train_t = Loader(self.datasets["train_t"], cfg.data.bs,
-                         seed=cfg.data.seed + 17, num_threads=cfg.data.num_workers)
+                         seed=cfg.data.seed + 17, num_threads=cfg.data.num_workers,
+                         rows=rows)
         if cfg.method == "baseline":
             if cfg.data.train_with_t and not cfg.data.train_with_s:
                 # supervised-target oracle (Trainer_baseline.py:221-227)
@@ -446,13 +509,14 @@ class Trainer:
         eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
         acc: Dict[str, torch.Tensor] = {}
         n = 0
-        for batch in device_prefetch(self._epoch_batches(), self.device,
-                                     size=self.cfg.data.prefetch):
-            for it in range(eps_iters):
-                metrics = self.step_fn(self.state, batch, carried if it else sched)
-                for k, v in metrics.items():
-                    acc[k] = acc[k] + v if k in acc else v
-                n += 1
+        with dp.use(self.mesh):
+            for batch in device_prefetch(self._epoch_batches(), self.device,
+                                         size=self.cfg.data.prefetch):
+                for it in range(eps_iters):
+                    metrics = self.step_fn(self.state, batch, carried if it else sched)
+                    for k, v in metrics.items():
+                        acc[k] = acc[k] + v if k in acc else v
+                    n += 1
         out = {}
         if acc:
             values = torch.stack(list(acc.values())).cpu().tolist()
@@ -480,16 +544,21 @@ class Trainer:
         return self.out_dir / f"ckpt_{tag}.pt"
 
     def save_checkpoint(self, tag: str = "last") -> Path:
+        """Write ``ckpt_<tag>.pt``; sharded tensors are gathered whole (every
+        rank takes part), rank 0 writes, and every rank waits for the file."""
         s = self.state
-        ckpt = {name: getattr(s, name).state_dict() if getattr(s, name) is not None
+        ckpt = {name: dp.full_state_dict(getattr(s, name)) if getattr(s, name) is not None
                 else None for name in _NETS + _OPTS}
         ckpt.update(centroids=s.centroids, sampling=s.sampling, step=s.step, seed=s.seed,
                     method=self.cfg.method)
-        self.out_dir.mkdir(parents=True, exist_ok=True)
         path = self.out_dir / f"ckpt_{tag}.pt"
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(ckpt, tmp)
-        os.replace(tmp, path)
+        if self.writer:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(ckpt, tmp)
+            os.replace(tmp, path)
+        if dist_initialized():
+            barrier()
         return path
 
     def restore_checkpoint(self, tag: str = "best", params_only: bool = False) -> None:
@@ -499,7 +568,13 @@ class Trainer:
         entries the model lacks are ignored (both are reported), and a shape
         mismatch raises. So an AdvEnt checkpoint warm-starts ``slcl``."""
         path = self.checkpoint_path(tag)
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        if dist_initialized():
+            # rank 0 reads (its host holds what it wrote) and sends the
+            # whole checkpoint: the ranks need no shared filesystem
+            ckpt = dp.from_writer(lambda: torch.load(path, map_location="cpu",
+                                                     weights_only=True))
+        else:
+            ckpt = torch.load(path, map_location=self.device, weights_only=True)
         s = self.state
         if not params_only:
             for name in _NETS + _OPTS:
@@ -507,7 +582,7 @@ class Trainer:
                 if obj is not None:
                     if ckpt.get(name) is None:
                         raise KeyError(f"checkpoint {path} has no {name!r}")
-                    obj.load_state_dict(ckpt[name])
+                    dp.load_full_state_dict(obj, ckpt[name])
             if s.centroids is not None:
                 if ckpt.get("centroids") is None:
                     raise KeyError(f"checkpoint {path} has no class centres")
@@ -524,7 +599,7 @@ class Trainer:
             module, saved = getattr(s, name), ckpt.get(name)
             if module is None or saved is None:
                 continue
-            fresh = module.state_dict()
+            fresh = dp.full_state_dict(module)
             merged = {}
             for k, v in fresh.items():
                 if k not in saved:
@@ -537,7 +612,7 @@ class Trainer:
                                      f"{tuple(v.shape)}")
                 merged[k] = saved[k]
             dropped.extend(f"{name}.{k}" for k in saved if k not in fresh)
-            module.load_state_dict(merged)
+            dp.load_full_state_dict(module, merged)
             loaded += 1
         if not loaded:
             raise ValueError(f"no network state found in checkpoint {path}")
@@ -563,21 +638,28 @@ class Trainer:
 
     def _log(self, path: Path, record: Dict[str, Any]) -> None:
         self.history.append(record)
-        with open(path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if self.writer:
+            with open(path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    def _val_dice(self, split: str = "valid_t") -> float:
+        """Mean foreground Dice of ``split``; rank 0's, on every rank."""
+        return dp.broadcast_value(mean_fg_dice(self.eval(
+            split, ifhd=False, ifasd=False, fast=self.cfg.run.fast_val)))
 
     def train(self) -> Dict[str, Any]:
         """Train ``optim.epochs`` epochs, validate, checkpoint, then test the
         best checkpoint; returns the summary written to ``summary.json``."""
         cfg = self.cfg
-        self.out_dir.mkdir(parents=True, exist_ok=True)
+        if self.writer:
+            self.out_dir.mkdir(parents=True, exist_ok=True)
         log_path = self.out_dir / "log.jsonl"
         mcp = ModelCheckPointCallback(
             str(self.out_dir), self.save_checkpoint, mode="max",
             save_every_epochs=cfg.run.save_every_epochs, n_epochs=cfg.optim.epochs,
             apdx=self.apdx[:60])
         early = EarlyStopCallback(cfg.run.early_stop_patience, mode="max")
-        tb = TBWriter(str(self.out_dir / "tb"))
+        tb = TBWriter(str(self.out_dir / "tb"), enabled=self.writer)
         if cfg.run.init_from:
             # warm start of the networks; raises on failure, since random
             # weights would invalidate the recipe
@@ -586,8 +668,7 @@ class Trainer:
         if cfg.run.init_from and cfg.method != "pretrain_rain":
             # the init's own validation ("epoch -1") seeds best-checkpoint
             # selection, so a fine-tune that never beats its init ships it
-            dice = mean_fg_dice(self.eval("valid_t", ifhd=False, ifasd=False,
-                                          fast=cfg.run.fast_val))
+            dice = self._val_dice()
             if mcp.step(dice, -1):
                 self.best_score = dice
             early.step(dice, -1)
@@ -608,7 +689,8 @@ class Trainer:
                   f"(run has only {cfg.optim.epochs} epoch(s))")
         for epoch in range(cfg.optim.epochs):
             t0 = time.time()
-            profiled = cfg.run.profile_dir if epoch == profile_epoch else None
+            profiled = (cfg.run.profile_dir if epoch == profile_epoch and self.writer
+                        else None)
             with profile_trace(profiled, cuda=self.device.type == "cuda"):
                 train_metrics = self.train_epoch(epoch)
             record: Dict[str, Any] = {"epoch": epoch, **train_metrics}
@@ -621,12 +703,10 @@ class Trainer:
                     self.best_epoch = epoch
             elif (epoch + 1) % cfg.run.eval_frequency == 0 or epoch == cfg.optim.epochs - 1:
                 # per-epoch validation is Dice only; HD95/ASSD at the final test
-                dice = mean_fg_dice(self.eval("valid_t", ifhd=False, ifasd=False,
-                                              fast=cfg.run.fast_val))
+                dice = self._val_dice()
                 record["val_dice"] = dice
                 if cfg.run.evalT and "test_t" in self.datasets:
-                    record["test_dice"] = mean_fg_dice(self.eval(
-                        "test_t", ifhd=False, ifasd=False, fast=cfg.run.fast_val))
+                    record["test_dice"] = self._val_dice("test_t")
                 if mcp.step(dice, epoch):
                     self.best_score = dice
                     self.best_epoch = epoch
@@ -636,14 +716,16 @@ class Trainer:
             record["epoch_time_s"] = round(epoch_time, 3)
             tb.scalars(record, epoch + 1)
             self._log(log_path, record)
-            if epoch == 5 and "dice_style_c1" in record:
+            if epoch == 5 and "dice_style_c1" in record and self.writer:
                 # the early window is complete: the MCCL + RAIN collapse check
                 for w in stylized_branch_triggers(self.history):
                     print(f"[{self.apdx}] {w}")
-            print(f"[{self.apdx}] " + " ".join(
-                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in record.items()), flush=True)
-            if record.get("early_stop") or self.stop_training(epoch, epoch_time):
+            if self.writer:
+                print(f"[{self.apdx}] " + " ".join(
+                    f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in record.items()), flush=True)
+            if dp.broadcast_value(bool(record.get("early_stop"))
+                                  or self.stop_training(epoch, epoch_time)):
                 print("early stop / wall-clock budget reached")
                 mcp.finalize()
                 break
@@ -660,14 +742,15 @@ class Trainer:
             # earlier run in the same out_dir: test the last state instead
             print("warning: ignoring stale ckpt_best not written by this run; "
                   "final test uses the last-state weights")
-        test_results = self.eval("test_t", toprint=True)
-        test_s_results = (self.eval("test_s", toprint=True)
+        test_results = self.eval("test_t", toprint=self.writer)
+        test_s_results = (self.eval("test_s", toprint=self.writer)
                           if "test_s" in self.datasets else None)
         summary = {"best_epoch": self.best_epoch, "best_val_dice": self.best_score,
                    "test": test_results, "test_s": test_s_results,
                    "test_t_other_fold": self.test_other_fold(), "history": self.history}
-        with open(self.out_dir / "summary.json", "w") as f:
-            json.dump(summary, f, indent=2)
+        if self.writer:
+            with open(self.out_dir / "summary.json", "w") as f:
+                json.dump(summary, f, indent=2)
         return summary
 
     def test_other_fold(self) -> Optional[Dict[str, list]]:
@@ -691,10 +774,11 @@ class Trainer:
         package's ``.npz`` tree (what ``rain.*_ckpt`` load), and the summary."""
         params = state_dict_to_flax(self.state.seg)["params"]
         paths = {name: str(self.out_dir / f"rain_{name}.npz") for name, _ in RAIN_PARTS}
-        for name, path in paths.items():
-            save_tree_npz(path, params=params[name])
         summary = {"best_epoch": self.best_epoch, "best_score": self.best_score,
                    "history": self.history, "component_ckpts": paths}
-        with open(self.out_dir / "summary.json", "w") as f:
-            json.dump(summary, f, indent=2)
+        if self.writer:
+            for name, path in paths.items():
+                save_tree_npz(path, params=params[name])
+            with open(self.out_dir / "summary.json", "w") as f:
+                json.dump(summary, f, indent=2)
         return summary

@@ -11,11 +11,14 @@ stopping with patience.
 
 The save function is the caller's (the port's Trainer writes one
 ``ckpt_<tag>.pt`` per tag); these are usable against any save function.
+Under several processes only rank 0 writes the fingerprint.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Callable, Optional
+
+from ..parallel.mesh import is_writer
 
 
 class ModelCheckPointCallback:
@@ -66,7 +69,7 @@ class ModelCheckPointCallback:
         ``ckpt_best`` path keeps working for restore/resume). Epoch -1 is
         the pre-training warm-start eval (run.init_from): its fingerprint
         is ``e0`` — best model = the untrained init."""
-        if self.wrote_best:
+        if self.wrote_best and is_writer():
             marker = self.out_dir / "best_fingerprint.txt"
             marker.write_text(
                 f"{self.apdx}.e{self.epoch + 1}.Scr{self.best_result:.4f}\n")

@@ -3,7 +3,9 @@
 Turns the JAX package's variables, given as nested dicts of numpy arrays
 (``params`` and optionally ``batch_stats``), into a ``state_dict`` for a
 port module whose submodule names are flax's (``DRUNet``, ``UNet``,
-``ResNetUNet``, ``DeepLabV2``, ``UncertaintyDiscriminator``; DDFSeg's
+``ResNetUNet``, ``DeepLabV2``, ``UncertaintyDiscriminator``,
+``OutputDiscriminator``/``BoundaryDiscriminator`` (``_ConvStack_0.conv1``
+... ``conv5``), ``MLPDiscriminator`` (``fc1`` ... ``fc4``); DDFSeg's
 ``DDFNet``/``SegDecoder``, ``PatchGAN``, ``PointNetCls``,
 ``ResNetUNetPoint``, ``BCLDeepLab``). The layout rules are those of
 ``slcl_tpu/utils/torch_convert.py:11-15`` in reverse:

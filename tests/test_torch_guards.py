@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_no_slcl_tpu(tmp_path):
         "        'slcl_torch.serve', 'slcl_torch.scripts.export', 'slcl_torch.scripts.predict',\n"
         "        'slcl_torch.data.legacy', 'slcl_torch.data.preprocess',\n"
         "        'slcl_torch.utils.tables', 'slcl_torch.utils.timer',\n"
-        "        'slcl_torch.utils.tb'} <= set(mods)\n"
+        "        'slcl_torch.utils.tb', 'slcl_torch.parallel', 'slcl_torch.parallel.mesh',\n"
+        "        'slcl_torch.parallel.dryrun'} <= set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)

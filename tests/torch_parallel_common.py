@@ -1,0 +1,340 @@
+"""Rank entries of the data-parallel tests. The spawned ranks import this
+module, so it imports torch and slcl_torch only (a rank that imported a
+test file would import JAX)."""
+import copy
+
+import numpy as np
+import torch
+
+from slcl_torch.config import Config
+from slcl_torch.parallel import dryrun as D
+from slcl_torch.parallel import mesh as dp
+
+H = 16
+B = 8
+
+
+def small_cfg(method: str) -> Config:
+    """JAX's test_parallel.py sizes: DRUNet filters 8, two blocks, f32,
+    16x16, a global batch of 8; mccl with two partitions, soft weights and
+    CNR (and RAIN's ascent for ``mccl_rain``); BCL's slim DeepLab."""
+    cfg = Config()
+    cfg.method = "mccl" if method == "mccl_rain" else method
+    cfg.model.filters, cfg.model.n_block, cfg.model.bottleneck_depth = 8, 2, 2
+    cfg.model.dtype = "float32"
+    cfg.data.dataset = "synthetic"
+    cfg.data.crop, cfg.data.bs, cfg.data.eval_bs = H, B, B
+    cfg.data.num_workers = 1
+    cfg.optim.epochs = 1
+    if method in ("mccl", "mccl_rain"):
+        cfg.contrastive.part = 2
+        cfg.contrastive.wtd_ave = True
+        cfg.contrastive.CNR = True
+    if method == "mccl_rain":
+        cfg.rain.enabled = True
+        cfg.rain.update_eps = True
+        cfg.rain.eps_clip = 3.0
+    if method == "bcl":
+        cfg.model.layers = (1, 1, 1, 1)
+        cfg.model.base = 8
+    return cfg
+
+
+def batches(method: str, n: int, seed: int = 1234):
+    """``n`` global batches of numpy arrays for ``method``'s step."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"img_s": rng.normal(size=(B, H, H, 3)).astype(np.float32),
+             "lab_s": rng.integers(0, 4, size=(B, H, H)).astype(np.int32),
+             "img_t": rng.normal(size=(B, H, H, 3)).astype(np.float32)}
+        if method in ("mccl", "mccl_rain"):
+            b["img_t_aug"] = rng.normal(size=(B, H, H, 3)).astype(np.float32)
+        if method == "bcl":
+            plabel = rng.integers(0, 4, size=(B, H, H)).astype(np.int32)
+            plabel[:, ::3] = 255
+            b["plabel_t"] = plabel
+        out.append(b)
+    return out
+
+
+def sched(method: str, eps_on: float = 1.0):
+    return {"lr": 1e-3, "lr_dis": 1e-4, "warm": 1.0, "fresh": 1.0,
+            "eps_on": eps_on if method == "mccl_rain" else 0.0}
+
+
+def build_trainer(cfg, work: str, dtype=torch.float32):
+    """The Trainer of ``cfg`` under the active mesh, built with ``dtype`` as
+    torch's default (its networks and centres in ``dtype``)."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        trainer = D.make_trainer(copy.deepcopy(cfg), work)
+    finally:
+        torch.set_default_dtype(before)
+    s = trainer.state
+    if s.centroids is not None:
+        s.centroids = s.centroids.to(dtype)
+    if s.sampling is not None:
+        s.sampling = s.sampling.to(dtype)
+    return trainer
+
+
+def use_draws(trainer, draws: dict) -> None:
+    """Rebuild ``trainer``'s step with the global batch's rMC assignment
+    (``draws["assign"]``) and RAIN noise (``draws["noise"]``) of each step
+    given, indexed by the state's step."""
+    from slcl_torch.train.steps import build_step
+    s = trainer.state
+
+    def given(key, shape):
+        a = draws[key][s.step]
+        assert tuple(a.shape) == tuple(shape), (key, a.shape, shape)
+        return torch.from_numpy(a)
+
+    trainer.step_fn = build_step(
+        trainer.cfg, centroids_loaded=trainer.centroids_loaded,
+        draw_assign=(lambda m, P, dev: given("assign", (m,)).to(dev))
+        if "assign" in draws else None,
+        draw_noise=(lambda shape, dev: given("noise", shape).to(dev))
+        if "noise" in draws else None)
+
+
+def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
+                weights: str = "", restore: str = "", save: str = "",
+                draws: dict = None) -> dict:
+    """The Trainer of ``cfg`` (its nets loaded from the ``weights`` file of
+    whole state dicts, or its full state from the ``restore`` checkpoint),
+    one step on this rank's rows of each global batch, and after each the
+    metrics and the whole state (``steps``); with ``save`` the tag of a
+    checkpoint written after the last step (``ckpt``, its path). ``dtype``
+    is torch's default throughout; ``draws`` (:func:`use_draws`) replaces
+    the step's own random draws."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        with dp.use(mesh):
+            trainer = build_trainer(cfg, work, dtype)
+            s = trainer.state
+            if weights:
+                for name, sd in torch.load(weights, weights_only=True).items():
+                    dp.load_full_state_dict(getattr(s, name), sd)
+            if restore:
+                trainer.restore_checkpoint(restore)
+            if draws:
+                use_draws(trainer, draws)
+            out = []
+            for b, sc in zip(batch_list, scheds):
+                local = {k: dp.local_rows(torch.from_numpy(v)) for k, v in b.items()}
+                local = {k: v.to(dtype) if v.is_floating_point() else v
+                         for k, v in local.items()}
+                m = trainer.step_fn(s, local, sc)
+                out.append({"metrics": {k: float(v) for k, v in m.items()},
+                            "state": D.state_arrays(trainer),
+                            "sharded": sum(1 for p in s.seg.parameters()
+                                           if dp.is_dtensor(p))})
+            path = trainer.save_checkpoint(save) if save else ""
+            return {"steps": out, "ckpt": str(path)}
+    finally:
+        torch.set_default_dtype(before)
+
+
+def methods_entry(mesh, specs, work: str) -> dict:
+    """:func:`steps_entry` of each ``(name, cfg, batches, scheds, dtype,
+    draws)`` in turn (``draws`` may be left out)."""
+    return {spec[0]: steps_entry(mesh, *spec[1:4], f"{work}/{spec[0]}", spec[4],
+                                 draws=spec[5] if len(spec) > 5 else None)
+            for spec in specs}
+
+
+def fsdp_pair_entry(mesh, cfg, batch_list, scheds, work: str) -> dict:
+    """The same steps replicated (``mesh.fsdp=false``) and with FSDP."""
+    plain = copy.deepcopy(cfg)
+    plain.mesh.fsdp = False
+    sharded = copy.deepcopy(cfg)
+    sharded.mesh.fsdp = True
+    return {"replicated": steps_entry(mesh, plain, batch_list, scheds, work + "/r"),
+            "fsdp": steps_entry(mesh, sharded, batch_list, scheds, work + "/f")}
+
+
+def train_entry(mesh, cfg, work: str) -> dict:
+    """``Trainer.train()`` (one epoch, validation, checkpoints, test) in
+    float64; the history and the final state. Under a mesh each rank works
+    in a directory of its own, as ranks on hosts without a shared
+    filesystem would."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    if mesh is not None:
+        work = f"{work}/rank{torch.distributed.get_rank()}"
+    try:
+        with dp.use(mesh):
+            trainer = D.make_trainer(copy.deepcopy(cfg), work)
+            if trainer.state.centroids is not None:
+                trainer.state.centroids = trainer.state.centroids.double()
+            summary = trainer.train()
+            return {"history": summary["history"], "state": D.state_arrays(trainer),
+                    "writer": trainer.writer, "out_dir": str(trainer.out_dir)}
+    finally:
+        torch.set_default_dtype(before)
+
+
+def from_writer_entry(mesh, work: str) -> dict:
+    """``mesh.from_writer`` on every rank: a value that only rank 0 makes,
+    and a read that fails on rank 0 (any other rank would divide by zero,
+    had it run the function)."""
+    rank = torch.distributed.get_rank()
+    out = {"value": dp.from_writer(lambda: {"rank": rank, "t": torch.arange(3) + rank})}
+    try:
+        dp.from_writer(lambda: torch.load(f"{work}/missing.pt") if rank == 0 else 1 / 0)
+        out["error"] = None
+    except Exception as e:  # the test checks the type
+        out["error"] = type(e).__name__
+    return out
+
+
+def raises_entry(mesh, work: str) -> dict:
+    """The Trainer's refusals under a mesh of two data ranks, and
+    ``pretrain_rain`` staying unsharded."""
+    out = {}
+
+    def attempt(key, fn):
+        try:
+            fn()
+            out[key] = None
+        except Exception as e:  # the test checks the type and message
+            out[key] = (type(e).__name__, str(e))
+
+    with dp.use(mesh):
+        sp = small_cfg("mpscl")
+        sp.mesh.spatial = True
+        sp.mesh.model_axis = 2
+        attempt("spatial", lambda: D.make_trainer(sp, work))
+        odd = small_cfg("mpscl")
+        odd.data.bs = 3
+        attempt("bs", lambda: D.make_trainer(odd, work))
+        attempt("model_axis", lambda: dp.make_mesh(3, backend="gloo", device="cpu"))
+        from slcl_torch.train.steps import rain_pair
+        mul = small_cfg("mccl_rain").rain
+        mul.mulstyle = True
+        img = torch.zeros(B // 2, H, H, 3)
+        attempt("mulstyle", lambda: rain_pair(mul, img, img))
+        out.update(pretrain_entry(mesh, work))
+    return out
+
+
+def pretrain_entry(mesh, work: str) -> dict:
+    """One ``pretrain_rain`` step on the whole batch of two, through the
+    Trainer (which leaves it unsharded under a mesh, as JAX does)."""
+    with dp.use(mesh):
+        pre = small_cfg("pretrain_rain")
+        pre.data.bs = 2
+        trainer = D.make_trainer(pre, work)
+        b = batches("mpscl", 1)[0]
+        with dp.use(trainer.mesh):
+            m = trainer.step_fn(trainer.state, {k: torch.from_numpy(b[k][:2])
+                                                for k in ("img_s", "img_t")}, {"lr": 1e-4})
+        return {"pretrain_mesh": trainer.mesh,
+                "pretrain_metrics": {k: float(v) for k, v in m.items()},
+                "pretrain_state": D.state_arrays(trainer)}
+
+
+def assert_state_close(got: dict, want: dict, rtol: float, atol: float, what: str,
+                       disc_atol: float = None) -> None:
+    """Every entry of two ``state_arrays`` within tolerance (``disc_atol``
+    for the discriminators' entries when given)."""
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        a = disc_atol if disc_atol is not None and k.startswith("d_") else atol
+        np.testing.assert_allclose(got[k], w, rtol=rtol, atol=a, err_msg=f"{what} {k}")
+
+
+def assert_metrics_close(got: dict, want: dict, rel: float, what: str, abs_: float = 1e-6):
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        assert abs(got[k] - w) <= max(rel * abs(w), abs_), f"{what} {k}: {got[k]} vs {w}"
+
+
+def ops_entry(mesh, arrays: dict) -> dict:
+    """Each reduction of the port's step on this rank's rows of the global
+    arrays, in float64 (the losses keep float32 where they cast): its value
+    and the gradient of the value over the data ranks with respect to this
+    rank's rows, as a step backpropagates its share (its local rows of the
+    one-process gradient)."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return _ops(mesh, arrays)
+    finally:
+        torch.set_default_dtype(before)
+
+
+def _ops(mesh, arrays: dict) -> dict:
+    from slcl_torch.models.common import BatchNorm
+    from slcl_torch.ops import centroids as cen
+    from slcl_torch.ops import losses as L
+    from slcl_torch.ops.cuda.soft_centroids import soft_centroids_plain
+
+    with dp.use(mesh):
+        local = {k: dp.local_rows(torch.from_numpy(v)) for k, v in arrays.items()}
+    logits, labels, feats = local["logits"], local["labels"], local["feats"]
+    probs = torch.softmax(logits, dim=-1)
+    flat_f = feats.reshape(-1, feats.shape[-1])
+    flat_p = probs.reshape(-1, probs.shape[-1]).detach()
+    assign = local["assign"].reshape(-1)
+    centers = torch.nn.functional.normalize(torch.from_numpy(arrays["centers"]), dim=1)
+    sel = local["sel"].reshape(-1)
+
+    def soft(P, weighted, std):
+        def fn(x):
+            out = soft_centroids_plain(x.reshape(-1, x.shape[-1]), flat_p, assign,
+                                       partition=P, threshold=0.4, weighted=weighted,
+                                       with_std=std)
+            return out[0].sum() + out[1] + (out[2].sum() if std else 0.0)
+        return fn
+
+    bn = BatchNorm(feats.shape[-1]).double()
+    fns = {
+        "cross_entropy": lambda x: L.cross_entropy_loss(x, labels),
+        "jaccard": lambda x: L.jaccard_loss(x, labels),
+        "dice": lambda x: L.dice_loss(x, labels),
+        "ce_ignore": lambda x: L.cross_entropy_ignore(x, local["plabel"]),
+        "entropy": lambda x: L.loss_entropy(torch.softmax(x, -1)),
+        "entropy_sum": lambda x: L.loss_entropy(torch.softmax(x, -1), mode="sum"),
+        "class_prior": lambda x: L.loss_class_prior(torch.softmax(x, -1),
+                                                    [0.5, 0.2, 0.2, 0.1], 0.9),
+        "bce": lambda x: L.bce_with_logits(x, 1.0),
+        "seg_pseudo": lambda x: L.seg_pseudo_loss(torch.softmax(x, -1), 0.3, 4),
+        "soft_ce": lambda x: L.softmax_cross_entropy_soft(x, probs.detach()),
+        "mse": lambda x: L.mse_loss(x, torch.zeros_like(x)),
+        "mpcl": lambda f: L.mpcl_loss_calc(f, labels, torch.from_numpy(arrays["centers"])),
+        "mpcl_sel": lambda f: L.mpcl_loss_calc(f, labels, torch.from_numpy(arrays["centers"]),
+                                               pixel_sel_loc=sel),
+        "mpcl_pseudo": lambda f: L.mpcl_pseudo_loss(f, centers),
+        "source_centroids": lambda f: cen.source_centroids(f, labels).sum(),
+        "soft_p1": soft(1, True, False),
+        "soft_p2": soft(2, True, False),
+        "soft_p2_std": soft(2, True, True),
+        "hard_p1_std": soft(1, False, True),
+        "chamfer": lambda v: L.chamfer_loss(v, local["verts"]),
+        "batchnorm": lambda f: (bn(f.permute(0, 3, 1, 2)) ** 3).mean(),
+    }
+    inputs = {"mpcl": feats, "mpcl_sel": feats, "mpcl_pseudo": feats,
+              "source_centroids": feats, "soft_p1": feats, "soft_p2": feats,
+              "soft_p2_std": feats, "hard_p1_std": feats, "chamfer": local["points"],
+              "mse": feats, "batchnorm": feats}
+    out = {}
+    with dp.use(mesh):
+        for name, fn in fns.items():
+            x = inputs.get(name, logits).clone().requires_grad_(True)
+            v = fn(x)
+            if name == "batchnorm":
+                v = dp.gmean(v.reshape(1))
+            (g,) = torch.autograd.grad(v / dp.data_size(), x)
+            out[name] = (float(v.detach()), g.numpy())
+        with torch.no_grad():
+            out["ema_centres"] = (cen.update_class_center_iter(
+                feats, labels, torch.from_numpy(arrays["centers"]), bootstrap=False).numpy(),
+                None)
+        out["bn_running"] = (np.concatenate([bn.running_mean.numpy(),
+                                             bn.running_var.numpy()]), None)
+    return out

@@ -678,6 +678,8 @@ def main() -> int:
     def loaded(path, sigs):
         lib = ctypes.CDLL(str(path))
         for fn, (restype, argtypes) in sigs.items():
+            if not hasattr(lib, fn):    # an older tree's library (--parent)
+                continue
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = list(argtypes)
         return lib
