@@ -182,6 +182,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      (in float32 the source and target terms' gradients nearly cancel, so
      the main path's float32 gradients are reported, not held, beside the
      cancellation factor).
+ 10. scan_steps (``run.scan_steps``, ``slcl_torch/train/multistep.py``): the
+     full-width ``slcl`` multilvl + CNR cell and the ``mccl`` preset, 2K + 1
+     steps each at K = 4 (steps 0-2 eager, step 3 captured as a CUDA graph
+     and replayed, 4-7 replayed, step 8 the plain tail) through the
+     Trainer's captured runner, against the same runner uncaptured on the
+     card (parameters, BatchNorm buffers, optimizer state, centres and
+     every metric bit for bit) and against the Trainer at
+     ``scan_steps=1`` (JAX's scan test's tolerances: the state rtol 2e-5 /
+     atol 1e-6, the metrics rel 1e-4, since the capturable optimizers
+     round differently); these comparisons run with cuDNN's deterministic
+     algorithms (with its default choice two uncaptured runs already
+     differ); each kernel's counted launches (the eager steps, the capture,
+     the tail) and its device events a replayed step equal to an eager
+     step's. Then, with the default algorithms and a graph captured anew:
+     20 steps back to back of the plain and the replayed step, eager /
+     graph / graph / eager, four of each under torch.profiler (device busy
+     ms, idle share), the capture's time and memory. Then every method at
+     phase 3's sizes (``SCAN_SMALL``: ``baseline``, ``adaptseg`` on the
+     shallow DeepLabV2, ``advent``, ``mpscl``, ``slcl``, ``mccl`` with
+     stdmin and on the shallow ResNet-50 U-Net, MCCL + RAIN before warm-up
+     and with the ascent, ``rain``, ``pretrain_rain``, ``ddfseg``,
+     ``adaptevery``, ``bcl``): 2K steps captured against uncaptured, bit
+     for bit.
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
@@ -191,8 +214,8 @@ protocol, the RAIN cells (``train_rain``: phase 4's two and phase 3's RAIN
 runs), the real-format phase, the backbones (``train_backbones``:
 phase 4's backbone cells and phase 3's runs) and DDFSeg / AdaptEvery / BCL
 (``train_extra``: phase 4's cells, phase 3's steps, phase 5's runs),
-``serve`` (phase 7), ``run_utils`` (phase 8) and ``parallel`` (phase 9) as
-one JSON line each, the
+``serve`` (phase 7), ``run_utils`` (phase 8), ``parallel`` (phase 9) and
+``scan_steps`` (phase 10) as one JSON line each, the
 card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and cuDNN. Run
 directories go to ``runs/`` in the checkout and are removed.
@@ -2922,6 +2945,290 @@ def parallel_phase(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: run.scan_steps (CUDA-graph capture and replay of the step)
+# ---------------------------------------------------------------------------
+SCAN_K = 4
+# JAX's scan test's tolerances (tests/test_trainer.py: the state rtol 2e-5 /
+# atol 1e-6, the metrics rel 1e-4 / abs 1e-6), for the runner against
+# scan_steps=1: the capturable optimizers round differently
+SCAN_RTOL, SCAN_ATOL, SCAN_METRICS_RTOL = 2e-5, 1e-6, 1e-4
+_SMALL_NETS = dict(layers=(1, 1, 1, 1), base=8)
+_SMALL_RAIN = dict(enabled=True, update_eps=True, eps_clip=3.0)
+# phase 10's runs of every method at phase 3's sizes: (label, method, model
+# overrides, crop, config overrides by section, a shallow backbone the
+# factory does not build)
+SCAN_SMALL = (
+    ("baseline", "baseline", {}, 32, {}, None),
+    ("adaptseg deeplabv2", "adaptseg", dict(backbone="deeplabv2"), 32, {}, "deeplabv2"),
+    ("advent", "advent", {}, 32, {}, None),
+    ("mpscl", "mpscl", {}, 32, {}, None),
+    ("slcl", "slcl", {}, 32, {}, None),
+    ("mccl stdmin", "mccl", {}, 32,
+     {"contrastive": dict(stdmin=True, w_stdmin=0.1, seg_pseudo=True)}, None),
+    ("resnet50 mccl", "mccl", dict(backbone="resnet50", filters=32, **_SMALL_NETS), 64, {},
+     None),
+    # RAIN before warm-up (the ascent off), and the ascent at one iteration a batch
+    ("mccl rain before warm-up", "mccl", {}, 64,
+     {"rain": dict(_SMALL_RAIN, eps_iters=2), "contrastive": dict(warmup_epochs=1)}, None),
+    ("mccl rain ascent", "mccl", {}, 64,
+     {"rain": dict(_SMALL_RAIN, eps_iters=1), "contrastive": dict(warmup_epochs=0)}, None),
+    ("rain", "rain", {}, 64, {"rain": dict(_SMALL_RAIN, eps_iters=1)}, None),
+    ("pretrain_rain", "pretrain_rain", {}, 64, {"optim": dict(lr=1e-4)}, None),
+    ("ddfseg", "ddfseg", {}, 64, {"ddfseg": dict(filters=4, style_filters=4, ngf=8,
+                                                 slim=True)}, None),
+    ("adaptevery", "adaptevery", _SMALL_NETS, 64, {}, None),
+    ("bcl", "bcl", _SMALL_NETS, 64, {}, None),
+)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode (an op
+    without a deterministic form raises) for phase 10's comparisons: with
+    cuDNN's default choice two uncaptured runs of the same steps differ on
+    the card, so only then does equality say that a replay took the eager
+    step."""
+    import torch
+    before = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.use_deterministic_algorithms(before[1])
+
+
+def scan_state(trainer) -> dict:
+    """Every network's state, every optimizer's state tensors, the centres
+    and the sampling, cloned."""
+    from slcl_torch.train.state import optimizers
+    from slcl_torch.train.trainer import _NETS
+    s, out = trainer.state, {}
+    for n in _NETS:
+        if getattr(s, n) is not None:
+            out.update({f"{n}/{k}": v.detach().clone()
+                        for k, v in getattr(s, n).state_dict().items()})
+    for n, opt in optimizers(s).items():
+        for i, st in opt.state_dict()["state"].items():
+            out.update({f"{n}/{i}/{k}": v.detach().clone() for k, v in st.items()})
+    for n in ("centroids", "sampling"):
+        if getattr(s, n) is not None:
+            out[n] = getattr(s, n).detach().clone()
+    return out
+
+
+def scan_compare(a: dict, b: dict, what: str, rtol=None, atol=None) -> float:
+    """``a`` against ``b`` (tensors by name): equal bit for bit when
+    ``rtol`` is None (Adam's step counters too), else within rtol / atol
+    (the step counters, kept on another device, equal); returns the largest
+    difference."""
+    import torch
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: entries differ {sorted(set(a) ^ set(b))[:4]}")
+    worst = 0.0
+    for k in a:
+        x, y = a[k].float().cpu(), b[k].float().cpu()
+        if rtol is None or k.endswith("/step"):
+            if not torch.equal(x, y):
+                d = float((x - y).abs().max()) if x.shape == y.shape else math.inf
+                raise AssertionError(f"{what}: {k} differs by {d}")
+            continue
+        worst = max(worst, close(x, y, rtol, atol, f"{what} {k}"))
+    return worst
+
+
+def scan_epoch(trainer, batches, sched) -> tuple:
+    """``trainer.train_steps`` on device ``batches``, synchronised:
+    (summed metrics cloned, steps, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, n = trainer.train_steps(batches, sched)
+    torch.cuda.synchronize()
+    return {k: v.clone() for k, v in acc.items()}, n, time.perf_counter() - t0
+
+
+def scan_profile(trainer, batches, sched) -> dict:
+    """``trainer.train_steps`` on ``batches`` under torch.profiler: device busy
+    ms a step, its idle share, and the port kernels' device events a step
+    by source (``PORT_KERNELS``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_steps(batches, sched)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, port = 0.0, dict.fromkeys(PORT_KERNELS, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            for src, parts in PORT_KERNELS.items():
+                port[src] += any(p in e.name for p in parts)
+    n = len(batches)
+    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_ms_per_step": busy_us / n / 1e3,
+            "idle_share": 1.0 - busy_us / wall_us,
+            "port_kernel_events_per_step": {k: v / n for k, v in port.items()}}
+
+
+def scan_cell(work: Path, method: str) -> dict:
+    """Phase 10, one full-width cell (``dp_config``: ``slcl`` multilvl + CNR,
+    the ``mccl`` preset): 2K + 1 steps at K = SCAN_K through the Trainer's
+    captured runner, the same runner uncaptured and the Trainer at
+    ``scan_steps=1``, from the same init, batches and sched, under
+    :func:`deterministic`; then, with cuDNN's default algorithms and a graph
+    captured anew, the timing, profile and memory of the plain and the
+    replayed step."""
+    import itertools
+    import torch
+    from slcl_torch.data import device_prefetch
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train.trainer import Trainer
+
+    cfg_k = dp_config(work, method)
+    cfg_k.run.scan_steps = SCAN_K
+    graph, uncaptured = Trainer(cfg_k), Trainer(cfg_k)
+    uncaptured.multi = uncaptured.build_multi_step(capture=False)
+    plain = Trainer(dp_config(work, method))
+    batches = list(itertools.islice(device_prefetch(itertools.chain(
+        graph._epoch_batches(), graph._epoch_batches()), graph.device), 2 * SCAN_K + 1))
+    sched = graph._sched(0)
+    rec: dict = {"k": SCAN_K, "steps": len(batches)}
+    runs = {}
+    for mode, t in (("graph", graph), ("uncaptured", uncaptured), ("plain", plain)):
+        reset_launch_counts()
+        with deterministic():
+            acc, n, sec = scan_epoch(t, batches, sched)
+        runs[mode] = (acc, scan_state(t))
+        rec[mode] = {"seconds": sec, "steps": n, "launches": launch_counts(),
+                     "metrics": {k: float(v) / n for k, v in acc.items()}}
+        if not all(math.isfinite(v) for v in rec[mode]["metrics"].values()):
+            raise AssertionError(f"scan {method} {mode}: non-finite metrics")
+    m = graph.multi
+    rec["graph"].update(capture_s=m.capture_s, captured_step=m.captured_step,
+                        replays=m.replays, eager_steps=m.eager_steps)
+    if (m.captured_step, m.replays, m.eager_steps) != (3, 2 * SCAN_K - 3, 3):
+        raise AssertionError(f"scan {method}: captured at {m.captured_step}, "
+                             f"{m.replays} replays, {m.eager_steps} eager runner steps")
+    # the wrappers count where they launch: the three eager steps, the
+    # capture and the plain tail step; a replay launches without Python
+    for kname, per in PER_METHOD[method].items():
+        if rec["graph"]["launches"][kname] != 5 * per:
+            raise AssertionError(f"scan {method}: {kname} counted "
+                                 f"{rec['graph']['launches'][kname]}, expected {5 * per}")
+    acc_g, state_g = runs["graph"]
+    scan_compare(acc_g, runs["uncaptured"][0], f"scan {method} metrics, graph vs uncaptured")
+    scan_compare(state_g, runs["uncaptured"][1], f"scan {method} state, graph vs uncaptured")
+    rec["max_abs_diff_vs_scan_steps_1"] = {
+        "metrics": scan_compare({k: v / len(batches) for k, v in acc_g.items()},
+                                {k: v / len(batches) for k, v in runs["plain"][0].items()},
+                                f"scan {method} metrics vs scan_steps=1",
+                                SCAN_METRICS_RTOL, SCAN_ATOL),
+        "state": scan_compare(state_g, runs["plain"][1], f"scan {method} state vs "
+                              "scan_steps=1", SCAN_RTOL, SCAN_ATOL)}
+    log(f"scan {method}: replayed == uncaptured bit for bit, within JAX's scan "
+        "test's tolerances of scan_steps=1")
+
+    # cuDNN's default algorithms: a graph captured anew (two warm-up steps,
+    # the capture, a replay), then 20 steps back to back of each, eager /
+    # graph / graph / eager, each mode's peak memory over the resident state
+    graph.multi = uncaptured.multi = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reserved, before = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scan_epoch(graph, batches[:SCAN_K], sched)
+    mem = {"capture": {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "above_resident_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+                       "reserved_increase_gb": (torch.cuda.memory_reserved() - reserved) / 1e9}}
+    rec["graph"]["capture_s_default_algorithms"] = graph.multi.capture_s
+    timed = [batches[i % (2 * SCAN_K)] for i in range(20)]
+    replays = graph.multi.replays
+    ms = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, n, sec = scan_epoch(plain if mode == "eager" else graph, timed, sched)
+        peak = torch.cuda.max_memory_allocated()
+        ms.append([mode, sec / n * 1e3])
+        mem[mode] = {"peak_gb": peak / 1e9, "above_resident_gb": (peak - before) / 1e9}
+    rec["back_to_back_ms"] = ms
+    rec["memory"] = mem
+    prof_batches = batches[:SCAN_K]
+    rec["profile"] = {"eager": scan_profile(plain, prof_batches, sched),
+                      "graph": scan_profile(graph, prof_batches, sched)}
+    eager_ev = rec["profile"]["eager"]["port_kernel_events_per_step"]
+    graph_ev = rec["profile"]["graph"]["port_kernel_events_per_step"]
+    if graph_ev != eager_ev or not any(graph_ev.values()):
+        raise AssertionError(f"scan {method}: port kernels a replayed step {graph_ev}, "
+                             f"an eager step {eager_ev}")
+    if graph.multi.replays != replays + 2 * len(timed) + len(prof_batches):
+        raise AssertionError(f"scan {method}: the timed steps did not all replay "
+                             f"({graph.multi.replays - replays} replays)")
+    for t in (graph, uncaptured, plain):
+        t.multi = None
+    return rec
+
+
+def scan_small_run(label, method, model, crop, over, shallow) -> dict:
+    """Phase 10, one method at phase 3's sizes: 2K steps (steps 0-2 eager,
+    3 captured, 4-7 replayed) through the captured runner against the
+    uncaptured one, bit for bit, under :func:`deterministic`."""
+    import torch
+    from slcl_torch.data import to_device
+    from slcl_torch.train.trainer import Trainer
+
+    cfg = small_config(method)
+    cfg.data.crop = crop
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    for section, kv in over.items():
+        for k, v in kv.items():
+            setattr(getattr(cfg, section), k, v)
+    cfg.run.scan_steps = SCAN_K
+    graph, uncaptured = Trainer(cfg, device="cuda"), Trainer(cfg, device="cuda")
+    for t in (graph, uncaptured):
+        if shallow:
+            use_segmentor(t, small_segmentor(shallow, cfg, t.device))
+    uncaptured.multi = uncaptured.build_multi_step(capture=False)
+    if method == "bcl":
+        graph.bcl_update_plabels(cfg.run.bcl_prop)
+        uncaptured.bcl_plabels = graph.bcl_plabels
+    batches = [to_device(b, graph.device)
+               for _, b in zip(range(2 * SCAN_K), graph._epoch_batches())]
+    sched = graph._sched(0)
+    with deterministic():
+        acc_g, n, _ = scan_epoch(graph, batches, sched)
+        acc_u, _, _ = scan_epoch(uncaptured, batches, sched)
+    m = graph.multi
+    if m is None or (m.captured_step, m.replays) != (3, SCAN_K + 1):
+        raise AssertionError(f"scan small {label}: not replayed "
+                             f"({None if m is None else (m.captured_step, m.replays)})")
+    scan_compare(acc_g, acc_u, f"scan small {label} metrics")
+    scan_compare(scan_state(graph), scan_state(uncaptured), f"scan small {label} state")
+    metrics = {k: float(v) / n for k, v in acc_g.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"scan small {label}: non-finite metrics")
+    log(f"scan small {label}: replayed == uncaptured bit for bit over {n} steps")
+    return {"steps": n, "crop": crop, "capture_s": m.capture_s, "replays": m.replays,
+            "sched": {k: v for k, v in sched.items()}, "metrics": metrics}
+
+
+def scan_steps_phase(work: Path) -> dict:
+    """Phase 10 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"cells": {m: scan_cell(work, m) for m in ("slcl", "mccl")},
+           "small": {run[0]: scan_small_run(*run) for run in SCAN_SMALL}}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3000,6 +3307,7 @@ def main() -> int:
             served = serve_phase(work, protocol, {"mscmrseg": work / "data" / "mscmrseg"})
             run_utils = run_utils_phase(work)
             parallel = parallel_phase(work)
+            scan = scan_steps_phase(work)
             for k in ("slcl_args", "slcl_best"):
                 protocol.pop(k)
         finally:
@@ -3037,6 +3345,11 @@ def main() -> int:
                                     for cell in extra_cells},
                  # phase 3's two UNet steps at F = 64 (the 64-wide instantiations)
                  "launches_small_f64": small["unet slcl F=64"]["launches"][kname],
+                 # phase 10's full-width cells through the scan_steps runner:
+                 # its eager steps, the capture and the tail (a replay runs
+                 # no wrapper)
+                 "launches_scan_steps": {cell: scan["cells"][cell]["graph"]["launches"][kname]
+                                         for cell in scan["cells"]},
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
@@ -3086,6 +3399,7 @@ def main() -> int:
     print(json.dumps({"serve": served}))
     print(json.dumps({"run_utils": run_utils}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"scan_steps": scan}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

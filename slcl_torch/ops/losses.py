@@ -107,8 +107,12 @@ def loss_class_prior(probs: torch.Tensor, prior, w: float) -> torch.Tensor:
         marginal = total[:-1] / total[-1]
     else:
         marginal = probs.mean(dim=dims)
-    prior = torch.as_tensor(prior, dtype=torch.float32, device=probs.device)
-    return torch.relu(w * prior - marginal).sum()
+    # filled entry by entry: no host-to-device copy, which a captured step
+    # cannot make
+    prior_t = torch.empty(len(prior), dtype=torch.float32, device=probs.device)
+    for k, v in enumerate(prior):
+        prior_t[k] = v
+    return torch.relu(w * prior_t - marginal).sum()
 
 
 def prob_2_entropy(probs: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,8 @@ JAX keeps in ``extra`` have fields of their own, each with its Adam:
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from dataclasses import dataclass, fields
+from typing import Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -71,25 +71,106 @@ def make_optimizer(name: str, params: Iterable, lr: float = 1.0,
     :func:`param_groups` makes them; a group's ``lr_mult`` (default 1)
     scales the whole update, decay included, as JAX's masked
     ``optax.scale(10)`` after the update does. The LR is set per step with
-    :func:`set_lr`; the optimizer is never rebuilt."""
+    :func:`set_lr`; the optimizer is never rebuilt. On CUDA it takes the
+    form a CUDA graph can replay (:func:`capturable`) for every step, so a
+    replayed step (``run.scan_steps``) is the eager step's arithmetic."""
     params = list(params)
     if not params or not isinstance(params[0], dict):
         params = [{"params": params}]
     groups = [{**g, "lr_mult": g.get("lr_mult", 1.0),
                "lr": lr * g.get("lr_mult", 1.0)} for g in params]
     if name == "sgd":
-        return torch.optim.SGD(groups, lr=lr, momentum=momentum,
-                               weight_decay=weight_decay)
-    if name == "adam":
-        return torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=1e-8)
-    raise ValueError(f"unknown optimizer {name!r}")
+        opt = torch.optim.SGD(groups, lr=lr, momentum=momentum, weight_decay=weight_decay)
+    elif name == "adam":
+        opt = torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=1e-8)
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    if any(p.is_cuda for g in groups for p in g["params"]):
+        capturable(opt)
+    return opt
 
 
-def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
-    """Each group's LR is ``lr`` times its ``lr_mult``, which the
-    optimizer's ``state_dict`` carries, so a restored checkpoint keeps it."""
+def capturable(opt: torch.optim.Optimizer) -> None:
+    """Put ``opt`` (its parameters on CUDA) in the form a CUDA graph can
+    replay: each group's LR a 0-d float32 tensor on the parameters' device
+    (:func:`set_lr` fills it in place), Adam ``capturable`` (its step
+    counters on the device and its bias corrections computed there), SGD
+    ``fused`` (its foreach update reads a tensor LR back to the host).
+    Idempotent; a restored optimizer (``load_state_dict`` takes the
+    checkpoint's plain form, :func:`plain_optimizer_state`) takes it again."""
+    device = opt.param_groups[0]["params"][0].device
     for group in opt.param_groups:
-        group["lr"] = lr * group.get("lr_mult", 1.0)
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                       device=device)
+        if isinstance(opt, torch.optim.Adam):
+            group["capturable"] = True
+        elif isinstance(opt, torch.optim.SGD):
+            group["fused"], group["foreach"] = True, False
+        else:
+            raise NotImplementedError(f"no capturable form of {type(opt).__name__}")
+    for st in opt.state.values():
+        if "step" in st and st["step"].device != device:
+            st["step"] = st["step"].to(device, torch.float32)
+    # eager steps run the capturable form too, knowingly: no warning
+    opt._warned_capturable_if_run_uncaptured = True
+
+
+def plain_form(opt: torch.optim.Optimizer) -> None:
+    """The inverse of :func:`capturable` on an optimizer that holds no state
+    yet: float LRs, Adam not capturable, SGD not fused. FSDP's sharded
+    parameters take it, as before the capturable forms (they are never
+    captured: ``run.scan_steps`` runs eagerly on several processes)."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(group["lr"])
+        if group.get("capturable"):
+            group["capturable"] = False
+        if group.get("fused"):
+            group["fused"], group["foreach"] = None, None
+
+
+def plain_optimizer_state(sd: dict) -> dict:
+    """An optimizer ``state_dict`` in the plain optimizer's form: float LRs,
+    Adam not capturable, SGD not fused, step counters on the host; a new
+    dict (the optimizer's own state is untouched). A checkpoint so loads on
+    any device."""
+    groups = []
+    for g in sd["param_groups"]:
+        g = dict(g)
+        if isinstance(g["lr"], torch.Tensor):
+            g["lr"] = float(g["lr"])
+        if g.get("capturable"):
+            g["capturable"] = False
+        if g.get("fused"):
+            g["fused"], g["foreach"] = None, None
+        groups.append(g)
+    state = {i: {k: (v.cpu() if k == "step" else v) for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {**sd, "param_groups": groups, "state": state}
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: Optional[float]) -> None:
+    """Each group's LR is ``lr`` times its ``lr_mult``, which the
+    optimizer's ``state_dict`` carries, so a restored checkpoint keeps it.
+    A group whose LR is a 0-d device tensor (:func:`capturable`) is filled
+    in place, so that a captured step reads the new value; ``None``
+    leaves every LR as it is (the multi-step runner sets them before each
+    step, outside the captured graph)."""
+    if lr is None:
+        return
+    for group in opt.param_groups:
+        value = lr * group.get("lr_mult", 1.0)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(value)
+        else:
+            group["lr"] = value
+
+
+def optimizers(state: "TrainState") -> Dict[str, torch.optim.Optimizer]:
+    """The state's optimizers by field name (``opt_seg`` first)."""
+    return {f.name: getattr(state, f.name) for f in fields(state)
+            if f.name.startswith("opt_") and getattr(state, f.name) is not None}
 
 
 def create_train_state(cfg, seg: nn.Module, *, disc: Optional[nn.Module] = None,

@@ -111,8 +111,10 @@ class _Recompute:
 def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
     """``seg(x)``, rematerialised per ``remat`` (:func:`remat_mode`) with
     ``torch.utils.checkpoint`` (non-reentrant). The recompute sees the
-    forward's autocast state and RNG state (the segmentors draw no noise of
-    their own) and leaves the running statistics as the forward set them.
+    forward's autocast state and leaves the running statistics as the
+    forward set them; it does not save the RNG state, which the segmentors
+    never read (they draw no noise of their own) and which a CUDA-graph
+    capture cannot read.
     Under autocast, ``dots`` needs :func:`autocast`'s uncached weight casts:
     a cached cast would serve the target forward without the casts its
     recompute makes, and selective checkpointing refuses a differing op
@@ -128,7 +130,8 @@ def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
         fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
         return fwd, _Recompute(seg, rec)
 
-    return checkpoint(seg, x, use_reentrant=False, context_fn=contexts)
+    return checkpoint(seg, x, use_reentrant=False, context_fn=contexts,
+                      preserve_rng_state=False)
 
 
 def _d_acc(logits: torch.Tensor, is_source: bool) -> torch.Tensor:
@@ -362,7 +365,7 @@ def make_mpscl_step(cfg, centroids_loaded: bool = False) -> Callable:
         total = (loss_seg + _adv_terms(cfg, state, out_t, "weighted", amp, metrics)
                  + warm * (c.w_mpcl_s * mpcl_src + c.w_mpcl_t * mpcl_trg
                            + c.CNR_w * loss_cnr))
-        state.centroids = centers
+        state.centroids.copy_(centers)
         return total, out_s, out_t, metrics
 
     return _gan_step(cfg, gen_loss, "weighted")
@@ -386,6 +389,37 @@ def rmc_seed(seed: int, step: int) -> int:
     """The rMC draw's generator seed at ``step`` of a run seeded ``seed``:
     splitmix64 of (seed, step), so every pair seeds its own stream."""
     return splitmix64(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+class Generators:
+    """One generator per device, reseeded for every draw: a draw is a
+    function of its seed alone."""
+
+    def __init__(self):
+        self.gens: Dict[torch.device, torch.Generator] = {}
+
+    def seeded(self, device: torch.device, seed: int) -> torch.Generator:
+        g = self.gens.get(device)
+        if g is None:
+            g = self.gens[device] = torch.Generator(device=device)
+        return g.manual_seed(seed)
+
+
+def rmc_draw(gens: Generators, seed: int, step: int, m: int, P: int,
+             device: torch.device) -> torch.Tensor:
+    """The rMC partition ids (int32, ``m`` pixels, ``P`` partitions) of
+    step ``step`` of a run seeded ``seed``."""
+    return torch.randint(0, P, (m,), generator=gens.seeded(device, rmc_seed(seed, step)),
+                         device=device, dtype=torch.int32)
+
+
+def select(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` where the schedule flag is set (> 0), else ``b``: a Python
+    branch on a float flag, a device select on a 0-d tensor one (the
+    multi-step runner's, which a captured step reads from the device)."""
+    if isinstance(flag, torch.Tensor):
+        return torch.where(flag > 0, a, b)
+    return a if flag > 0 else b
 
 
 def clip_step_norm(step_vec: torch.Tensor, clip: float) -> torch.Tensor:
@@ -447,7 +481,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
     c = cfg.contrastive
     P = max(int(c.part), 1)
     n_class = cfg.model.num_classes
-    gens: Dict[torch.device, torch.Generator] = {}
+    gens = Generators()
     use_rain = cfg.rain.enabled
     if use_rain:
         from . import steps_rain as R
@@ -534,12 +568,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
             if draw_assign is not None:
                 assign = draw_assign(m, P, dev)
             else:
-                g = gens.get(dev)
-                if g is None:
-                    g = gens[dev] = torch.Generator(device=dev)
-                g.manual_seed(rmc_seed(state.seed, state.step))
-                assign = torch.randint(0, P, (m,), generator=g, device=dev,
-                                       dtype=torch.int32)
+                assign = rmc_draw(gens, state.seed, state.step, m, P, dev)
             assign = dp.local_rows(assign)
         res_t = cen.target_soft_centroids(
             dcdr_t, probs_t, partition=P, assign=assign, threshold=c.thd,
@@ -588,13 +617,17 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
         if use_rain:
             # the ascent differentiates the stylised seg loss alone (the
             # reference's samp_loss, Trainer_MCCL.py:229-241)
-            state.sampling, step_vec = R.epsilon_ascent(cfg, sampling, loss_style, sched)
+            new_sampling, step_vec = R.epsilon_ascent(cfg, sampling, loss_style, sched)
             metrics["eps_step_norm"] = (sched.get("eps_on", 0.0)
                                         * torch.linalg.vector_norm(step_vec))
-            metrics["sampling_norm"] = torch.linalg.vector_norm(state.sampling)
+            metrics["sampling_norm"] = torch.linalg.vector_norm(new_sampling)
             metrics["seg_style_val"] = loss_style
         _seg_update(state, total, sched["lr"])
-        state.centroids = centroid_s
+        # in place (a captured step writes the tensors that it reads); the
+        # sampling after the update, whose backward reads the carried one
+        state.centroids.copy_(centroid_s)
+        if use_rain:
+            state.sampling.copy_(new_sampling)
         state.step += 1
         return {k: v.detach().float() for k, v in metrics.items()}
 
@@ -633,3 +666,7 @@ def build_step(cfg, centroids_loaded: bool = False,
     if m == "bcl":
         return steps_extra.make_bcl_step(cfg)
     raise ValueError(f"unknown method {m!r}")
+
+
+# run.scan_steps' runner (JAX's make_multi_step): its module imports this one
+from .multistep import make_multi_step  # noqa: E402,F401

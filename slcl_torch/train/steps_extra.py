@@ -44,7 +44,7 @@ from ..models.common import dropout_pass, running_stats_frozen
 from ..ops import losses as L
 from ..parallel import mesh as dp
 from .state import TrainState
-from .steps import Metrics, _d_acc, _seg_update, autocast, net_update, splitmix64
+from .steps import Generators, Metrics, _d_acc, _seg_update, autocast, net_update, splitmix64
 
 DrawDropout = Callable[[int, str, int, Tuple[int, ...], float, torch.device], torch.Tensor]
 
@@ -61,13 +61,21 @@ def dropout_seed(seed: int, step: int, path: str, call: int) -> int:
     return splitmix64(splitmix64(pair ^ _DROPOUT_SALT) ^ key)
 
 
+def dropout_draw(gens: Generators, seed: int, step: int, path: str, call: int,
+                 shape, keep: float, device: torch.device) -> torch.Tensor:
+    """One dropout mask (true where kept) of step ``step`` of a run seeded
+    ``seed``: uniforms from the generator seeded by :func:`dropout_seed`."""
+    g = gens.seeded(device, dropout_seed(seed, step, path, call))
+    return torch.rand(tuple(shape), generator=g, device=device) < keep
+
+
 class Dropouts:
-    """A step's dropout masks: ``draw_dropout`` when given, else drawn from
-    a per-device generator seeded by :func:`dropout_seed`."""
+    """A step's dropout masks: ``draw_dropout`` when given, else
+    :func:`dropout_draw`."""
 
     def __init__(self, draw_dropout: Optional[DrawDropout] = None):
         self.hook = draw_dropout
-        self.gens: Dict[torch.device, torch.Generator] = {}
+        self.gens = Generators()
 
     def for_step(self, seed: int, step: int):
         """The ``dropout_pass`` draw of step ``step``: the global batch's
@@ -76,11 +84,8 @@ class Dropouts:
             shape = dp.global_shape(shape)
             if self.hook is not None:
                 return dp.local_rows(self.hook(step, path, call, shape, keep, device))
-            g = self.gens.get(device)
-            if g is None:
-                g = self.gens[device] = torch.Generator(device=device)
-            g.manual_seed(dropout_seed(seed, step, path, call))
-            return dp.local_rows(torch.rand(shape, generator=g, device=device) < keep)
+            return dp.local_rows(dropout_draw(self.gens, seed, step, path, call, shape,
+                                              keep, device))
         return draw
 
 

@@ -42,7 +42,8 @@ from ..models.rain import LATENT
 from ..ops import losses as L
 from ..parallel import mesh as dp
 from .state import TrainState
-from .steps import Metrics, _seg_update, autocast, clip_step_norm, rain_rows, splitmix64
+from .steps import (Generators, Metrics, _seg_update, autocast, clip_step_norm, rain_rows,
+                    select, splitmix64)
 
 DrawNoise = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
 
@@ -57,22 +58,26 @@ def noise_seed(seed: int, step: int) -> int:
     return splitmix64(pair ^ _NOISE_SALT)
 
 
+def noise_draw(gens: Generators, seed: int, step: int, shape,
+               dev: torch.device) -> torch.Tensor:
+    """The standard normal noise of ``shape`` of step ``step`` of a run
+    seeded ``seed``."""
+    return torch.randn(tuple(shape), generator=gens.seeded(dev, noise_seed(seed, step)),
+                       device=dev)
+
+
 class RainNoise:
     """A step's standard normal noise of ``shape``: ``draw_noise`` when
-    given, else from the generator on the device seeded per step."""
+    given, else :func:`noise_draw` for the state's seed and step."""
 
     def __init__(self, draw_noise: Optional[DrawNoise] = None):
         self.draw_noise = draw_noise
-        self.gens: Dict[torch.device, torch.Generator] = {}
+        self.gens = Generators()
 
     def __call__(self, state: TrainState, shape, dev: torch.device) -> torch.Tensor:
         if self.draw_noise is not None:
             return self.draw_noise(tuple(shape), dev)
-        g = self.gens.get(dev)
-        if g is None:
-            g = self.gens[dev] = torch.Generator(device=dev)
-        g.manual_seed(noise_seed(state.seed, state.step))
-        return torch.randn(tuple(shape), generator=g, device=dev)
+        return noise_draw(self.gens, state.seed, state.step, shape, dev)
 
 
 def stylized_to_gray3(img_style: torch.Tensor) -> torch.Tensor:
@@ -85,13 +90,13 @@ def stylize(state: TrainState, content: torch.Tensor, style: torch.Tensor,
             sched: Dict[str, float], noise: RainNoise):
     """``(gray 3-channel stylised content, sampling)``: a fresh sampling of
     ``style`` when ``sched["fresh"]`` is set, else the carried one, as a
-    leaf that requires grad. Call it outside any autocast region: the style
-    net runs in float32."""
-    if sched.get("fresh", 1.0) > 0:
+    leaf that requires grad (a device flag draws and selects). Call it
+    outside any autocast region: the style net runs in float32."""
+    fresh = sched.get("fresh", 1.0)
+    sampling = state.sampling
+    if isinstance(fresh, torch.Tensor) or fresh > 0:
         z = noise(state, (style.shape[0], LATENT), style.device)
-        sampling = state.rain.sample(style, z)
-    else:
-        sampling = state.sampling
+        sampling = select(fresh, state.rain.sample(style, z), sampling)
     sampling = sampling.detach().requires_grad_(True)
     img, _ = state.rain.style_transfer(content, style, sampling)
     return stylized_to_gray3(img), sampling
@@ -111,7 +116,7 @@ def epsilon_ascent(cfg, sampling: torch.Tensor, seg_loss: torch.Tensor,
     if cfg.rain.eps_clip > 0:
         step_vec = clip_step_norm(step_vec, cfg.rain.eps_clip)
     base = sampling.detach()
-    return (base + step_vec if sched.get("eps_on", 0.0) > 0 else base), step_vec
+    return select(sched.get("eps_on", 0.0), base + step_vec, base), step_vec
 
 
 def consistency(b_src: torch.Tensor, b_style: torch.Tensor) -> torch.Tensor:
@@ -242,7 +247,8 @@ def make_rain_seg_step(cfg, draw_noise: Optional[DrawNoise] = None) -> Callable:
                                jaccard=True)
         new_sampling, _ = epsilon_ascent(cfg, sampling, loss_seg, sched)
         _seg_update(state, loss_seg + consist_w * loss_consist, sched["lr"])
-        state.sampling = new_sampling
+        # in place, after the update, whose backward reads the carried one
+        state.sampling.copy_(new_sampling)
         state.step += 1
         return {"seg": loss_seg.detach().float(),
                 "loss_consist": loss_consist.detach().float()}

@@ -51,8 +51,18 @@ activations in the backward (``train/steps.py::seg_forward``);
 ``run.profile_dir`` records epoch ``run.profile_epoch`` (clamped to the
 last epoch that runs) as a ``torch.profiler`` trace under that directory;
 ``train()`` writes each epoch's record as TensorBoard scalars under
-``<out_dir>/tb`` when ``tensorboardX`` is installed. ``run.scan_steps``
-other than 1 raises at construction: the port does not honour it yet.
+``<out_dir>/tb`` when ``tensorboardX`` is installed.
+
+``run.scan_steps=K`` > 1 (JAX's ``make_multi_step``, used as JAX uses it:
+only in epochs of one step a batch, ``rain.eps_iters`` iterations being
+off) takes an epoch's batches K at a time through the multi-step runner
+(``train/multistep.py``): on CUDA one CUDA graph of the step, captured after
+step 0 and two warm-up steps and replayed once a step; on the CPU the same
+runner uncaptured. The tail of fewer than K batches, and a batch whose
+shapes differ from the runner's, take the plain step. Under a mesh of more
+than one process the steps run eagerly, one a dispatch, as with K = 1 (a
+line at construction says so). Restoring a checkpoint drops the graph; the
+next epoch captures again.
 
 Data parallelism (``slcl_torch/parallel/mesh.py``): under ``torchrun
 --nproc_per_node=N`` (``WORLD_SIZE`` > 1), or inside ``parallel.mesh.use``,
@@ -104,8 +114,10 @@ from ..utils.callbacks import EarlyStopCallback, ModelCheckPointCallback
 from ..utils.tb import TBWriter
 from ..utils.timer import profile_trace
 from . import schedules
-from .state import (TrainState, create_pretrain_rain_state, create_train_state,
-                    make_optimizer, rain_sampling_rows)
+from .state import (TrainState, capturable, create_pretrain_rain_state,
+                    create_train_state, make_optimizer, plain_form,
+                    plain_optimizer_state, rain_sampling_rows)
+from .multistep import MultiStep, StagedDraws, make_multi_step
 from .steps import autocast, build_step, remat_mode
 
 _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
@@ -122,17 +134,10 @@ PRETRAIN_LOSSES = ("loss_c", "loss_s", "loss_l", "loss_r")
 
 
 def check_ported_keys(cfg: Config) -> None:
-    """Raise on a config key the port would accept and then ignore (the JAX
-    package honours it): the scan over several steps, which names the
-    ROADMAP item that ports it. Also on a ``model.remat`` the port cannot
-    run: an unknown mode, or ``dots`` under MCCL + RAIN, whose ascent
-    backpropagates the forward twice (selective checkpointing allows one
-    backward; ``full`` allows both)."""
-    if int(cfg.run.scan_steps) != 1:
-        raise NotImplementedError(
-            f"run.scan_steps={cfg.run.scan_steps}: slcl_torch runs one step per "
-            "dispatch (CUDA-graph replay of the step: ROADMAP queue 1, the "
-            "host-bound step)")
+    """Raise on a ``model.remat`` the port cannot run: an unknown mode, or
+    ``dots`` under MCCL + RAIN, whose ascent backpropagates the forward
+    twice (selective checkpointing allows one backward; ``full`` allows
+    both)."""
     if remat_mode(cfg.model.remat) == "dots" and cfg.method == "mccl" and cfg.rain.enabled:
         raise NotImplementedError(
             "model.remat=dots with rain.enabled: the epsilon ascent backpropagates "
@@ -237,6 +242,14 @@ class Trainer:
         self.datasets = datasets or prepare_datasets(cfg)
         self._build()
         self._replicate()
+        # run.scan_steps' runner, made at its first epoch (train_epoch)
+        self.multi: Optional[MultiStep] = None
+        self.scan_eager = (int(cfg.run.scan_steps) > 1 and self.mesh is not None
+                           and self.mesh.world > 1)
+        if self.scan_eager and self.writer:
+            print(f"run.scan_steps={cfg.run.scan_steps}: {self.mesh.world} processes "
+                  "(data ranks x model ranks); the steps run eagerly, one a dispatch "
+                  "(a CUDA graph is captured on one process only)")
         self.history: list = []
         self.best_score = -np.inf
         self.best_epoch = -1
@@ -278,6 +291,8 @@ class Trainer:
                 if module is not None:
                     dp.fsdp_shard(module, [getattr(s, opt)], self.mesh,
                                   self.cfg.mesh.fsdp_min_size)
+                    if getattr(s, opt) is not None:
+                        plain_form(getattr(s, opt))
 
     def _build(self):
         cfg = self.cfg
@@ -493,30 +508,70 @@ class Trainer:
                                               for n in batch["names_t"]])
             yield batch
 
+    def build_multi_step(self, capture: bool = True) -> MultiStep:
+        """A ``run.scan_steps`` runner of this state: the method's step built
+        with staged draws (``multistep.StagedDraws``); ``capture`` replays a
+        CUDA graph on a CUDA device. On CUDA it puts the optimizers in their
+        capturable form."""
+        draws = StagedDraws()
+        step = build_step(self.cfg, centroids_loaded=self.centroids_loaded, **draws.hooks())
+        return make_multi_step(step, draws, self.state, self.device, capture=capture)
+
+    def train_steps(self, batches: Iterable[Dict[str, torch.Tensor]],
+                    sched: Dict[str, float]) -> tuple:
+        """One step a batch of ``batches`` (on the device), ``rain.eps_iters``
+        a batch under the ascent: ``(summed metrics, steps)``. With
+        ``run.scan_steps=K`` > 1 and one iteration a batch, whole groups of K
+        batches go through ``self.multi`` (made at first use), the rest
+        through the plain step, in order."""
+        cfg = self.cfg
+        carried = {**sched, "fresh": 0.0}
+        eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
+        K = max(1, int(cfg.run.scan_steps))
+        if K > 1 and eps_iters == 1 and not self.scan_eager and self.multi is None:
+            self.multi = self.build_multi_step()
+        multi = self.multi if K > 1 and eps_iters == 1 and not self.scan_eager else None
+        acc: Dict[str, torch.Tensor] = {}
+        n = 0
+
+        def plain(group):
+            nonlocal n
+            for batch in group:
+                for it in range(eps_iters):
+                    metrics = self.step_fn(self.state, batch, carried if it else sched)
+                    for k, v in metrics.items():
+                        acc[k] = acc[k] + v if k in acc else v
+                    n += 1
+
+        group: list = []
+        with dp.use(self.mesh):
+            for batch in batches:
+                if multi is None or not multi.fits(batch):
+                    plain(group + [batch])
+                    group = []
+                    continue
+                group.append(batch)
+                if len(group) == K:
+                    multi(self.state, group, sched, acc)
+                    n += K
+                    group = []
+            plain(group)                  # the tail
+        return acc, n
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; returns the mean of each metric (one host sync). Under
         RAIN's ascent each batch runs ``rain.eps_iters`` iterations after
         warmup, a fresh sampling on the first (Trainer_MCCL.py:189-192);
         each counts in the mean. BCL renews its pseudo-labels first on a
         round's epoch; ``plabel_kept`` is then the share of target pixels
-        that have one."""
+        that have one. ``run.scan_steps``: :meth:`train_steps`."""
         cfg = self.cfg
         kept = None
         if cfg.method == "bcl" and epoch % max(cfg.run.bcl_round_epochs, 1) == 0:
             kept = self.bcl_update_plabels(cfg.run.bcl_prop)
-        sched = self._sched(epoch)
-        carried = {**sched, "fresh": 0.0}
-        eps_iters = max(1, cfg.rain.eps_iters) if sched["eps_on"] else 1
-        acc: Dict[str, torch.Tensor] = {}
-        n = 0
-        with dp.use(self.mesh):
-            for batch in device_prefetch(self._epoch_batches(), self.device,
-                                         size=self.cfg.data.prefetch):
-                for it in range(eps_iters):
-                    metrics = self.step_fn(self.state, batch, carried if it else sched)
-                    for k, v in metrics.items():
-                        acc[k] = acc[k] + v if k in acc else v
-                    n += 1
+        acc, n = self.train_steps(device_prefetch(self._epoch_batches(), self.device,
+                                                  size=self.cfg.data.prefetch),
+                                  self._sched(epoch))
         out = {}
         if acc:
             values = torch.stack(list(acc.values())).cpu().tolist()
@@ -549,6 +604,9 @@ class Trainer:
         s = self.state
         ckpt = {name: dp.full_state_dict(getattr(s, name)) if getattr(s, name) is not None
                 else None for name in _NETS + _OPTS}
+        for name in _OPTS:
+            if ckpt[name] is not None:
+                ckpt[name] = plain_optimizer_state(ckpt[name])
         ckpt.update(centroids=s.centroids, sampling=s.sampling, step=s.step, seed=s.seed,
                     method=self.cfg.method)
         path = self.out_dir / f"ckpt_{tag}.pt"
@@ -566,7 +624,10 @@ class Trainer:
         ``params_only`` the networks' weights and BatchNorm buffers alone,
         merged by name: entries the checkpoint lacks keep their fresh init,
         entries the model lacks are ignored (both are reported), and a shape
-        mismatch raises. So an AdvEnt checkpoint warm-starts ``slcl``."""
+        mismatch raises. So an AdvEnt checkpoint warm-starts ``slcl``. Either
+        drops the ``run.scan_steps`` graph, which holds the replaced
+        tensors' addresses; the next epoch captures again."""
+        self.multi = None
         path = self.checkpoint_path(tag)
         if dist_initialized():
             # rank 0 reads (its host holds what it wrote) and sends the
@@ -583,6 +644,10 @@ class Trainer:
                     if ckpt.get(name) is None:
                         raise KeyError(f"checkpoint {path} has no {name!r}")
                     dp.load_full_state_dict(obj, ckpt[name])
+                    if (name in _OPTS and self.device.type == "cuda"
+                            and not any(dp.is_dtensor(p) for g in obj.param_groups
+                                        for p in g["params"])):
+                        capturable(obj)          # the checkpoint's form is plain
             if s.centroids is not None:
                 if ckpt.get("centroids") is None:
                     raise KeyError(f"checkpoint {path} has no class centres")

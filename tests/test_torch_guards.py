@@ -195,23 +195,33 @@ def test_contrastive_method_on_a_wider_backbone_raises(backbone, width):
 
 
 @pytest.mark.parametrize("key,value,raises", [
-    ("run.scan_steps", "4", True), ("model.remat", "dots", False),
-    ("run.profile_dir", "prof", False), ("model.remat", "false", False)])
+    ("run.scan_steps", "4", False), ("model.remat", "dots", False),
+    ("run.profile_dir", "prof", False), ("model.remat", "false", False),
+    ("model.remat", "dots method=mccl rain.enabled=true", True)])
 def test_config_keys_the_port_ignores_raise(tmp_path, key, value, raises):
-    """``run.scan_steps`` raises at construction, naming the key, until the
-    port honours it (no port test and no phase of chip_smoke.py sets it);
-    ``model.remat`` (any mode) and ``run.profile_dir``, which the port
-    honours, build."""
+    """The port honours every key the JAX package does: ``run.scan_steps``
+    builds and runs one group of K steps through the multi-step runner
+    (uncaptured on the CPU), ``model.remat`` (any mode) and
+    ``run.profile_dir`` build. What it refuses raises at construction,
+    naming the key: ``model.remat=dots`` under MCCL + RAIN, whose ascent
+    backpropagates the forward twice."""
+    from slcl_torch.data import to_device
     from slcl_torch.train.trainer import Trainer
+    value, *more = value.split()
     cfg = Config.from_cli(["method=baseline", "data.dataset=synthetic", "data.crop=32",
                            "data.bs=2", "model.filters=8", "model.n_block=2",
                            "model.bottleneck_depth=2", f"run.out_dir={tmp_path}",
-                           f"{key}={value}"])
+                           f"{key}={value}", *more])
     if raises:
         with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
             Trainer(cfg, device="cpu")
-    else:
-        Trainer(cfg, device="cpu")
+        return
+    t = Trainer(cfg, device="cpu")
+    if key == "run.scan_steps":
+        batches = [to_device(b, t.device) for _, b in zip(range(4), t._epoch_batches())]
+        acc, n = t.train_steps(batches, t._sched(0))
+        assert n == 4 and t.state.step == 4 and t.multi.eager_steps == 4
+        assert all(bool(torch.isfinite(v)) for v in acc.values())
 
 
 def test_bf16_artifact_refuses_another_device_type(tmp_path):

@@ -112,7 +112,7 @@ def runs():
                  "centroids": state.centroids}),
             {"seg": state_dict_to_flax(tstate.seg), "d_main": state_dict_to_flax(
                 tstate.d_main)["params"], "d_aux": state_dict_to_flax(
-                tstate.d_aux)["params"], "centroids": tstate.centroids.numpy()}))
+                tstate.d_aux)["params"], "centroids": tstate.centroids.numpy().copy()}))
     return out
 
 

@@ -208,7 +208,7 @@ def _run(name):
             got.update(d_main=state_dict_to_flax(tstate.d_main)["params"],
                        d_aux=state_dict_to_flax(tstate.d_aux)["params"])
         if tstate.centroids is not None:
-            got["centroids"] = tstate.centroids.numpy()
+            got["centroids"] = tstate.centroids.numpy().copy()
         rec.update(got_m={k: float(v) for k, v in tm.items()}, got=got)
     return out
 

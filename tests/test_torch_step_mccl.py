@@ -118,7 +118,7 @@ def _two_steps(run):
                     _np({"seg": state.seg.params, "bs": state.seg.batch_stats,
                          "centroids": state.centroids}),
                     {"seg": state_dict_to_flax(tstate.seg),
-                     "centroids": tstate.centroids.numpy()}))
+                     "centroids": tstate.centroids.numpy().copy()}))
     return out
 
 

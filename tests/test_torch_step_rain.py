@@ -229,7 +229,7 @@ def rain_runs():
                         _np({"seg": state.seg.params, "bs": state.seg.batch_stats,
                              "sampling": state.sampling}),
                         {"seg": state_dict_to_flax(tstate.seg),
-                         "sampling": tstate.sampling.numpy()}))
+                         "sampling": tstate.sampling.numpy().copy()}))
     return out
 
 

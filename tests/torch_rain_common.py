@@ -213,8 +213,8 @@ def _mccl_rain_iterations(run, x64):
             tm = tstep(tstate, tb, sched)
             out.append((jrec[0], {k: float(v) for k, v in tm.items()}, jrec[1],
                         {"seg": state_dict_to_flax(tstate.seg),
-                         "centroids": tstate.centroids.double().numpy(),
-                         "sampling": tstate.sampling.numpy()}))
+                         "centroids": tstate.centroids.double().numpy().copy(),
+                         "sampling": tstate.sampling.numpy().copy()}))
     return out
 
 
