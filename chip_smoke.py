@@ -181,7 +181,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      atol of 1e-5 of the tensor's largest entry and within 1e-4 in norm
      (in float32 the source and target terms' gradients nearly cancel, so
      the main path's float32 gradients are reported, not held, beside the
-     cancellation factor).
+     cancellation factor); (c) spatial partitioning (``mesh.spatial``,
+     ``slcl_torch/parallel/spatial.py``): two gloo ranks sharing the card as
+     a ``(1, 2)`` mesh, each image's 224 rows split into two bands of 112
+     (halo-exchanging convolutions, the discriminators' uneven stages
+     resharded, the losses, BatchNorm and the kernels' partials reduced
+     over both ranks): the same two steps of the same two cells against
+     the same one-process steps at (b)'s tolerances, the float64
+     ``d_main`` update redone on each rank's band, each rank's launches
+     per step the one-process step's, and five more steps timed on each
+     rank (ms a step, printed, not held) beside the one process's.
  10. scan_steps (``run.scan_steps``, ``slcl_torch/train/multistep.py``): the
      full-width ``slcl`` multilvl + CNR cell and the ``mccl`` preset, 2K + 1
      steps each at K = 4 (steps 0-2 eager, step 3 captured as a CUDA graph
@@ -2617,14 +2626,18 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dp_config(work: Path, method: str, fsdp: bool = False, dtype: str = ""):
-    """The full-width ``slcl`` multilvl cell or the ``mccl`` preset."""
+def dp_config(work: Path, method: str, fsdp: bool = False, dtype: str = "",
+              spatial: bool = False):
+    """The full-width ``slcl`` multilvl cell or the ``mccl`` preset; with
+    ``spatial`` its image rows split over two model ranks."""
     from slcl_torch.config import Config, apply_recipe
     cfg = Config()
     cfg.method = method
     cfg = apply_recipe(cfg)
     cfg.model.multilvl = method == "slcl"
     cfg.mesh.fsdp = fsdp
+    if spatial:
+        cfg.mesh.model_axis, cfg.mesh.spatial = 2, True
     if dtype:
         cfg.model.dtype = dtype
     cfg.data.dataset = "synthetic"
@@ -2721,13 +2734,15 @@ def dp_one_rank(work: Path, mesh, method: str, fsdp: bool) -> dict:
     return rec
 
 
-def two_rank_entry(mesh, method: str, work: str, d_step: str = "") -> dict:
-    """(b), in each rank (and with ``mesh`` None in one process): two f32
-    steps of the full-width cell on the first global batch of 16 rows,
-    this rank's 8; metrics, state (on the host), launches, each
-    discriminator's first-step gradient as its optimizer receives it (summed
-    over the ranks), and the first ``d_main`` update's inputs. With
-    ``d_step`` (a file of such inputs), also :func:`disc_update_f64`."""
+def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 0) -> dict:
+    """(b) and (c), in each rank (and with ``mesh`` None in one process):
+    two f32 steps of the full-width cell on the first global batch of 16
+    rows, this rank's 8 (under a spatial mesh, its band of 112 rows of all
+    16); metrics, state (on the host), launches, each discriminator's
+    first-step gradient as its optimizer receives it (summed over the
+    ranks), and the first ``d_main`` update's inputs. With ``d_step`` (a
+    file of such inputs), also :func:`disc_update_f64`; with ``timed``, the
+    mean ms of that many more steps (after the state is taken)."""
     import torch
     from slcl_torch.data import device_prefetch
     from slcl_torch.ops.cuda import build, launch_counts, reset_launch_counts
@@ -2737,8 +2752,9 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "") -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()       # built by the parent: loads the libraries
+    spatial = mesh is not None and mesh.spatial
     with dp.use(mesh):
-        trainer = Trainer(dp_config(Path(work), method, dtype="float32"),
+        trainer = Trainer(dp_config(Path(work), method, dtype="float32", spatial=spatial),
                           device=torch.device("cuda", torch.cuda.current_device()))
     s = trainer.state
     batches = []
@@ -2782,11 +2798,14 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "") -> dict:
         S._d_update = d_update
     out = {"metrics": metrics, "launches": launch_counts(),
            "rows": int(batches[0]["img_s"].shape[0]),
+           "image_rows": int(batches[0]["img_s"].shape[1]),
            "state": {k: v.cpu() for k, v in state_of(trainer).items()},
            "init": init, "lr_dis": sched["lr_dis"], "disc_grads": grads,
            "d_step": first}
     if d_step:
         out["disc_f64"] = disc_update_f64(mesh, d_step)
+    if timed:
+        out["step_ms"] = step_ms(trainer, batches, sched, mesh, n=timed)
     return out
 
 
@@ -2814,7 +2833,9 @@ def disc_update_f64(mesh, path: str) -> dict:
     opt.register_step_pre_hook(lambda o, a, k: grads.extend(
         p.grad.detach().cpu().clone() for p in d.parameters()))
     with dp.use(mesh):
-        ps, pt = (dp.local_rows(rec[k].to(dev, torch.float64)) for k in ("pred_s", "pred_t"))
+        # this rank's rows (under a spatial mesh, its band of their rows)
+        ps, pt = (dp.spatial_rows(dp.local_rows(rec[k].to(dev, torch.float64)))
+                  for k in ("pred_s", "pred_t"))
         S._d_update(d, opt, rec["lr"], ps, pt, rec["kind"], contextlib.nullcontext())
     out = {"grads": grads}
     if mesh is None:
@@ -2851,14 +2872,12 @@ def norm_rel_err(got, want) -> float:
                  max(float(torch.linalg.vector_norm(want)), 1e-30))
 
 
-def dp_two_ranks(work: Path, method: str) -> dict:
-    """(b): two gloo ranks on the card against one process on the card (the
-    one process first: the ranks redo its first discriminator update in
-    float64)."""
+def one_process(work: Path, method: str) -> tuple:
+    """The one-process side of (b) and (c): two steps of the cell, five more
+    timed, and its first discriminator update's inputs on file (the ranks
+    redo it in float64); (its record, that file)."""
     import torch
-    from slcl_torch.parallel.dryrun import spawn
-    t0 = time.perf_counter()
-    want = two_rank_entry(None, method, str(work))
+    want = two_rank_entry(None, method, str(work), timed=5)
     d_step = ""
     if want["d_step"]:
         d_step = str(work / f"d_step_{method}.pt")
@@ -2866,54 +2885,76 @@ def dp_two_ranks(work: Path, method: str) -> dict:
         want["disc_f64"] = disc_update_f64(None, d_step)
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = spawn(2, "two_rank_entry", (method, str(work), d_step), module="chip_smoke",
-                  device="cuda:0", timeout=400)
+    return want, d_step
+
+
+def dp_two_ranks(work: Path, method: str, one: tuple, spatial: bool = False) -> dict:
+    """(b): two gloo ranks on the card, data-parallel (8 of the 16 rows each),
+    against one process on the card (``one``: :func:`one_process`); (c) with
+    ``spatial``: the two ranks as one data rank's two model ranks, each with
+    its band of the rows of all 16 images, and each rank's step timed."""
+    import torch
+    from slcl_torch.parallel.dryrun import spawn
+    t0 = time.perf_counter()
+    want, d_step = one
+    ranks = spawn(2, "two_rank_entry", (method, str(work), d_step, 5 if spatial else 0),
+                  module="chip_smoke", device="cuda:0", timeout=400,
+                  model_axis=2 if spatial else 1, spatial=spatial)
     per = PER_METHOD[method]
+    who = f"{'spatial ' if spatial else ''}two ranks {method}"
     rec = {"rows_per_rank": [r["rows"] for r in ranks], "rows_one": want["rows"],
            "seconds": round(time.perf_counter() - t0, 1)}
+    if spatial:
+        rec["image_rows_per_rank"] = [r["image_rows"] for r in ranks]
+        if rec["image_rows_per_rank"] != [want["image_rows"] // 2] * 2:
+            raise AssertionError(f"spatial {method}: bands of {rec['image_rows_per_rank']} "
+                                 f"rows of {want['image_rows']}")
+        rec["step_ms_per_rank"] = [r["step_ms"] for r in ranks]
+        rec["one_process_step_ms"] = want["step_ms"]
+        rec["card"] = card_line()
     if d_step:
         rec["disc_f64_cancellation"] = want["disc_f64"]["cancellation"]
     for r, got in enumerate(ranks):
         for k, v in per.items():
             if got["launches"][k] != 2 * v:
-                raise AssertionError(f"two ranks {method} rank {r}: {k} launched "
+                raise AssertionError(f"{who} rank {r}: {k} launched "
                                      f"{got['launches'][k]} times in 2 steps, expected {2 * v}")
         err = {}
         for i in range(2):
             for k, w in want["metrics"][i].items():
                 g = got["metrics"][i][k]
                 if not abs(g - w) <= max(1e-5 * abs(w), 1e-6):
-                    raise AssertionError(f"two ranks {method} rank {r} step {i} {k}: "
+                    raise AssertionError(f"{who} rank {r} step {i} {k}: "
                                          f"{g} vs {w}")
         cosines = {}
         for k, w in want["state"].items():
             g = got["state"][k]
             if not torch.is_floating_point(w):
                 if not torch.equal(g, w):
-                    raise AssertionError(f"two ranks {method} rank {r}: {k} differs")
+                    raise AssertionError(f"{who} rank {r}: {k} differs")
                 continue
             if k.startswith("d_"):
                 # Adam's first steps move a parameter whose gradient is
                 # rounding noise by up to lr_dis each: the float64 update
                 # below holds the discriminators' gradients to the tolerance
-                err[k] = close(g, w, 0.0, 2 * 2 * want["lr_dis"], f"two ranks {method} {k}")
+                err[k] = close(g, w, 0.0, 2 * 2 * want["lr_dis"], f"{who} {k}")
                 dg, dw = (g - got["init"][k]).double(), (w - want["init"][k]).double()
                 if dw.abs().max() > 0:
                     cosines[k] = float((dg * dw).sum() / (torch.linalg.vector_norm(dg) *
                                                           torch.linalg.vector_norm(dw)))
             else:
-                err[k] = close(g, w, 1e-4, 1e-6, f"two ranks {method} {k}")
+                err[k] = close(g, w, 1e-4, 1e-6, f"{who} {k}")
         if cosines and min(cosines.values()) < 0.9:
             bad = min(cosines, key=cosines.get)
-            raise AssertionError(f"two ranks {method} rank {r}: {bad} moved unlike one "
+            raise AssertionError(f"{who} rank {r}: {bad} moved unlike one "
                                  f"process's (cosine {cosines[bad]:.3g})")
         if d_step:
             rec[f"rank{r}_disc_f64_grad_rel_err"] = max(
-                grad_rel_err(g_, w_, f"two ranks {method} rank {r} d_main f64 gradient {j}")
+                grad_rel_err(g_, w_, f"{who} rank {r} d_main f64 gradient {j}")
                 for j, (g_, w_) in enumerate(zip(got["disc_f64"]["grads"],
                                                  want["disc_f64"]["grads"])))
         if set(got["disc_grads"]) != set(want["disc_grads"]):
-            raise AssertionError(f"two ranks {method} rank {r}: discriminators "
+            raise AssertionError(f"{who} rank {r}: discriminators "
                                  f"{sorted(got['disc_grads'])} vs {sorted(want['disc_grads'])}")
         rec[f"rank{r}_disc_grad_f32_rel_err"] = max(
             [norm_rel_err(g_, w_) for name, ws in want["disc_grads"].items()
@@ -2941,7 +2982,10 @@ def parallel_phase(work: Path) -> dict:
             "slcl_fsdp": dp_one_rank(work, mesh, "slcl", True)}
     finally:
         dp.release()
-    out["gloo_two_ranks_one_card"] = {m: dp_two_ranks(work, m) for m in ("slcl", "mccl")}
+    one = {m: one_process(work, m) for m in ("slcl", "mccl")}
+    out["gloo_two_ranks_one_card"] = {m: dp_two_ranks(work, m, one[m]) for m in one}
+    out["gloo_spatial_two_ranks_one_card"] = {m: dp_two_ranks(work, m, one[m], spatial=True)
+                                              for m in one}
     return out
 
 

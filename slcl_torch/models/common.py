@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh as dp
+from ..parallel import spatial as sp
 
 
 class SegOutput(NamedTuple):
@@ -71,8 +72,10 @@ def trunc_normal_init_(module: nn.Module, std: float,
 
 def conv2d(in_ch: int, out_ch: int, kernel: int = 3, *, dilation: int = 1,
            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
-    """Stride-1 Conv2d with 'same' symmetric padding and the flax init."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel, padding=dilation * (kernel // 2),
+    """Stride-1 Conv2d with 'same' symmetric padding and the flax init; its
+    forward takes the input's global rows under spatial partitioning
+    (:class:`..parallel.spatial.Conv2d`)."""
+    conv = sp.Conv2d(in_ch, out_ch, kernel, padding=dilation * (kernel // 2),
                      dilation=dilation)
     torch_conv_init_(conv, generator)
     return conv
@@ -95,7 +98,9 @@ class BatchNorm(nn.Module):
     count too, since RAIN's stylised rows sit on one rank), then the squared
     deviations from the global mean; the running statistics take them. With
     ``track`` False (:func:`running_stats_frozen`) train mode normalises
-    with the batch statistics and leaves the running ones as they are."""
+    with the batch statistics and leaves the running ones as they are.
+    Under spatial partitioning the same two reductions run over every rank
+    (each holds a band of rows): the global batch's moments."""
 
     momentum = 0.9      # flax convention: the weight of the old value
     eps = 1e-5
@@ -189,7 +194,8 @@ class FrozenBatchNorm(BatchNorm):
 class ConvBNAct(nn.Module):
     """3x3 conv -> LeakyReLU(0.01) -> BN, the DRUNet block order
     (DRUNet.py:29-36 puts BN *after* the activation). Submodule names are
-    flax's (``Conv_0``, ``BatchNorm_0``)."""
+    flax's (``Conv_0``, ``BatchNorm_0``). ``rows``: the input's global rows
+    (spatial partitioning)."""
 
     def __init__(self, in_ch: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -197,8 +203,8 @@ class ConvBNAct(nn.Module):
         self.Conv_0 = conv2d(in_ch, features, 3, generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(F.leaky_relu(self.Conv_0(x), 0.01))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        return self.BatchNorm_0(F.leaky_relu(self.Conv_0(x, rows), 0.01))
 
 
 class ConvBNReLU(nn.Module):
@@ -218,8 +224,12 @@ class ConvBNReLU(nn.Module):
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))
 
 
-def max_pool(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x, 2, 2)
+def max_pool(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """2x2 stride-2 max-pool; ``rows``: the input's global rows under
+    spatial partitioning."""
+    if rows is None:
+        return F.max_pool2d(x, 2, 2)
+    return sp.max_pool(x, rows)
 
 
 def stem_pool(x: torch.Tensor, ceil: bool = False) -> torch.Tensor:
@@ -230,16 +240,23 @@ def stem_pool(x: torch.Tensor, ceil: bool = False) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, padding=1, ceil_mode=ceil)
 
 
-def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+def upsample_nearest(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """Nearest 2x upsample; equals ``jax.image.resize(..., 'nearest')`` for
-    an integer factor (output i samples input i // 2)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    an integer factor (output i samples input i // 2). ``rows``: the input's
+    global rows under spatial partitioning."""
+    if rows is None:
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return sp.upsample_nearest(x, rows)
 
 
-def upsample_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+def upsample_bilinear(x: torch.Tensor, size, rows: Optional[int] = None) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``size`` with
-    ``align_corners=True``, the reference ``nn.Upsample`` (DRUNet.py:156)."""
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+    ``align_corners=True``, the reference ``nn.Upsample`` (DRUNet.py:156).
+    ``rows``: the input's global rows under spatial partitioning, where
+    ``size`` is global too."""
+    if rows is None:
+        return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+    return sp.upsample_bilinear(x, size, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial as sp
 from .common import nchw, nhwc, normal_conv_init_
 
 
@@ -21,7 +22,10 @@ class UncertaintyDiscriminator(nn.Module):
     """The discriminator of AdaptSeg/AdvEnt/MPSCL (reference GAN.py:90-145):
     4x [4x4 stride-2 pad-2 conv, no bias] + LeakyReLU(0.2), then a 4x4
     stride-2 conv to one logit channel; N(0, 0.02) init. ``base`` is the
-    width knob (64 is reference-exact; the stages double)."""
+    width knob (64 is reference-exact; the stages double). Under spatial
+    partitioning the input is a band of each map's rows and every stage's
+    output is resharded by ``parallel/spatial.py`` (224 rows go 113, 57,
+    29, 15, 8: uneven bands from the first stage on)."""
 
     def __init__(self, in_channels: int = 4, base: int = 64,
                  generator: Optional[torch.Generator] = None):
@@ -29,16 +33,19 @@ class UncertaintyDiscriminator(nn.Module):
         widths = (base, base * 2, base * 4, base * 8, 1)
         prev = in_channels
         for i, w in enumerate(widths):
-            conv = nn.Conv2d(prev, w, 4, stride=2, padding=2, bias=False)
+            conv = sp.Conv2d(prev, w, 4, stride=2, padding=2, bias=False)
             normal_conv_init_(conv, generator)
             self.add_module(f"conv{i + 1}", conv)
             prev = w
         self.n_convs = len(widths)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = sp.image_rows(x)
         x = nchw(x).to(self.conv1.weight.dtype)     # flax's x.astype(dtype)
         for i in range(self.n_convs):
-            x = getattr(self, f"conv{i + 1}")(x)
+            conv = getattr(self, f"conv{i + 1}")
+            x = conv(x, rows)
+            rows = sp.conv_rows(conv, rows)
             if i < self.n_convs - 1:
                 x = F.leaky_relu(x, 0.2)
         return nhwc(x)

@@ -8,7 +8,10 @@ with multilvl, 13,484,104), ``bottleneck{i}``, ``decoder1_{i}``,
 ``decoder2_{i}a/b``, ``classifier``, ``classifier1`` and ``phead1/2``.
 
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
-memory, so the NHWC views are free.
+memory, so the NHWC views are free. Under spatial partitioning
+(``parallel/spatial.py``) the input is this rank's band of each image's
+rows: the forward threads each stage's global row count through its
+convolutions (their halos), pools and resizes.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import image_rows
 from .common import (ConvBNAct, SegOutput, conv2d, max_pool, nchw, nhwc,
                      upsample_bilinear, upsample_nearest)
 
@@ -28,8 +32,8 @@ class _EncoderBlock(nn.Module):
         self.ConvBNAct_0 = ConvBNAct(in_ch, out_ch, generator=generator)
         self.ConvBNAct_1 = ConvBNAct(out_ch, out_ch, generator=generator)
 
-    def forward(self, x):
-        return self.ConvBNAct_1(self.ConvBNAct_0(x))
+    def forward(self, x, rows=None):
+        return self.ConvBNAct_1(self.ConvBNAct_0(x, rows), rows)
 
 
 class DRUNet(nn.Module):
@@ -84,48 +88,54 @@ class DRUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> SegOutput:
         """``x`` (N, H, W, C_in) NHWC."""
-        in_size = x.shape[1:3]
+        # global rows of each stage (a band of them on this rank under
+        # spatial partitioning; None leaves the plain operators)
+        rows = image_rows(x)
+        in_size = (rows, x.shape[2])
         out = nchw(x)
 
         skips = []
         res = None
         for i in range(self.n_block):
-            block_out = getattr(self, f"encoder{i + 1}")(out)
+            block_out = getattr(self, f"encoder{i + 1}")(out, rows)
             skips.append(block_out)
             if i == 0:
-                out = max_pool(block_out)
+                out = max_pool(block_out, rows)
             else:
                 merged = torch.cat([block_out, res], dim=1)
                 merged = F.leaky_relu(getattr(self, f"conv1_{i + 1}")(merged), 0.01)
-                out = max_pool(merged)
+                out = max_pool(merged, rows)
+            rows //= 2
             res = out
 
         acc = None
         b = out
         for i in range(self.bottleneck_depth):
-            b = F.leaky_relu(getattr(self, f"bottleneck{i + 1}")(b), 0.01)
+            b = F.leaky_relu(getattr(self, f"bottleneck{i + 1}")(b, rows), 0.01)
             acc = b if acc is None else acc + b
         bottleneck = acc
 
         out = bottleneck
-        aux_feat = None
+        aux_feat = aux_rows = None
         n_modules = 2 * self.n_block
         mod_idx = 0
         for i in reversed(range(self.n_block)):
-            out = getattr(self, f"decoder1_{i + 1}")(upsample_nearest(out))
+            out = upsample_nearest(out, rows)
+            rows *= 2
+            out = getattr(self, f"decoder1_{i + 1}")(out, rows)
             out = torch.cat([skips.pop(), out], dim=1)
             mod_idx += 1
-            out = getattr(self, f"decoder2_{i + 1}a")(out)
-            out = getattr(self, f"decoder2_{i + 1}b")(out)
+            out = getattr(self, f"decoder2_{i + 1}a")(out, rows)
+            out = getattr(self, f"decoder2_{i + 1}b")(out, rows)
             if self.multilvl and mod_idx == n_modules - 3:
-                aux_feat = out
+                aux_feat, aux_rows = out, rows
             mod_idx += 1
 
         decoder_ft = out
         pred = self.classifier(decoder_ft)
         aux = None
         if self.multilvl:
-            aux = self.classifier1(upsample_bilinear(aux_feat, in_size))
+            aux = self.classifier1(upsample_bilinear(aux_feat, in_size, aux_rows))
         if self.phead:
             decoder_ft = self.phead2(F.relu(self.phead1(decoder_ft)))
 

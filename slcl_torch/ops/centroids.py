@@ -12,7 +12,7 @@ host), ``thres_cb_plabel``, ``gene_plabel_prop``, ``mask_fusion`` and
 ``pseudo_label_accuracy``.
 
 Under data parallelism the source centres' per-class sums and counts are
-all-summed over the data ranks before the division (the global batch's
+all-summed over the pixel group before the division (the global batch's
 means); the target centroids reduce inside :func:`soft_centroids`.
 """
 from __future__ import annotations

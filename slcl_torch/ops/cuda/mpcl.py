@@ -9,7 +9,9 @@ backward is a second kernel that recomputes each row and returns dfeats
 
 Under data parallelism (:mod:`slcl_torch.parallel.mesh`) the forward's
 streaming pass and final pass run apart: the per-block (num, den) pairs are
-all-reduced over the data ranks in between, so the loss is the global
+all-reduced over the pixel group in between (the data ranks, and under
+spatial partitioning the model ranks too: each holds a band of rows), so
+the loss is the global
 batch's (the mean over all ranks' rows, or the weighted sum over the global
 ``sum(sel) + 1e-4``), and the backward takes the global ``den`` and the sum
 of the ranks' cotangents. The plain version reduces the same two sums.
@@ -178,7 +180,7 @@ class _MPCLFn(torch.autograd.Function):
         scale = T / base_T
         mesh = dp.kernel_mesh()
         stats = mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
-                              m_total=feats.shape[0] * dp.data_size(), **dp.kernel_forward(mesh))
+                              m_total=feats.shape[0] * dp.pixel_size(), **dp.kernel_forward(mesh))
         ctx.save_for_backward(feats, labels, centers, sel, stats)
         ctx.consts = (T, margin, easy, scale)
         ctx.mesh = mesh

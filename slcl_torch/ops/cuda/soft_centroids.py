@@ -13,9 +13,10 @@ around partition 0's centroid (``CentroidResult.stddevs``,
 Under data parallelism (:mod:`slcl_torch.parallel.mesh`) the forward splits
 where the TPU kernel ends: the streaming pass gives each block's partition
 sums, weight totals, certain-pixel count (and with the std Σw·x², raw
-moments, so one reduction serves), those are all-reduced over the data
-ranks, and the final pass divides by the global totals; the backward sums
-the cotangents over the ranks and runs on the global centroids and counts.
+moments, so one reduction serves), those are all-reduced over the pixel
+group (the data ranks, times the model ranks under spatial partitioning),
+and the final pass divides by the global totals; the backward sums the
+cotangents over the ranks and runs on the global centroids and counts.
 The plain version takes the same split.
 """
 from __future__ import annotations
@@ -112,7 +113,7 @@ def soft_centroids_plain(feats: torch.Tensor, probs: torch.Tensor,
         pieces = torch.split(flat, n)
         sums = pieces[0].reshape(partition, C, f)
         counts = pieces[1].reshape(partition, C, 1)
-        ratio = pieces[2][0] / (feats.shape[0] * dp.data_size())
+        ratio = pieces[2][0] / (feats.shape[0] * dp.pixel_size())
         if with_std:
             w_total, s2 = pieces[3].reshape(C, 1), pieces[4].reshape(C, f)
     else:
@@ -221,7 +222,7 @@ class _SoftCentroidsFn(torch.autograd.Function):
         mesh = dp.kernel_mesh()
         out = soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold,
                                       weighted, with_std,
-                                      m_total=feats.shape[0] * dp.data_size(),
+                                      m_total=feats.shape[0] * dp.pixel_size(),
                                       **dp.kernel_forward(mesh))
         cents, counts, ratio = out[:3]
         ctx.save_for_backward(feats, probs, assign, cents, counts, *out[3:])

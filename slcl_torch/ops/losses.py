@@ -8,7 +8,11 @@ tensors to their kernels and CPU tensors to the plain versions.
 Under data parallelism (:mod:`slcl_torch.parallel.mesh`) each loss over
 batch rows is the global batch's on every rank: its sums and counts go
 through one differentiable all-reduce before the division (``gmean``,
-``global_sums``). With one data rank the arithmetic is the one-process one.
+``global_sums``). Under spatial partitioning the same reductions run over
+every rank (each holds a band of each image's rows), and a per-sample sum
+(Dice's, the summed entropy's) first over the model ranks
+(``sample_sum``). With one rank holding the pixels the arithmetic is the
+one-process one.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from .cuda.mpcl import mpcl, mpcl_loss_normalized as mpcl_loss  # noqa: F401
 from .cuda.mpcl_pseudo import mpcl_pseudo
-from ..parallel.mesh import all_sum, data_parallel, global_sums, gmean
+from ..parallel.mesh import all_sum, data_parallel, global_sums, gmean, sample_sum
 
 _EPS = 1e-7
 
@@ -76,6 +80,7 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-5) -> 
     num = (probs * onehot).sum(dim=spatial)
     den1 = (probs * probs).sum(dim=spatial)
     den2 = (onehot * onehot).sum(dim=spatial)
+    num, den1, den2 = sample_sum(torch.stack([num, den1, den2])).unbind()
     dice = 2.0 * num / (den1 + den2 + eps)
     if data_parallel():
         total, rows = global_sums(dice.sum(), dice.shape[0])
@@ -92,7 +97,7 @@ def loss_entropy(probs: torch.Tensor, smooth: float = 1e-7, mode: str = "mean") 
     if mode == "mean":
         return gmean(pix)
     if mode == "sum":
-        return gmean(pix.sum(dim=tuple(range(1, pix.dim()))))
+        return gmean(sample_sum(pix.sum(dim=tuple(range(1, pix.dim())))))
     raise NotImplementedError(mode)
 
 

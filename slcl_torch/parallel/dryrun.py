@@ -6,10 +6,11 @@ global batch.
 Usage:
   python -m slcl_torch.parallel.dryrun N [config ...]
 
-``config`` defaults to every entry of :data:`CONFIGS` (JAX's matrix without
-spatial partitioning, which the port drops). Each runs one epoch of one
-global batch of ``N`` rows (``mpscl_dp_fsdp``: ``max(2, N / 2)`` rows on a
-``(N / 2, 2)`` mesh with FSDP) through the :class:`Trainer`, at JAX's dry-run
+``config`` defaults to every entry of :data:`CONFIGS` (JAX's matrix). Each
+runs one epoch of one global batch of ``N`` rows (``mpscl_dp_fsdp``:
+``max(2, N / 2)`` rows on a ``(N / 2, 2)`` mesh with FSDP;
+``mpscl_dp_fsdp_sp`` the same with each image's rows split over the two
+model ranks, ``mesh.spatial``) through the :class:`Trainer`, at JAX's dry-run
 sizes, once in N processes and once in this one, in float64 (the losses
 keep their float32): the networks' parameters and buffers, the centres, the
 RAIN sampling and the epoch's metrics must agree (rtol 1e-4 / atol 1e-6;
@@ -42,13 +43,15 @@ import torch
 
 from . import mesh as dp
 
-CONFIGS = ("mpscl", "mccl", "mccl_rain", "mpscl_dp_fsdp", "bcl", "ddfseg", "adaptevery")
+CONFIGS = ("mpscl", "mccl", "mccl_rain", "mpscl_dp_fsdp", "mpscl_dp_fsdp_sp", "bcl",
+           "ddfseg", "adaptevery")
 
 
 def dryrun_config(name: str, n: int):
     """The port's Config of dry-run entry ``name`` for ``n`` processes, at
     the sizes of ``__graft_entry__.py:109-230``; the global batch is ``n``
-    rows (``mpscl_dp_fsdp``: ``max(2, n // 2)`` on two model ranks)."""
+    rows (``mpscl_dp_fsdp`` and ``mpscl_dp_fsdp_sp``: ``max(2, n // 2)`` on
+    two model ranks)."""
     from ..config import Config
     cfg = Config()
     cfg.method = "mccl" if name == "mccl_rain" else name
@@ -58,17 +61,18 @@ def dryrun_config(name: str, n: int):
     cfg.data.num_workers = 1
     cfg.model.dtype = "float32"
     cfg.optim.epochs = 1
-    if name in ("mpscl", "mpscl_dp_fsdp"):
+    if name in ("mpscl", "mpscl_dp_fsdp", "mpscl_dp_fsdp_sp"):
         cfg.method = "mpscl"
         cfg.data.crop = 16
         cfg.model.filters, cfg.model.n_block, cfg.model.bottleneck_depth = 8, 2, 2
         cfg.contrastive.CNR = True
         cfg.contrastive.CNR_w = 4e-5
         cfg.model.multilvl = name == "mpscl"
-    if name == "mpscl_dp_fsdp":
+    if name in ("mpscl_dp_fsdp", "mpscl_dp_fsdp_sp"):
         cfg.mesh.model_axis = 2 if n % 2 == 0 else 1
         cfg.mesh.fsdp = True
         cfg.mesh.fsdp_min_size = 1024
+        cfg.mesh.spatial = name == "mpscl_dp_fsdp_sp"
         cfg.data.bs = cfg.data.eval_bs = max(2, n // cfg.mesh.model_axis)
     if name in ("mccl", "mccl_rain"):
         cfg.data.crop = 16
@@ -152,13 +156,14 @@ def epoch_entry(mesh: Optional[dp.Mesh], name: str, n: int, workdir: str,
 
 
 def _rank_main(rank: int, world: int, store: str, model_axis: int, entry: str,
-               module: str, args: tuple, out: str, device: str) -> None:
+               module: str, args: tuple, out: str, device: str, spatial: bool) -> None:
     torch.set_num_threads(1)
     if device != "cpu":
         torch.cuda.set_device(torch.device(device))
     fn = getattr(importlib.import_module(module), entry)
     mesh = dp.make_mesh(model_axis, backend="gloo", device=torch.device(device),
-                        init_method=f"file://{store}", rank=rank, world_size=world)
+                        init_method=f"file://{store}", rank=rank, world_size=world,
+                        spatial=spatial)
     try:
         torch.save(fn(mesh, *args), Path(out) / f"rank{rank}.pt")
     finally:
@@ -167,18 +172,20 @@ def _rank_main(rank: int, world: int, store: str, model_axis: int, entry: str,
 
 def spawn(world: int, entry: str, args: tuple = (), model_axis: int = 1,
           module: str = __name__, timeout: float = 600.0,
-          device: str = "cpu") -> List[Any]:
+          device: str = "cpu", spatial: bool = False) -> List[Any]:
     """Run the function ``entry`` of ``module`` (one that imports no JAX) as
     ``fn(mesh, *args)`` in ``world`` new processes over gloo, each on
     ``device`` (the CPU, or one card that the ranks share: gloo carries the
-    all-reduces and broadcasts of CUDA tensors); returns each rank's result.
+    all-reduces and broadcasts of CUDA tensors), on a ``(data, model)`` mesh
+    of ``model_axis`` model ranks (``spatial``: image rows split over them);
+    returns each rank's result.
     Raises if a rank fails or outlasts ``timeout`` seconds (every rank is
     then terminated)."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         store = str(Path(tmp) / "store")
         procs = [ctx.Process(target=_rank_main, args=(r, world, store, model_axis, entry,
-                                                      module, args, tmp, device))
+                                                      module, args, tmp, device, spatial))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -225,14 +232,16 @@ def main(argv) -> int:
     ok = True
     for name in names:
         t0 = time.time()
-        axis = dryrun_config(name, n).mesh.model_axis
+        mesh_cfg = dryrun_config(name, n).mesh
+        axis = mesh_cfg.model_axis
         with tempfile.TemporaryDirectory() as work:
             try:
-                ranks = spawn(n, "epoch_entry", (name, n, work), model_axis=axis)
+                ranks = spawn(n, "epoch_entry", (name, n, work), model_axis=axis,
+                              spatial=mesh_cfg.spatial and axis > 1)
                 want = epoch_entry(None, name, n, work)
                 errs = [f"rank {r}: {e}" for r, got in enumerate(ranks)
                         for e in compare(got, want)]
-                if name == "mpscl_dp_fsdp" and axis > 1 and not ranks[0]["sharded_params"]:
+                if mesh_cfg.fsdp and axis > 1 and not ranks[0]["sharded_params"]:
                     errs.append("no parameter sharded")
             except Exception as e:      # a rank that failed fails the config
                 errs = [f"{type(e).__name__}: {e}"]

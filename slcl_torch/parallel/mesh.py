@@ -19,9 +19,21 @@ one-process step on the global batch:
 - random draws (MCCL's rMC partition, dropout masks) are made at the global
   shape and each rank keeps its rows (:func:`local_rows`).
 
-With one data rank every reduction is the identity (none is launched)
-and the step keeps the one-process arithmetic. A step under a mesh runs
-inside :func:`use`.
+Spatial partitioning (``mesh.spatial``, a mesh made with ``spatial=True``
+and more than one model rank): each model rank of a data rank holds a band
+of ``H / model_size`` contiguous rows of each image of its data rank's
+rows. The ranks that hold distinct pixels, the *pixel group*, are then
+every process (data x model), and the reductions above run over it: every
+pixel of the global batch is counted once. Per-sample sums go over the
+model ranks first (:func:`sample_sum`); the convolutions, pools and
+resizes of the networks read their neighbours' rows through the halo
+exchange of :mod:`.spatial`; each rank backpropagates its share, the
+global loss over the pixel group's size, and :func:`reduce_grads` sums the
+gradients over every process.
+
+With one rank in the pixel group every reduction is the identity (none is
+launched) and the step keeps the one-process arithmetic. A step under a
+mesh runs inside :func:`use`.
 
 The JAX functions map as:
 
@@ -35,8 +47,10 @@ The JAX functions map as:
   fsdp_shard_state      :func:`fsdp_shard`: ``fully_shard`` per module, the
                         parameters sharded over 'model' and replicated over
                         'data' (HSDP on the 2-D mesh)
-  spatial_shard_batch   dropped: GSPMD's halo exchange through the conv
-                        stages has no PyTorch counterpart
+  spatial_shard_batch   :func:`spatial_rows` on the Loader's rows (the
+                        Trainer's ``img_*``, ``lab_*``, ``plabel_*``); GSPMD's
+                        halo exchange through the conv stages is
+                        :mod:`.spatial`
 """
 from __future__ import annotations
 
@@ -53,16 +67,33 @@ from torch import nn
 
 @dataclass
 class Mesh:
-    """The process grid: rank = data_rank * model_size + model rank."""
+    """The process grid: rank = data_rank * model_size + model_rank. With
+    ``spatial`` the image rows are split over the model ranks: the model
+    ranks of a data rank form ``model_group`` and every process the
+    ``pixel_group``."""
     data_size: int
     model_size: int
     data_rank: int
     data_group: Any
     device_mesh: Any
+    model_rank: int = 0
+    spatial: bool = False
+    model_group: Any = None
+    pixel_group: Any = None
 
     @property
     def world(self) -> int:
         return self.data_size * self.model_size
+
+    @property
+    def pixel_size(self) -> int:
+        """The ranks that hold distinct pixels of the global batch."""
+        return self.world if self.spatial else self.data_size
+
+    @property
+    def reduce_group(self) -> Any:
+        """The group of the pixel reductions."""
+        return self.pixel_group if self.spatial else self.data_group
 
 
 _ACTIVE: List[Optional[Mesh]] = []
@@ -76,11 +107,13 @@ def launched() -> bool:
 
 def make_mesh(model_axis: int = 1, backend: Optional[str] = None,
               device: Optional[torch.device] = None, init_method: Optional[str] = None,
-              rank: Optional[int] = None, world_size: Optional[int] = None) -> Mesh:
+              rank: Optional[int] = None, world_size: Optional[int] = None,
+              spatial: bool = False) -> Mesh:
     """The process group (unless one exists) and the ``(data, model)`` mesh
     over it. ``backend`` defaults to nccl on a CUDA ``device`` and gloo on
     the CPU; ``init_method``/``rank``/``world_size`` default to torchrun's
-    environment. ``world_size % model_axis`` must be 0."""
+    environment. ``world_size % model_axis`` must be 0. ``spatial`` with
+    more than one model rank splits the image rows over the model ranks."""
     device = torch.device(device if device is not None else
                           ("cuda" if torch.cuda.is_available() else "cpu"))
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -104,9 +137,17 @@ def make_mesh(model_axis: int = 1, backend: Optional[str] = None,
     # interleave with
     groups = [dist.new_group(list(range(m, world, model_axis)))
               for m in range(model_axis)]
-    return Mesh(data_size=world // model_axis, model_size=model_axis,
+    mesh = Mesh(data_size=world // model_axis, model_size=model_axis,
                 data_rank=r // model_axis, data_group=groups[r % model_axis],
-                device_mesh=dm)
+                device_mesh=dm, model_rank=r % model_axis)
+    if spatial and model_axis > 1:
+        # every rank makes every group, in one order
+        models = [dist.new_group(list(range(d * model_axis, (d + 1) * model_axis)))
+                  for d in range(world // model_axis)]
+        mesh.model_group = models[mesh.data_rank]
+        mesh.pixel_group = dist.new_group(list(range(world)))
+        mesh.spatial = True
+    return mesh
 
 
 def release() -> None:
@@ -131,14 +172,30 @@ def current() -> Optional[Mesh]:
 
 
 def data_parallel() -> bool:
-    """More than one data rank in the active mesh."""
+    """The active mesh splits the global batch's pixels over more than one
+    rank (more than one data rank, or spatial partitioning): the losses and
+    statistics then reduce over the pixel group."""
     m = current()
-    return m is not None and m.data_size > 1
+    return m is not None and m.pixel_size > 1
 
 
 def data_size() -> int:
+    """The data ranks of the active mesh (1 without one)."""
     m = current()
     return 1 if m is None else m.data_size
+
+
+def pixel_size() -> int:
+    """The ranks of the active mesh that hold distinct pixels (1 without
+    one): a rank's share of a global loss is the loss over this."""
+    m = current()
+    return 1 if m is None else m.pixel_size
+
+
+def spatial() -> Optional[Mesh]:
+    """The active mesh when it splits image rows over its model ranks."""
+    m = current()
+    return m if m is not None and m.spatial else None
 
 
 class _AllSum(torch.autograd.Function):
@@ -159,31 +216,41 @@ class _AllSum(torch.autograd.Function):
 
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the data ranks, differentiable (its backward
-    sums the cotangents); ``t`` itself with one data rank."""
+    """The sum of ``t`` over the pixel group, differentiable (its backward
+    sums the cotangents); ``t`` itself with one rank in it."""
     m = current()
-    if m is None or m.data_size == 1:
+    if m is None or m.pixel_size == 1:
         return t
-    return _AllSum.apply(m.data_group, t)
+    return _AllSum.apply(m.reduce_group, t)
+
+
+def sample_sum(t: torch.Tensor) -> torch.Tensor:
+    """Per-sample partial sums (a rank's row band of each image) summed
+    over the model ranks under spatial partitioning, differentiable: every
+    model rank then holds the samples' whole sums; ``t`` itself otherwise."""
+    m = spatial()
+    if m is None:
+        return t
+    return _AllSum.apply(m.model_group, t)
 
 
 def sum_over(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
-    """In-place sum of ``t`` over ``mesh``'s data ranks (none: ``t``)."""
-    if mesh is not None and mesh.data_size > 1:
-        dist.all_reduce(t, group=mesh.data_group)
+    """In-place sum of ``t`` over ``mesh``'s pixel group (none: ``t``)."""
+    if mesh is not None and mesh.pixel_size > 1:
+        dist.all_reduce(t, group=mesh.reduce_group)
     return t
 
 
 def kernel_mesh() -> Optional[Mesh]:
-    """The mesh a kernel's wrapper reduces over: the active one under data
-    parallelism, else None. Its autograd Function keeps it for the backward,
-    which sums the cotangents with :func:`sum_over`."""
+    """The mesh a kernel's wrapper reduces over: the active one when it
+    splits the pixels, else None. Its autograd Function keeps it for the
+    backward, which sums the cotangents with :func:`sum_over`."""
     return current() if data_parallel() else None
 
 
 def kernel_forward(mesh: Optional[Mesh]) -> dict:
-    """The data-parallel argument of a kernel's forward wrapper: none without
-    a mesh, else ``reduce``, the sum of the partials over its data ranks
+    """The parallel argument of a kernel's forward wrapper: none without a
+    mesh, else ``reduce``, the sum of the partials over its pixel group
     between the two launches."""
     if mesh is None:
         return {}
@@ -192,15 +259,16 @@ def kernel_forward(mesh: Optional[Mesh]) -> dict:
 
 def kernel_grad(mesh: Optional[Mesh], grad: torch.Tensor) -> torch.Tensor:
     """A global loss's cotangent as its kernel's backward needs it: the sum
-    of every data rank's (their shares of the loss)."""
+    of every rank's in the pixel group (their shares of the loss)."""
     grad = grad.float().reshape(1).contiguous()
     return grad if mesh is None else sum_over(mesh, grad.clone())
 
 
 def gmean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the global batch: ``x.mean()`` with one data
-    rank, else the all-summed sum over the all-summed element count (ranks
-    may hold different numbers of rows, as RAIN's stylised ones)."""
+    """The mean of ``x`` over the global batch: ``x.mean()`` with one rank
+    in the pixel group, else the all-summed sum over the all-summed element
+    count (ranks may hold different numbers of rows, as RAIN's stylised
+    ones or a discriminator's uneven row bands)."""
     if not data_parallel():
         return x.mean()
     num, den = global_sums(x.sum(), float(x.numel()))
@@ -208,7 +276,7 @@ def gmean(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_sums(*values) -> tuple:
-    """Scalars (tensors or numbers) summed over the data ranks in one
+    """Scalars (tensors or numbers) summed over the pixel group in one
     differentiable all-reduce, in float32; unchanged with one data rank."""
     if not data_parallel():
         return values
@@ -227,9 +295,45 @@ def local_rows(x: torch.Tensor) -> torch.Tensor:
     return x.narrow(0, m.data_rank * b, b)
 
 
+def spatial_rows(x, key: str = "", mesh: Optional[Mesh] = None):
+    """This model rank's band of the image rows (dim 1) of a batch tensor or
+    array ``(B, H, ...)`` under spatial partitioning of ``mesh`` (default:
+    the active one; ``x`` itself without a row split). ``H`` must divide
+    over the model ranks: where JAX keeps such a key whole on every model
+    rank, the port raises ``ValueError``."""
+    m = mesh if mesh is not None else spatial()
+    if m is None or not m.spatial:
+        return x
+    h = x.shape[1]
+    if h % m.model_size:
+        raise ValueError(f"mesh.spatial: {key or 'a batch tensor'} has H={h} rows, not "
+                         f"divisible by {m.model_size} model ranks")
+    band = h // m.model_size
+    return x[:, m.model_rank * band:(m.model_rank + 1) * band]
+
+
+def local_pixels(flat: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """This rank's entries of ``flat``, one per pixel of the global batch in
+    ``shape`` = (B, H, W) order: its data rank's rows, and under spatial
+    partitioning its band of each image's rows, flattened as its own
+    tensors are."""
+    if spatial() is None:
+        return local_rows(flat)
+    return spatial_rows(local_rows(flat.reshape(tuple(shape)))).reshape(-1)
+
+
 def global_shape(shape: Sequence[int]) -> tuple:
     """The global batch's shape of a local ``shape`` (rows on dim 0)."""
     return (shape[0] * data_size(), *shape[1:])
+
+
+def global_image_shape(shape: Sequence[int]) -> tuple:
+    """The global batch's (B, H, W) of a rank's (B, H, W): its data rank's
+    rows times the data ranks, and under spatial partitioning its band of
+    rows times the model ranks."""
+    m = spatial()
+    h = shape[1] * (m.model_size if m is not None else 1)
+    return (shape[0] * data_size(), h, *shape[2:])
 
 
 def first_rows(t: torch.Tensor) -> torch.Tensor:
@@ -249,15 +353,17 @@ def is_dtensor(t) -> bool:
 
 
 def reduce_grads(params: Iterable[torch.Tensor]) -> None:
-    """Sum the gradients of ``params`` over the data ranks (the JAX step's
+    """Sum the gradients of ``params`` over the pixel group (the JAX step's
     psum). Replicated gradients take one all-reduce of a flat buffer per
-    dtype over every process, divided by the model ranks (whose replicas
-    hold the same rows); FSDP's sharded ones arrive as the mean over every
-    process and are scaled to the sum over the data ranks."""
+    dtype over every process, divided by the model ranks when those are
+    replicas holding the same rows (not under spatial partitioning, where
+    each holds a partial sum); FSDP's sharded ones arrive as the mean over
+    every process and are scaled to the sum over the pixel group."""
     m = current()
-    if m is None or m.data_size == 1:
-        # one data rank: the model ranks hold the same rows, so their
-        # replicated gradients are equal and the sum is the identity
+    if m is None or m.pixel_size == 1:
+        # one data rank without a row split: the model ranks hold the same
+        # rows, so their replicated gradients are equal and the sum is the
+        # identity
         return
     plain: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in params:
@@ -265,15 +371,14 @@ def reduce_grads(params: Iterable[torch.Tensor]) -> None:
         if g is None:
             continue
         if is_dtensor(g):
-            if m.data_size > 1:
-                g.mul_(m.data_size)
+            g.mul_(m.pixel_size)
             continue
         plain.setdefault(g.dtype, []).append(g)
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
     for grads in plain.values():
         flat = _flatten_dense_tensors(grads)
         dist.all_reduce(flat)
-        if m.model_size > 1:
+        if m.model_size > 1 and not m.spatial:
             flat.div_(m.model_size)
         for g, f in zip(grads, _unflatten_dense_tensors(flat, grads)):
             g.copy_(f)

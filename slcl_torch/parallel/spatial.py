@@ -1,0 +1,246 @@
+"""Row-sharded operators for spatial partitioning (``mesh.spatial``; the
+port of what GSPMD does for JAX's ``spatial_shard_batch``).
+
+Under a spatial mesh (:func:`.mesh.spatial`) each model rank of a data
+rank holds a band of each image's rows. A tensor of ``rows`` global rows
+lies on the model ranks by :func:`bounds`: rank ``m`` holds rows
+``[b[m], b[m + 1])``, ``ceil(rows / M)`` a rank and fewer (or none) on the
+last. A network's input is split evenly (the Trainer requires it); each
+operator here maps the global rows of its input to those of its output,
+and its output is laid out by :func:`bounds` again, whatever the input's
+layout was, so an uneven stage (the discriminator's 224 -> 113 -> 57 ...,
+or a bottleneck of 7 rows over 4 ranks) reshards as GSPMD does.
+
+Every operator is the same three steps on every rank:
+
+1. the input rows its output band reads, ``[lo, hi)`` in global rows,
+   fetched by :class:`_Fetch`: its own rows locally, its neighbours' (or
+   any rank's, for a halo wider than a band) through one all-reduce over
+   the model group of a buffer with a slot per (reader, owner) pair, and
+   zeros outside ``[0, rows)`` (the image's true top and bottom edges).
+   The backward sends each slot's gradient back to its owner the same way
+   and adds it there. Only all-reduces, which gloo runs on CUDA tensors as
+   well as NCCL; no exchange at all where no rank reads another's rows (a
+   pool whose bands line up);
+2. the operator on the fetched rows with no row padding (its column
+   padding as before);
+3. its output narrowed to the band. A rank whose band is empty computes
+   one row from zero rows and keeps none of it, so that every rank runs the
+   same operators, and the same collectives in the backward.
+
+Outside a spatial mesh each operator is the plain one.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from . import mesh as dp
+
+
+def bounds(rows: int, parts: int) -> List[int]:
+    """Rank ``m`` of ``parts`` holds global rows ``[b[m], b[m + 1])``."""
+    per = -(-rows // parts)
+    return [min(m * per, rows) for m in range(parts + 1)]
+
+
+def image_rows(x: torch.Tensor) -> int:
+    """The global rows of a network's NHWC input: under a spatial mesh its
+    local rows times the model ranks (an input is split evenly)."""
+    m = dp.spatial()
+    return x.shape[1] if m is None else x.shape[1] * m.model_size
+
+
+def _plan(rows: int, reads: Sequence[Tuple[int, int]], parts: int):
+    """The slots of one exchange: ``(reader, owner, lo, hi, offset)`` for
+    every global row range ``[lo, hi)`` that ``reader`` reads from another
+    rank ``owner``, at ``offset`` in the buffer; and the buffer's rows."""
+    b = bounds(rows, parts)
+    slots, at = [], 0
+    for reader, (lo, hi) in enumerate(reads):
+        for owner in range(parts):
+            if owner == reader:
+                continue
+            s, e = max(lo, b[owner]), min(hi, b[owner + 1])
+            if s < e:
+                slots.append((reader, owner, s, e, at))
+                at += e - s
+    return slots, at
+
+
+class _Fetch(torch.autograd.Function):
+    """Global rows ``[lo, hi)`` of a row-sharded NCHW tensor on this rank
+    (zeros outside ``[0, rows)``), from every rank's ``reads``."""
+
+    @staticmethod
+    def forward(ctx, x, rows, reads, mesh):
+        rank, parts = mesh.model_rank, mesh.model_size
+        b = bounds(rows, parts)
+        if x.shape[2] != b[rank + 1] - b[rank]:
+            raise ValueError(f"spatial: rank {rank} holds {x.shape[2]} rows of a "
+                             f"{rows}-row tensor, its band is {b[rank]}:{b[rank + 1]}")
+        slots, total = _plan(rows, reads, parts)
+        lo, hi = reads[rank]
+        n, c, _, w = x.shape
+        buf = None
+        if total:
+            buf = x.new_zeros((n, c, total, w))
+            for reader, owner, s, e, at in slots:
+                if owner == rank:
+                    buf[:, :, at:at + e - s] = x[:, :, s - b[rank]:e - b[rank]]
+            dist.all_reduce(buf, group=mesh.model_group)
+        out = _zeros(x, (n, c, hi - lo, w))
+        own_s, own_e = max(lo, b[rank]), min(hi, b[rank + 1])
+        if own_s < own_e:
+            out[:, :, own_s - lo:own_e - lo] = x[:, :, own_s - b[rank]:own_e - b[rank]]
+        for reader, owner, s, e, at in slots:
+            if reader == rank:
+                out[:, :, s - lo:e - lo] = buf[:, :, at:at + e - s]
+        ctx.plan = (rows, reads, mesh, slots, total, tuple(x.shape))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, reads, mesh, slots, total, shape = ctx.plan
+        rank, parts = mesh.model_rank, mesh.model_size
+        b = bounds(rows, parts)
+        lo, hi = reads[rank]
+        dx = _zeros(grad, shape)
+        own_s, own_e = max(lo, b[rank]), min(hi, b[rank + 1])
+        if own_s < own_e:
+            dx[:, :, own_s - b[rank]:own_e - b[rank]] += grad[:, :, own_s - lo:own_e - lo]
+        if total:
+            n, c, _, w = shape
+            buf = grad.new_zeros((n, c, total, w))
+            for reader, owner, s, e, at in slots:
+                if reader == rank:
+                    buf[:, :, at:at + e - s] = grad[:, :, s - lo:e - lo]
+            dist.all_reduce(buf, group=mesh.model_group)
+            for reader, owner, s, e, at in slots:
+                if owner == rank:
+                    dx[:, :, s - b[rank]:e - b[rank]] += buf[:, :, at:at + e - s]
+        return dx, None, None, None
+
+
+def _zeros(like: torch.Tensor, shape) -> torch.Tensor:
+    """Zeros of ``shape`` in ``like``'s type, device and memory format."""
+    fmt = (torch.channels_last if like.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    return torch.empty(shape, dtype=like.dtype, device=like.device,
+                       memory_format=fmt).zero_()
+
+
+def _reads(rows_in: int, rows_out: int, parts: int, span) -> List[Tuple[int, int]]:
+    """Each rank's input rows ``[lo, hi)`` for its output band; ``span(o0,
+    o1)`` gives them for a non-empty band ``[o0, o1)``. An empty band reads
+    ``span(0, 1)``'s length of zero rows below the image."""
+    b = bounds(rows_out, parts)
+    out = []
+    for m in range(parts):
+        if b[m] < b[m + 1]:
+            out.append(span(b[m], b[m + 1]))
+        else:
+            lo, hi = span(0, 1)
+            out.append((rows_in + 1, rows_in + 1 + hi - lo))
+    return out
+
+
+def _rowwise(x: torch.Tensor, rows_in: int, rows_out: int, span, fn, first) -> torch.Tensor:
+    """Steps 1-3 of the module docstring: ``fn`` on the fetched rows
+    ``[lo, hi)`` gives output rows from global row ``first(lo)`` on; the
+    band is kept."""
+    m = dp.spatial()
+    parts, rank = m.model_size, m.model_rank
+    reads = _reads(rows_in, rows_out, parts, span)
+    xs = _Fetch.apply(x, rows_in, reads, m)
+    y = fn(xs)
+    b = bounds(rows_out, parts)
+    start = b[rank] - first(reads[rank][0]) if b[rank] < b[rank + 1] else 0
+    if start == 0 and y.shape[2] == b[rank + 1] - b[rank]:
+        return y
+    # a copy, not a view: a module's view output loses FSDP's backward hook
+    # to any in-place op on it
+    return y.narrow(2, start, b[rank + 1] - b[rank]).clone()
+
+
+def conv_rows(conv: nn.Conv2d, rows: int) -> int:
+    """The global output rows of ``conv`` on ``rows`` input rows."""
+    k, s, p, d = conv.kernel_size[0], conv.stride[0], conv.padding[0], conv.dilation[0]
+    return (rows + 2 * p - d * (k - 1) - 1) // s + 1
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state dict) whose forward
+    takes the input's global ``rows``: under a spatial mesh it reads its
+    halo from the neighbouring bands and pads zero rows only at the image's
+    edges. A module, so that FSDP's hooks gather its weights."""
+
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        if dp.spatial() is None or rows is None:
+            return super().forward(x)
+        k, s, p, d = self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0]
+        if k == 1 and s == 1 and p == 0:
+            return super().forward(x)          # row-local: no halo
+        span = lambda o0, o1: (o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1)
+        fn = lambda xs: F.conv2d(xs, self.weight, self.bias, (s, self.stride[1]),
+                                 (0, self.padding[1]), (d, self.dilation[1]), self.groups)
+        return _rowwise(x, rows, conv_rows(self, rows), span, fn, lambda lo: (lo + p) // s)
+
+
+def max_pool(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """2x2 stride-2 max-pool of a (row-sharded) NCHW tensor of ``rows``
+    global rows. Local where the bands line up (even bands)."""
+    if dp.spatial() is None:
+        return F.max_pool2d(x, 2, 2)
+    return _rowwise(x, rows, rows // 2, lambda o0, o1: (2 * o0, 2 * o1),
+                    lambda xs: F.max_pool2d(xs, 2, 2), lambda lo: lo // 2)
+
+
+def upsample_nearest(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Nearest 2x upsample: output row ``i`` samples input row ``i // 2``."""
+    if dp.spatial() is None:
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return _rowwise(x, rows, 2 * rows, lambda o0, o1: (o0 // 2, (o1 - 1) // 2 + 1),
+                    lambda xs: F.interpolate(xs, scale_factor=2, mode="nearest"),
+                    lambda lo: 2 * lo)
+
+
+def upsample_bilinear(x: torch.Tensor, size, rows: int) -> torch.Tensor:
+    """Bilinear resize with ``align_corners=True`` to ``size`` (global
+    rows, columns) of an NCHW tensor of ``rows`` global rows: under a
+    spatial mesh each output row interpolates between the two input rows
+    around its **global** source coordinate (the rows of a band are not an
+    image of their own), then the columns as ``F.interpolate`` does."""
+    if dp.spatial() is None:
+        return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+    rows_out, cols_out = int(size[0]), int(size[1])
+    scale = (rows - 1) / (rows_out - 1) if rows_out > 1 else 0.0
+    src = lambda o: o * scale
+
+    def span(o0, o1):
+        return math.floor(src(o0)), min(math.floor(src(o1 - 1)) + 2, rows)
+
+    m = dp.spatial()
+    b = bounds(rows_out, m.model_size)
+    o0, o1 = b[m.model_rank], b[m.model_rank + 1]
+
+    band = range(o0, o1) if o1 > o0 else range(0, 1)    # an empty band: one row of zeros
+
+    def fn(xs):
+        lo = math.floor(src(band[0]))
+        y = torch.tensor([src(o) for o in band], dtype=torch.float64)
+        i0 = (y.floor().long() - lo).clamp(max=xs.shape[2] - 1)
+        i1 = (i0 + 1).clamp(max=xs.shape[2] - 1)
+        frac = (y - y.floor()).to(xs.dtype).to(xs.device).view(1, 1, -1, 1)
+        top = xs.index_select(2, i0.to(xs.device))
+        bottom = xs.index_select(2, i1.to(xs.device))
+        r = top + (bottom - top) * frac
+        return F.interpolate(r, size=(r.shape[2], cols_out), mode="bilinear",
+                             align_corners=True)
+
+    return _rowwise(x, rows, rows_out, span, fn, lambda lo: o0)

@@ -36,7 +36,9 @@ batch's (``ops/losses.py``), :func:`net_update` backpropagates the rank's
 share and sums the gradients over the ranks, the rMC draw is made for the
 global batch and each rank keeps its pixels, and RAIN's stylised pair is
 the global batch's first rows (stylised on every rank, fed to the
-segmentor on data rank 0 alone).
+segmentor on data rank 0 alone). Under spatial partitioning each rank holds
+a band of rows of its data rank's images: the same, with the model ranks
+among the ranks that hold pixels (``parallel.mesh.pixel_size``).
 """
 from __future__ import annotations
 
@@ -159,9 +161,9 @@ def net_update(net, opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float) -
     dead ``conv1_1``) gets a zero gradient, not none: the optimizer still
     applies its weight decay to it, as optax does to every leaf. Under a
     mesh the rank backpropagates its share of the global ``loss`` (over the
-    data ranks) and the gradients are summed over the ranks."""
+    ranks that hold pixels) and the gradients are summed over the ranks."""
     opt.zero_grad(set_to_none=True)
-    (loss / dp.data_size()).backward(inputs=[p for p in net.parameters() if p.requires_grad])
+    (loss / dp.pixel_size()).backward(inputs=[p for p in net.parameters() if p.requires_grad])
     # taken again: FSDP's modules hold their gathered weights from the
     # forward until the backward has reduced the gradients into the shards
     params = [p for p in net.parameters() if p.requires_grad]
@@ -563,13 +565,14 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
 
         assign = None
         if P > 1:
-            # the global batch's draw; each rank keeps its images' pixels
-            m = dcdr_t.shape[0] * dcdr_t.shape[1] * dcdr_t.shape[2] * dp.data_size()
+            # the global batch's draw; each rank keeps its pixels
+            shape = dp.global_image_shape(dcdr_t.shape[:3])
+            m = shape[0] * shape[1] * shape[2]
             if draw_assign is not None:
                 assign = draw_assign(m, P, dev)
             else:
                 assign = rmc_draw(gens, state.seed, state.step, m, P, dev)
-            assign = dp.local_rows(assign)
+            assign = dp.local_pixels(assign, shape)
         res_t = cen.target_soft_centroids(
             dcdr_t, probs_t, partition=P, assign=assign, threshold=c.thd,
             weighted_ave=c.wtd_ave, num_classes=n_class, with_std=c.stdmin)

@@ -77,8 +77,20 @@ and rank 0 alone writes the checkpoints (gathered whole, in the
 one-process format), logs and summary. ``pretrain_rain`` stays unsharded
 (every rank steps on the whole batch). Where JAX would fall back to one
 device, the Trainer raises ``ValueError``: processes not divisible by
-``mesh.model_axis``, or ``data.bs`` not divisible by the data ranks;
-``mesh.spatial`` with model ranks raises ``NotImplementedError``.
+``mesh.model_axis``, or ``data.bs`` not divisible by the data ranks.
+
+Spatial partitioning (``mesh.spatial`` with model ranks, JAX's
+``spatial_shard_batch``): each model rank of a data rank takes a band of
+``H / model_axis`` rows of its data rank's images (``img_*``, ``lab_*``,
+``plabel_*``; an ``H`` the model ranks do not divide raises ``ValueError``),
+and the step still equals the one-process step on the global batch
+(``parallel/spatial.py``: convolutions with halos, pools and resizes that
+reshard uneven stages; the reductions over every rank). It covers DRUNet
+and its ``UncertaintyDiscriminator``: ``baseline``, ``adaptseg``,
+``advent``, ``mpscl``, ``slcl`` and ``mccl`` without RAIN and without
+``model.remat``; any other network or method raises
+``NotImplementedError`` naming both. Validation and test run on whole
+images, as JAX's evaluator does.
 """
 from __future__ import annotations
 
@@ -125,6 +137,11 @@ _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
 _ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
 _CONTRASTIVE = ("mpscl", "slcl", "mccl")
 _OWN_NETS = ("ddfseg", "adaptevery", "bcl")     # built by _build_<method>
+# spatial partitioning: DRUNet and its UncertaintyDiscriminator
+_SPATIAL = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl")
+_OWN_NET_NAMES = {"ddfseg": "DDFSeg", "adaptevery": "ResNetUNetPoint", "bcl": "BCLDeepLab"}
+# the batch keys whose rows a spatial mesh splits (JAX's _is_spatial)
+_SPATIAL_KEYS = ("img", "lab", "plabel")
 _NETS = ("seg", "d_main", "d_aux", "d_seg", "d_ent", "d_point", "rain")
 _OPTS = ("opt_seg", "opt_d_main", "opt_d_aux", "opt_d_seg", "opt_d_ent", "opt_d_point")
 # RAIN's component files: (the net's part, its config key)
@@ -143,6 +160,24 @@ def check_ported_keys(cfg: Config) -> None:
             "model.remat=dots with rain.enabled: the epsilon ascent backpropagates "
             "the segmentor twice, which selective checkpointing refuses; use "
             "model.remat=full")
+
+
+def check_spatial(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` naming the network and the method when
+    spatial partitioning does not cover them: it covers DRUNet with its
+    ``UncertaintyDiscriminator`` (:data:`_SPATIAL`), without RAIN's style
+    net and without ``model.remat``."""
+    net = _OWN_NET_NAMES.get(cfg.method, cfg.model.backbone)
+    if cfg.rain.enabled or cfg.method in ("rain", "pretrain_rain"):
+        net = f"{net} with the RAIN style net"
+    if (cfg.method not in _SPATIAL or cfg.model.backbone != "drunet" or cfg.rain.enabled
+            or remat_mode(cfg.model.remat)):
+        remat = f", model.remat={cfg.model.remat}" if remat_mode(cfg.model.remat) else ""
+        raise NotImplementedError(
+            f"mesh.spatial=true with model ranks: network {net!r}, method "
+            f"{cfg.method!r}{remat} is not ported; slcl_torch splits image rows for "
+            f"DRUNet and its UncertaintyDiscriminator ({', '.join(_SPATIAL)}, without "
+            "RAIN or model.remat); use mesh.spatial=false")
 
 
 def build_rain(cfg: Config, device: torch.device) -> RAIN:
@@ -261,22 +296,29 @@ class Trainer:
         one, checked against the config; None for one process and for
         ``pretrain_rain``, which stays unsharded as in JAX."""
         cfg = self.cfg
+        model_axis = max(cfg.mesh.model_axis, 1)
+        spatial = bool(cfg.mesh.spatial) and model_axis > 1
         mesh = dp.current()
         if mesh is None and dp.launched():
-            mesh = dp.make_mesh(cfg.mesh.model_axis, device=self.device)
+            mesh = dp.make_mesh(model_axis, device=self.device, spatial=spatial)
         if mesh is None or cfg.method == "pretrain_rain":
             return None
-        if cfg.mesh.spatial and cfg.mesh.model_axis > 1 and mesh.world > 1:
-            raise NotImplementedError(
-                "mesh.spatial=true: image rows sharded over the model ranks need "
-                "GSPMD's halo exchange, which slcl_torch does not port; use "
-                "mesh.spatial=false (data parallelism and mesh.fsdp)")
-        if mesh.model_size != max(cfg.mesh.model_axis, 1):
+        if mesh.model_size != model_axis:
             raise ValueError(f"mesh.model_axis={cfg.mesh.model_axis}, the mesh has "
                              f"{mesh.model_size} model ranks")
+        if spatial:
+            check_spatial(cfg)
+        if mesh.spatial != spatial:
+            raise ValueError(f"mesh.spatial={cfg.mesh.spatial} with {model_axis} model "
+                             f"ranks, the mesh {'splits' if mesh.spatial else 'does not split'}"
+                             " image rows")
         if cfg.data.bs % mesh.data_size:
             raise ValueError(f"global batch data.bs={cfg.data.bs} is not divisible by "
                              f"{mesh.data_size} data ranks")
+        if dp.is_writer():
+            kind = "dp+fsdp" if cfg.mesh.fsdp and model_axis > 1 else "data-parallel"
+            print(f"[mesh] {kind + ('+sp' if spatial else '')} over {mesh.world} processes "
+                  f"(mesh {{'data': {mesh.data_size}, 'model': {mesh.model_size}}})")
         return mesh
 
     def _replicate(self):
@@ -482,8 +524,23 @@ class Trainer:
         return {"lr": float(lr), "lr_dis": float(lr_dis), "warm": warm, "fresh": 1.0,
                 "eps_on": eps_on}
 
+    def _spatial_rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """Under spatial partitioning, this model rank's band of the image
+        rows of ``batch``'s ``img_*``, ``lab_*`` and ``plabel_*`` arrays."""
+        if self.mesh is None or not self.mesh.spatial:
+            return batch
+        return {k: np.ascontiguousarray(dp.spatial_rows(v, k, self.mesh))
+                if k.split("_")[0] in _SPATIAL_KEYS and isinstance(v, np.ndarray)
+                and v.ndim >= 3 else v for k, v in batch.items()}
+
     def _epoch_batches(self) -> Iterable[Dict[str, Any]]:
-        """This rank's rows of each global batch (all of it on one process)."""
+        """This rank's rows of each global batch (all of it on one process;
+        under spatial partitioning its band of their image rows)."""
+        for batch in self._loader_batches():
+            yield self._spatial_rows(batch)
+
+    def _loader_batches(self) -> Iterable[Dict[str, Any]]:
+        """This data rank's rows of each global batch."""
         cfg = self.cfg
         rows = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data_size)
         train_s = Loader(self.datasets["train_s"], cfg.data.bs, seed=cfg.data.seed,
@@ -584,10 +641,12 @@ class Trainer:
              ifasd: bool = True, fast: bool = False) -> Dict[str, list]:
         loader = Loader(self.datasets[split], self.cfg.data.eval_bs, shuffle=False,
                         drop_last=False, num_threads=self.cfg.data.num_workers)
-        if fast:
-            return self.evaluator.evaluate_fast(loader)
-        return self.evaluator.evaluate_single_dataset(loader, ifhd=ifhd, ifasd=ifasd,
-                                                      toprint=toprint)
+        # whole images on every rank, outside any mesh (JAX's evaluator)
+        with dp.use(None):
+            if fast:
+                return self.evaluator.evaluate_fast(loader)
+            return self.evaluator.evaluate_single_dataset(loader, ifhd=ifhd, ifasd=ifasd,
+                                                          toprint=toprint)
 
     # ------------------------------------------------------------------
     def checkpoint_path(self, tag: str) -> Path:

@@ -125,7 +125,10 @@ def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
                 use_draws(trainer, draws)
             out = []
             for b, sc in zip(batch_list, scheds):
-                local = {k: dp.local_rows(torch.from_numpy(v)) for k, v in b.items()}
+                # this rank's rows, and under spatial partitioning its band of
+                # the image rows (the Trainer's _spatial_rows)
+                local = {k: dp.spatial_rows(dp.local_rows(torch.from_numpy(v)), k)
+                         for k, v in b.items()}
                 local = {k: v.to(dtype) if v.is_floating_point() else v
                          for k, v in local.items()}
                 m = trainer.step_fn(s, local, sc)
@@ -194,7 +197,8 @@ def from_writer_entry(mesh, work: str) -> dict:
 
 def raises_entry(mesh, work: str) -> dict:
     """The Trainer's refusals under a mesh of two data ranks, and
-    ``pretrain_rain`` staying unsharded."""
+    ``pretrain_rain`` staying unsharded (spatial partitioning's refusals:
+    :func:`spatial_checks_entry`)."""
     out = {}
 
     def attempt(key, fn):
@@ -205,10 +209,6 @@ def raises_entry(mesh, work: str) -> dict:
             out[key] = (type(e).__name__, str(e))
 
     with dp.use(mesh):
-        sp = small_cfg("mpscl")
-        sp.mesh.spatial = True
-        sp.mesh.model_axis = 2
-        attempt("spatial", lambda: D.make_trainer(sp, work))
         odd = small_cfg("mpscl")
         odd.data.bs = 3
         attempt("bs", lambda: D.make_trainer(odd, work))
@@ -236,6 +236,136 @@ def pretrain_entry(mesh, work: str) -> dict:
         return {"pretrain_mesh": trainer.mesh,
                 "pretrain_metrics": {k: float(v) for k, v in m.items()},
                 "pretrain_state": D.state_arrays(trainer)}
+
+
+def spatial_cfg(method: str, fsdp: bool = False) -> Config:
+    """:func:`small_cfg` of ``method`` with its image rows split over two
+    model ranks (``slcl``: ``mpscl`` with multilvl and CNR, the main path's
+    recipe at small size)."""
+    cfg = small_cfg("mpscl" if method == "slcl" else method)
+    if method == "slcl":
+        cfg.method = "slcl"
+        cfg.model.multilvl = True
+        cfg.contrastive.CNR = True
+        cfg.contrastive.CNR_w = 4e-5
+    cfg.mesh.model_axis = 2
+    cfg.mesh.spatial = True
+    cfg.mesh.fsdp = fsdp
+    cfg.mesh.fsdp_min_size = 1024
+    return cfg
+
+
+def spatial_ops_entry(mesh, cases) -> list:
+    """Each row-sharded operator of ``cases`` on this rank's band of the
+    global input (``parallel/spatial.py``'s layout), in float64: its output
+    band, the input band's gradient and the parameters' (partial)
+    gradients for the global cotangent ``g``, and a BatchNorm's running
+    statistics."""
+    from slcl_torch.models.common import BatchNorm
+    from slcl_torch.parallel import spatial as sp
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        out = []
+        with dp.use(mesh):
+            for case in cases:
+                out.append(_spatial_op(mesh, case, sp, BatchNorm))
+        return out
+    finally:
+        torch.set_default_dtype(before)
+
+
+def _spatial_op(mesh, case, sp, BatchNorm) -> dict:
+    x = torch.from_numpy(case["x"])
+    rows, r, m = x.shape[2], mesh.model_rank, mesh.model_size
+    b = sp.bounds(rows, m)
+    xl = x[:, :, b[r]:b[r + 1]].clone().requires_grad_(True)
+    module = None
+    kind = case["kind"]
+    if kind == "conv":
+        w = torch.from_numpy(case["w"])
+        module = sp.Conv2d(w.shape[1], w.shape[0], w.shape[2], stride=case["stride"],
+                           padding=case["padding"], dilation=case["dilation"],
+                           bias="b" in case)
+        module.load_state_dict({"weight": w, **({"bias": torch.from_numpy(case["b"])}
+                                                if "b" in case else {})})
+        y = module(xl, rows)
+    elif kind == "max_pool":
+        y = sp.max_pool(xl, rows)
+    elif kind == "nearest":
+        y = sp.upsample_nearest(xl, rows)
+    elif kind == "bilinear":
+        y = sp.upsample_bilinear(xl, case["size"], rows)
+    else:
+        module = BatchNorm(x.shape[1])
+        y = module(xl)
+    g = torch.from_numpy(case["g"])
+    bo = sp.bounds(g.shape[2], m)
+    (y * g[:, :, bo[r]:bo[r + 1]]).sum().backward()
+    res = {"y": y.detach().numpy(), "dx": xl.grad.numpy(), "dparams": {}}
+    if module is not None:
+        res["dparams"] = {n: p.grad.numpy() for n, p in module.named_parameters()}
+        res["buffers"] = {n: t.numpy().copy() for n, t in module.named_buffers()}
+    return res
+
+
+def spatial_checks_entry(mesh, work: str) -> dict:
+    """Under a spatial mesh: this rank's rMC pixels of a global draw; the
+    Trainer's refusal of each network and method it does not split, of an
+    image height the model ranks do not divide, and of a mesh that does not
+    match ``mesh.spatial``; and one ``mpscl`` step that runs."""
+    out = {}
+    with dp.use(mesh):
+        shape = (B, H, H)
+        draw = torch.arange(B * H * H, dtype=torch.int32)
+        out["pixels"] = dp.local_pixels(draw, dp.global_image_shape(
+            (B // mesh.data_size, H // mesh.model_size, H))).numpy()
+        out["shape"] = dp.global_image_shape((B // mesh.data_size, H // mesh.model_size, H))
+
+        def attempt(key, fn):
+            try:
+                fn()
+                out[key] = None
+            except Exception as e:  # the test checks the type and message
+                out[key] = (type(e).__name__, str(e))
+
+        cases = {"resnet50": ("slcl", {"backbone": "resnet50", "layers": (1, 1, 1, 1),
+                                       "base": 8}),
+                 "unet": ("baseline", {"backbone": "unet"}),
+                 "deeplabv2": ("advent", {"backbone": "deeplabv2"}),
+                 "rain": ("mccl", {}), "ddfseg": ("ddfseg", {}),
+                 "adaptevery": ("adaptevery", {}), "bcl": ("bcl", {}),
+                 "remat": ("mpscl", {"remat": "full"})}
+        for name, (method, model) in cases.items():
+            cfg = spatial_cfg(method)
+            for k, v in model.items():
+                setattr(cfg.model, k, v)
+            if name == "rain":
+                cfg.rain.enabled = True
+            attempt(name, lambda: D.make_trainer(cfg, work))
+        plain = spatial_cfg("mpscl")
+        plain.mesh.spatial = False
+        attempt("mismatch", lambda: D.make_trainer(plain, work))
+        trainer = D.make_trainer(spatial_cfg("mpscl"), work)
+        odd = {k: np.zeros((B // mesh.data_size, H + 1, H) + (3,) * (k == "img_s"),
+                           np.float32 if k == "img_s" else np.int32)
+               for k in ("img_s", "lab_s")}
+        attempt("odd_rows", lambda: trainer._spatial_rows(odd))
+        b = batches("mpscl", 1)[0]
+        with dp.use(trainer.mesh):
+            local = {k: dp.spatial_rows(dp.local_rows(torch.from_numpy(v)), k)
+                     for k, v in b.items()}
+            m = trainer.step_fn(trainer.state, local, sched("mpscl"))
+        out["step"] = {k: float(v) for k, v in m.items()}
+        out["local_rows"] = local["img_s"].shape[1]
+    return out
+
+
+def spatial_2x2_entry(mesh, specs, work: str) -> dict:
+    """:func:`methods_entry` of ``specs`` and :func:`spatial_checks_entry`
+    in one set of ranks."""
+    return {"methods": methods_entry(mesh, specs, f"{work}/methods"),
+            "checks": spatial_checks_entry(mesh, f"{work}/checks")}
 
 
 def assert_state_close(got: dict, want: dict, rtol: float, atol: float, what: str,
