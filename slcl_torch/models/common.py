@@ -210,18 +210,18 @@ class ConvBNAct(nn.Module):
 class ConvBNReLU(nn.Module):
     """Conv (no bias, 'same' padding) -> BN -> ReLU, the UNet block order
     (unet_parts.py:15-22) and ResNetUNet's decoder convs. Submodule names
-    are flax's (``Conv_0``, ``BatchNorm_0``)."""
+    are flax's (``Conv_0``, ``BatchNorm_0``). ``rows``: the input's global
+    rows (spatial partitioning)."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=kernel // 2,
-                                bias=False)
+        self.Conv_0 = sp.Conv2d(in_ch, features, kernel, padding=kernel // 2, bias=False)
         torch_conv_init_(self.Conv_0, generator)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Conv_0(x, rows)))
 
 
 def max_pool(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
@@ -232,12 +232,15 @@ def max_pool(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     return sp.max_pool(x, rows)
 
 
-def stem_pool(x: torch.Tensor, ceil: bool = False) -> torch.Tensor:
+def stem_pool(x: torch.Tensor, rows: Optional[int] = None, ceil: bool = False) -> torch.Tensor:
     """3x3 stride-2 max-pool of a ResNet stem. ``ceil=False``: the flax
     models' -inf pad (1, 1) + VALID (ResNetUNet); ``ceil=True``: pad (1, 2),
     torch's ``MaxPool2d(3, 2, 1, ceil_mode=True)`` (DeepLabV2: a 224 input
-    gives a 57 pool)."""
-    return F.max_pool2d(x, 3, 2, padding=1, ceil_mode=ceil)
+    gives a 57 pool). ``rows``: the input's global rows under spatial
+    partitioning."""
+    if rows is None:
+        return F.max_pool2d(x, 3, 2, padding=1, ceil_mode=ceil)
+    return sp.max_pool3(x, rows, ceil)
 
 
 def upsample_nearest(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:

@@ -19,7 +19,12 @@ BCL's prototypes); ``pair`` adds a target-domain stem (``target_conv1``,
 ``target_bn1``, ``target_layer1_*``) chosen by ``source=False``.
 
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
-memory.
+memory. Under spatial partitioning (``parallel/spatial.py``) ``DeepLabV2``'s
+input is this rank's band of each image's rows: the forward threads each
+stage's global row count through the stem, its ceil-mode pool (224 rows go
+112, 57, 29), the bottlenecks' strided 1x1 and dilated 3x3 convolutions,
+the ASPP's dilated convolutions (halos of up to 24 rows, wider than a band)
+and the resizes to the input. ``BCLDeepLab`` runs unsharded.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial as sp
 from .common import (FrozenBatchNorm, SegOutput, nchw, nhwc, normal_conv_init_,
                      stem_pool, upsample_bilinear)
 
@@ -37,7 +43,7 @@ _STD = 0.01
 
 def _conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int = 1,
           bias: bool = False, generator=None) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
+    conv = sp.Conv2d(in_ch, out_ch, kernel, stride=stride,
                      padding=dilation * (kernel // 2), dilation=dilation, bias=bias)
     normal_conv_init_(conv, generator, _STD)
     return conv
@@ -59,11 +65,13 @@ class _Bottleneck(nn.Module):
             self.down_conv = _conv(in_ch, planes * 4, 1, stride, generator=g)
             self.down_bn = FrozenBatchNorm(planes * 4)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        res = self.down_bn(self.down_conv(x)) if self.downsample else x
+    def forward(self, x, rows=None):
+        """``rows``: the input's global rows (spatial partitioning)."""
+        mid = sp.conv_rows(self.conv1, rows)
+        y = F.relu(self.bn1(self.conv1(x, rows)))
+        y = F.relu(self.bn2(self.conv2(y, mid)))
+        y = self.bn3(self.conv3(y, mid))
+        res = self.down_bn(self.down_conv(x, rows)) if self.downsample else x
         return F.relu(y + res)
 
 
@@ -78,10 +86,10 @@ class _ASPP(nn.Module):
             self.add_module(f"aspp{i}", _conv(in_ch, num_classes, 3, dilation=d,
                                               bias=True, generator=generator))
 
-    def forward(self, x):
-        out = self.aspp0(x)
+    def forward(self, x, rows=None):
+        out = self.aspp0(x, rows)
         for i in range(1, self.n):
-            out = out + getattr(self, f"aspp{i}")(x)
+            out = out + getattr(self, f"aspp{i}")(x, rows)
         return out
 
 
@@ -167,21 +175,27 @@ class DeepLabV2(nn.Module):
             self.layer5 = _ASPP(prev // 2, num_classes, generator=g)
         self.layer6 = _ASPP(prev, num_classes, generator=g)
 
-    def _stage(self, x, li: int):
+    def _stage(self, x, li: int, rows: int):
+        """Stage ``li`` on ``x`` of ``rows`` global rows: (its output, the
+        output's global rows)."""
         for i in range(self.layers[li - 1]):
-            x = getattr(self, f"layer{li}_{i}")(x)
-        return x
+            block = getattr(self, f"layer{li}_{i}")
+            x = block(x, rows)
+            rows = sp.conv_rows(block.conv1, rows)
+        return x, rows
 
     def forward(self, x: torch.Tensor) -> SegOutput:
         """``x`` (N, H, W, C_in) NHWC."""
-        in_size = x.shape[1:3]
-        x = F.relu(self.bn1(self.conv1(nchw(x))))
-        x = self._stage(stem_pool(x, ceil=True), 1)
-        x = self._stage(x, 2)
-        x3 = self._stage(x, 3)
-        x4 = self._stage(x3, 4)
+        rows = sp.image_rows(x)
+        in_size = (rows, x.shape[2])
+        x = F.relu(self.bn1(self.conv1(nchw(x), rows)))
+        rows = sp.conv_rows(self.conv1, rows)
+        x, rows = self._stage(stem_pool(x, rows, ceil=True), 1, sp.pool3_rows(rows, True))
+        x, rows = self._stage(x, 2, rows)
+        x3, r3 = self._stage(x, 3, rows)
+        x4, r4 = self._stage(x3, 4, r3)
         aux = None
         if self.multi_level:
-            aux = nhwc(upsample_bilinear(self.layer5(x3), in_size))
-        pred = upsample_bilinear(self.layer6(x4), in_size)
+            aux = nhwc(upsample_bilinear(self.layer5(x3, r3), in_size, r3))
+        pred = upsample_bilinear(self.layer6(x4, r4), in_size, r4)
         return SegOutput(pred=nhwc(pred), aux=aux, dcdr_ft=nhwc(x4), bottleneck=nhwc(x4))

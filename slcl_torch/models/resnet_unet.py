@@ -16,7 +16,12 @@ bottleneck: ``point_conv`` (3x3, stride 2), ReLU, global average pool,
 ``point_fc1`` (8 base), ReLU, ``point_fc2`` -> (N, n_points, 3).
 
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
-memory.
+memory. Under spatial partitioning (``parallel/spatial.py``) the input is
+this rank's band of each image's rows: the forward threads each stage's
+global row count through the stem, its pool, the bottlenecks' 3x3 and
+strided 1x1 convolutions, the decoder's upsamples and convolutions and the
+heads (at 224 rows the stages run 112, 56, 28, 14 and 7 rows; each skip
+lies on the same bands as the upsampled map it joins).
 """
 from __future__ import annotations
 
@@ -27,13 +32,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial as sp
 from .common import (BatchNorm, ConvBNReLU, SegOutput, conv2d, nchw, nhwc,
                      stem_pool, torch_conv_init_, upsample_bilinear,
                      upsample_nearest)
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, generator=None):
-    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
+    conv = sp.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2,
                      bias=False)
     torch_conv_init_(conv, generator)
     return conv
@@ -55,11 +61,12 @@ class _Bottleneck(nn.Module):
             self.down_conv = _conv(in_ch, planes * 4, 1, stride, generator=g)
             self.down_bn = BatchNorm(planes * 4)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        res = self.down_bn(self.down_conv(x)) if self.downsample else x
+    def forward(self, x, rows=None):
+        """``rows``: the input's global rows (spatial partitioning)."""
+        y = F.relu(self.bn1(self.conv1(x, rows)))
+        y = F.relu(self.bn2(self.conv2(y, rows)))
+        y = self.bn3(self.conv3(y, sp.conv_rows(self.conv2, rows)))
+        res = self.down_bn(self.down_conv(x, rows)) if self.downsample else x
         return F.relu(y + res)
 
 
@@ -69,11 +76,13 @@ class _DecoderBlock(nn.Module):
         self.conv1 = ConvBNReLU(in_ch, out_ch, generator=generator)
         self.conv2 = ConvBNReLU(out_ch, out_ch, generator=generator)
 
-    def forward(self, x, skip):
-        x = upsample_nearest(x)
+    def forward(self, x, skip, rows=None):
+        """``rows``: ``x``'s global rows; ``skip`` has twice as many."""
+        x = upsample_nearest(x, rows)
+        rows = None if rows is None else 2 * rows
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        return self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x, rows), rows)
 
 
 class ResNetUNet(nn.Module):
@@ -114,31 +123,39 @@ class ResNetUNet(nn.Module):
             self.phead1 = conv2d(self.feat_dim, self.feat_dim * 2, 1, generator=g)
             self.phead2 = conv2d(self.feat_dim * 2, self.feat_dim, 1, generator=g)
 
-    def _stage(self, x, li: int):
+    def _stage(self, x, li: int, rows: int):
+        """Stage ``li`` on ``x`` of ``rows`` global rows: (its output, the
+        output's global rows)."""
         for i in range(self.layers[li - 1]):
-            x = getattr(self, f"layer{li}_{i}")(x)
-        return x
+            block = getattr(self, f"layer{li}_{i}")
+            x = block(x, rows)
+            rows = sp.conv_rows(block.conv2, rows)
+        return x, rows
 
     def forward(self, x: torch.Tensor) -> SegOutput:
         """``x`` (N, H, W, C_in) NHWC."""
-        in_size = x.shape[1:3]
-        c1 = F.relu(self.bn1(self.conv1(nchw(x))))            # H/2
-        l1 = self._stage(stem_pool(c1), 1)                     # H/4
-        l2 = self._stage(l1, 2)                                # H/8
-        l3 = self._stage(l2, 3)                                # H/16
-        l4 = self._stage(l3, 4)                                # H/32
-        y = l4
+        rows = sp.image_rows(x)
+        in_size = (rows, x.shape[2])
+        c1 = F.relu(self.bn1(self.conv1(nchw(x), rows)))      # H/2
+        rows = sp.conv_rows(self.conv1, rows)
+        l1, r1 = self._stage(stem_pool(c1, rows), 1, sp.pool3_rows(rows))   # H/4
+        l2, r2 = self._stage(l1, 2, r1)                        # H/8
+        l3, r3 = self._stage(l2, 3, r2)                        # H/16
+        l4, r4 = self._stage(l3, 4, r3)                        # H/32
+        y, rows = l4, r4
         feats = []
         for i, skip in enumerate((l3, l2, l1, c1, None)[:self.n_dec]):
-            y = getattr(self, f"decoder_{i}")(y, skip)
-            feats.append(y)
-        pred = self.seg_head(y)
+            y = getattr(self, f"decoder_{i}")(y, skip, rows)
+            rows *= 2
+            feats.append((y, rows))
+        pred = self.seg_head(y, rows)
         aux = None
         if self.multilvl:
-            aux = upsample_bilinear(self.aux_head(feats[-2]), in_size)
-        dcdr_ft = self.feat_proj(y) if hasattr(self, "feat_proj") else y
+            aux_ft, aux_rows = feats[-2]
+            aux = upsample_bilinear(self.aux_head(aux_ft, aux_rows), in_size, aux_rows)
+        dcdr_ft = self.feat_proj(y, rows) if hasattr(self, "feat_proj") else y
         if self.phead:
-            dcdr_ft = self.phead2(F.relu(self.phead1(dcdr_ft)))
+            dcdr_ft = self.phead2(F.relu(self.phead1(dcdr_ft, rows)), rows)
         return SegOutput(pred=nhwc(pred), aux=None if aux is None else nhwc(aux),
                          dcdr_ft=nhwc(dcdr_ft), bottleneck=nhwc(l4))
 

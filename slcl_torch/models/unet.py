@@ -8,7 +8,10 @@ names: double convs (conv -> BN -> ReLU twice, ``ConvBNAct_0/1``, each
 ``base``-channel (64) pre-head decoder output at full resolution.
 
 Input and outputs are NHWC; inside, NCHW tensors in ``channels_last``
-memory.
+memory. Under spatial partitioning (``parallel/spatial.py``) the input is
+this rank's band of each image's rows: the forward threads each stage's
+global row count through the double convs, the max-pools and the
+transposed convolutions.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import spatial as sp
 from .common import ConvBNReLU, SegOutput, conv2d, max_pool, nchw, nhwc
 
 
@@ -27,14 +31,15 @@ class _DoubleConv(nn.Module):
         self.ConvBNAct_0 = ConvBNReLU(in_ch, out_ch, generator=generator)
         self.ConvBNAct_1 = ConvBNReLU(out_ch, out_ch, generator=generator)
 
-    def forward(self, x):
-        return self.ConvBNAct_1(self.ConvBNAct_0(x))
+    def forward(self, x, rows=None):
+        return self.ConvBNAct_1(self.ConvBNAct_0(x, rows), rows)
 
 
 def _conv_transpose(in_ch: int, out_ch: int, generator=None) -> nn.ConvTranspose2d:
     """2x2 stride-2 transposed conv; uniform(+-1/sqrt(fan_in)) kernel with
-    flax's fan_in (2 * 2 * in_ch), zero bias."""
-    up = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+    flax's fan_in (2 * 2 * in_ch), zero bias; its forward takes the input's
+    global rows (:class:`..parallel.spatial.ConvTranspose2d`)."""
+    up = sp.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
     bound = 1.0 / math.sqrt(4 * in_ch)
     with torch.no_grad():
         nn.init.uniform_(up.weight, -bound, bound, generator=generator)
@@ -60,14 +65,17 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> SegOutput:
         """``x`` (N, H, W, C_in) NHWC."""
-        skips = [self.inc(nchw(x))]
+        rows = sp.image_rows(x)
+        skips = [self.inc(nchw(x), rows)]
         for k in range(1, 5):
-            skips.append(getattr(self, f"down{k}")(max_pool(skips[-1])))
+            skips.append(getattr(self, f"down{k}")(max_pool(skips[-1], rows), rows // 2))
+            rows //= 2
         y = skips.pop()
         bottleneck = y
         for k in range(1, 5):
-            up = getattr(self, f"up{k}_up")(y)
-            y = getattr(self, f"up{k}_conv")(torch.cat([skips.pop(), up], dim=1))
-        pred = self.outc(y)
+            up = getattr(self, f"up{k}_up")(y, rows)
+            rows *= 2
+            y = getattr(self, f"up{k}_conv")(torch.cat([skips.pop(), up], dim=1), rows)
+        pred = self.outc(y, rows)
         return SegOutput(pred=nhwc(pred), aux=None, dcdr_ft=nhwc(y),
                          bottleneck=nhwc(bottleneck))

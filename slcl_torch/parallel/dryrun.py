@@ -164,10 +164,12 @@ def _rank_main(rank: int, world: int, store: str, model_axis: int, entry: str,
     mesh = dp.make_mesh(model_axis, backend="gloo", device=torch.device(device),
                         init_method=f"file://{store}", rank=rank, world_size=world,
                         spatial=spatial)
+    done = False
     try:
         torch.save(fn(mesh, *args), Path(out) / f"rank{rank}.pt")
+        done = True
     finally:
-        dp.release()
+        dp.release(synced=done)
 
 
 def spawn(world: int, entry: str, args: tuple = (), model_axis: int = 1,

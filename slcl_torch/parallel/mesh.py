@@ -150,9 +150,15 @@ def make_mesh(model_axis: int = 1, backend: Optional[str] = None,
     return mesh
 
 
-def release() -> None:
-    """Destroy the process group (the end of a run or of a test's rank)."""
+def release(synced: bool = False) -> None:
+    """Destroy the process group (the end of a run or of a test's rank).
+    ``synced``: after a barrier, so that no rank tears down its connections
+    while a peer is still inside a collective with it (a gloo peer then
+    aborts); a rank that failed passes False, and its peers' collectives
+    fail at once instead of waiting for it."""
     if dist.is_initialized():
+        if synced and dist.get_world_size() > 1:
+            dist.barrier()
         dist.destroy_process_group()
 
 

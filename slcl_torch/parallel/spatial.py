@@ -17,7 +17,8 @@ Every operator is the same three steps on every rank:
    fetched by :class:`_Fetch`: its own rows locally, its neighbours' (or
    any rank's, for a halo wider than a band) through one all-reduce over
    the model group of a buffer with a slot per (reader, owner) pair, and
-   zeros outside ``[0, rows)`` (the image's true top and bottom edges).
+   the operator's padding value outside ``[0, rows)`` (the image's true
+   top and bottom edges: zeros, or ``-inf`` for a max-pool).
    The backward sends each slot's gradient back to its owner the same way
    and adds it there. Only all-reduces, which gloo runs on CUDA tensors as
    well as NCCL; no exchange at all where no rank reads another's rows (a
@@ -75,10 +76,10 @@ def _plan(rows: int, reads: Sequence[Tuple[int, int]], parts: int):
 
 class _Fetch(torch.autograd.Function):
     """Global rows ``[lo, hi)`` of a row-sharded NCHW tensor on this rank
-    (zeros outside ``[0, rows)``), from every rank's ``reads``."""
+    (``fill`` outside ``[0, rows)``), from every rank's ``reads``."""
 
     @staticmethod
-    def forward(ctx, x, rows, reads, mesh):
+    def forward(ctx, x, rows, reads, mesh, fill=0.0):
         rank, parts = mesh.model_rank, mesh.model_size
         b = bounds(rows, parts)
         if x.shape[2] != b[rank + 1] - b[rank]:
@@ -95,6 +96,9 @@ class _Fetch(torch.autograd.Function):
                     buf[:, :, at:at + e - s] = x[:, :, s - b[rank]:e - b[rank]]
             dist.all_reduce(buf, group=mesh.model_group)
         out = _zeros(x, (n, c, hi - lo, w))
+        if fill != 0.0:
+            # every row inside [0, rows) is written below
+            out.fill_(fill)
         own_s, own_e = max(lo, b[rank]), min(hi, b[rank + 1])
         if own_s < own_e:
             out[:, :, own_s - lo:own_e - lo] = x[:, :, own_s - b[rank]:own_e - b[rank]]
@@ -124,7 +128,7 @@ class _Fetch(torch.autograd.Function):
             for reader, owner, s, e, at in slots:
                 if owner == rank:
                     dx[:, :, s - b[rank]:e - b[rank]] += buf[:, :, at:at + e - s]
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 def _zeros(like: torch.Tensor, shape) -> torch.Tensor:
@@ -150,14 +154,15 @@ def _reads(rows_in: int, rows_out: int, parts: int, span) -> List[Tuple[int, int
     return out
 
 
-def _rowwise(x: torch.Tensor, rows_in: int, rows_out: int, span, fn, first) -> torch.Tensor:
+def _rowwise(x: torch.Tensor, rows_in: int, rows_out: int, span, fn, first,
+             fill: float = 0.0) -> torch.Tensor:
     """Steps 1-3 of the module docstring: ``fn`` on the fetched rows
-    ``[lo, hi)`` gives output rows from global row ``first(lo)`` on; the
-    band is kept."""
+    ``[lo, hi)`` (``fill`` outside the image) gives output rows from global
+    row ``first(lo)`` on; the band is kept."""
     m = dp.spatial()
     parts, rank = m.model_size, m.model_rank
     reads = _reads(rows_in, rows_out, parts, span)
-    xs = _Fetch.apply(x, rows_in, reads, m)
+    xs = _Fetch.apply(x, rows_in, reads, m, fill)
     y = fn(xs)
     b = bounds(rows_out, parts)
     start = b[rank] - first(reads[rank][0]) if b[rank] < b[rank + 1] else 0
@@ -168,8 +173,11 @@ def _rowwise(x: torch.Tensor, rows_in: int, rows_out: int, span, fn, first) -> t
     return y.narrow(2, start, b[rank + 1] - b[rank]).clone()
 
 
-def conv_rows(conv: nn.Conv2d, rows: int) -> int:
-    """The global output rows of ``conv`` on ``rows`` input rows."""
+def conv_rows(conv: nn.Conv2d, rows: Optional[int]) -> Optional[int]:
+    """The global output rows of ``conv`` on ``rows`` input rows (None:
+    none given, the plain operators)."""
+    if rows is None:
+        return None
     k, s, p, d = conv.kernel_size[0], conv.stride[0], conv.padding[0], conv.dilation[0]
     return (rows + 2 * p - d * (k - 1) - 1) // s + 1
 
@@ -184,8 +192,9 @@ class Conv2d(nn.Conv2d):
         if dp.spatial() is None or rows is None:
             return super().forward(x)
         k, s, p, d = self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0]
-        if k == 1 and s == 1 and p == 0:
-            return super().forward(x)          # row-local: no halo
+        if k == 1 and s == 1 and p == 0 and x.shape[2]:
+            return super().forward(x)          # row-local: no halo (an empty
+            # band, which torch's convolution refuses, takes the steps below)
         span = lambda o0, o1: (o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1)
         fn = lambda xs: F.conv2d(xs, self.weight, self.bias, (s, self.stride[1]),
                                  (0, self.padding[1]), (d, self.dilation[1]), self.groups)
@@ -199,6 +208,49 @@ def max_pool(x: torch.Tensor, rows: int) -> torch.Tensor:
         return F.max_pool2d(x, 2, 2)
     return _rowwise(x, rows, rows // 2, lambda o0, o1: (2 * o0, 2 * o1),
                     lambda xs: F.max_pool2d(xs, 2, 2), lambda lo: lo // 2)
+
+
+def pool3_rows(rows: int, ceil: bool = False) -> int:
+    """The output rows of :func:`max_pool3` on ``rows`` input rows (torch's
+    ``MaxPool2d(3, 2, 1, ceil_mode=ceil)``: a ceil-mode window must start
+    inside the input or its top padding)."""
+    out = (-(-(rows - 1) // 2) if ceil else (rows - 1) // 2) + 1
+    return out - 1 if ceil and (out - 1) * 2 >= rows + 1 else out
+
+
+def max_pool3(x: torch.Tensor, rows: int, ceil: bool = False) -> torch.Tensor:
+    """3x3 stride-2 max-pool with one ``-inf`` row and column of padding
+    (``ceil``: torch's ceil mode, padding the bottom by two) of a
+    (row-sharded) NCHW tensor of ``rows`` global rows: a ResNet stem's pool.
+    Output row ``i`` reads input rows ``2i - 1 .. 2i + 1``; rows outside the
+    image are ``-inf``, so a window reaches the same arg-max (and routes its
+    gradient to the same input) as the unsharded pool's."""
+    if dp.spatial() is None:
+        return F.max_pool2d(x, 3, 2, padding=1, ceil_mode=ceil)
+    return _rowwise(x, rows, pool3_rows(rows, ceil), lambda o0, o1: (2 * o0 - 1, 2 * o1),
+                    lambda xs: F.max_pool2d(xs, 3, 2, padding=(0, 1), ceil_mode=ceil),
+                    lambda lo: (lo + 1) // 2, fill=-math.inf)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (the same parameters and state dict) whose
+    forward takes the input's global ``rows``. Under a spatial mesh only a
+    kernel as tall as its stride, without row padding (UNet's 2x2 stride-2
+    up-convolution): output row ``i`` reads input row ``i // stride``."""
+
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        if dp.spatial() is None or rows is None:
+            return super().forward(x)
+        k, s = self.kernel_size[0], self.stride[0]
+        if k != s or self.padding[0] or self.output_padding[0] or self.dilation[0] != 1:
+            raise NotImplementedError(
+                f"spatial: a transposed convolution of kernel {self.kernel_size}, stride "
+                f"{self.stride}, padding {self.padding}: only kernel == stride, no padding")
+        fn = lambda xs: F.conv_transpose2d(xs, self.weight, self.bias, (s, self.stride[1]),
+                                           (0, self.padding[1]), (0, self.output_padding[1]),
+                                           self.groups, self.dilation)
+        return _rowwise(x, rows, s * rows, lambda o0, o1: (o0 // s, (o1 - 1) // s + 1), fn,
+                        lambda lo: s * lo)
 
 
 def upsample_nearest(x: torch.Tensor, rows: int) -> torch.Tensor:

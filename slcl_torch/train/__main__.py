@@ -88,15 +88,17 @@ def main(argv):
     cfg, device, _ = parse_args(argv, "slcl")
     from ..parallel import mesh as dp
     from .trainer import Trainer
+    done = False
     try:
         trainer = Trainer(cfg, device=device)
         result = {"device": str(trainer.device), "out_dir": str(trainer.out_dir),
                   **trainer.train()}
         if trainer.writer:
             print(json.dumps(result), flush=True)
+        done = True
     finally:
         if dp.launched():
-            dp.release()
+            dp.release(synced=done)
     return result
 
 

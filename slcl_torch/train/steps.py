@@ -120,7 +120,12 @@ def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
     Under autocast, ``dots`` needs :func:`autocast`'s uncached weight casts:
     a cached cast would serve the target forward without the casts its
     recompute makes, and selective checkpointing refuses a differing op
-    sequence."""
+    sequence. Under a spatial mesh the recompute issues the forward's halo
+    exchanges and BatchNorm all-reduces again, inside the backward: every
+    rank runs the same graph, so the autograd engine reaches each
+    checkpoint's first saved tensor at the same point on every rank and the
+    ranks' collectives pair up in one order (``dots`` saves no collective's
+    output: the exchanges are recomputed)."""
     mode = remat_mode(remat)
     if not mode:
         return seg(x)

@@ -84,13 +84,16 @@ Spatial partitioning (``mesh.spatial`` with model ranks, JAX's
 ``H / model_axis`` rows of its data rank's images (``img_*``, ``lab_*``,
 ``plabel_*``; an ``H`` the model ranks do not divide raises ``ValueError``),
 and the step still equals the one-process step on the global batch
-(``parallel/spatial.py``: convolutions with halos, pools and resizes that
-reshard uneven stages; the reductions over every rank). It covers DRUNet
-and its ``UncertaintyDiscriminator``: ``baseline``, ``adaptseg``,
-``advent``, ``mpscl``, ``slcl`` and ``mccl`` without RAIN and without
-``model.remat``; any other network or method raises
-``NotImplementedError`` naming both. Validation and test run on whole
-images, as JAX's evaluator does.
+(``parallel/spatial.py``: convolutions with halos, pools, transposed
+convolutions and resizes that reshard uneven stages; the reductions over
+every rank). It covers the segmentors DRUNet, ResNetUNet
+(``resnet50``/``resnet50_unet``), UNet and DeepLabV2
+(``deeplabv2``/``resnet101``) with the ``UncertaintyDiscriminator``:
+``baseline``, ``adaptseg``, ``advent``, ``mpscl``, ``slcl`` and ``mccl``
+without RAIN, with ``model.remat`` off, ``full`` or ``dots`` (each rank
+recomputes its forward's halo exchanges in the same order); any other
+network or method raises ``NotImplementedError`` naming both. Validation
+and test run on whole images, as JAX's evaluator does.
 """
 from __future__ import annotations
 
@@ -137,8 +140,10 @@ _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
 _ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
 _CONTRASTIVE = ("mpscl", "slcl", "mccl")
 _OWN_NETS = ("ddfseg", "adaptevery", "bcl")     # built by _build_<method>
-# spatial partitioning: DRUNet and its UncertaintyDiscriminator
+# spatial partitioning: these methods on these segmentors, with the
+# UncertaintyDiscriminator
 _SPATIAL = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl")
+_SPATIAL_NETS = ("drunet", "resnet50", "resnet50_unet", "unet", "deeplabv2", "resnet101")
 _OWN_NET_NAMES = {"ddfseg": "DDFSeg", "adaptevery": "ResNetUNetPoint", "bcl": "BCLDeepLab"}
 # the batch keys whose rows a spatial mesh splits (JAX's _is_spatial)
 _SPATIAL_KEYS = ("img", "lab", "plabel")
@@ -164,20 +169,22 @@ def check_ported_keys(cfg: Config) -> None:
 
 def check_spatial(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming the network and the method when
-    spatial partitioning does not cover them: it covers DRUNet with its
-    ``UncertaintyDiscriminator`` (:data:`_SPATIAL`), without RAIN's style
-    net and without ``model.remat``."""
+    spatial partitioning does not cover them: it covers the methods of
+    :data:`_SPATIAL` on the segmentors of :data:`_SPATIAL_NETS` with the
+    ``UncertaintyDiscriminator``, without RAIN's style net; ``model.remat``
+    any mode. (DeepLabV2 under a contrastive method raises its own
+    ``ValueError`` when the Trainer builds it, as without a mesh.)"""
     net = _OWN_NET_NAMES.get(cfg.method, cfg.model.backbone)
     if cfg.rain.enabled or cfg.method in ("rain", "pretrain_rain"):
         net = f"{net} with the RAIN style net"
-    if (cfg.method not in _SPATIAL or cfg.model.backbone != "drunet" or cfg.rain.enabled
-            or remat_mode(cfg.model.remat)):
-        remat = f", model.remat={cfg.model.remat}" if remat_mode(cfg.model.remat) else ""
+    if (cfg.method not in _SPATIAL or cfg.model.backbone.lower() not in _SPATIAL_NETS
+            or cfg.rain.enabled):
         raise NotImplementedError(
             f"mesh.spatial=true with model ranks: network {net!r}, method "
-            f"{cfg.method!r}{remat} is not ported; slcl_torch splits image rows for "
-            f"DRUNet and its UncertaintyDiscriminator ({', '.join(_SPATIAL)}, without "
-            "RAIN or model.remat); use mesh.spatial=false")
+            f"{cfg.method!r} is not ported; slcl_torch splits image rows for DRUNet, "
+            "ResNetUNet (resnet50), UNet and DeepLabV2 (deeplabv2) with the "
+            f"UncertaintyDiscriminator ({', '.join(_SPATIAL)}, without RAIN); use "
+            "mesh.spatial=false")
 
 
 def build_rain(cfg: Config, device: torch.device) -> RAIN:

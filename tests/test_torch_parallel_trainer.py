@@ -75,8 +75,8 @@ def test_refusals_and_unsharded_pretrain_rain(tmp_path):
                      module=MOD, spatial=True):
         assert got["local_rows"] == C.H // 2
         assert all(np.isfinite(v) for v in got["step"].values()) and got["step"]
-        kind, msg = got["resnet50"]
-        assert kind == "NotImplementedError" and "mesh.spatial" in msg and "'resnet50'" in msg
+        kind, msg = got["ddfseg"]
+        assert kind == "NotImplementedError" and "mesh.spatial" in msg and "'DDFSeg'" in msg
     for got in ranks:
         kind, msg = got["bs"]
         assert kind == "ValueError" and "data.bs=3" in msg and "2 data ranks" in msg

@@ -6,9 +6,10 @@ import copy
 import numpy as np
 import torch
 
-from slcl_torch.config import Config
+from slcl_torch.config import Config, apply_recipe
 from slcl_torch.parallel import dryrun as D
 from slcl_torch.parallel import mesh as dp
+from slcl_torch.testing import SPATIAL_CELLS, shallow_segmentor
 
 H = 16
 B = 8
@@ -40,18 +41,19 @@ def small_cfg(method: str) -> Config:
     return cfg
 
 
-def batches(method: str, n: int, seed: int = 1234):
-    """``n`` global batches of numpy arrays for ``method``'s step."""
+def batches(method: str, n: int, seed: int = 1234, h: int = H, bs: int = B):
+    """``n`` global batches of ``bs`` ``h`` x ``h`` images (numpy arrays)
+    for ``method``'s step."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        b = {"img_s": rng.normal(size=(B, H, H, 3)).astype(np.float32),
-             "lab_s": rng.integers(0, 4, size=(B, H, H)).astype(np.int32),
-             "img_t": rng.normal(size=(B, H, H, 3)).astype(np.float32)}
+        b = {"img_s": rng.normal(size=(bs, h, h, 3)).astype(np.float32),
+             "lab_s": rng.integers(0, 4, size=(bs, h, h)).astype(np.int32),
+             "img_t": rng.normal(size=(bs, h, h, 3)).astype(np.float32)}
         if method in ("mccl", "mccl_rain"):
-            b["img_t_aug"] = rng.normal(size=(B, H, H, 3)).astype(np.float32)
+            b["img_t_aug"] = rng.normal(size=(bs, h, h, 3)).astype(np.float32)
         if method == "bcl":
-            plabel = rng.integers(0, 4, size=(B, H, H)).astype(np.int32)
+            plabel = rng.integers(0, 4, size=(bs, h, h)).astype(np.int32)
             plabel[:, ::3] = 255
             b["plabel_t"] = plabel
         out.append(b)
@@ -102,19 +104,21 @@ def use_draws(trainer, draws: dict) -> None:
 
 def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
                 weights: str = "", restore: str = "", save: str = "",
-                draws: dict = None) -> dict:
+                draws: dict = None, shallow: str = "") -> dict:
     """The Trainer of ``cfg`` (its nets loaded from the ``weights`` file of
     whole state dicts, or its full state from the ``restore`` checkpoint),
     one step on this rank's rows of each global batch, and after each the
     metrics and the whole state (``steps``); with ``save`` the tag of a
     checkpoint written after the last step (``ckpt``, its path). ``dtype``
     is torch's default throughout; ``draws`` (:func:`use_draws`) replaces
-    the step's own random draws."""
+    the step's own random draws; ``shallow`` (:func:`shallow_segmentor`)
+    the segmentor."""
     before = torch.get_default_dtype()
     torch.set_default_dtype(dtype)
     try:
         with dp.use(mesh):
-            trainer = build_trainer(cfg, work, dtype)
+            with shallow_segmentor(shallow):
+                trainer = build_trainer(cfg, work, dtype)
             s = trainer.state
             if weights:
                 for name, sd in torch.load(weights, weights_only=True).items():
@@ -144,9 +148,10 @@ def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
 
 def methods_entry(mesh, specs, work: str) -> dict:
     """:func:`steps_entry` of each ``(name, cfg, batches, scheds, dtype,
-    draws)`` in turn (``draws`` may be left out)."""
+    draws, shallow)`` in turn (``draws`` and ``shallow`` may be left out)."""
     return {spec[0]: steps_entry(mesh, *spec[1:4], f"{work}/{spec[0]}", spec[4],
-                                 draws=spec[5] if len(spec) > 5 else None)
+                                 draws=spec[5] if len(spec) > 5 else None,
+                                 shallow=spec[6] if len(spec) > 6 else "")
             for spec in specs}
 
 
@@ -255,6 +260,40 @@ def spatial_cfg(method: str, fsdp: bool = False) -> Config:
     return cfg
 
 
+# the sizes of the spatial runs (slcl_torch.testing.SPATIAL_CELLS): name ->
+# (crop, global batch). ResNetUNet one block a stage at base 8
+# (SMALL_NETS), at 32 rows (its layer-4 map is one row, all on the first
+# model rank) and four images. At two images its second step cannot tell
+# rounding from a fault (tools/spatial_noise_floor.py): the one process on
+# the same images in reverse order already parts from it past the
+# tolerances (1.17 of them, the bands 43), and inputs one float32 ulp apart
+# part by 21,369 of them (4.2 at four images; the bands 0.0017); its
+# layer-4 BatchNorm then normalises two values a channel. UNet at base 8
+# and DeepLabV2 one block a stage (its widths whole) at 16 (its stages 8, 5
+# and 3 rows); DeepLabV2 at two images, for the tests' time
+SMALL_NETS = {"layers": (1, 1, 1, 1), "base": 8}
+SPATIAL_SIZES = {"resnet50_slcl": (32, 4), "resnet50_mccl": (32, 4),
+                 "unet_baseline": (H, B), "deeplabv2_advent": (H, 2),
+                 "deeplabv2_adaptseg": (H, 2), "slcl_remat_full": (H, B),
+                 "slcl_remat_dots": (H, B)}
+
+
+def spatial_run(name: str, fsdp: bool = False, bs: int = 0):
+    """(cfg, two global batches, the shallow segmentor) of the spatial run
+    ``name`` of ``SPATIAL_CELLS`` at :data:`SPATIAL_SIZES` (``mccl``: the
+    preset, at :func:`small_cfg`'s sizes); ``bs`` overrides the batch."""
+    method, model, shallow = SPATIAL_CELLS[name]
+    crop, bs = SPATIAL_SIZES[name][0], bs or SPATIAL_SIZES[name][1]
+    cfg = spatial_cfg(method, fsdp)
+    if method == "mccl":
+        cfg = apply_recipe(cfg)
+    for k, v in {**model, **(SMALL_NETS if model.get("backbone") == "resnet50" else {})
+                 }.items():
+        setattr(cfg.model, k, v)
+    cfg.data.crop, cfg.data.bs, cfg.data.eval_bs = crop, bs, bs
+    return cfg, batches("mpscl" if method == "slcl" else method, 2, h=crop, bs=bs), shallow
+
+
 def spatial_ops_entry(mesh, cases) -> list:
     """Each row-sharded operator of ``cases`` on this rank's band of the
     global input (``parallel/spatial.py``'s layout), in float64: its output
@@ -276,6 +315,23 @@ def spatial_ops_entry(mesh, cases) -> list:
 
 
 def _spatial_op(mesh, case, sp, BatchNorm) -> dict:
+    calls = [0]
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+    torch.distributed.all_reduce = counted
+    try:
+        res = _spatial_op_run(mesh, case, sp, BatchNorm)
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    # the halo exchanges of the forward and the backward
+    res["exchanges"] = calls[0]
+    return res
+
+
+def _spatial_op_run(mesh, case, sp, BatchNorm) -> dict:
     x = torch.from_numpy(case["x"])
     rows, r, m = x.shape[2], mesh.model_rank, mesh.model_size
     b = sp.bounds(rows, m)
@@ -292,19 +348,28 @@ def _spatial_op(mesh, case, sp, BatchNorm) -> dict:
         y = module(xl, rows)
     elif kind == "max_pool":
         y = sp.max_pool(xl, rows)
+    elif kind == "max_pool3":
+        y = sp.max_pool3(xl, rows, case["ceil"])
+    elif kind == "conv_transpose":
+        w = torch.from_numpy(case["w"])
+        module = sp.ConvTranspose2d(w.shape[0], w.shape[1], 2, stride=2)
+        module.load_state_dict({"weight": w, "bias": torch.from_numpy(case["b"])})
+        y = module(xl, rows)
     elif kind == "nearest":
         y = sp.upsample_nearest(xl, rows)
     elif kind == "bilinear":
         y = sp.upsample_bilinear(xl, case["size"], rows)
     else:
-        module = BatchNorm(x.shape[1])
+        from slcl_torch.models.common import FrozenBatchNorm
+        module = (FrozenBatchNorm if case.get("frozen") else BatchNorm)(x.shape[1])
         y = module(xl)
     g = torch.from_numpy(case["g"])
     bo = sp.bounds(g.shape[2], m)
     (y * g[:, :, bo[r]:bo[r + 1]]).sum().backward()
     res = {"y": y.detach().numpy(), "dx": xl.grad.numpy(), "dparams": {}}
     if module is not None:
-        res["dparams"] = {n: p.grad.numpy() for n, p in module.named_parameters()}
+        res["dparams"] = {n: np.zeros(p.shape) if p.grad is None else p.grad.numpy()
+                          for n, p in module.named_parameters()}
         res["buffers"] = {n: t.numpy().copy() for n, t in module.named_buffers()}
     return res
 
@@ -329,18 +394,15 @@ def spatial_checks_entry(mesh, work: str) -> dict:
             except Exception as e:  # the test checks the type and message
                 out[key] = (type(e).__name__, str(e))
 
-        cases = {"resnet50": ("slcl", {"backbone": "resnet50", "layers": (1, 1, 1, 1),
-                                       "base": 8}),
-                 "unet": ("baseline", {"backbone": "unet"}),
-                 "deeplabv2": ("advent", {"backbone": "deeplabv2"}),
-                 "rain": ("mccl", {}), "ddfseg": ("ddfseg", {}),
+        cases = {"rain": ("mccl", {}), "ddfseg": ("ddfseg", {}),
                  "adaptevery": ("adaptevery", {}), "bcl": ("bcl", {}),
-                 "remat": ("mpscl", {"remat": "full"})}
+                 "rain_remat": ("mccl", {"remat": "full"}),
+                 "deeplabv2_slcl": ("slcl", {"backbone": "deeplabv2"})}
         for name, (method, model) in cases.items():
             cfg = spatial_cfg(method)
             for k, v in model.items():
                 setattr(cfg.model, k, v)
-            if name == "rain":
+            if name.startswith("rain"):
                 cfg.rain.enabled = True
             attempt(name, lambda: D.make_trainer(cfg, work))
         plain = spatial_cfg("mpscl")
@@ -361,10 +423,59 @@ def spatial_checks_entry(mesh, work: str) -> dict:
     return out
 
 
-def spatial_2x2_entry(mesh, specs, work: str) -> dict:
-    """:func:`methods_entry` of ``specs`` and :func:`spatial_checks_entry`
-    in one set of ranks."""
+def state_errors(got: dict, want: dict, rtol: float, atol: float) -> list:
+    """The entries of two ``state_arrays`` that differ beyond tolerance (as
+    :func:`assert_state_close` holds them), each with its largest
+    difference; empty when they agree."""
+    if set(got) != set(want):
+        return [f"entries differ: {sorted(set(got) ^ set(want))[:4]}"]
+    return [f"{k}: max |diff| {float(np.abs(got[k] - w).max()):.3g}"
+            for k, w in want.items()
+            if got[k].shape != w.shape or not np.allclose(got[k], w, rtol=rtol, atol=atol)]
+
+
+def compare_entry(mesh, specs, work: str, expected: dict = None) -> dict:
+    """:func:`methods_entry` of ``specs`` under ``mesh``, then the same in
+    this process alone (no mesh; a spec named ``<name>_fsdp``, FSDP's form of
+    the spec ``<name>``, shares that one's), compared here at the
+    data-parallel tolerances (the state rtol 1e-4 / atol 1e-6): per spec and
+    step the metrics of both and the state's differences
+    (:func:`state_errors`); for a spec that ``expected`` names, also those
+    from the steps on its file (``[(metrics, state_arrays)]`` a step: JAX's
+    spatial step in the port's layout). The large states of the deep
+    backbones then stay in the ranks."""
+    got = methods_entry(mesh, specs, f"{work}/mesh")
+    want = methods_entry(None, [s for s in specs if not s[0].endswith("_fsdp")],
+                         f"{work}/one")
+    out = {}
+    for name in got:
+        ref = torch.load(expected[name], weights_only=False) if name in (expected or {}) \
+            else None
+        out[name] = []
+        for i, (g, w) in enumerate(zip(got[name]["steps"],
+                                       want[name.removesuffix("_fsdp")]["steps"])):
+            rec = {"metrics": g["metrics"], "want_metrics": w["metrics"],
+                   "errors": state_errors(g["state"], w["state"], 1e-4, 1e-6),
+                   "sharded": g["sharded"]}
+            if ref is not None:
+                rec["jax_metrics"] = ref[i][0]
+                rec["jax_errors"] = state_errors(g["state"], ref[i][1], 1e-4, 1e-6)
+            out[name].append(rec)
+    return out
+
+
+def spatial_1x2_entry(mesh, specs, runs, work: str) -> dict:
+    """:func:`methods_entry` of ``specs`` and :func:`compare_entry` of
+    ``runs`` in one set of ranks."""
     return {"methods": methods_entry(mesh, specs, f"{work}/methods"),
+            "runs": compare_entry(mesh, runs, f"{work}/runs")}
+
+
+def spatial_2x2_entry(mesh, specs, work: str, runs=(), expected: dict = None) -> dict:
+    """:func:`methods_entry` of ``specs``, :func:`compare_entry` of ``runs``
+    and :func:`spatial_checks_entry` in one set of ranks."""
+    return {"methods": methods_entry(mesh, specs, f"{work}/methods"),
+            "runs": compare_entry(mesh, runs, f"{work}/runs", expected),
             "checks": spatial_checks_entry(mesh, f"{work}/checks")}
 
 
