@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as dp
+from ..parallel import spatial as sp
 from .common import max_pool, nchw, nhwc, upsample_nearest
 
 LATENT = 512
@@ -54,11 +56,22 @@ def calc_mean_std(feat: torch.Tensor, eps: float = 1e-5
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Channel mean and std of NHWC features, in float32, dims kept:
     (N, 1, 1, C) each; the variance is unbiased (ddof 1, torch's
-    ``var()``, reference utils_.py:190) plus ``eps``."""
+    ``var()``, reference utils_.py:190) plus ``eps``. Under spatial
+    partitioning ``feat`` is a band of each image's rows and the moments are
+    the whole images', the same on every model rank: the sums go over the
+    model ranks (``mesh.sample_sum``) in two passes, the mean (with the
+    global H x W) and then the squared deviations from it."""
     f = feat.float()
-    mean = f.mean(dim=(1, 2), keepdim=True)
-    var = f.var(dim=(1, 2), keepdim=True, correction=1) + eps
-    return mean, var.sqrt()
+    if dp.spatial() is None:
+        mean = f.mean(dim=(1, 2), keepdim=True)
+        var = f.var(dim=(1, 2), keepdim=True, correction=1) + eps
+        return mean, var.sqrt()
+    count = f.new_full((f.shape[0], 1, 1, 1), float(f.shape[1] * f.shape[2]))
+    sums = dp.sample_sum(torch.cat([f.sum(dim=(1, 2), keepdim=True), count], dim=-1))
+    n = sums[..., -1:]
+    mean = sums[..., :-1] / n
+    sq = dp.sample_sum(((f - mean) ** 2).sum(dim=(1, 2), keepdim=True))
+    return mean, (sq / (n - 1.0) + eps).sqrt()
 
 
 def calc_feat_mean_std(feat: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -86,8 +99,8 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _refl_conv(in_ch: int, out_ch: int, generator) -> nn.Conv2d:
     """3x3 conv on a reflect-padded input (``jnp.pad(mode='reflect')`` +
-    VALID)."""
-    conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, padding_mode="reflect")
+    VALID); row-sharded under spatial partitioning."""
+    conv = sp.Conv2d(in_ch, out_ch, 3, padding=1, padding_mode="reflect")
     kaiming_init_(conv, generator)
     return conv
 
@@ -106,17 +119,22 @@ class VGGEncoder(nn.Module):
         for name, i, o in chans:
             self.add_module(name, _refl_conv(i, o, g))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> List[torch.Tensor]:
+        """``rows``: the input's global rows (spatial partitioning; each
+        pool halves them)."""
+        half = (lambda r: r // 2) if rows is not None else (lambda r: None)
         x = self.conv0(x.to(self.conv0.weight.dtype))
-        r1 = x = F.relu(self.conv1_1(x))
-        x = max_pool(F.relu(self.conv1_2(x)))
-        r2 = x = F.relu(self.conv2_1(x))
-        x = max_pool(F.relu(self.conv2_2(x)))
-        r3 = x = F.relu(self.conv3_1(x))
+        r1 = x = F.relu(self.conv1_1(x, rows))
+        x = max_pool(F.relu(self.conv1_2(x, rows)), rows)
+        rows = half(rows)
+        r2 = x = F.relu(self.conv2_1(x, rows))
+        x = max_pool(F.relu(self.conv2_2(x, rows)), rows)
+        rows = half(rows)
+        r3 = x = F.relu(self.conv3_1(x, rows))
         for name in ("conv3_2", "conv3_3", "conv3_4"):
-            x = F.relu(getattr(self, name)(x))
-        x = max_pool(x)
-        r4 = F.relu(self.conv4_1(x))
+            x = F.relu(getattr(self, name)(x, rows))
+        x = max_pool(x, rows)
+        r4 = F.relu(self.conv4_1(x, half(rows)))
         return [r1, r2, r3, r4]
 
 
@@ -133,14 +151,20 @@ class VGGDecoder(nn.Module):
         for name, i, o in chans:
             self.add_module(name, _refl_conv(i, o, g))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = upsample_nearest(F.relu(self.d1(x.to(self.d1.weight.dtype))))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        """``rows``: the input's global rows (spatial partitioning; each
+        upsample doubles them)."""
+        double = (lambda r: 2 * r) if rows is not None else (lambda r: None)
+        x = upsample_nearest(F.relu(self.d1(x.to(self.d1.weight.dtype), rows)), rows)
+        rows = double(rows)
         for name in ("d2_0", "d2_1", "d2_2", "d3"):
-            x = F.relu(getattr(self, name)(x))
-        x = upsample_nearest(x)
-        x = F.relu(self.d5(F.relu(self.d4(x))))
-        x = upsample_nearest(x)
-        return self.d7(F.relu(self.d6(x)))
+            x = F.relu(getattr(self, name)(x, rows))
+        x = upsample_nearest(x, rows)
+        rows = double(rows)
+        x = F.relu(self.d5(F.relu(self.d4(x, rows)), rows))
+        x = upsample_nearest(x, rows)
+        rows = double(rows)
+        return self.d7(F.relu(self.d6(x, rows)), rows)
 
 
 class _FC(nn.Module):
@@ -184,8 +208,16 @@ class RAIN(nn.Module):
         self.fc_decoder = FCDecoder(generator)
 
     def encode_with_intermediate(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """The four NHWC taps of NHWC images."""
-        return [nhwc(f) for f in self.encoder(nchw(x))]
+        """The four NHWC taps of NHWC images (under spatial partitioning of
+        this rank's band of their rows, ``image_rows``)."""
+        rows = sp.image_rows(x) if dp.spatial() is not None else None
+        return [nhwc(f) for f in self.encoder(nchw(x), rows)]
+
+    def decode(self, feat: torch.Tensor, rows: int) -> torch.Tensor:
+        """The NHWC image of NHWC relu4_1 features of images of ``rows``
+        global rows (relu4_1 has ``rows // 8``)."""
+        r = rows // 8 if dp.spatial() is not None else None
+        return nhwc(self.decoder(nchw(feat.contiguous()), r))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return self.encode_with_intermediate(x)[-1]
@@ -211,7 +243,7 @@ class RAIN(nn.Module):
         mean, std, sampling = self._latent(stats, noise)
         recons = self.fc_decoder(sampling)
         t = adain_with_noise(content_feat, recons.detach())
-        g_t = nhwc(self.decoder(nchw(t.contiguous())))
+        g_t = self.decode(t, sp.image_rows(content))
         g_t_feats = self.encode_with_intermediate(g_t)
         loss_c = _mse(g_t_feats[-1], t.detach())
         loss_s = 0.0
@@ -239,4 +271,4 @@ class RAIN(nn.Module):
                 raise ValueError("style_transfer without a sampling needs noise")
             sampling = self.sample(style, noise)
         feat = adain_with_noise(content_feat, self.fc_decoder(sampling))
-        return nhwc(self.decoder(nchw(feat.contiguous()))), sampling
+        return self.decode(feat, sp.image_rows(content)), sampling

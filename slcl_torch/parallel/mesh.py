@@ -344,13 +344,30 @@ def global_image_shape(shape: Sequence[int]) -> tuple:
 
 def first_rows(t: torch.Tensor) -> torch.Tensor:
     """Data rank 0's ``t`` on every data rank (without gradient): the global
-    batch's first rows where a step reads them (RAIN's style pair)."""
+    batch's first rows where a step reads them (RAIN's style pair). The
+    broadcast runs over this rank's data group, the ranks of its model rank,
+    so under spatial partitioning each model rank receives data rank 0's
+    band of its own rows."""
     m = current()
     if m is None or m.data_size == 1:
         return t
     t = t.detach().contiguous().clone()
     dist.broadcast(t, src=dist.get_global_rank(m.data_group, 0), group=m.data_group)
     return t
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The global batch's rows of ``t`` (this data rank's rows on dim 0) on
+    every data rank, without gradient (:func:`local_rows`' inverse): each
+    rank's rows in its slot of zeros, summed over the data group, which is
+    exact."""
+    m = current()
+    if m is None or m.data_size == 1:
+        return t
+    out = t.new_zeros((t.shape[0] * m.data_size, *t.shape[1:]))
+    out.narrow(0, m.data_rank * t.shape[0], t.shape[0]).copy_(t.detach())
+    dist.all_reduce(out, group=m.data_group)
+    return out
 
 
 def is_dtensor(t) -> bool:

@@ -18,7 +18,9 @@ Every operator is the same three steps on every rank:
    any rank's, for a halo wider than a band) through one all-reduce over
    the model group of a buffer with a slot per (reader, owner) pair, and
    the operator's padding value outside ``[0, rows)`` (the image's true
-   top and bottom edges: zeros, or ``-inf`` for a max-pool).
+   top and bottom edges: zeros, or ``-inf`` for a max-pool; a reflect-padded
+   convolution reads the mirrored image rows there, which may lie on
+   another rank).
    The backward sends each slot's gradient back to its owner the same way
    and adds it there. Only all-reduces, which gloo runs on CUDA tensors as
    well as NCCL; no exchange at all where no rank reads another's rows (a
@@ -154,15 +156,50 @@ def _reads(rows_in: int, rows_out: int, parts: int, span) -> List[Tuple[int, int
     return out
 
 
+def _mirror(g: int, rows: int) -> int:
+    """The row that ``jnp.pad(mode='reflect')`` puts at global row ``g`` of
+    a ``rows``-row tensor: row -k is row k, row rows - 1 + k is rows - 1 - k."""
+    if g < 0:
+        return -g
+    return 2 * (rows - 1) - g if g >= rows else g
+
+
+def _fetch_reflect(x: torch.Tensor, rows: int, reads, mesh) -> torch.Tensor:
+    """:class:`_Fetch` of ``reads`` with the rows outside ``[0, rows)``
+    mirrored: each rank fetches the image rows its reads map to (a mirrored
+    row may lie on another rank: a band of one row reads its neighbour's),
+    then picks them in order. The pick's backward adds a mirrored row's
+    gradient to the fetched row, and the fetch's sends it to its owner. An
+    empty band's read (below the image, :func:`_reads`) stays zeros."""
+    picks, fetch = [], []
+    for lo, hi in reads:
+        if lo > rows:
+            picks.append(None)
+            fetch.append((lo, hi))
+            continue
+        src = [_mirror(g, rows) for g in range(lo, hi)]
+        picks.append(src)
+        fetch.append((min(src), max(src) + 1))
+    xs = _Fetch.apply(x, rows, fetch, mesh)
+    src, (lo, hi) = picks[mesh.model_rank], fetch[mesh.model_rank]
+    if src is None or src == list(range(lo, hi)):
+        return xs
+    return xs.index_select(2, torch.tensor([s - lo for s in src], device=x.device))
+
+
 def _rowwise(x: torch.Tensor, rows_in: int, rows_out: int, span, fn, first,
-             fill: float = 0.0) -> torch.Tensor:
+             fill=0.0) -> torch.Tensor:
     """Steps 1-3 of the module docstring: ``fn`` on the fetched rows
-    ``[lo, hi)`` (``fill`` outside the image) gives output rows from global
-    row ``first(lo)`` on; the band is kept."""
+    ``[lo, hi)`` (``fill`` outside the image, or ``"reflect"``: the image's
+    rows mirrored at its edges) gives output rows from global row
+    ``first(lo)`` on; the band is kept."""
     m = dp.spatial()
     parts, rank = m.model_size, m.model_rank
     reads = _reads(rows_in, rows_out, parts, span)
-    xs = _Fetch.apply(x, rows_in, reads, m, fill)
+    if fill == "reflect":
+        xs = _fetch_reflect(x, rows_in, reads, m)
+    else:
+        xs = _Fetch.apply(x, rows_in, reads, m, fill)
     y = fn(xs)
     b = bounds(rows_out, parts)
     start = b[rank] - first(reads[rank][0]) if b[rank] < b[rank + 1] else 0
@@ -186,7 +223,9 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (the same parameters and state dict) whose forward
     takes the input's global ``rows``: under a spatial mesh it reads its
     halo from the neighbouring bands and pads zero rows only at the image's
-    edges. A module, so that FSDP's hooks gather its weights."""
+    edges (``padding_mode="reflect"``: the image's rows mirrored there, RAIN's
+    ``jnp.pad(mode='reflect')``). A module, so that FSDP's hooks gather its
+    weights."""
 
     def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         if dp.spatial() is None or rows is None:
@@ -196,9 +235,18 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)          # row-local: no halo (an empty
             # band, which torch's convolution refuses, takes the steps below)
         span = lambda o0, o1: (o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1)
-        fn = lambda xs: F.conv2d(xs, self.weight, self.bias, (s, self.stride[1]),
-                                 (0, self.padding[1]), (d, self.dilation[1]), self.groups)
-        return _rowwise(x, rows, conv_rows(self, rows), span, fn, lambda lo: (lo + p) // s)
+        reflect = self.padding_mode == "reflect"
+        if reflect:
+            cols = self.padding[1]
+            fn = lambda xs: F.conv2d(F.pad(xs, (cols, cols, 0, 0), mode="reflect"),
+                                     self.weight, self.bias, (s, self.stride[1]), 0,
+                                     (d, self.dilation[1]), self.groups)
+        else:
+            fn = lambda xs: F.conv2d(xs, self.weight, self.bias, (s, self.stride[1]),
+                                     (0, self.padding[1]), (d, self.dilation[1]),
+                                     self.groups)
+        return _rowwise(x, rows, conv_rows(self, rows), span, fn, lambda lo: (lo + p) // s,
+                        fill="reflect" if reflect else 0.0)
 
 
 def max_pool(x: torch.Tensor, rows: int) -> torch.Tensor:

@@ -7,12 +7,22 @@ check (``chip_smoke.py``) share.
   of the factory's network (the CPU tests); ``chip_smoke.py`` puts one in a
   built Trainer, whose discriminators its card checks were set on.
 - :data:`SPATIAL_CELLS`: the spatial-partitioning cells on the published
-  backbones and under ``model.remat``; each side sizes them its own way.
+  backbones, under ``model.remat`` and with RAIN's style net; each side
+  sizes them its own way. :data:`CELL_RAIN` holds a cell's ``rain.*``
+  settings and :func:`configure_cell` applies a cell's settings.
 """
 import contextlib
 
 # name -> (method, cfg.model overrides, the kind of shallow_segmentor or "")
 SPATIAL_CELLS = {
+    # the MCCL preset with RAIN's epsilon ascent, and RAIN-augmented
+    # supervised segmentation, on DRUNet
+    "mccl_rain": ("mccl", {}, ""),
+    "rain_seg": ("rain", {"multilvl": False}, ""),
+    # ... and with a sampling row per image (also data-parallel); DRUNet's
+    # plain mccl preset
+    "mccl_rain_mulstyle": ("mccl", {}, ""),
+    "drunet_mccl": ("mccl", {}, ""),
     "resnet50_slcl": ("slcl", {"backbone": "resnet50"}, ""),
     "resnet50_mccl": ("mccl", {"backbone": "resnet50"}, ""),
     "unet_baseline": ("baseline", {"backbone": "unet"}, "unet"),
@@ -22,6 +32,25 @@ SPATIAL_CELLS = {
     "slcl_remat_full": ("slcl", {"remat": "full"}, ""),
     "slcl_remat_dots": ("slcl", {"remat": "dots"}, ""),
 }
+
+
+# a cell's cfg.rain overrides
+CELL_RAIN = {
+    "mccl_rain": {"enabled": True, "update_eps": True, "eps_iters": 2, "eps_clip": 3.0},
+    "mccl_rain_mulstyle": {"enabled": True, "update_eps": True, "eps_iters": 2,
+                           "eps_clip": 3.0, "mulstyle": True},
+    "rain_seg": {"update_eps": True, "eps_iters": 2, "eps_clip": 3.0},
+}
+
+
+def configure_cell(cfg, name: str):
+    """``cfg`` with the cell ``name``'s ``model`` (:data:`SPATIAL_CELLS`) and
+    ``rain`` (:data:`CELL_RAIN`) settings; returns it."""
+    for k, v in SPATIAL_CELLS.get(name, ("", {}, ""))[1].items():
+        setattr(cfg.model, k, v)
+    for k, v in CELL_RAIN.get(name, {}).items():
+        setattr(cfg.rain, k, v)
+    return cfg
 
 
 def build_shallow(kind: str, model_cfg, generator=None):

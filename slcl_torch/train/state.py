@@ -193,11 +193,16 @@ def create_train_state(cfg, seg: nn.Module, *, disc: Optional[nn.Module] = None,
                       seed=cfg.run.seed)
 
 
+def per_image_styles(rain_cfg) -> bool:
+    """``mulstyle`` without ``mulstyle2``: a sampling row per image."""
+    return bool(rain_cfg.mulstyle and not rain_cfg.mulstyle2)
+
+
 def rain_sampling_rows(cfg) -> int:
     """Rows of the carried sampling: one per stylised image, ``data.bs``
     under ``mulstyle`` (whole-batch styles) and 1 otherwise, ``mulstyle2``
     winning (``slcl_tpu/train/trainer.py:219-226``)."""
-    return cfg.data.bs if (cfg.rain.mulstyle and not cfg.rain.mulstyle2) else 1
+    return cfg.data.bs if per_image_styles(cfg.rain) else 1
 
 
 def create_pretrain_rain_state(cfg, rain: nn.Module) -> TrainState:

@@ -42,7 +42,9 @@ among the ranks that hold pixels (``parallel.mesh.pixel_size``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -51,7 +53,7 @@ from ..models.common import running_stats_frozen
 from ..ops import centroids as cen
 from ..ops import losses as L
 from ..parallel import mesh as dp
-from .state import TrainState, set_lr
+from .state import TrainState, per_image_styles, set_lr
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -92,10 +94,42 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+_ASCENT: list = []
+
+
+@contextlib.contextmanager
+def ascent_backward():
+    """Marks a backward that another follows on the same graph (RAIN's
+    epsilon ascent, ``retain_graph=True``): ``dots``' recomputes inside it
+    read the saved outputs without using them up (:class:`_Recompute`)."""
+    _ASCENT.append(True)
+    try:
+        yield
+    finally:
+        _ASCENT.pop()
+
+
+def _unspent(cached):
+    """Selective checkpointing's recompute mode ``cached`` over a copy of its
+    cache (each op's entries copied, the tensors shared): a backward through
+    it marks nothing of ``cached``'s as used, so the next backward still
+    finds every saved output. Only the containers are copied, the saved
+    outputs are shared."""
+    twin = copy.copy(cached)
+    store = copy.copy(cached.storage)
+    for key, entries in cached.storage.items():
+        store[key] = copy.copy(entries)
+    twin.storage = store
+    if hasattr(cached, "func_counter"):
+        twin.func_counter = collections.defaultdict(int)
+    return twin
+
+
 class _Recompute:
     """The recompute half of the checkpoint's contexts: ``inner`` (the
     selective policy's cache, if any) with the segmentor's BatchNorm running
-    statistics frozen. Entered anew at each recompute."""
+    statistics frozen. Entered anew at each recompute; inside
+    :func:`ascent_backward` over an unspent copy of the cache."""
 
     def __init__(self, seg: torch.nn.Module, inner=None):
         self.seg, self.inner = seg, inner
@@ -103,7 +137,7 @@ class _Recompute:
     def __enter__(self):
         self._stack = contextlib.ExitStack()
         if self.inner is not None:
-            self._stack.enter_context(self.inner)
+            self._stack.enter_context(_unspent(self.inner) if _ASCENT else self.inner)
         self._stack.enter_context(running_stats_frozen(self.seg))
 
     def __exit__(self, *exc):
@@ -125,7 +159,10 @@ def seg_forward(seg: torch.nn.Module, x: torch.Tensor, remat=""):
     rank runs the same graph, so the autograd engine reaches each
     checkpoint's first saved tensor at the same point on every rank and the
     ranks' collectives pair up in one order (``dots`` saves no collective's
-    output: the exchanges are recomputed)."""
+    output: the exchanges are recomputed). A backward that another follows
+    on the same graph (RAIN's epsilon ascent) runs inside
+    :func:`ascent_backward`, so that ``dots`` keeps its saved outputs for
+    the second."""
     mode = remat_mode(remat)
     if not mode:
         return seg(x)
@@ -444,15 +481,12 @@ def rain_pair(rain_cfg, img_s: torch.Tensor, img_t: torch.Tensor):
     image of each by default; ``mulstyle`` the whole batches; ``mulstyle2``
     the whole content batch and one style image. ``mulstyle2`` wins, as the
     reference's if/elif order has it. Under data parallelism "one image" is
-    the global batch's first, on every rank; ``mulstyle`` (a sampling row
-    per image of the global batch) raises there."""
+    the global batch's first, on every rank, and "the whole batch" this
+    rank's rows of it (``mulstyle``: with its rows of the sampling,
+    ``steps_rain.stylize``)."""
     if rain_cfg.mulstyle2:
         return img_s, dp.first_rows(img_t[0:1])
     if rain_cfg.mulstyle:
-        if dp.data_parallel():
-            raise NotImplementedError(
-                "rain.mulstyle under data parallelism: the carried sampling has a row "
-                "per image of the global batch; run it on one process")
         return img_s, img_t
     return dp.first_rows(img_s[0:1]), dp.first_rows(img_t[0:1])
 
@@ -506,7 +540,7 @@ def make_mccl_step(cfg, centroids_loaded: bool = False,
         if use_rain:
             # the style net in float32, before the segmentor's autocast
             img_style, sampling = R.stylize(state, *rain_pair(cfg.rain, img_s, img_t),
-                                            sched, noise)
+                                            sched, noise, per_image_styles(cfg.rain))
             img_style = rain_rows(img_style, cfg.rain.mulstyle2 or cfg.rain.mulstyle)
             style_size = img_style.shape[0]
             if cfg.rain.style_alpha < 1.0:

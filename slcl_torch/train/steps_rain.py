@@ -28,9 +28,12 @@ device)`` replaces it (tests share the JAX package's noise through it).
 
 Under data parallelism the stylised pair is the global batch's first rows
 (``steps.rain_pair``), stylised alike on every rank and fed to the
-segmentor on data rank 0; the ascent's gradient is the sum of the ranks'
-gradients of their shares, and the consistency and diagnostics are the
-global batch's.
+segmentor on data rank 0 (under ``rain.mulstyle`` each data rank stylises
+its own images with its rows of the sampling); the ascent's gradient is
+the sum of the ranks' gradients of their shares, and the consistency and
+diagnostics are the global batch's. Under spatial partitioning the style
+net runs on the row bands too (``models/rain.py``: reflect halos, AdaIN
+statistics summed over the model ranks).
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ from ..models.rain import LATENT
 from ..ops import losses as L
 from ..parallel import mesh as dp
 from .state import TrainState
-from .steps import (Generators, Metrics, _seg_update, autocast, clip_step_norm, rain_rows,
-                    select, splitmix64)
+from .steps import (Generators, Metrics, _seg_update, ascent_backward, autocast,
+                    clip_step_norm, rain_rows, select, splitmix64)
 
 DrawNoise = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
 
@@ -87,18 +90,27 @@ def stylized_to_gray3(img_style: torch.Tensor) -> torch.Tensor:
 
 
 def stylize(state: TrainState, content: torch.Tensor, style: torch.Tensor,
-            sched: Dict[str, float], noise: RainNoise):
+            sched: Dict[str, float], noise: RainNoise, per_image: bool = False):
     """``(gray 3-channel stylised content, sampling)``: a fresh sampling of
     ``style`` when ``sched["fresh"]`` is set, else the carried one, as a
     leaf that requires grad (a device flag draws and selects). Call it
-    outside any autocast region: the style net runs in float32."""
+    outside any autocast region: the style net runs in float32.
+
+    ``per_image`` (``rain.mulstyle``): ``style`` is this data rank's rows of
+    the global batch and the sampling has a row per image of the global
+    batch. A fresh one takes this rank's rows of the global noise draw and
+    is gathered whole; each rank stylises with its rows of it, so the
+    sampling stays replicated."""
     fresh = sched.get("fresh", 1.0)
     sampling = state.sampling
     if isinstance(fresh, torch.Tensor) or fresh > 0:
-        z = noise(state, (style.shape[0], LATENT), style.device)
-        sampling = select(fresh, state.rain.sample(style, z), sampling)
+        rows = style.shape[0] * (dp.data_size() if per_image else 1)
+        z = noise(state, (rows, LATENT), style.device)
+        drawn = state.rain.sample(style, dp.local_rows(z) if per_image else z)
+        sampling = select(fresh, dp.gather_rows(drawn) if per_image else drawn, sampling)
     sampling = sampling.detach().requires_grad_(True)
-    img, _ = state.rain.style_transfer(content, style, sampling)
+    img, _ = state.rain.style_transfer(content, style,
+                                       dp.local_rows(sampling) if per_image else sampling)
     return stylized_to_gray3(img), sampling
 
 
@@ -108,9 +120,13 @@ def epsilon_ascent(cfg, sampling: torch.Tensor, seg_loss: torch.Tensor,
     d sampling`` (Trainer_RAIN.py:133-147), its norm capped at
     ``rain.eps_clip`` when that is positive, added when ``sched["eps_on"]``
     is set. Keeps the graph for the parameters' backward that follows."""
-    # the sampling is replicated: the global loss's gradient is the sum of
-    # the data ranks' gradients of their shares
-    (g,) = torch.autograd.grad(seg_loss / dp.data_size(), sampling, retain_graph=True)
+    # the sampling is replicated: each rank backpropagates its share of the
+    # global loss, whose all-reduces' backwards hand every rank the global
+    # loss's cotangent, so a rank's gradient is its own pixels' part and
+    # the sum over the pixel group counts each pixel once (under spatial
+    # partitioning the model ranks' parts flow through the halo exchanges)
+    with ascent_backward():
+        (g,) = torch.autograd.grad(seg_loss / dp.pixel_size(), sampling, retain_graph=True)
     g = dp.sum_over(dp.current(), g.contiguous())
     step_vec = (cfg.optim.lr_eps / seg_loss.detach()) * g
     if cfg.rain.eps_clip > 0:

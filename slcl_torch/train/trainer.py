@@ -89,11 +89,12 @@ convolutions and resizes that reshard uneven stages; the reductions over
 every rank). It covers the segmentors DRUNet, ResNetUNet
 (``resnet50``/``resnet50_unet``), UNet and DeepLabV2
 (``deeplabv2``/``resnet101``) with the ``UncertaintyDiscriminator``:
-``baseline``, ``adaptseg``, ``advent``, ``mpscl``, ``slcl`` and ``mccl``
-without RAIN, with ``model.remat`` off, ``full`` or ``dots`` (each rank
-recomputes its forward's halo exchanges in the same order); any other
-network or method raises ``NotImplementedError`` naming both. Validation
-and test run on whole images, as JAX's evaluator does.
+``baseline``, ``adaptseg``, ``advent``, ``mpscl``, ``slcl``, ``mccl``
+(with or without ``rain.enabled``) and ``rain``, whose style net runs on
+the row bands too, with ``model.remat`` off, ``full`` or ``dots`` (each
+rank recomputes its forward's halo exchanges in the same order); DDFSeg,
+AdaptEvery and BCL raise ``NotImplementedError`` naming their network and
+method. Validation and test run on whole images, as JAX's evaluator does.
 """
 from __future__ import annotations
 
@@ -142,7 +143,7 @@ _CONTRASTIVE = ("mpscl", "slcl", "mccl")
 _OWN_NETS = ("ddfseg", "adaptevery", "bcl")     # built by _build_<method>
 # spatial partitioning: these methods on these segmentors, with the
 # UncertaintyDiscriminator
-_SPATIAL = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl")
+_SPATIAL = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain")
 _SPATIAL_NETS = ("drunet", "resnet50", "resnet50_unet", "unet", "deeplabv2", "resnet101")
 _OWN_NET_NAMES = {"ddfseg": "DDFSeg", "adaptevery": "ResNetUNetPoint", "bcl": "BCLDeepLab"}
 # the batch keys whose rows a spatial mesh splits (JAX's _is_spatial)
@@ -156,35 +157,27 @@ PRETRAIN_LOSSES = ("loss_c", "loss_s", "loss_l", "loss_r")
 
 
 def check_ported_keys(cfg: Config) -> None:
-    """Raise on a ``model.remat`` the port cannot run: an unknown mode, or
-    ``dots`` under MCCL + RAIN, whose ascent backpropagates the forward
-    twice (selective checkpointing allows one backward; ``full`` allows
-    both)."""
-    if remat_mode(cfg.model.remat) == "dots" and cfg.method == "mccl" and cfg.rain.enabled:
-        raise NotImplementedError(
-            "model.remat=dots with rain.enabled: the epsilon ascent backpropagates "
-            "the segmentor twice, which selective checkpointing refuses; use "
-            "model.remat=full")
+    """Raise ``ValueError`` on a ``model.remat`` mode the port does not
+    know (``steps.remat_mode``)."""
+    remat_mode(cfg.model.remat)
 
 
 def check_spatial(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming the network and the method when
     spatial partitioning does not cover them: it covers the methods of
-    :data:`_SPATIAL` on the segmentors of :data:`_SPATIAL_NETS` with the
-    ``UncertaintyDiscriminator``, without RAIN's style net; ``model.remat``
-    any mode. (DeepLabV2 under a contrastive method raises its own
-    ``ValueError`` when the Trainer builds it, as without a mesh.)"""
+    :data:`_SPATIAL` (MCCL with or without RAIN) on the segmentors of
+    :data:`_SPATIAL_NETS` with the ``UncertaintyDiscriminator`` and RAIN's
+    style net; ``model.remat`` any mode. (DeepLabV2 under a contrastive
+    method raises its own ``ValueError`` when the Trainer builds it, as
+    without a mesh.)"""
     net = _OWN_NET_NAMES.get(cfg.method, cfg.model.backbone)
-    if cfg.rain.enabled or cfg.method in ("rain", "pretrain_rain"):
-        net = f"{net} with the RAIN style net"
-    if (cfg.method not in _SPATIAL or cfg.model.backbone.lower() not in _SPATIAL_NETS
-            or cfg.rain.enabled):
+    if cfg.method not in _SPATIAL or cfg.model.backbone.lower() not in _SPATIAL_NETS:
         raise NotImplementedError(
             f"mesh.spatial=true with model ranks: network {net!r}, method "
             f"{cfg.method!r} is not ported; slcl_torch splits image rows for DRUNet, "
             "ResNetUNet (resnet50), UNet and DeepLabV2 (deeplabv2) with the "
-            f"UncertaintyDiscriminator ({', '.join(_SPATIAL)}, without RAIN); use "
-            "mesh.spatial=false")
+            f"UncertaintyDiscriminator and RAIN's style net ({', '.join(_SPATIAL)}); "
+            "use mesh.spatial=false")
 
 
 def build_rain(cfg: Config, device: torch.device) -> RAIN:

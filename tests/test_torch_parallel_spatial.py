@@ -42,9 +42,9 @@ and the pixel group of ``parallel/mesh.py``) on the CPU over gloo, after
   against one process.
 - The rMC draw: each rank keeps the global draw's pixels of its data rank's
   images and its band of their rows.
-- Refusals: every network or method the port does not split (RAIN, also
-  under ``model.remat``; DDFSeg, AdaptEvery, BCL) raises
-  ``NotImplementedError`` naming both; DeepLabV2 under a contrastive
+- Refusals: every network or method the port does not split (DDFSeg,
+  AdaptEvery, BCL) raises ``NotImplementedError`` naming both (RAIN's
+  cells: ``test_torch_parallel_spatial_rain.py``); DeepLabV2 under a contrastive
   method keeps its ``ValueError``; an image height that the model ranks do
   not divide raises ``ValueError`` naming H and the ranks; a mesh that does
   not split rows under ``mesh.spatial=true`` raises.
@@ -448,12 +448,11 @@ def test_rmc_draw_keeps_the_ranks_pixels(steps_2x2):
                                       grid[d * b:(d + 1) * b, m * h:(m + 1) * h].reshape(-1))
 
 
-@pytest.mark.parametrize("name", ["rain", "ddfseg", "adaptevery", "bcl", "rain_remat"])
+@pytest.mark.parametrize("name", ["ddfseg", "adaptevery", "bcl"])
 def test_unported_network_or_method_raises(steps_2x2, name):
-    net = {"rain": "with the RAIN style net", "ddfseg": "'DDFSeg'",
-           "adaptevery": "'ResNetUNetPoint'", "bcl": "'BCLDeepLab'",
-           "rain_remat": "with the RAIN style net"}[name]
-    method = {"rain": "mccl", "rain_remat": "mccl"}.get(name, name)
+    net = {"ddfseg": "'DDFSeg'", "adaptevery": "'ResNetUNetPoint'",
+           "bcl": "'BCLDeepLab'"}[name]
+    method = name
     for got in steps_2x2["checks"]:
         kind, msg = got[name]
         assert kind == "NotImplementedError" and "mesh.spatial" in msg, msg

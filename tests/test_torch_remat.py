@@ -122,15 +122,6 @@ def test_remat_mode_values():
         remat_mode("sometimes")
 
 
-def test_dots_with_the_rain_ascent_raises():
-    """The ascent backpropagates the forward twice; selective checkpointing
-    refuses a second backward, so the build says so (``full`` builds)."""
-    cfg = _tcfg("mccl", "dots")
-    cfg.rain.enabled = True
-    with pytest.raises(NotImplementedError, match="model.remat=dots with rain.enabled"):
-        Trainer(cfg, device="cpu")
-
-
 def _np(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
