@@ -72,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      data.dataset=synthetic`` recipe at bs16 224x224 through the port's
      ``Trainer`` for one epoch (launch counts set to 0 just before and read
      just after: each kernel must have run its per-step count every step,
-     and every loss must be finite), then twenty timed steps, then three
+     and every loss must be finite), then twenty timed steps (and half as
+     many each synchronised alone, for their spread), then three
      steps traced with torch.profiler for the device's busy time and the
      kernels that take most of it; then the same for the ``mccl`` preset
      (phead, P = 2, soft weights; 16 source + 16 + 16 target images); then
@@ -131,7 +132,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      path: the C++ SLIC built with g++, superpixels held to their
      contract, a heavy2 Loader epoch timed;
   7. serve: phase 5's best ``slcl`` checkpoint exported through ``python
-     -m slcl_torch.scripts.export ... smoke=1`` (bf16, on the card) and
+     -m slcl_torch.scripts.export ... smoke=1`` (bf16, on the card; started
+     as soon as phase 5 has trained it, beside the rest of phase 5) and
      again with probabilities, and a full-width ResNet-50 U-Net from random
      init with probabilities; a process without slcl_torch on its path
      loads each artifact with ``torch.export.load`` and runs batch sizes
@@ -140,7 +142,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch server (``python -m slcl_torch.serve``) on 57 of phase 6's
      MS-CMRSeg PNGs at bs=16 (a ragged last batch); ``python -m
      slcl_torch.scripts.predict`` on the same checkpoint, its Dice / HD95 /
-     ASSD within 1e-6 of ``Trainer.eval("test_t")``; images per second at
+     ASSD within 1e-6 of ``Trainer.eval("test_t")`` (the consumer, the
+     server and predict run at once); images per second at
      bs 1 and 16 through the artifact and the live model in turns, the
      export times and the artifacts' sizes;
   8. run utilities: ``model.remat`` off, ``full`` and ``dots`` on the
@@ -176,13 +179,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      nothing, as in JAX) against the plain Trainer's two steps from the
      same init and batches, bit for bit (metrics, every network's state,
      centres), the kernels' launches per step unchanged, then ten steps
-     of each timed, plain, mesh, mesh, plain; (b) two gloo ranks sharing the card, in two processes:
+     of each timed, plain, mesh, mesh, plain; (b) (its ranks run beside
+     phase 5, which times nothing but its own wall time) two gloo ranks
+     sharing the card, in two processes:
      ``slcl`` and ``mccl`` at full width in f32, global bs16 (8 rows a
      rank), two steps against one process's two steps on the same 16 rows
      (segmentor parameters, BatchNorm buffers and centres rtol 1e-4 /
      atol 1e-6, metrics rel 1e-5; the discriminators' parameters, Adam's,
-     within 2 * lr_dis a step and their change from the init within a
-     cosine of 0.9 of one process's), each rank's launches per step the
+     within 2 * lr_dis a step and each network's change from the init
+     within a cosine of 0.9 of one process's), each rank's launches per step the
      one-process step's; and the first ``d_main`` update (the BCE's global
      means, ``net_update``'s share, ``reduce_grads`` over gloo) redone in
      float64 on the card from the one process's recorded inputs, each
@@ -198,8 +203,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      over both ranks): the same two steps of the same two cells against
      the same one-process steps at (b)'s tolerances, the float64
      ``d_main`` update redone on each rank's band, each rank's launches
-     per step the one-process step's, and two more steps timed on each
-     rank (ms a step, printed, not held) beside the one process's. (b) also
+     per step the one-process step's, and the second step timed on each
+     rank (ms, printed, not held) beside the one process's. (b) also
      runs ``mccl_rain_mulstyle`` at phase 3's sizes (MCCL + RAIN with a
      sampling row per image: each data rank stylises its images with its
      rows of it; two epsilon iterations, a fresh sampling then the carried
@@ -214,17 +219,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      two epsilon iterations), then at phase 3's sizes DRUNet's plain
      ``mccl`` (``drunet_mccl``), ``unet_baseline`` and ``deeplabv2_advent``
      (the shallow nets), DRUNet ``slcl`` with ``model.remat=full`` and
-     ``rain_seg`` (``method=rain``): each against one process, the state
+     ``rain_seg`` (``method=rain``), then ``ddfseg`` at full width (DDFNet
+     16/8/32, SegDecoder and three PatchGANs, bs 4 + 4 at 224², f32; its
+     transposed convolutions, instance norms and attention on the bands,
+     dropout masks cut from the global ones) and, at phase 3's 64x64,
+     ``adaptevery_small`` (ResNetUNetPoint and its vertex branch) and
+     ``bcl_small`` (BCLDeepLab on four images, after a pseudo-label round
+     run on whole images on every rank, which must equal one process's):
+     each
+     against one process, the state
      (the sampling among it) after the first step and after the second,
      the metrics of both, each rank's launches a step the one process's,
-     two steps of each rank timed; for ``resnet50_slcl`` and
+     the second step of each rank timed; for ``resnet50_slcl`` and
      ``mccl_rain`` also the one process on the same images in reverse
      order (with RAIN image 0 kept first, the stylised pair; MCCL's rMC
      draw moved with the images) against the one process
      (``floor_tol_ratio``: how far another order of the same sums takes
      the second step), and for ``mccl_rain`` on its images one float32
-     ulp up (``ulp_floor_tol_ratio``); ``mccl_rain`` is held at each step
-     to the larger of the two (``FLOOR_HELD``). RAIN's second iteration
+     ulp up (``ulp_floor_tol_ratio``); ``mccl_rain``, ``ddfseg`` and the
+     small AdaptEvery and BCL cells are held at each step to the larger of
+     the two (``FLOOR_HELD``; ``ddfseg``'s second step to twice that,
+     ``FLOOR_FACTOR``), and so is each network's first-step gradient (its
+     error norm over 1e-4 of its norm); DDFSeg's generator, whose first
+     Adam step moves every entry whose gradient is rounding noise by a full
+     lr, is held by that gradient and its move, not entry by entry
+     (``ADAM_SEG``); each network's move must be as close to one process's
+     as each sound run's less ``NET_MOVE_MARGIN``. For those, the
+     reversed-images run keeps each image's dropout masks with it, and
+     BCL's keeps image 0 first (its metric loss reads it). RAIN's second iteration
      starts on every side from the one process's sampling after the
      first, and the new sampling, the ascent's step norm and the
      pixel-count diagnostics are held at phase 3's RAIN tolerance
@@ -270,6 +292,7 @@ directories go to ``runs/`` in the checkout and are removed.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import importlib
@@ -1634,9 +1657,10 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     step_ms = (time.perf_counter() - t2) / n_timed * 1e3
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError("timed steps: non-finite losses")
-    # each step alone, synchronised: its spread (no overlap with the next)
+    # each step alone, synchronised: its spread (no overlap with the next),
+    # over half as many steps
     each = []
-    for batch, s in iterations(batches, scheds, n_timed):
+    for batch, s in iterations(batches, scheds, max(5, n_timed // 2)):
         t3 = time.perf_counter()
         trainer.step_fn(trainer.state, batch, s)
         torch.cuda.synchronize()
@@ -1647,7 +1671,7 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     return {"method": method, "backbone": net, "stdmin": stdmin, "rain": rain,
             "eps_iters": eps_iters, "step_ms": step_ms,
             "timed_steps": n_timed,
-            "step_ms_synced_min_median_max": [each[0], each[n_timed // 2], each[-1]],
+            "step_ms_synced_min_median_max": [each[0], each[len(each) // 2], each[-1]],
             "profile": prof,
             "src_img_per_s": cfg.data.bs / step_ms * 1e3,
             "epoch_s": epoch_s, "steps_per_epoch": steps_per_epoch,
@@ -2188,14 +2212,43 @@ print("consumer ok")
 """
 
 
+# every CLI process started, stopped at the script's end if still running
+STARTED: list = []
+
+
+def start_cli(args, cwd: Path = ROOT, env=None) -> subprocess.Popen:
+    """Start ``python <args>``, its stdout and stderr to files: several run
+    at once (:func:`wait_cli` each)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, *args], cwd=cwd, env=env, stdout=out,
+                            stderr=err, text=True)
+    proc.files, proc.what = (out, err), " ".join(args[:3])
+    STARTED.append(proc)
+    return proc
+
+
+def wait_cli(proc: subprocess.Popen, timeout: int = 900) -> str:
+    """The stdout of a :func:`start_cli` process once it ends, or raise with
+    its stderr (killed after ``timeout`` seconds)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out, err = proc.files
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{proc.what}: exit {proc.returncode}\n{stderr[-3000:]}")
+    return stdout
+
+
 def run_cli(args, cwd: Path = ROOT, env=None, timeout: int = 900) -> str:
     """Run ``python <args>`` to its end; its stdout, or raise with its stderr."""
-    out = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
-                         text=True, timeout=timeout)
-    if out.returncode != 0:
-        raise AssertionError(f"{' '.join(args[:3])}: exit {out.returncode}\n"
-                             f"{out.stderr[-3000:]}")
-    return out.stdout
+    return wait_cli(start_cli(args, cwd, env), timeout)
 
 
 def card_line() -> str:
@@ -2226,9 +2279,13 @@ def _throughput(fn, bs: int, n: int, crop: int, device, repeats: int = 5) -> lis
     return [rates[0], rates[len(rates) // 2], rates[-1]]
 
 
-def _consumer_results(cell: Path, names) -> dict:
+def _start_consumer(cell: Path, names) -> subprocess.Popen:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = run_cli(["-c", CONSUMER, *names], cwd=cell, env=env, timeout=600)
+    return start_cli(["-c", CONSUMER, *names], cwd=cell, env=env)
+
+
+def _consumer_results(cell: Path, names, proc: subprocess.Popen) -> dict:
+    out = wait_cli(proc, timeout=600)
     if "consumer ok" not in out:
         raise AssertionError(f"serve consumer: {out[-500:]}")
     import numpy as np
@@ -2279,14 +2336,34 @@ def _live_probs(model, x, dtype: str) -> dict:
         return {bs: infer(x[:bs])[1].float().cpu().numpy() for bs in SERVE_BATCHES}
 
 
-def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
-    """Phase 7: the trained ``slcl`` DRUNet of phase 5 exported through
-    ``python -m slcl_torch.scripts.export ... smoke=1`` (bf16, on the card)
-    and with probabilities in-process, a full-width ResNet-50 U-Net from
-    random init likewise; both served at batch 1, 5 and 16 by a process
-    without slcl_torch and held to the live evaluator; the batch server on
-    57 of phase 6's PNGs at bs=16; ``predict`` against ``Trainer.eval``;
-    images per second through the artifact and the live model."""
+def start_export(work: Path, protocol: dict) -> subprocess.Popen:
+    """Phase 7's export CLI, ``python -m slcl_torch.scripts.export ...
+    smoke=1`` on phase 5's trained ``slcl`` DRUNet (bf16, on the card), into
+    ``work/serve``: started as soon as phase 5 has trained it, and run beside
+    the rest of phase 5 (:func:`wait_cli` in :func:`serve_phase`)."""
+    cell = work / "serve"
+    cell.mkdir()
+    return start_cli(["-m", "slcl_torch.scripts.export", *serve_args(protocol),
+                      f"out={cell / 'drunet.slclt'}", "smoke=1"])
+
+
+def serve_args(protocol: dict) -> list:
+    """The CLI arguments of phase 5's trained ``slcl`` run, restored from its
+    best checkpoint, on this process's device."""
+    import torch
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    return [*protocol["slcl_args"], f"run.restore_from={protocol['slcl_best']}",
+            "--device", dev]
+
+
+def serve_phase(work: Path, protocol: dict, trees: dict, export: subprocess.Popen) -> dict:
+    """Phase 7: the trained ``slcl`` DRUNet of phase 5 exported through the
+    export CLI (``export``: :func:`start_export`) and with probabilities
+    in-process, a full-width ResNet-50 U-Net from random init likewise; both
+    served at batch 1, 5 and 16 by a process without slcl_torch and held to
+    the live evaluator; the batch server on 57 of phase 6's PNGs at bs=16;
+    ``predict`` against ``Trainer.eval`` (the three CLIs at once); images
+    per second through the artifact and the live model."""
     import numpy as np
     import torch
     from slcl_torch import serve
@@ -2296,16 +2373,12 @@ def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
 
     t0 = time.perf_counter()
     cell = work / "serve"
-    cell.mkdir()
     best = protocol["slcl_best"]
     cfg, _, _ = train_cli.parse_args(protocol["slcl_args"], "slcl")
     trainer = Trainer(cfg)
     dev, crop = trainer.device, cfg.data.crop
-    args = [*protocol["slcl_args"], f"run.restore_from={best}", "--device", dev.type]
-    t1 = time.perf_counter()
-    printed = run_cli(["-m", "slcl_torch.scripts.export", *args,
-                       f"out={cell / 'drunet.slclt'}", "smoke=1"])
-    cli_export_s = time.perf_counter() - t1
+    args = serve_args(protocol)
+    printed = wait_cli(export)
     if "smoke ok" not in printed:
         raise AssertionError(f"export CLI: {printed[-500:]}")
 
@@ -2347,20 +2420,27 @@ def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
         meta = serve.read_artifact(cell / f"{a}.slclt")[0]
         if (meta["device"], meta["dtype"]) != (dev.type, cfg.model.dtype):
             raise AssertionError(f"serve {a}: header {meta}")
-    res = _consumer_results(cell, ("drunet", "drunet_probs", "resnet50"))
-    held = {"drunet": _hold_artifact(res, "drunet", labels, None, crop),
-            "drunet_probs": _hold_artifact(res, "drunet_probs", labels, probs, crop),
-            "resnet50": _hold_artifact(res, "resnet50", rlabels, rprobs, crop)}
-    log(f"serve: artifacts agree with the live evaluator {held}")
-
-    # the batch server: 57 PNGs (a ragged last batch of 9) at bs=16
+    # the consumer, the batch server (57 PNGs, a ragged last batch of 9, at
+    # bs=16) and predict, at once
+    names = ("drunet", "drunet_probs", "resnet50")
     src = cell / "pngs"
     src.mkdir()
     pngs = sorted(Path(trees["mscmrseg"], "testB").glob("*.png"))[:57]
     for p in pngs:
         shutil.copy(p, src / p.name)
-    run_cli(["-m", "slcl_torch.serve", str(cell / "drunet.slclt"), str(src),
-             str(cell / "masks"), "bs=16", "--device", dev.type])
+    consumer = _start_consumer(cell, names)
+    server = start_cli(["-m", "slcl_torch.serve", str(cell / "drunet.slclt"), str(src),
+                        str(cell / "masks"), "bs=16", "--device", dev.type])
+    predict = start_cli(["-m", "slcl_torch.scripts.predict", *args,
+                         f"out_dir={cell / 'pred'}"])
+    want = trainer.eval("test_t")
+    res = _consumer_results(cell, names, consumer)
+    held = {"drunet": _hold_artifact(res, "drunet", labels, None, crop),
+            "drunet_probs": _hold_artifact(res, "drunet_probs", labels, probs, crop),
+            "resnet50": _hold_artifact(res, "resnet50", rlabels, rprobs, crop)}
+    log(f"serve: artifacts agree with the live evaluator {held}")
+
+    wait_cli(server)
     from slcl_torch.data.png import read_png_gray
     masks = sorted((cell / "masks").glob("*_pred.png"))
     if {m.name for m in masks} != {f"{p.stem}_pred.png" for p in pngs}:
@@ -2372,10 +2452,8 @@ def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
         raise AssertionError(f"serve CLI: mask values {sorted(values)}")
 
     # predict: its table against Trainer.eval on the same weights
-    printed = run_cli(["-m", "slcl_torch.scripts.predict", *args,
-                       f"out_dir={cell / 'pred'}"])
+    printed = wait_cli(predict)
     pred = json.loads(printed.strip().splitlines()[-1])["test"]
-    want = trainer.eval("test_t")
     for k in ("dc", "hd", "asd"):
         close(torch.tensor(pred[k]), torch.tensor(want[k]), 0.0, 1e-6, f"predict {k}")
     if len(list((cell / "pred").glob("*_pred.png"))) != len(test):
@@ -2391,8 +2469,7 @@ def serve_phase(work: Path, protocol: dict, trees: dict) -> dict:
                             "artifact_img_per_s_again": _throughput(fn, bs, n, crop, dev)}
     del trainer, rtrainer
     torch.cuda.synchronize()
-    return {"card": card_line(), "seconds": time.perf_counter() - t0,
-            "cli_export_and_smoke_s": cli_export_s, "export_s": export_s,
+    return {"card": card_line(), "seconds": time.perf_counter() - t0, "export_s": export_s,
             "resnet50_export_s": rexport_s,
             "artifact_mb": {p.stem: p.stat().st_size / 1e6 for p in cell.glob("*.slclt")},
             "classes_in_trained_labels": int(len(np.unique(split))),
@@ -2533,13 +2610,17 @@ def data_tools(work: Path) -> dict:
     out_dir = work / "pre"
     out_dir.mkdir()
     t0 = time.perf_counter()
-    printed = run_cli(["-m", "slcl_torch.data.preprocess", "minmax-csv", "--data_dir",
-                       str(fix / "mini_mmwhs"), "--modality", "CT", "--out_dir", str(out_dir)])
+    # the two CLIs at once
+    minmax = start_cli(["-m", "slcl_torch.data.preprocess", "minmax-csv", "--data_dir",
+                        str(fix / "mini_mmwhs"), "--modality", "CT", "--out_dir", str(out_dir)])
+    to_png = start_cli(["-m", "slcl_torch.data.preprocess", "nii-to-png-mmwhs", "--data_dir",
+                        str(fix / "mini_mmwhs"), "--out", str(out_dir / "png"),
+                        "--modality", "MR"])
+    printed = wait_cli(minmax)
     if (out_dir / "CTminmax99.csv").read_bytes() != (fix / "mini_mmwhs" / "CTminmax99.csv"
                                                       ).read_bytes():
         raise AssertionError(f"minmax-csv: {printed}")
-    run_cli(["-m", "slcl_torch.data.preprocess", "nii-to-png-mmwhs", "--data_dir",
-             str(fix / "mini_mmwhs"), "--out", str(out_dir / "png"), "--modality", "MR"])
+    wait_cli(to_png)
     n_png = len(list((out_dir / "png").glob("*.png")))
     if n_png != len(list((fix / "mini_mmwhs" / "MR_woGT").glob("*.nii"))):
         raise AssertionError(f"nii-to-png-mmwhs: {n_png} PNGs")
@@ -2707,11 +2788,19 @@ def dp_config(work: Path, method: str, fsdp: bool = False, dtype: str = "",
 # phase 9(b)'s cells beyond DRUNet's two, at phase 3's sizes
 # (slcl_torch.testing.SPATIAL_CELLS)
 SMOKE_DP = ("mccl_rain_mulstyle",)
-# phase 9(c)'s cells beyond DRUNet's slcl: the paper's cell and MCCL + RAIN
-# at full width, the others at phase 3's sizes
+# phase 9(c)'s cells beyond DRUNet's slcl: the paper's cell, MCCL + RAIN and
+# DDFSeg at full width, the others at phase 3's sizes
 SMOKE_SPATIAL = ("resnet50_slcl", "mccl_rain", "drunet_mccl", "unet_baseline",
-                 "deeplabv2_advent", "slcl_remat_full", "rain_seg")
-FULL_WIDTH = ("resnet50_slcl", "mccl_rain")
+                 "deeplabv2_advent", "slcl_remat_full", "rain_seg", "ddfseg",
+                 "adaptevery_small", "bcl_small")
+FULL_WIDTH = ("resnet50_slcl", "mccl_rain", "ddfseg")
+# a cell's data settings beside its config's: DDFSeg at full width on a
+# global batch of 4 + 4 (a gloo rank's step takes 5 s); AdaptEvery's and
+# BCL's shallow nets at phase 3's 64x64 (SCAN_SMALL's rows), BCL on four
+# images, so that its reversed-images run (image 0 kept first: its metric
+# loss reads it) sums in another order
+CELL_DATA = {"ddfseg": {"bs": 4}, "adaptevery_small": {"crop": 64},
+             "bcl_small": {"crop": 64, "bs": 4}}
 
 
 def cell_config(work: Path, cell: str, spatial: bool = False):
@@ -2730,6 +2819,8 @@ def cell_config(work: Path, cell: str, spatial: bool = False):
         cfg.mesh.model_axis, cfg.mesh.spatial = (2, True) if spatial else (1, False)
         cfg.optim.epochs = 1
         cfg.run.out_dir = str(work)
+    for k, v in CELL_DATA.get(cell, {}).items():
+        setattr(cfg.data, k, v)
     return configure_cell(cfg, cell), shallow
 
 
@@ -2750,10 +2841,26 @@ def cell_scheds(trainer, cfg) -> list:
 
 def reversed_order(cfg, n: int) -> list:
     """The image order of the reversed-images run (``flip``): all ``n``
-    reversed, or with RAIN image 0 kept first (the stylised pair is the
-    batch's first images) and the rest reversed."""
-    rain = cfg.rain.enabled or cfg.method == "rain"
-    return [0] + list(range(n - 1, 0, -1)) if rain else list(range(n - 1, -1, -1))
+    reversed, or with RAIN (the stylised pair is the batch's first images)
+    and BCL (its metric loss reads the first image of each domain) image 0
+    kept first and the rest reversed."""
+    first = cfg.rain.enabled or cfg.method in ("rain", "bcl")
+    return [0] + list(range(n - 1, 0, -1)) if first else list(range(n - 1, -1, -1))
+
+
+def permuted_dropout(trainer, order):
+    """DDFSeg's and AdaptEvery's ``draw_dropout`` for images in ``order``:
+    the step's own masks of the unpermuted batch (seeded by the state's seed
+    and step), each image's mask moved with it."""
+    import torch
+    from slcl_torch.train.steps_extra import dropout_draw
+    from slcl_torch.train.steps import Generators
+    gens, s = Generators(), trainer.state
+
+    def draw(step, path, call, shape, keep, device):
+        mask = dropout_draw(gens, s.seed, step, path, call, shape, keep, device)
+        return mask.index_select(0, torch.tensor(order, device=device))
+    return draw
 
 
 def permuted_draw(trainer, order):
@@ -2862,28 +2969,31 @@ def dp_one_rank(work: Path, mesh, method: str, fsdp: bool) -> dict:
     return rec
 
 
-def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 0,
-                   flip: bool = False, carry: str = "", ulp: bool = False) -> dict:
+def two_rank_entry(mesh, method: str, work: str, d_step: str = "",
+                   flip: bool = False, carry: str = "", ulp: bool = False,
+                   plabels: str = "") -> dict:
     """(b) and (c), in each rank (and with ``mesh`` None in one process):
     two f32 steps of the cell ``method`` (:func:`cell_config`; the
     full-width ones on the first global batch of 16 rows, this rank's 8,
     under a spatial mesh its band of 112 rows of all 16); metrics, the
-    state after each step (on the host), launches, each discriminator's
+    state after each step (on the host), launches, each network's
     first-step gradient as its optimizer receives it (summed over the
-    ranks), and the first ``d_main`` update's inputs. With ``d_step`` (a
-    file of such inputs), also :func:`disc_update_f64`; with ``timed``, the
-    mean ms of that many more steps (after the state is taken); with
-    ``flip``, each batch's images in reverse order (the same step, its sums
+    ranks), the first ``d_main`` update's inputs, and the ms of the second
+    step (synchronised before and after). With ``d_step`` (a file of such
+    inputs), also :func:`disc_update_f64`; with ``flip``, each batch's images in reverse order (the same step, its sums
     over the images in another order); with ``ulp``, every image one
     float32 ulp up (the same step on inputs a rounding apart); with ``carry`` (a file of the one
     process's sampling after its first iteration), RAIN's second iteration
-    starts from that sampling, so that it is compared on the same inputs."""
+    starts from that sampling, so that it is compared on the same inputs.
+    BCL runs a pseudo-label round first (whole images on every rank) and
+    steps on the round's labels, with ``plabels`` (the one process's round,
+    on file) on those; its record says whether its own round gave them."""
     import torch
     from slcl_torch.data import device_prefetch
     from slcl_torch.ops.cuda import build, launch_counts, reset_launch_counts
     from slcl_torch.parallel import mesh as dp
     from slcl_torch.train import steps as S
-    from slcl_torch.train.trainer import Trainer
+    from slcl_torch.train.trainer import _OPTS, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()       # built by the parent: loads the libraries
@@ -2895,6 +3005,16 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 
         # seeded alike on every rank and in the one process
         use_segmentor(trainer, small_segmentor(shallow, cfg, trainer.device))
     s = trainer.state
+    plabel_round = None
+    if cfg.method == "bcl":
+        import numpy as np
+        kept = trainer.bcl_update_plabels(cfg.run.bcl_prop)
+        plabel_round = {"kept": kept, "labels": dict(trainer.bcl_plabels)}
+        if plabels:
+            trainer.bcl_plabels = torch.load(plabels, weights_only=False)
+            own = plabel_round.pop("labels")
+            plabel_round["same_as_one_process"] = all(
+                np.array_equal(v, trainer.bcl_plabels[k]) for k, v in own.items())
     batches = []
     for b in device_prefetch(trainer._epoch_batches(), trainer.device):
         batches.append(b)
@@ -2908,6 +3028,8 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 
         if cfg.method == "mccl":
             trainer.step_fn = S.build_step(cfg, trainer.centroids_loaded,
                                            draw_assign=permuted_draw(trainer, order))
+        if cfg.method in ("ddfseg", "adaptevery"):
+            trainer.step_fn = S.build_step(cfg, draw_dropout=permuted_dropout(trainer, order))
     if ulp:
         batches = [{k: torch.nextafter(v, torch.full_like(v, math.inf))
                     if k.startswith("img") else v for k, v in b.items()} for b in batches]
@@ -2919,16 +3041,21 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 
                 grads[name] = [p.grad.detach().float().cpu().clone()
                                for g in opt.param_groups for p in g["params"]]
         return hook
-    for name in ("opt_d_main", "opt_d_aux"):
-        if getattr(s, name, None) is not None:
+    # the segmentor's where its gradient is held (FLOOR_HELD)
+    for name in _OPTS:
+        if getattr(s, name, None) is not None and (name != "opt_seg" or method in FLOOR_HELD):
             getattr(s, name).register_step_pre_hook(first_grads(name))
-    init = {k: v.cpu() for k, v in state_of(trainer).items() if k.startswith("d_")}
+    # the entries whose moves are compared: the discriminators', and an Adam
+    # generator's parameters (ADAM_SEG)
+    adam_seg = method in ADAM_SEG
+    init = {k: v.cpu() for k, v in state_of(trainer).items()
+            if k.startswith("d_") or (adam_seg and k.startswith("seg/") and not is_buffer(k))}
     d_update = S._d_update
     # MPCL's fault on exactly-zero feature rows (ROADMAP queue 3 item 2):
     # the rows of each forward's dcdr_ft with a zero norm
     zero_rows = []
     hook = s.seg.register_forward_hook(lambda m, i, o: zero_rows.append(
-        int((o.dcdr_ft.float().norm(dim=-1) == 0).sum())))
+        int((o.dcdr_ft.float().norm(dim=-1) == 0).sum())) if hasattr(o, "dcdr_ft") else None)
 
     def recorded(disc, opt, lr, pred_s, pred_t, kind, amp):
         if disc is s.d_main and not first:
@@ -2944,8 +3071,12 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 
     try:
         with dp.use(mesh):
             for b, sched in zip(batches, scheds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 metrics.append({k: float(v) for k, v in trainer.step_fn(s, b,
                                                                          sched).items()})
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
                 if first_state is None:
                     first_state = {k: v.cpu() for k, v in state_of(trainer).items()}
                     if carry:
@@ -2959,23 +3090,21 @@ def two_rank_entry(mesh, method: str, work: str, d_step: str = "", timed: int = 
            "rows": int(batches[0]["img_s"].shape[0]),
            "image_rows": int(batches[0]["img_s"].shape[1]),
            "state": {k: v.cpu() for k, v in state_of(trainer).items()},
-           "init": init, "lr_dis": scheds[0]["lr_dis"], "disc_grads": grads,
-           "d_step": first}
+           "init": init, "lr_dis": scheds[0]["lr_dis"], "first_grads": grads,
+           "adam_seg": adam_seg, "step_ms": ms,
+           "d_step": first, "plabel_round": plabel_round}
     if d_step:
         out["disc_f64"] = disc_update_f64(mesh, d_step)
-    if timed:
-        # (RAIN: carried epsilon iterations)
-        out["step_ms"] = step_ms(trainer, batches, scheds[1], mesh, n=timed)
     return out
 
 
-def cells_entry(mesh, cells, work: str, files: dict, timed: int = 0) -> dict:
+def cells_entry(mesh, cells, work: str, files: dict) -> dict:
     """:func:`two_rank_entry` of each cell in turn, in one set of ranks, with
     its ``files`` (``d_step``, ``carry``: :func:`one_process`)."""
     import torch
     out = {}
     for cell in cells:
-        out[cell] = two_rank_entry(mesh, cell, work, timed=timed, **files.get(cell, {}))
+        out[cell] = two_rank_entry(mesh, cell, work, **files.get(cell, {}))
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3045,8 +3174,8 @@ def norm_rel_err(got, want) -> float:
 
 
 def one_process(work: Path, method: str) -> tuple:
-    """The one-process side of (b) and (c): two steps of the cell, three more
-    timed, and its first discriminator update's inputs on file (the ranks
+    """The one-process side of (b) and (c): two steps of the cell, and its
+    first discriminator update's inputs on file (the ranks
     redo it in float64); with RAIN its sampling after the first iteration
     on file (the ranks' second iteration starts from it); for a cell of
     :data:`LATER_FACTOR` or :data:`FLOOR_HELD` also its two steps on the
@@ -3055,8 +3184,11 @@ def one_process(work: Path, method: str) -> tuple:
     ulp up (``ulp_floor``); (its record, the files for
     :func:`two_rank_entry`)."""
     import torch
-    want = two_rank_entry(None, method, str(work), timed=3)
+    want = two_rank_entry(None, method, str(work))
     files = {}
+    if want["plabel_round"] is not None:
+        files["plabels"] = str(work / f"plabels_{method}.pt")
+        torch.save(want["plabel_round"].pop("labels"), files["plabels"])
     if "sampling" in want["first_state"]:
         files["carry"] = str(work / f"carry_{method}.pt")
         torch.save(want["first_state"]["sampling"], files["carry"])
@@ -3111,7 +3243,10 @@ def step_ratios(got: dict, want: dict, i: int) -> tuple:
     the worst ``seg`` entry, each entry's max abs error). Adam's first
     steps move a parameter whose gradient is rounding noise by up to lr_dis
     each: the discriminators' states are held to 2 lr_dis a step, their
-    gradients by the float64 update (:func:`disc_update_f64`)."""
+    gradients by the float64 update (:func:`disc_update_f64`). An
+    :data:`ADAM_SEG` generator's parameters are not held entry by entry
+    (Adam moves each by about lr, whatever its gradient): its first-step
+    gradient and its move are (:func:`hold_cell`)."""
     import torch
     g_state, w_state = ((got["first_state"], want["first_state"]) if i == 0
                         else (got["state"], want["state"]))
@@ -3134,8 +3269,8 @@ def step_ratios(got: dict, want: dict, i: int) -> tuple:
             # step counters and the like: equal or failed
             ratio["exact"] = max(ratio.get("exact", 0.0), 0.0 if torch.equal(g, w) else math.inf)
             continue
-        if k == "sampling":
-            err[k] = float((g.double() - w.double()).abs().max())
+        err[k] = float((g.double() - w.double()).abs().max())
+        if k == "sampling" or (want["adam_seg"] and k.startswith("seg/") and not is_buffer(k)):
             continue
         d = k.startswith("d_")
         part = "disc" if d else "seg"
@@ -3144,7 +3279,6 @@ def step_ratios(got: dict, want: dict, i: int) -> tuple:
             ratio[part] = t
             if not d:
                 top = k
-        err[k] = float((g.double() - w.double()).abs().max())
     return ratio, top, err
 
 
@@ -3163,27 +3297,86 @@ LATER_FACTOR = {"resnet50_slcl": 50.0}
 # whose first Adam step moves encoder1's first convolution by 1.01 times
 # (b)'s tolerance on the bands, 2.38 times on inputs one ulp apart, and
 # whose second iteration parts by 5-7 times on the bands, 10-11 times on
-# the ulp inputs (PERF.md §6)
-FLOOR_HELD = ("mccl_rain",)
+# the ulp inputs (PERF.md §6); ddfseg, adaptevery_small and bcl_small
+FLOOR_HELD = ("mccl_rain", "ddfseg", "adaptevery_small", "bcl_small")
+# a FLOOR_HELD cell's second step and first-step gradients held to this
+# factor times its sound runs: on the H100 ddfseg's bands read 0.78-1.03
+# times the larger sound run at its second step's BatchNorm statistics
+# (11,693-14,089 times (b)'s tolerance: its first Adam step moves every
+# entry whose gradient is rounding noise by a full lr either way, in every
+# run), up to 1.36 times at its pixel-count metrics, and 1.002 times at
+# d_main's first-step gradient (10.02 against 10.00: its real and fake
+# terms nearly cancel); a planted halo fault 1.8-3.9 times this bound at
+# the second step, 4.6-100 times at the gradients (PERF.md §6)
+FLOOR_FACTOR = {"ddfseg": 2.0}
+# the margin under a sound run's cosine at which a FLOOR_HELD cell's
+# network must move as one process's: a noise entry moves each run its own
+# way, which spreads the cosine of a network's move from run to run
+NET_MOVE_MARGIN = 0.1
+# cells whose segmentor Adam updates (DDFSeg's generator): its parameters
+# are held by their first-step gradient (a network's error norm within
+# 1e-4 of its norm, or its sound runs') and their move (with the
+# discriminators'), its BatchNorm statistics to (b)'s tolerance
+ADAM_SEG = ("ddfseg",)
 
 
 def dp_two_ranks(work: Path, cells, ones: dict, spatial: bool = False) -> dict:
     """(b): two gloo ranks on the card, data-parallel (8 of the 16 rows each),
     against one process on the card (``ones[cell]``: :func:`one_process`);
     (c) with ``spatial``: the two ranks as one data rank's two model ranks,
-    each with its band of the rows of all 16 images, and each rank's step
-    timed. Each of ``cells`` is a cell of :func:`cell_config`, all run in
-    turn in one pair of ranks (``seconds``: the pair's whole run, on each
+    each with its band of the rows of all 16 images, and each rank's second
+    step timed. Each of ``cells`` is a cell of :func:`cell_config`, all run
+    in turn in one pair of ranks (``seconds``: the pair's whole run, on each
     cell's record). Returns :func:`hold_cell`'s record of each."""
     from slcl_torch.parallel.dryrun import spawn
     t0 = time.perf_counter()
-    ranks = spawn(2, "cells_entry", (list(cells), str(work),
-                                     {c: ones[c][1] for c in cells}, 2 if spatial else 0),
+    ranks = spawn(2, "cells_entry", (list(cells), str(work), {c: ones[c][1] for c in cells}),
                   module="chip_smoke", device="cuda:0", timeout=900,
                   model_axis=2 if spatial else 1, spatial=spatial)
     seconds = round(time.perf_counter() - t0, 1)
     return {c: hold_cell(c, ones[c][0], [r[c] for r in ranks], spatial, seconds)
             for c in cells}
+
+
+def is_buffer(key: str) -> bool:
+    """A BatchNorm's statistics or counter, which no optimizer moves."""
+    return key.endswith(("running_mean", "running_var", "num_batches_tracked"))
+
+
+def move_cosines(got: dict, want: dict) -> dict:
+    """Per network of ``want``'s ``init`` (the discriminators, and an
+    :data:`ADAM_SEG` generator), the cosine of ``got``'s move in its two
+    steps against ``want``'s, the entries' moves taken together."""
+    import torch
+    sums = {}
+    for k in want["init"]:
+        w = want["state"][k]
+        if torch.is_floating_point(w):
+            dg = (got["state"][k] - got["init"][k]).double()
+            dw = (w - want["init"][k]).double()
+            s = sums.setdefault(k.split("/")[0], [0.0, 0.0, 0.0])
+            s[0] += float((dg * dg).sum())
+            s[1] += float((dw * dw).sum())
+            s[2] += float((dg * dw).sum())
+    return {k: c / math.sqrt(a * b) for k, (a, b, c) in sums.items() if a > 0 and b > 0}
+
+
+def grad_ratios(got: dict, want: dict) -> dict:
+    """Per network, the error of ``got``'s first-step gradient (as its
+    optimizer received it) against ``want``'s: its norm over the network's
+    entries taken together, over 1e-4 of the norm of ``want``'s (at most 1
+    within (b)'s gradient tolerance). A bias ahead of a norm, whose gradient
+    is rounding noise, weighs nothing here."""
+    import torch
+    out = {}
+    for name, ws in want["first_grads"].items():
+        gs = got["first_grads"][name]
+        diff = math.sqrt(sum(float((g.double() - w.double()).square().sum())
+                             for g, w in zip(gs, ws)))
+        norm = math.sqrt(sum(float(w.double().square().sum()) for w in ws))
+        r = diff / max(norm, 1e-30) / 1e-4
+        out[name[len("opt_"):]] = r if math.isfinite(r) else math.inf
+    return out
 
 
 def hold_cell(method: str, want: dict, ranks: list, spatial: bool, seconds: float) -> dict:
@@ -3193,8 +3386,15 @@ def hold_cell(method: str, want: dict, ranks: list, spatial: bool, seconds: floa
     scaled by :data:`LATER_FACTOR`; a cell of :data:`FLOOR_HELD` held to
     its sound runs); :func:`step_ratios` of each, the largest error over
     its tolerance, is reported (and the sound runs', where they ran), and
-    any that is over its bound or not finite fails."""
-    import torch
+    any that is over its bound or not finite fails. Each network's first-
+    step gradient (:func:`grad_ratios`) is reported; a cell of
+    :data:`FLOOR_HELD` holds it to the larger of 1 and its sound runs'
+    (times its :data:`FLOOR_FACTOR`).
+    Each network's move (:func:`move_cosines`) must have a cosine against
+    one process's of at least 0.9, and at least each sound run's less
+    :data:`NET_MOVE_MARGIN`: a gradient that is zero in exact arithmetic,
+    as a bias ahead of a norm, is rounding noise, and Adam's step on it has
+    no direction. BCL's ranks must take one process's pseudo-label round."""
     per = PER_METHOD[cell_method(method)]
     who = f"{'spatial ' if spatial else ''}two ranks {method}"
     rec = {"rows_per_rank": [r["rows"] for r in ranks], "rows_one": want["rows"],
@@ -3210,24 +3410,38 @@ def hold_cell(method: str, want: dict, ranks: list, spatial: bool, seconds: floa
     if "disc_f64" in want:
         rec["disc_f64_cancellation"] = want["disc_f64"]["cancellation"]
     rec["zero_feature_rows_one"] = want["zero_feature_rows"]
-    floors = []
+    if want["plabel_round"] is not None:
+        rec["plabel_kept"] = want["plabel_round"]["kept"]
+        same = [r["plabel_round"]["same_as_one_process"] for r in ranks]
+        if not all(same):
+            raise AssertionError(f"{who}: the ranks' pseudo-label rounds {same} differ "
+                                 f"from one process's")
+    floors, floor_grads, move_bound = [], [], {}
     for name in ("floor", "ulp_floor"):
         if name in want:
             fl = [step_ratios(want[name], want, i) for i in range(2)]
             rec[f"{name}_tol_ratio"] = [r for r, _, _ in fl]
             rec[f"{name}_worst_seg_entry"] = [t for _, t, _ in fl]
+            rec[f"{name}_grad_ratio"] = grad_ratios(want[name], want)
+            cos = move_cosines(want[name], want)
+            rec[f"{name}_move_cosine"] = cos
             if method in FLOOR_HELD:
+                for k, v in cos.items():
+                    move_bound[k] = min(move_bound.get(k, 0.9), v - NET_MOVE_MARGIN)
                 if not all(math.isfinite(v) for r, _, _ in fl for v in r.values()):
                     raise AssertionError(f"{method}: a sound run ({name}) is not finite: "
                                          f"{rec[f'{name}_tol_ratio']}")
                 floors.append([r for r, _, _ in fl])
+                floor_grads.append(rec[f"{name}_grad_ratio"])
 
     def limit(i: int, part: str) -> float:
         """The bound on a part's ratio at step i: (b)'s tolerance (1) at the
         first, the cell's :data:`LATER_FACTOR` at the second; for a cell of
-        :data:`FLOOR_HELD` the larger of 1 and the sound runs' ratios."""
+        :data:`FLOOR_HELD` the larger of 1 and the sound runs' ratios (at the
+        second step times its :data:`FLOOR_FACTOR`)."""
         if floors:
-            return max([1.0] + [fl[i].get(part, 0.0) for fl in floors])
+            factor = FLOOR_FACTOR.get(method, 1.0) if i else 1.0
+            return max([1.0] + [factor * fl[i].get(part, 0.0) for fl in floors])
         return LATER_FACTOR.get(method, 1.0) if i else 1.0
 
     for r, got in enumerate(ranks):
@@ -3246,31 +3460,32 @@ def hold_cell(method: str, want: dict, ranks: list, spatial: bool, seconds: floa
         if any(bad.values()):
             raise AssertionError(f"{who} rank {r}: error over tolerance {bounds} "
                                  f"{bad}; all {rec[f'rank{r}_tol_ratio']}")
-        err = steps[1][2]
-        cosines = {}
-        for k, w in want["state"].items():
-            if k.startswith("d_") and torch.is_floating_point(w):
-                dg = (got["state"][k] - got["init"][k]).double()
-                dw = (w - want["init"][k]).double()
-                if dw.abs().max() > 0:
-                    cosines[k] = float((dg * dw).sum() / (torch.linalg.vector_norm(dg) *
-                                                          torch.linalg.vector_norm(dw)))
-        if cosines and not min(cosines.values()) >= 0.9:
-            bad = min(cosines, key=cosines.get)
-            raise AssertionError(f"{who} rank {r}: {bad} moved unlike one "
-                                 f"process's (cosine {cosines[bad]:.3g})")
+        if set(got["first_grads"]) != set(want["first_grads"]):
+            raise AssertionError(f"{who} rank {r}: networks "
+                                 f"{sorted(got['first_grads'])} vs {sorted(want['first_grads'])}")
+        grads = grad_ratios(got, want)
+        rec[f"rank{r}_grad_ratio"] = grads
+        if floor_grads:
+            factor = FLOOR_FACTOR.get(method, 1.0)
+            rec["grad_bound"] = {k: max([1.0] + [factor * fl[k] for fl in floor_grads])
+                                 for k in grads}
+            bad = {k: v for k, v in grads.items() if not v <= rec["grad_bound"][k]}
+            if bad:
+                raise AssertionError(f"{who} rank {r}: first-step gradients {bad} over "
+                                     f"{rec['grad_bound']}")
+        cosines = move_cosines(got, want)
+        rec[f"rank{r}_move_cosine"] = cosines
+        rec["move_cosine_bound"] = {k: move_bound.get(k, 0.9) for k in cosines}
+        bad = {k: v for k, v in cosines.items() if not v >= rec["move_cosine_bound"][k]}
+        if bad:
+            raise AssertionError(f"{who} rank {r}: {bad} moved unlike one process's "
+                                 f"(bounds {rec['move_cosine_bound']})")
         if "disc_f64" in want:
             rec[f"rank{r}_disc_f64_grad_rel_err"] = max(
                 grad_rel_err(g_, w_, f"{who} rank {r} d_main f64 gradient {j}")
                 for j, (g_, w_) in enumerate(zip(got["disc_f64"]["grads"],
                                                  want["disc_f64"]["grads"])))
-        if set(got["disc_grads"]) != set(want["disc_grads"]):
-            raise AssertionError(f"{who} rank {r}: discriminators "
-                                 f"{sorted(got['disc_grads'])} vs {sorted(want['disc_grads'])}")
-        rec[f"rank{r}_disc_grad_f32_rel_err"] = max(
-            [norm_rel_err(g_, w_) for name, ws in want["disc_grads"].items()
-             for g_, w_ in zip(got["disc_grads"][name], ws)], default=0.0)
-        rec[f"rank{r}_disc_min_cosine"] = min(cosines.values(), default=None)
+        err = steps[1][2]
         seg = [v for k, v in err.items() if not k.startswith("d_") and k != "sampling"]
         rec[f"rank{r}_max_abs_err"] = max(seg)
         if "sampling" in err:
@@ -3302,8 +3517,10 @@ def spatial_cell(cell: str) -> int:
     return 0
 
 
-def parallel_phase(work: Path) -> dict:
-    """Phase 9 (see the module docstring)."""
+def parallel_phase(work: Path, one_slcl: tuple, gloo_dp: dict) -> dict:
+    """Phase 9 (see the module docstring): (a), then (c); ``gloo_dp`` is
+    (b)'s record, whose ranks ran beside phase 5, ``one_slcl`` its
+    :func:`one_process` of ``slcl``."""
     import torch
     from slcl_torch.parallel import mesh as dp
     out = {"split_entries": split_entries()}
@@ -3316,10 +3533,9 @@ def parallel_phase(work: Path) -> dict:
             "slcl_fsdp": dp_one_rank(work, mesh, "slcl", True)}
     finally:
         dp.release()
-    # (b) and (c): each in one pair of ranks, its cells in turn
-    one = {m: one_process(work, m) for m in ("slcl", "mccl") + SMOKE_DP}
-    out["gloo_two_ranks_one_card"] = dp_two_ranks(work, list(one), one)
-    one = {"slcl": one["slcl"], **{c: one_process(work, c) for c in SMOKE_SPATIAL}}
+    out["gloo_two_ranks_one_card"] = gloo_dp
+    # (c): one pair of ranks, its cells in turn
+    one = {"slcl": one_slcl, **{c: one_process(work, c) for c in SMOKE_SPATIAL}}
     gc.collect()
     torch.cuda.empty_cache()
     out["gloo_spatial_two_ranks_one_card"] = dp_two_ranks(work, list(one), one, spatial=True)
@@ -3685,20 +3901,33 @@ def main() -> int:
             extra_cells = {m: train_full_width(work, m, n_timed=n, name=m)
                            for m, n in EXTRA_CELLS}
             log(f"{time.perf_counter() - t0:.1f} s: phase 4 done")
-            protocol = protocol_full_width(work)
-            protocol["rain"] = protocol_rain(work)
-            extra_protocol = protocol_extra(work)
-            log(f"{time.perf_counter() - t0:.1f} s: phase 5 done")
+            # phase 9(b)'s pair of ranks (after its one-process runs) and
+            # phase 7's export CLI (once phase 5 has trained its model) run
+            # beside phase 5, which times nothing but its own wall time
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                ones_dp = {m: one_process(work, m) for m in ("slcl", "mccl") + SMOKE_DP}
+                gloo = pool.submit(dp_two_ranks, work, list(ones_dp), ones_dp)
+                protocol = protocol_full_width(work)
+                export = start_export(work, protocol)
+                protocol["rain"] = protocol_rain(work)
+                extra_protocol = protocol_extra(work)
+                gloo_dp = gloo.result()
+            log(f"{time.perf_counter() - t0:.1f} s: phase 5 (and 9(b)) done")
             real = train_real(work)
-            served = serve_phase(work, protocol, {"mscmrseg": work / "data" / "mscmrseg"})
+            served = serve_phase(work, protocol, {"mscmrseg": work / "data" / "mscmrseg"},
+                                 export)
             log(f"{time.perf_counter() - t0:.1f} s: phases 6-7 done")
             run_utils = run_utils_phase(work)
-            parallel = parallel_phase(work)
+            parallel = parallel_phase(work, ones_dp["slcl"], gloo_dp)
             log(f"{time.perf_counter() - t0:.1f} s: phases 8-9 done")
             scan = scan_steps_phase(work)
             for k in ("slcl_args", "slcl_best"):
                 protocol.pop(k)
         finally:
+            for proc in STARTED:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
             shutil.rmtree(work, ignore_errors=True)
 
     cells = {"train": train, "train_mccl": train_mccl, "train_mccl_stdmin": train_std}

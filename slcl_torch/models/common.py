@@ -296,18 +296,28 @@ class Dropout(nn.Module):
     package's layout (NHWC for a 4-d NCHW input) and comes from the active
     :func:`dropout_pass`, keyed by ``path``, the module's flax path below the
     network that :func:`name_dropouts` named (``'encoders/_ResBlock_0/
-    Dropout_1'``); in train mode outside a pass it raises."""
+    Dropout_1'``); in train mode outside a pass it raises. Under a spatial
+    mesh a 4-d input is a band of an activation of ``rows`` global rows: the
+    mask is drawn at those rows and this rank's band of it kept
+    (``spatial.bounds``), so the ranks drop as one process does; a 4-d
+    input there without ``rows`` raises."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.path = ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = tuple(nhwc(x).shape) if x.dim() == 4 else tuple(x.shape)
+        m = dp.spatial() if x.dim() == 4 else None
+        if m is not None:
+            if rows is None:
+                raise ValueError(f"Dropout {self.path!r} under spatial partitioning: "
+                                 "the activation's global rows are needed")
+            shape = (shape[0], rows, *shape[2:])
         if not _PASSES:
             raise RuntimeError(f"Dropout {self.path!r} in train mode outside a "
                                "dropout_pass: its mask would have no key")
@@ -315,6 +325,9 @@ class Dropout(nn.Module):
         call = p.calls.get(self.path, 0)
         p.calls[self.path] = call + 1
         mask = p.draw(self.path, call, shape, keep, x.device)
+        if m is not None:
+            b = sp.bounds(rows, m.model_size)
+            mask = mask[:, b[m.model_rank]:b[m.model_rank + 1]]
         if x.dim() == 4:
             mask = nchw(mask)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -15,7 +15,8 @@ As in the JAX package: conv -> dropout -> norm -> ReLU; BatchNorm is
 flax's (momentum 0.9, eps 1e-5), InstanceNorm a GroupNorm of one channel a
 group with scale and bias and eps 1e-5; a residual block whose width grows
 pads the skip's channels on both sides; the attention takes its softmax
-over the pooled positions (axis 1) with both products in float32, and its
+over the pooled positions (axis 1) with both products in float32 (float64
+for a float64 input), and its
 ``gamma`` is a parameter from 0. Kernels are N(0, std^2) cut at 2 std
 (flax's ``truncated_normal``), biases zero. A transposed conv is torch's
 ``ConvTranspose2d(3, 2, padding=1, output_padding=1)``, flax's explicit
@@ -29,6 +30,16 @@ take and return NHWC tensors; inside, NCHW in ``channels_last`` memory.
 Dropout masks come from :func:`.common.dropout_pass`, keyed by the module's
 path below ``DDFNet`` or ``SegDecoder``. :class:`DDFSeg` holds both as the
 trained generator; its ``forward`` is the evaluation path.
+
+Under spatial partitioning (``parallel/spatial.py``) the images are this
+rank's band of each image's rows and every stage threads its global rows
+(``rows``): the 7x7, 3x3 and dilated convolutions read their halos, the
+pools and the 3x3 stride-2 transposed convolutions reshard, the instance
+norms sum their moments over the model ranks (``spatial.InstanceNorm``),
+the attention gathers its pooled keys and values, and each dropout keeps
+its band of a mask drawn at the global rows. 1x1 convolutions, the
+channel pads and the image skip stay local. At 224 rows the content runs
+at 28, its pooled attention map at 14.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial as sp
 from .common import (BatchNorm, Dropout, SegOutput, max_pool, name_dropouts, nchw,
                      nhwc, trunc_normal_init_)
 
@@ -48,8 +60,13 @@ def _norm(kind: str, ch: int) -> Optional[nn.Module]:
     if kind == "batch":
         return BatchNorm(ch)
     if kind == "ins":
-        return nn.GroupNorm(ch, ch, eps=1e-5)
+        return sp.InstanceNorm(ch, eps=1e-5)
     return None
+
+
+def _pooled(rows: Optional[int], n: int = 1) -> Optional[int]:
+    """The global rows after ``n`` 2x2 pools (None: none given)."""
+    return None if rows is None else rows >> n
 
 
 class _ConvBlock(nn.Module):
@@ -59,7 +76,7 @@ class _ConvBlock(nn.Module):
                  norm: str = "batch", relu: bool = True, dropout: float = 0.0,
                  generator=None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, padding=kernel // 2)
+        self.Conv_0 = sp.Conv2d(in_ch, features, kernel, padding=kernel // 2)
         trunc_normal_init_(self.Conv_0, stddev, generator)
         if dropout:
             self.Dropout_0 = Dropout(dropout)
@@ -70,10 +87,11 @@ class _ConvBlock(nn.Module):
             self.GroupNorm_0 = _norm(norm, features)
         self.relu = relu
 
-    def forward(self, x):
-        x = self.Conv_0(x)
+    def forward(self, x, rows=None):
+        """``rows``: the input's global rows (spatial partitioning)."""
+        x = self.Conv_0(x, rows)
         if hasattr(self, "Dropout_0"):
-            x = self.Dropout_0(x)
+            x = self.Dropout_0(x, rows)
         if self.norm == "batch":
             x = self.BatchNorm_0(x)
         elif self.norm == "ins":
@@ -95,7 +113,7 @@ class _ResBlock(nn.Module):
         if dilation > 1:
             d = dilation
             for i, ci in enumerate((in_ch, features)):
-                conv = nn.Conv2d(ci, features, 3, padding=d, dilation=d)
+                conv = sp.Conv2d(ci, features, 3, padding=d, dilation=d)
                 trunc_normal_init_(conv, 0.01, g)
                 self.add_module(f"Conv_{i}", conv)
                 self.add_module(f"Dropout_{i}", Dropout(dropout))
@@ -106,12 +124,12 @@ class _ResBlock(nn.Module):
             self._ConvBlock_1 = _ConvBlock(features, features, norm=norm, relu=False,
                                            dropout=dropout, generator=g)
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         if self.dilation > 1:
-            y = F.relu(self.BatchNorm_0(self.Dropout_0(self.Conv_0(x))))
-            y = self.BatchNorm_1(self.Dropout_1(self.Conv_1(y)))
+            y = F.relu(self.BatchNorm_0(self.Dropout_0(self.Conv_0(x, rows), rows)))
+            y = self.BatchNorm_1(self.Dropout_1(self.Conv_1(y, rows), rows))
         else:
-            y = self._ConvBlock_1(self._ConvBlock_0(x))
+            y = self._ConvBlock_1(self._ConvBlock_0(x, rows), rows)
         if self.pad:
             x = F.pad(x, (0, 0, 0, 0, self.pad, self.pad))
         return F.relu(y + x)
@@ -120,7 +138,12 @@ class _ResBlock(nn.Module):
 class _Attention(nn.Module):
     """SAGAN self-attention (DDFSeg.py:145-173): 1x1 blocks f, g (C/8) and
     h (C/2), f and h max-pooled 2x2; beta = softmax over the pooled
-    positions of f.g; o = h.beta back to C by ``conv_o``; gamma * o + x."""
+    positions of f.g; o = h.beta back to C by ``conv_o``; gamma * o + x.
+    Under a spatial mesh every rank attends over the whole image: the pooled
+    f and h of every model rank are gathered (``spatial.gather_rows``); g,
+    beta's columns and o stay on the band. The two products are taken in
+    float32, as JAX's, or in float64 for a float64 input.
+    """
 
     def __init__(self, features: int, dropout: float = 0.25, generator=None):
         super().__init__()
@@ -133,19 +156,20 @@ class _Attention(nn.Module):
                                  generator=g)
         self.gamma = nn.Parameter(torch.zeros(()))
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         n, c, h, w = x.shape
-        f = max_pool(self.conv_f(x))
-        g = self.conv_g(x)
-        hmap = max_pool(self.conv_h(x))
+        f = sp.gather_rows(max_pool(self.conv_f(x, rows), rows), _pooled(rows))
+        g = self.conv_g(x, rows)
+        hmap = sp.gather_rows(max_pool(self.conv_h(x, rows), rows), _pooled(rows))
         with torch.autocast(device_type=x.device.type, enabled=False):
-            f2 = f.flatten(2).transpose(1, 2).float()            # (N, HW/4, C/8)
-            g2 = g.flatten(2).transpose(1, 2).float()            # (N, HW, C/8)
+            t = torch.promote_types(x.dtype, torch.float32)
+            f2 = f.flatten(2).transpose(1, 2).to(t)              # (N, HW/4, C/8)
+            g2 = g.flatten(2).transpose(1, 2).to(t)              # (N, HW, C/8)
             beta = torch.softmax(torch.bmm(f2, g2.transpose(1, 2)), dim=1)
-            h2 = hmap.flatten(2).transpose(1, 2).float()         # (N, HW/4, C/2)
+            h2 = hmap.flatten(2).transpose(1, 2).to(t)           # (N, HW/4, C/2)
             o = torch.bmm(beta.transpose(1, 2), h2)               # (N, HW, C/2)
         o = o.transpose(1, 2).reshape(n, c // 2, h, w).to(hmap.dtype)
-        o = self.conv_o(o.contiguous(memory_format=torch.channels_last))
+        o = self.conv_o(o.contiguous(memory_format=torch.channels_last), rows)
         return self.gamma * o + x
 
 
@@ -171,12 +195,17 @@ class EncoderC(nn.Module):
             self.add_module(f"_ResBlock_{i}", _ResBlock(prev, ch, dropout=0.0, generator=g))
             prev = ch
 
-    def forward(self, x):
-        x = self._ConvBlock_0(x)
+    def out_rows(self, rows: int) -> int:
+        """The global rows of the content map of an image of ``rows``."""
+        return _pooled(rows, sum(pool for _, pool in self.plan))
+
+    def forward(self, x, rows=None):
+        x = self._ConvBlock_0(x, rows)
         for i, (_, pool) in enumerate(self.plan):
-            x = getattr(self, f"_ResBlock_{i}")(x)
+            x = getattr(self, f"_ResBlock_{i}")(x, rows)
             if pool:
-                x = max_pool(x)
+                x = max_pool(x, rows)
+                rows = _pooled(rows)
         return x
 
 
@@ -192,10 +221,10 @@ class EncoderS(nn.Module):
             self.add_module(f"_ResBlock_{i}", _ResBlock(c, c, dilation=2, generator=generator))
         self._Attention_0 = _Attention(c, dropout=0.25, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         for i in range(self.n_res):
-            x = getattr(self, f"_ResBlock_{i}")(x)
-        return self._Attention_0(x)
+            x = getattr(self, f"_ResBlock_{i}")(x, rows)
+        return self._Attention_0(x, rows)
 
 
 class EncoderDiff(nn.Module):
@@ -217,13 +246,14 @@ class EncoderDiff(nn.Module):
         self._ConvBlock_1 = _ConvBlock(prev, 32, dropout=0.25, generator=g)
         self._ConvBlock_2 = _ConvBlock(32, 32, dropout=0.25, generator=g)
 
-    def forward(self, x):
-        x = self._ConvBlock_0(x)
+    def forward(self, x, rows=None):
+        x = self._ConvBlock_0(x, rows)
         for i in range(self.n_res):
-            x = getattr(self, f"_ResBlock_{i}")(x)
+            x = getattr(self, f"_ResBlock_{i}")(x, rows)
             if i in self.pools:
-                x = max_pool(x)
-        return self._ConvBlock_2(self._ConvBlock_1(x))
+                x = max_pool(x, rows)
+                rows = _pooled(rows)
+        return self._ConvBlock_2(self._ConvBlock_1(x, rows), rows)
 
 
 class DecoderC(nn.Module):
@@ -240,28 +270,31 @@ class DecoderC(nn.Module):
             self.add_module(f"_ResBlock_{i}", _ResBlock(ngf * 4, ngf * 4, norm="ins",
                                                         dropout=0.25, generator=generator))
 
-    def forward(self, x):
-        x = self._ConvBlock_0(x)
+    def forward(self, x, rows=None):
+        x = self._ConvBlock_0(x, rows)
         for i in range(self.n_res):
-            x = getattr(self, f"_ResBlock_{i}")(x)
+            x = getattr(self, f"_ResBlock_{i}")(x, rows)
         return x
 
 
 def _upsampler(module: nn.Module, in_ch: int, widths, generator) -> int:
     """Add ``ConvTranspose_i`` + ``GroupNorm_i`` pairs (x2 each) to ``module``."""
     for i, ch in enumerate(widths):
-        t = nn.ConvTranspose2d(in_ch, ch, 3, stride=2, padding=1, output_padding=1)
+        t = sp.ConvTranspose2d(in_ch, ch, 3, stride=2, padding=1, output_padding=1)
         trunc_normal_init_(t, 0.02, generator)
         module.add_module(f"ConvTranspose_{i}", t)
-        module.add_module(f"GroupNorm_{i}", nn.GroupNorm(ch, ch, eps=1e-5))
+        module.add_module(f"GroupNorm_{i}", sp.InstanceNorm(ch, eps=1e-5))
         in_ch = ch
     return in_ch
 
 
-def _upsample(module: nn.Module, x, n: int = 3):
+def _upsample(module: nn.Module, x, rows=None, n: int = 3):
+    """(the upsampled ``x``, its global rows)."""
     for i in range(n):
-        x = F.relu(getattr(module, f"GroupNorm_{i}")(getattr(module, f"ConvTranspose_{i}")(x)))
-    return x
+        t = getattr(module, f"ConvTranspose_{i}")
+        x = F.relu(getattr(module, f"GroupNorm_{i}")(t(x, rows)))
+        rows = sp.transpose_rows(t, rows)
+    return x, rows
 
 
 class ImageDecoder(nn.Module):
@@ -277,8 +310,10 @@ class ImageDecoder(nn.Module):
         self._ConvBlock_0 = _ConvBlock(last, 1, kernel=7, stddev=0.02, norm="none",
                                        relu=False, generator=generator)
 
-    def forward(self, x, img):
-        x = self._ConvBlock_0(_upsample(self, self.DecoderC_0(x)))
+    def forward(self, x, img, rows=None):
+        """``rows``: ``x``'s global rows (spatial partitioning)."""
+        x, rows = _upsample(self, self.DecoderC_0(x, rows), rows)
+        x = self._ConvBlock_0(x, rows)
         if self.skip:
             x = x + img[:, 1:2].to(x.dtype)
         return torch.tanh(x)
@@ -304,42 +339,50 @@ class DDFNet(nn.Module):
         self.decodert = ImageDecoder(ngf=ngf, n_res=n_res, generator=g)
         name_dropouts(self)
 
-    def _content_s(self, x):
-        return self.encoders(self.encoderc(x))
+    def content_rows(self, rows: int) -> int:
+        """The global rows of the content and style maps of ``rows``-row images."""
+        return self.encoderc.out_rows(rows)
 
-    def _content_t(self, x):
-        return self.encodert(self.encoderc(x))
+    def _content_s(self, x, rows=None):
+        return self.encoders(self.encoderc(x, rows), self.content_rows(rows))
+
+    def _content_t(self, x, rows=None):
+        return self.encodert(self.encoderc(x, rows), self.content_rows(rows))
 
     def content_s(self, x: torch.Tensor) -> torch.Tensor:
         """Source-domain content features of NHWC images, NHWC."""
-        return nhwc(self._content_s(nchw(x)))
+        return nhwc(self._content_s(nchw(x), sp.image_rows(x)))
 
     def content_t(self, x: torch.Tensor) -> torch.Tensor:
-        return nhwc(self._content_t(nchw(x)))
+        return nhwc(self._content_t(nchw(x), sp.image_rows(x)))
 
     def forward(self, imgs: torch.Tensor, imgt: torch.Tensor) -> Dict[str, torch.Tensor]:
         """NHWC images of each domain -> the JAX package's output dict
         (NHWC); the call order is flax's, which fixes both the running
         statistics' updates and each dropout's call count."""
         xs, xt = nchw(imgs), nchw(imgt)
-        content_s = self._content_s(xs)
-        content_t = self._content_t(xt)
-        style_s = self.style_encoder_s(xs)
-        style_t = self.style_encoder_t(xt)
-        style_s_from_t = self.style_encoder_s(xt)       # should -> 0
-        style_t_from_s = self.style_encoder_t(xs)       # should -> 0
-        fake_s_t = self.decodert(self.dec_shared(torch.cat([content_s, style_t], 1)), xs)
-        fake_t_s = self.decoders(self.dec_shared(torch.cat([content_t, style_s], 1)), xt)
+        r = sp.image_rows(imgs)
+        rc = self.content_rows(r)
+
+        def decode(decoder, content, style, img):
+            return decoder(self.dec_shared(torch.cat([content, style], 1), rc), img, rc)
+
+        content_s = self._content_s(xs, r)
+        content_t = self._content_t(xt, r)
+        style_s = self.style_encoder_s(xs, r)
+        style_t = self.style_encoder_t(xt, r)
+        style_s_from_t = self.style_encoder_s(xt, r)       # should -> 0
+        style_t_from_s = self.style_encoder_t(xs, r)       # should -> 0
+        fake_s_t = decode(self.decodert, content_s, style_t, xs)
+        fake_t_s = decode(self.decoders, content_t, style_s, xt)
         fake_s_t3 = torch.cat([fake_s_t] * 3, 1)
         fake_t_s3 = torch.cat([fake_t_s] * 3, 1)
-        recon_content_t = self._content_s(fake_t_s3)
-        recon_style_s = self.style_encoder_s(fake_t_s3)
-        recon_content_s = self._content_t(fake_s_t3)
-        recon_style_t = self.style_encoder_t(fake_s_t3)
-        recon_imgs = self.decoders(
-            self.dec_shared(torch.cat([recon_content_s, recon_style_s], 1)), fake_s_t3)
-        recon_imgt = self.decodert(
-            self.dec_shared(torch.cat([recon_content_t, recon_style_t], 1)), fake_t_s3)
+        recon_content_t = self._content_s(fake_t_s3, r)
+        recon_style_s = self.style_encoder_s(fake_t_s3, r)
+        recon_content_s = self._content_t(fake_s_t3, r)
+        recon_style_t = self.style_encoder_t(fake_s_t3, r)
+        recon_imgs = decode(self.decoders, recon_content_s, recon_style_s, fake_s_t3)
+        recon_imgt = decode(self.decodert, recon_content_t, recon_style_t, fake_t_s3)
         out = {"style_s_from_t": style_s_from_t, "style_t_from_s": style_t_from_s,
                "fake_img_s_t": fake_s_t, "fake_img_t_s": fake_t_s,
                "recon_imgs": recon_imgs, "recon_imgt": recon_imgt,
@@ -368,11 +411,15 @@ class SegDecoder(nn.Module):
                                        norm="none", relu=False, generator=g)
         name_dropouts(self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._ConvBlock_0(nchw(x))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        """``rows``: ``x``'s global rows under spatial partitioning (default:
+        its band's times the model ranks, an even split)."""
+        rows = sp.image_rows(x) if rows is None else rows
+        x = self._ConvBlock_0(nchw(x), rows)
         for i in range(self.n_res):
-            x = getattr(self, f"_ResBlock_{i}")(x)
-        return nhwc(self._ConvBlock_1(_upsample(self, x)))
+            x = getattr(self, f"_ResBlock_{i}")(x, rows)
+        x, rows = _upsample(self, x, rows)
+        return nhwc(self._ConvBlock_1(x, rows))
 
 
 class DDFSeg(nn.Module):
@@ -390,5 +437,6 @@ class DDFSeg(nn.Module):
                                      generator=generator)
 
     def forward(self, x: torch.Tensor) -> SegOutput:
-        pred = self.segdecoder(self.ddfnet.content_s(x))
+        pred = self.segdecoder(self.ddfnet.content_s(x),
+                               self.ddfnet.content_rows(sp.image_rows(x)))
         return SegOutput(pred=pred, aux=None, dcdr_ft=pred)

@@ -24,7 +24,8 @@ input is this rank's band of each image's rows: the forward threads each
 stage's global row count through the stem, its ceil-mode pool (224 rows go
 112, 57, 29), the bottlenecks' strided 1x1 and dilated 3x3 convolutions,
 the ASPP's dilated convolutions (halos of up to 24 rows, wider than a band)
-and the resizes to the input. ``BCLDeepLab`` runs unsharded.
+and the resizes to the input; ``BCLDeepLab``'s the same way, its
+feature-returning ASPP too.
 """
 from __future__ import annotations
 
@@ -96,8 +97,8 @@ class _ASPP(nn.Module):
 class _ASPPWithFeature(_ASPP):
     """The ASPP sum and the concatenation of its branches (BCL_DeeplabV2.py:86-97)."""
 
-    def forward(self, x):
-        feats = [getattr(self, f"aspp{i}")(x) for i in range(self.n)]
+    def forward(self, x, rows=None):
+        feats = [getattr(self, f"aspp{i}")(x, rows) for i in range(self.n)]
         out = feats[0]
         for y in feats[1:]:
             out = out + y
@@ -135,20 +136,35 @@ class BCLDeepLab(nn.Module):
                 in_ch if i == 0 else planes * 4, planes, stride if i == 0 else 1,
                 dilation, downsample=i == 0, generator=g))
 
-    def _stage(self, x, name: str, blocks: int):
+    def _stage(self, x, name: str, blocks: int, rows: int):
+        """(the stage's output, its global rows)."""
         for i in range(blocks):
-            x = getattr(self, f"{name}_{i}")(x)
-        return x
+            block = getattr(self, f"{name}_{i}")
+            x = block(x, rows)
+            rows = sp.conv_rows(block.conv1, rows)
+        return x, rows
+
+    def feature_rows(self, rows: int) -> int:
+        """The global rows of the features of an image of ``rows`` rows."""
+        rows = sp.pool3_rows(sp.conv_rows(self.conv1, rows), True)
+        for li, blocks in enumerate(self.layers, start=1):
+            for i in range(blocks):
+                rows = sp.conv_rows(getattr(self, f"layer{li}_{i}").conv1, rows)
+        return rows
 
     def forward(self, x: torch.Tensor, source: bool = True):
-        in_size = x.shape[1:3]
+        rows = sp.image_rows(x)
+        in_size = (rows, x.shape[2])
         pre = "" if (source or not self.pair) else "target_"
-        x = F.relu(getattr(self, f"{pre}bn1")(getattr(self, f"{pre}conv1")(nchw(x))))
-        x = self._stage(stem_pool(x, ceil=True), f"{pre}layer1", self.layers[0])
+        conv1 = getattr(self, f"{pre}conv1")
+        x = F.relu(getattr(self, f"{pre}bn1")(conv1(nchw(x), rows)))
+        rows = sp.conv_rows(conv1, rows)
+        x, rows = self._stage(stem_pool(x, rows, ceil=True), f"{pre}layer1", self.layers[0],
+                              sp.pool3_rows(rows, True))
         for li in (2, 3, 4):
-            x = self._stage(x, f"layer{li}", self.layers[li - 1])
-        pred, feature = self.layer5(x)
-        return nhwc(upsample_bilinear(pred, in_size)), nhwc(feature)
+            x, rows = self._stage(x, f"layer{li}", self.layers[li - 1], rows)
+        pred, feature = self.layer5(x, rows)
+        return nhwc(upsample_bilinear(pred, in_size, rows)), nhwc(feature)
 
 
 class DeepLabV2(nn.Module):

@@ -139,7 +139,11 @@ class PatchGAN(nn.Module):
     ``aux`` adds a second head on the last features: (out, out_aux).
     Submodule names are flax's (``c0``, ``c{n}``/``in{n}``, ``c_last``,
     ``in_last``, ``head``, ``head_aux``). An input too small for the head
-    to keep a pixel raises ``ValueError``."""
+    to keep a pixel raises ``ValueError``. Under spatial partitioning the
+    input is a band of each map's rows: the convolutions read their halos
+    and reshard (224 rows go 112, 56, 28, 27, 26: uneven bands from the
+    stride-1 stages on), the instance norms sum their moments over the model
+    ranks, and the size check reads the global rows."""
 
     def __init__(self, in_channels: int = 1, ndf: int = 64, n_layers: int = 3,
                  aux: bool = False, generator: Optional[torch.Generator] = None):
@@ -148,7 +152,7 @@ class PatchGAN(nn.Module):
         self.aux = aux
 
         def conv(i, o, stride):
-            c = nn.Conv2d(i, o, 4, stride=stride, padding=1)
+            c = sp.Conv2d(i, o, 4, stride=stride, padding=1)
             normal_conv_init_(c, generator)
             return c
 
@@ -157,12 +161,11 @@ class PatchGAN(nn.Module):
         for n in range(1, n_layers):
             mult = min(2 ** n, 8)
             self.add_module(f"c{n}", conv(prev, ndf * mult, 2))
-            self.add_module(f"in{n}", nn.GroupNorm(ndf * mult, ndf * mult, eps=1e-6,
-                                                   affine=False))
+            self.add_module(f"in{n}", sp.InstanceNorm(ndf * mult, eps=1e-6, affine=False))
             prev = ndf * mult
         mult = min(2 ** n_layers, 8)
         self.c_last = conv(prev, ndf * mult, 1)
-        self.in_last = nn.GroupNorm(ndf * mult, ndf * mult, eps=1e-6, affine=False)
+        self.in_last = sp.InstanceNorm(ndf * mult, eps=1e-6, affine=False)
         self.head = conv(ndf * mult, 1, 1)
         if aux:
             self.head_aux = conv(ndf * mult, 1, 1)
@@ -174,16 +177,24 @@ class PatchGAN(nn.Module):
         return size - 2
 
     def forward(self, x: torch.Tensor):
-        h, w = x.shape[1:3]
+        h, w = sp.image_rows(x), x.shape[2]
         if self._head_size(h) <= 0 or self._head_size(w) <= 0:
             # the patch map would be empty and every mean over it NaN
             raise ValueError(f"PatchGAN input too small: {h}x{w} leaves the head "
                              f"{self._head_size(h)}x{self._head_size(w)}")
-        x = F.leaky_relu(self.c0(nchw(x).to(self.c0.weight.dtype)), 0.2)
+        rows = h
+
+        def conv(c, x):
+            nonlocal rows
+            y = c(x, rows)
+            rows = sp.conv_rows(c, rows)
+            return y
+
+        x = F.leaky_relu(conv(self.c0, nchw(x).to(self.c0.weight.dtype)), 0.2)
         for n in range(1, self.n_layers):
-            x = F.leaky_relu(getattr(self, f"in{n}")(getattr(self, f"c{n}")(x)), 0.2)
-        x = F.leaky_relu(self.in_last(self.c_last(x)), 0.2)
-        out = nhwc(self.head(x))
+            x = F.leaky_relu(getattr(self, f"in{n}")(conv(getattr(self, f"c{n}"), x)), 0.2)
+        x = F.leaky_relu(self.in_last(conv(self.c_last, x)), 0.2)
+        out = nhwc(self.head(x, rows))
         if self.aux:
-            return out, nhwc(self.head_aux(x))
+            return out, nhwc(self.head_aux(x, rows))
         return out

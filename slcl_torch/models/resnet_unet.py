@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as dp
 from ..parallel import spatial as sp
 from .common import (BatchNorm, ConvBNReLU, SegOutput, conv2d, nchw, nhwc,
                      stem_pool, torch_conv_init_, upsample_bilinear,
@@ -123,6 +124,14 @@ class ResNetUNet(nn.Module):
             self.phead1 = conv2d(self.feat_dim, self.feat_dim * 2, 1, generator=g)
             self.phead2 = conv2d(self.feat_dim * 2, self.feat_dim, 1, generator=g)
 
+    def bottleneck_rows(self, rows: int) -> int:
+        """The global rows of the bottleneck of an image of ``rows`` rows."""
+        rows = sp.pool3_rows(sp.conv_rows(self.conv1, rows))
+        for li, blocks in enumerate(self.layers, start=1):
+            for i in range(blocks):
+                rows = sp.conv_rows(getattr(self, f"layer{li}_{i}").conv2, rows)
+        return rows
+
     def _stage(self, x, li: int, rows: int):
         """Stage ``li`` on ``x`` of ``rows`` global rows: (its output, the
         output's global rows)."""
@@ -163,7 +172,12 @@ class ResNetUNet(nn.Module):
 class ResNetUNetPoint(nn.Module):
     """``slcl_tpu/models/resnet_unet.py::ResNetUNetPoint``: the U-Net as
     ``unet`` and a vertex regression head on its bottleneck; returns
-    (SegOutput, vertices (N, n_points, 3))."""
+    (SegOutput, vertices (N, n_points, 3)). Under spatial partitioning
+    ``point_conv`` reads the bottleneck's halo (at 224 rows its 7 lie in
+    bands of 4 and 3, its output's 4 in 2 and 2) and the global average pool
+    is the bands' sums over the model ranks (``mesh.sample_sum``) over the
+    whole map's pixels: the vertex head after it is the same on every model
+    rank of a data rank."""
 
     def __init__(self, num_classes: int = 4, n_points: int = 300, multilvl: bool = True,
                  layers: Sequence[int] = (3, 4, 6, 3), base: int = 64,
@@ -174,7 +188,7 @@ class ResNetUNetPoint(nn.Module):
         self.n_points = n_points
         self.unet = ResNetUNet(num_classes, layers, decoder_channels, multilvl=multilvl,
                                base=base, in_channels=in_channels, generator=g)
-        self.point_conv = nn.Conv2d(base * 32, base * 4, 3, stride=2, padding=1)
+        self.point_conv = sp.Conv2d(base * 32, base * 4, 3, stride=2, padding=1)
         torch_conv_init_(self.point_conv, g)
         self.point_fc1 = nn.Linear(base * 4, base * 8)
         self.point_fc2 = nn.Linear(base * 8, n_points * 3)
@@ -186,6 +200,14 @@ class ResNetUNetPoint(nn.Module):
 
     def forward(self, x: torch.Tensor):
         out = self.unet(x)
-        h = F.relu(self.point_conv(nchw(out.bottleneck))).mean(dim=(2, 3))
+        rows = self.unet.bottleneck_rows(sp.image_rows(x))
+        h = F.relu(self.point_conv(nchw(out.bottleneck), rows))
+        if dp.spatial() is None:
+            h = h.mean(dim=(2, 3))
+        else:
+            pixels = sp.conv_rows(self.point_conv, rows) * h.shape[3]
+            low = h.dtype in (torch.float16, torch.bfloat16)
+            sums = h.sum(dim=(2, 3), dtype=torch.float32 if low else h.dtype)
+            h = (dp.sample_sum(sums) / pixels).to(h.dtype)
         v = self.point_fc2(F.relu(self.point_fc1(h)))
         return out, v.reshape(-1, self.n_points, 3)

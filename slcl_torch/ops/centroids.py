@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from .cuda.pseudo_label import pseudo_label
 from .cuda.soft_centroids import soft_centroids
 from ..parallel import mesh as dp
-from .losses import nearest_resize_labels
+from ..parallel.spatial import resize_labels
 
 _EPS = 1e-7
 
@@ -67,7 +67,7 @@ def source_centroids(decoder_ft: torch.Tensor, labels: torch.Tensor, *,
     feats, (n, h, w) = _flatten_feats(decoder_ft)
     feats = feats.float()
     if tuple(labels.shape[1:]) != (h, w):
-        labels = nearest_resize_labels(labels, (h, w))
+        labels = resize_labels(labels, (h, w))
     onehot = F.one_hot(labels.reshape(-1).long(), num_classes).float()
     sums, counts = _class_sums(onehot, feats)
     cents = sums / (counts + _EPS)
@@ -87,7 +87,7 @@ def update_class_center_iter(decoder_ft: torch.Tensor, labels: torch.Tensor,
     feats, (n, h, w) = _flatten_feats(decoder_ft.detach())
     feats = feats.float()
     if tuple(labels.shape[1:]) != (h, w):
-        labels = nearest_resize_labels(labels, (h, w))
+        labels = resize_labels(labels, (h, w))
     onehot = F.one_hot(labels.reshape(-1).long(), num_classes).float()
     sums, counts = _class_sums(onehot, feats)
     prev = class_centers.float()

@@ -17,14 +17,15 @@ one-process one.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from .cuda.mpcl import mpcl, mpcl_loss_normalized as mpcl_loss  # noqa: F401
 from .cuda.mpcl_pseudo import mpcl_pseudo
-from ..parallel.mesh import all_sum, data_parallel, global_sums, gmean, sample_sum
+from ..parallel.mesh import all_sum, data_parallel, global_sums, gmean, sample_sum, spatial
+from ..parallel.spatial import resize_labels
 
 _EPS = 1e-7
 
@@ -151,18 +152,31 @@ def bcl_prototype_similarity(feature: torch.Tensor, label_small: torch.Tensor,
     ``label_small`` (h, w; 255 ignored; an absent class has a zero
     prototype), unit rows, against ``feature2``'s pixels, each feature
     column normalised over the *pixels* (axis 0, as the reference's
-    cosine_similarity_BCL does); exact-zero cosines become -1, then x10."""
+    cosine_similarity_BCL does); exact-zero cosines become -1, then x10.
+    Under spatial partitioning the maps are this rank's band of the image's
+    rows: the prototypes' sums, the class counts and ``feature2``'s squared
+    column norms are summed over the model ranks (``sample_sum``), so each
+    band's cosines are the whole image's."""
     h, w, f = feature.shape
     lab = label_small.reshape(-1).long()
     feat = feature.float().reshape(-1, f)
     onehot = F.one_hot(torch.where(lab == 255, torch.full_like(lab, num_classes), lab),
                        num_classes + 1).float()[:, :num_classes]
-    counts = onehot.sum(dim=0)
-    protos = (onehot.T @ feat) / torch.clamp(counts[:, None], min=1.0)
+    if spatial() is None:
+        sums, counts = onehot.T @ feat, onehot.sum(dim=0)
+    else:
+        both = sample_sum(torch.cat([onehot.T @ feat, onehot.sum(dim=0)[:, None]], dim=1))
+        sums, counts = both[:, :f], both[:, f]
+    protos = sums / torch.clamp(counts[:, None], min=1.0)
     protos = torch.where(counts[:, None] > 0, protos, torch.zeros_like(protos))
     protos_n = protos / (torch.linalg.vector_norm(protos, dim=1, keepdim=True) + 1e-12)
     feat2 = feature2.float().reshape(-1, f)
-    feat2_n = feat2 / (torch.linalg.vector_norm(feat2, dim=0, keepdim=True) + 1e-12)
+    if spatial() is None:
+        norm2 = torch.linalg.vector_norm(feat2, dim=0, keepdim=True)
+    else:
+        sq = sample_sum(feat2.square().sum(dim=0, keepdim=True))
+        norm2 = torch.sqrt(torch.clamp(sq, min=torch.finfo(sq.dtype).tiny))
+    feat2_n = feat2 / (norm2 + 1e-12)
     cs = protos_n @ feat2_n.T
     cs = torch.where(cs == 0, torch.full_like(cs, -1.0), cs)
     return (cs * 10.0).reshape(num_classes, h, w)
@@ -244,13 +258,6 @@ def seg_pseudo_loss(probs_t: torch.Tensor, threshold: float,
     return gmean(loss * mask)
 
 
-def nearest_resize_labels(labels: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Nearest resize of NHW integer labels; samples input
-    floor((i + 0.5) * in / out), as ``jax.image.resize(..., 'nearest')``."""
-    out = F.interpolate(labels[:, None].float(), size=tuple(size), mode="nearest-exact")
-    return out[:, 0].to(labels.dtype)
-
-
 def _unit_centers(class_centers: torch.Tensor) -> torch.Tensor:
     """(C, F) centres over ``||c|| + 1e-12``, in f32, as jnp normalises them."""
     centers = class_centers.float()
@@ -268,7 +275,7 @@ def mpcl_loss_calc(feats: torch.Tensor, labels: torch.Tensor,
     normalisation happens inside :func:`mpcl` (kernel or plain version)."""
     n, h, w, c = feats.shape
     if resize_labels and labels.dim() == 3 and tuple(labels.shape[1:]) != (h, w):
-        labels = nearest_resize_labels(labels, (h, w))
+        labels = resize_labels(labels, (h, w))
     flat = feats.reshape(n * h * w, c).contiguous()
     lab = labels.reshape(-1)
     sel = None if pixel_sel_loc is None else pixel_sel_loc.float().reshape(-1).contiguous()

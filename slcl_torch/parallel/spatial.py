@@ -282,23 +282,153 @@ def max_pool3(x: torch.Tensor, rows: int, ceil: bool = False) -> torch.Tensor:
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (the same parameters and state dict) whose
-    forward takes the input's global ``rows``. Under a spatial mesh only a
-    kernel as tall as its stride, without row padding (UNet's 2x2 stride-2
-    up-convolution): output row ``i`` reads input row ``i // stride``."""
+    forward takes the input's global ``rows``. Input row ``i`` reaches output
+    rows ``stride * i - padding + dilation * j`` (``j`` < kernel): an output
+    band reads the input rows whose reach covers it (UNet's 2x2 stride-2
+    up-convolution: row ``o // 2``; DDFSeg's 3x3 stride 2, padding 1,
+    output padding 1: rows ``(o - 1) // 2`` to ``(o + 1) // 2``, one row of
+    the next band), and nothing past the image's last row; a band whose last
+    output rows lie in ``output_padding`` computes them as the unsharded
+    operator does."""
 
     def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         if dp.spatial() is None or rows is None:
             return super().forward(x)
-        k, s = self.kernel_size[0], self.stride[0]
-        if k != s or self.padding[0] or self.output_padding[0] or self.dilation[0] != 1:
-            raise NotImplementedError(
-                f"spatial: a transposed convolution of kernel {self.kernel_size}, stride "
-                f"{self.stride}, padding {self.padding}: only kernel == stride, no padding")
+        k, s, p, d = self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0]
+        rows_out = transpose_rows(self, rows)
+        reach = d * (k - 1)
+
+        def span(o0, o1):
+            return max(0, -(-(o0 + p - reach) // s)), min(rows, (o1 - 1 + p) // s + 1)
+
+        m = dp.spatial()
+        b = bounds(rows_out, m.model_size)
+        o0, o1 = b[m.model_rank], b[m.model_rank + 1]
+        extra = 0
+        if o0 < o1:
+            lo, hi = span(o0, o1)
+            # rows past the last input's reach: the output padding's
+            extra = max(0, o1 - (s * lo - p) - ((hi - lo - 1) * s + reach + 1))
         fn = lambda xs: F.conv_transpose2d(xs, self.weight, self.bias, (s, self.stride[1]),
-                                           (0, self.padding[1]), (0, self.output_padding[1]),
-                                           self.groups, self.dilation)
-        return _rowwise(x, rows, s * rows, lambda o0, o1: (o0 // s, (o1 - 1) // s + 1), fn,
-                        lambda lo: s * lo)
+                                           (0, self.padding[1]),
+                                           (extra, self.output_padding[1]), self.groups,
+                                           (d, self.dilation[1]))
+        return _rowwise(x, rows, rows_out, span, fn, lambda lo: s * lo - p)
+
+
+def transpose_rows(conv: nn.ConvTranspose2d, rows: Optional[int]) -> Optional[int]:
+    """The global output rows of the transposed convolution ``conv`` on
+    ``rows`` input rows (None: none given)."""
+    if rows is None:
+        return None
+    k, s, p, d = conv.kernel_size[0], conv.stride[0], conv.padding[0], conv.dilation[0]
+    return (rows - 1) * s - 2 * p + d * (k - 1) + conv.output_padding[0] + 1
+
+
+class InstanceNorm(nn.GroupNorm):
+    """Instance norm, ``nn.GroupNorm`` with one channel a group (the same
+    ``weight`` and ``bias`` when ``affine``, the same state dict): each
+    image's and channel's moments over its pixels, the variance biased.
+    Under a spatial mesh the input is a band of each image's rows and the
+    moments are the whole image's, the same on every model rank: two passes
+    summed over the model ranks (``mesh.sample_sum``), the mean with the
+    pixel count, then the squared deviations from it; in float32 for a
+    half-precision input, whose output is float32 under autocast (as
+    ``group_norm``'s is)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, affine: bool = True):
+        super().__init__(channels, channels, eps=eps, affine=affine)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if dp.spatial() is None:
+            return super().forward(x)
+        low = x.dtype in (torch.float16, torch.bfloat16)
+        xf = x.float() if low else x
+        c = x.shape[1]
+        count = xf.new_full((x.shape[0], 1), float(x.shape[2] * x.shape[3]))
+        sums = dp.sample_sum(torch.cat([xf.sum(dim=(2, 3)), count], dim=1))
+        n = sums[:, c:]
+        mean = (sums[:, :c] / n)[:, :, None, None]
+        var = (dp.sample_sum((xf - mean).square().sum(dim=(2, 3))) / n)[:, :, None, None]
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        if low and not torch.is_autocast_enabled(x.device.type):
+            y = y.to(x.dtype)
+        return y
+
+
+class _Gather(torch.autograd.Function):
+    """The whole tensor of ``rows`` global rows on every model rank: each
+    rank's band in its slot of zeros, summed over the model group. The
+    backward sums the cotangents over the group and keeps this rank's band."""
+
+    @staticmethod
+    def forward(ctx, x, rows, mesh):
+        b, r = bounds(rows, mesh.model_size), mesh.model_rank
+        if x.shape[2] != b[r + 1] - b[r]:
+            raise ValueError(f"spatial: rank {r} holds {x.shape[2]} rows of a "
+                             f"{rows}-row tensor, its band is {b[r]}:{b[r + 1]}")
+        out = x.new_zeros((x.shape[0], x.shape[1], rows, x.shape[3]))
+        out[:, :, b[r]:b[r + 1]] = x
+        dist.all_reduce(out, group=mesh.model_group)
+        ctx.band, ctx.mesh = (b[r], b[r + 1]), mesh
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.mesh.model_group)
+        return grad[:, :, ctx.band[0]:ctx.band[1]], None, None
+
+
+def gather_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """All ``rows`` global rows of a row-sharded NCHW tensor on every model
+    rank, differentiable (SAGAN attention's pooled keys and values, which
+    every pixel of the image attends to); ``x`` itself outside a spatial
+    mesh."""
+    m = dp.spatial()
+    if m is None:
+        return x
+    return _Gather.apply(x, rows, m)
+
+
+def nearest_source_rows(rows_in: int, rows_out: int) -> List[int]:
+    """The input row that a nearest resize of ``rows_in`` rows to
+    ``rows_out`` samples for each output row, ``floor((i + 0.5) * in /
+    out)``: torch's ``nearest-exact`` rule, read from torch itself."""
+    src = F.interpolate(torch.arange(rows_in, dtype=torch.float32).view(1, 1, -1, 1),
+                        size=(rows_out, 1), mode="nearest-exact")
+    return [int(v) for v in src.view(-1).tolist()]
+
+
+def resize_labels(labels: torch.Tensor, size, rows: Optional[int] = None) -> torch.Tensor:
+    """Nearest resize (``floor((i + 0.5) * in / out)``, as
+    ``jax.image.resize(..., 'nearest')``) of NHW integer labels of ``rows``
+    global rows to ``size`` (global rows, columns); the plain resize without
+    ``rows`` or a spatial mesh. Under a spatial mesh each
+    output row of this rank's band (:func:`bounds` of the output rows) takes
+    the input row of its **global** source coordinate, which may lie on the
+    next rank's band (224 -> 29: row 14 of rank 0's 15 reads row 112)."""
+    rows_out, cols = int(size[0]), int(size[1])
+    m = dp.spatial()
+    if m is None or rows is None:
+        out = F.interpolate(labels[:, None].float(), size=(rows_out, cols),
+                            mode="nearest-exact")
+        return out[:, 0].to(labels.dtype)
+    src = nearest_source_rows(rows, rows_out)
+    b = bounds(rows_out, m.model_size)
+    reads = [(src[b[r]], src[b[r + 1] - 1] + 1) if b[r] < b[r + 1] else (rows + 1, rows + 2)
+             for r in range(m.model_size)]
+    xs = _Fetch.apply(labels[:, None], rows, reads, m)
+    o0, o1 = b[m.model_rank], b[m.model_rank + 1]
+    if o0 == o1:
+        return labels.new_zeros((labels.shape[0], 0, cols))
+    lo = reads[m.model_rank][0]
+    picked = xs.index_select(2, torch.tensor([src[o] - lo for o in range(o0, o1)],
+                                             device=labels.device))
+    out = F.interpolate(picked.float(), size=(o1 - o0, cols), mode="nearest-exact")
+    return out[:, 0].to(labels.dtype)
 
 
 def upsample_nearest(x: torch.Tensor, rows: int) -> torch.Tensor:

@@ -31,6 +31,12 @@ SPATIAL_CELLS = {
                            "deeplabv2"),
     "slcl_remat_full": ("slcl", {"remat": "full"}, ""),
     "slcl_remat_dots": ("slcl", {"remat": "dots"}, ""),
+    # the UDA baselines on their own networks: DDFSeg (DDFNet, SegDecoder,
+    # three PatchGANs), AdaptEvery's ResNetUNetPoint and BCLDeepLab, the
+    # last two shallow (one block a stage, base 8)
+    "ddfseg": ("ddfseg", {}, ""),
+    "adaptevery_small": ("adaptevery", {"layers": (1, 1, 1, 1), "base": 8}, ""),
+    "bcl_small": ("bcl", {"layers": (1, 1, 1, 1), "base": 8}, ""),
 }
 
 

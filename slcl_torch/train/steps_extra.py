@@ -31,7 +31,14 @@ BatchNorms use batch statistics and keep their running ones.
 Under data parallelism the masks are drawn at the global batch's shape and
 each rank keeps its rows, and BCL's metric loss (on the global batch's
 first image of each domain) is data rank 0's: the other ranks ignore every
-pixel of it.
+pixel of it. Under spatial partitioning each rank holds a band of every
+image's rows: a dropout mask is drawn at the activation's global rows and
+the module keeps its band (``models/common.py::Dropout``); BCL's metric
+loss reads image 0's band, its labels resized on global coordinates
+(``parallel/spatial.py::resize_labels``) and its prototypes summed over the
+model ranks (``losses.bcl_prototype_similarity``); AdaptEvery's vertex
+branch is the same on every model rank of a data rank, and its losses and
+PointNet's BatchNorm count those replicas in both their sums and counts.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import torch
 from ..models.common import dropout_pass, running_stats_frozen
 from ..ops import losses as L
 from ..parallel import mesh as dp
+from ..parallel import spatial as sp
 from .state import TrainState
 from .steps import Generators, Metrics, _d_acc, _seg_update, autocast, net_update, splitmix64
 
@@ -79,7 +87,8 @@ class Dropouts:
 
     def for_step(self, seed: int, step: int):
         """The ``dropout_pass`` draw of step ``step``: the global batch's
-        mask, this rank's rows of it."""
+        mask, this data rank's rows of it (``shape``'s rows are already the
+        global ones under spatial partitioning: ``Dropout`` keeps its band)."""
         def draw(path, call, shape, keep, device):
             shape = dp.global_shape(shape)
             if self.hook is not None:
@@ -111,6 +120,7 @@ def make_ddfseg_step(cfg, draw_dropout: Optional[DrawDropout] = None) -> Callabl
         amp = autocast(cfg.model.dtype, img_s.device)
         draw = dropouts.for_step(state.seed, state.step)
         ddfnet, segdecoder = state.seg.ddfnet, state.seg.segdecoder
+        rows = ddfnet.content_rows(sp.image_rows(img_s))
         state.seg.train()
         with amp:
             with dropout_pass(draw):
@@ -119,7 +129,7 @@ def make_ddfseg_step(cfg, draw_dropout: Optional[DrawDropout] = None) -> Callabl
             preds = []
             for key in ("content_s", "recon_content_s", "content_t"):
                 with dropout_pass(draw):
-                    preds.append(segdecoder(out[key]))
+                    preds.append(segdecoder(out[key], rows))
         pred_s, pred_recon_s, pred_t = preds
         seg_loss = L.cross_entropy_loss(pred_s, labels_s) + L.dice_loss(pred_s, labels_s)
         recon_seg_loss = (L.cross_entropy_loss(pred_recon_s, labels_s)
@@ -285,9 +295,11 @@ def make_bcl_step(cfg) -> Callable:
         ce_t = L.cross_entropy_ignore(pred_t, plabel_t, 255)
         ent = (dp.gmean(L.bcl_entropy_loss(pred_s))
                + lambt * dp.gmean(L.bcl_entropy_loss(pred_t)))
-        size = tuple(feat_s.shape[1:3])
-        lab_small = L.nearest_resize_labels(labels_s, size)[0]
-        plab_small = L.nearest_resize_labels(plabel_t, size)[0]
+        rows = sp.image_rows(img_s)
+        # the features' global size
+        size = (state.seg.feature_rows(rows), feat_s.shape[2])
+        lab_small = sp.resize_labels(labels_s[:1], size, rows)[0]
+        plab_small = sp.resize_labels(plabel_t[:1], size, rows)[0]
         cs1 = L.bcl_prototype_similarity(feat_s[0], lab_small, feat_t[0], n_class)
         cs2 = L.bcl_prototype_similarity(feat_t[0], plab_small, feat_s[0], n_class)
         tgt1, tgt2 = plab_small[None], lab_small[None]

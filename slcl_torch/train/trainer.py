@@ -86,15 +86,17 @@ Spatial partitioning (``mesh.spatial`` with model ranks, JAX's
 and the step still equals the one-process step on the global batch
 (``parallel/spatial.py``: convolutions with halos, pools, transposed
 convolutions and resizes that reshard uneven stages; the reductions over
-every rank). It covers the segmentors DRUNet, ResNetUNet
-(``resnet50``/``resnet50_unet``), UNet and DeepLabV2
-(``deeplabv2``/``resnet101``) with the ``UncertaintyDiscriminator``:
-``baseline``, ``adaptseg``, ``advent``, ``mpscl``, ``slcl``, ``mccl``
-(with or without ``rain.enabled``) and ``rain``, whose style net runs on
-the row bands too, with ``model.remat`` off, ``full`` or ``dots`` (each
-rank recomputes its forward's halo exchanges in the same order); DDFSeg,
-AdaptEvery and BCL raise ``NotImplementedError`` naming their network and
-method. Validation and test run on whole images, as JAX's evaluator does.
+every rank). It covers every method on every network: the segmentors
+DRUNet, ResNetUNet (``resnet50``/``resnet50_unet``), UNet and DeepLabV2
+(``deeplabv2``/``resnet101``) with the ``UncertaintyDiscriminator``,
+RAIN's style net, and DDFSeg (with its PatchGANs), AdaptEvery's
+ResNetUNetPoint (its vertex branch the same on every model rank; the
+vertices are not split, as JAX's ``_is_spatial`` leaves them whole) and
+BCLDeepLab, with ``model.remat`` off, ``full`` or ``dots`` (each rank
+recomputes its forward's halo exchanges in the same order). Validation,
+test and BCL's pseudo-label rounds run on whole images outside any mesh,
+as JAX's evaluator does; each rank then splits its rows of the round's
+``plabel_t`` into bands.
 """
 from __future__ import annotations
 
@@ -141,11 +143,6 @@ _PORTED = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain",
 _ADVERSARIAL = ("adaptseg", "advent", "mpscl", "slcl")
 _CONTRASTIVE = ("mpscl", "slcl", "mccl")
 _OWN_NETS = ("ddfseg", "adaptevery", "bcl")     # built by _build_<method>
-# spatial partitioning: these methods on these segmentors, with the
-# UncertaintyDiscriminator
-_SPATIAL = ("baseline", "adaptseg", "advent", "mpscl", "slcl", "mccl", "rain")
-_SPATIAL_NETS = ("drunet", "resnet50", "resnet50_unet", "unet", "deeplabv2", "resnet101")
-_OWN_NET_NAMES = {"ddfseg": "DDFSeg", "adaptevery": "ResNetUNetPoint", "bcl": "BCLDeepLab"}
 # the batch keys whose rows a spatial mesh splits (JAX's _is_spatial)
 _SPATIAL_KEYS = ("img", "lab", "plabel")
 _NETS = ("seg", "d_main", "d_aux", "d_seg", "d_ent", "d_point", "rain")
@@ -160,24 +157,6 @@ def check_ported_keys(cfg: Config) -> None:
     """Raise ``ValueError`` on a ``model.remat`` mode the port does not
     know (``steps.remat_mode``)."""
     remat_mode(cfg.model.remat)
-
-
-def check_spatial(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` naming the network and the method when
-    spatial partitioning does not cover them: it covers the methods of
-    :data:`_SPATIAL` (MCCL with or without RAIN) on the segmentors of
-    :data:`_SPATIAL_NETS` with the ``UncertaintyDiscriminator`` and RAIN's
-    style net; ``model.remat`` any mode. (DeepLabV2 under a contrastive
-    method raises its own ``ValueError`` when the Trainer builds it, as
-    without a mesh.)"""
-    net = _OWN_NET_NAMES.get(cfg.method, cfg.model.backbone)
-    if cfg.method not in _SPATIAL or cfg.model.backbone.lower() not in _SPATIAL_NETS:
-        raise NotImplementedError(
-            f"mesh.spatial=true with model ranks: network {net!r}, method "
-            f"{cfg.method!r} is not ported; slcl_torch splits image rows for DRUNet, "
-            "ResNetUNet (resnet50), UNet and DeepLabV2 (deeplabv2) with the "
-            f"UncertaintyDiscriminator and RAIN's style net ({', '.join(_SPATIAL)}); "
-            "use mesh.spatial=false")
 
 
 def build_rain(cfg: Config, device: torch.device) -> RAIN:
@@ -306,8 +285,6 @@ class Trainer:
         if mesh.model_size != model_axis:
             raise ValueError(f"mesh.model_axis={cfg.mesh.model_axis}, the mesh has "
                              f"{mesh.model_size} model ranks")
-        if spatial:
-            check_spatial(cfg)
         if mesh.spatial != spatial:
             raise ValueError(f"mesh.spatial={cfg.mesh.spatial} with {model_axis} model "
                              f"ranks, the mesh {'splits' if mesh.spatial else 'does not split'}"
@@ -470,7 +447,8 @@ class Trainer:
         loader = Loader(self.datasets["train_t"], cfg.data.eval_bs, shuffle=False,
                         drop_last=False, num_threads=cfg.data.num_workers)
         confs, preds, names = [], [], []
-        with self.evaluator.eval_mode():
+        # whole images on every rank, outside any mesh, as the evaluator's
+        with dp.use(None), self.evaluator.eval_mode():
             for img, _lab, batch_names in loader:
                 with autocast(cfg.model.dtype, self.device):
                     logits, _ = self.state.seg(self.evaluator.to_device(img), source=False)

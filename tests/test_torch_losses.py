@@ -13,6 +13,7 @@ import torch
 
 from slcl_torch.ops import centroids as tcen
 from slcl_torch.ops import losses as TL
+from slcl_torch.parallel.spatial import resize_labels
 from slcl_tpu.ops import centroids as cen
 from slcl_tpu.ops import losses as L
 
@@ -98,6 +99,6 @@ def test_update_class_center_iter(rng, bootstrap):
 def test_nearest_resize_labels(rng):
     labels = rng.integers(0, C, size=(B, 16, 16)).astype(np.int32)
     for size in ((8, 8), (32, 32), (12, 20)):
-        got = TL.nearest_resize_labels(torch.from_numpy(labels), size)
+        got = resize_labels(torch.from_numpy(labels), size)
         want = L.nearest_resize_labels(jnp.asarray(labels), size)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

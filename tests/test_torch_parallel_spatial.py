@@ -42,12 +42,12 @@ and the pixel group of ``parallel/mesh.py``) on the CPU over gloo, after
   against one process.
 - The rMC draw: each rank keeps the global draw's pixels of its data rank's
   images and its band of their rows.
-- Refusals: every network or method the port does not split (DDFSeg,
-  AdaptEvery, BCL) raises ``NotImplementedError`` naming both (RAIN's
-  cells: ``test_torch_parallel_spatial_rain.py``); DeepLabV2 under a contrastive
-  method keeps its ``ValueError``; an image height that the model ranks do
-  not divide raises ``ValueError`` naming H and the ranks; a mesh that does
-  not split rows under ``mesh.spatial=true`` raises.
+- Refusals: DeepLabV2 under a contrastive method keeps its ``ValueError``;
+  an image height that the model ranks do not divide raises ``ValueError``
+  naming H and the ranks; a mesh that does not split rows under
+  ``mesh.spatial=true`` raises. (RAIN's cells:
+  ``test_torch_parallel_spatial_rain.py``; DDFSeg, AdaptEvery and BCL:
+  ``test_torch_parallel_spatial_extra.py``.)
 
 The ranks are spawned processes that import ``tests/torch_parallel_common.py``
 (torch and slcl_torch only), one thread each.
@@ -446,17 +446,6 @@ def test_rmc_draw_keeps_the_ranks_pixels(steps_2x2):
         assert tuple(got["shape"]) == (C.B, C.H, C.H)
         np.testing.assert_array_equal(got["pixels"],
                                       grid[d * b:(d + 1) * b, m * h:(m + 1) * h].reshape(-1))
-
-
-@pytest.mark.parametrize("name", ["ddfseg", "adaptevery", "bcl"])
-def test_unported_network_or_method_raises(steps_2x2, name):
-    net = {"ddfseg": "'DDFSeg'", "adaptevery": "'ResNetUNetPoint'",
-           "bcl": "'BCLDeepLab'"}[name]
-    method = name
-    for got in steps_2x2["checks"]:
-        kind, msg = got[name]
-        assert kind == "NotImplementedError" and "mesh.spatial" in msg, msg
-        assert net in msg and f"method {method!r}" in msg, msg
 
 
 def test_deeplabv2_contrastive_keeps_its_value_error(steps_2x2):

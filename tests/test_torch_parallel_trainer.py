@@ -4,9 +4,9 @@ checkpoints, final test) at W = 2 equals one process's (the epoch's
 metrics rel 1e-5, the state rtol 1e-4 / atol 1e-6, float64) and rank 0
 alone writes, each rank in a directory of its own (the final restore of the
 best checkpoint reaches rank 1 from rank 0); the refusals where JAX would
-fall back to one device (``data.bs`` or the processes not divisible) or
-cannot follow (``mesh.spatial`` on a network it does not split, while a
-DRUNet method steps on two model ranks' row bands); RAIN's ``mulstyle``
+fall back to one device (``data.bs`` or the processes not divisible) and
+DeepLabV2's under a contrastive method under ``mesh.spatial``, while a
+DRUNet method steps on two model ranks' row bands; RAIN's ``mulstyle``
 (a sampling row per image of the global batch) taking a step;
 ``pretrain_rain``, which stays unsharded: every rank's
 step on the whole batch equals one process's; and ``mesh.from_writer``,
@@ -69,14 +69,14 @@ def test_only_rank_zero_writes(trained):
 def test_refusals_and_unsharded_pretrain_rain(tmp_path):
     ranks = spawn(2, "raises_entry", (str(tmp_path / "w"),), module=MOD)
     want = C.pretrain_entry(None, str(tmp_path / "one"))
-    # mesh.spatial on two model ranks: DRUNet's mpscl steps on row bands, an
-    # unported network raises naming itself
+    # mesh.spatial on two model ranks: DRUNet's mpscl steps on row bands;
+    # DeepLabV2 under a contrastive method keeps its refusal
     for got in spawn(2, "spatial_checks_entry", (str(tmp_path / "sp"),), model_axis=2,
                      module=MOD, spatial=True):
         assert got["local_rows"] == C.H // 2
         assert all(np.isfinite(v) for v in got["step"].values()) and got["step"]
-        kind, msg = got["ddfseg"]
-        assert kind == "NotImplementedError" and "mesh.spatial" in msg and "'DDFSeg'" in msg
+        kind, msg = got["deeplabv2_slcl"]
+        assert kind == "ValueError" and "model.filters=2048" in msg
     for got in ranks:
         kind, msg = got["bs"]
         assert kind == "ValueError" and "data.bs=3" in msg and "2 data ranks" in msg

@@ -2,6 +2,7 @@
 module, so it imports torch and slcl_torch only (a rank that imported a
 test file would import JAX)."""
 import copy
+import zlib
 
 import numpy as np
 import torch
@@ -10,6 +11,7 @@ from slcl_torch.config import Config, apply_recipe
 from slcl_torch.parallel import dryrun as D
 from slcl_torch.parallel import mesh as dp
 from slcl_torch.testing import SPATIAL_CELLS, configure_cell, shallow_segmentor
+from slcl_torch.train.trainer import _SPATIAL_KEYS
 
 H = 16
 B = 8
@@ -56,6 +58,8 @@ def batches(method: str, n: int, seed: int = 1234, h: int = H, bs: int = B):
             plabel = rng.integers(0, 4, size=(bs, h, h)).astype(np.int32)
             plabel[:, ::3] = 255
             b["plabel_t"] = plabel
+        if method == "adaptevery":
+            b["vert_s"] = rng.normal(size=(bs, 300, 3)).astype(np.float32)
         out.append(b)
     return out
 
@@ -82,10 +86,25 @@ def build_trainer(cfg, work: str, dtype=torch.float32):
     return trainer
 
 
+def dropout_mask(path: str, call: int, shape, keep: float) -> np.ndarray:
+    """The tests' dropout mask of one (module path, call within a pass), at
+    the global shape: ``tests/torch_extra_common.py::mask``'s, which JAX's
+    interceptor there draws."""
+    rng = np.random.default_rng([zlib.crc32(path.encode()), call])
+    return rng.random(tuple(shape)) < keep
+
+
+def mask_draw(path, call, shape, keep, device):
+    """A ``dropout_pass`` draw giving :func:`dropout_mask`."""
+    return torch.from_numpy(dropout_mask(path, call, shape, keep)).to(device)
+
+
 def use_draws(trainer, draws: dict) -> None:
     """Rebuild ``trainer``'s step with the global batch's rMC assignment
     (``draws["assign"]``) and RAIN noise (``draws["noise"]``) of each step
-    given, indexed by the state's step."""
+    given, indexed by the state's step; with ``draws["dropout"]`` true, the
+    dropout masks of :func:`dropout_mask` (the same every step, as JAX's
+    traced ones)."""
     from slcl_torch.train.steps import build_step
     s = trainer.state
 
@@ -99,12 +118,44 @@ def use_draws(trainer, draws: dict) -> None:
         draw_assign=(lambda m, P, dev: given("assign", (m,)).to(dev))
         if "assign" in draws else None,
         draw_noise=(lambda shape, dev: given("noise", shape).to(dev))
-        if "noise" in draws else None)
+        if "noise" in draws else None,
+        draw_dropout=(lambda step, path, call, shape, keep, dev:
+                      mask_draw(path, call, shape, keep, dev))
+        if draws.get("dropout") else None)
+
+
+def opt_arrays(trainer) -> dict:
+    """Every optimizer's whole state (gathered when sharded) as numpy arrays
+    keyed ``opt/param index/entry``."""
+    from slcl_torch.train.trainer import _OPTS
+    out = {}
+    for name in _OPTS:
+        opt = getattr(trainer.state, name)
+        if opt is None:
+            continue
+        for i, st in dp.full_state_dict(opt)["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    out[f"{name}/{i}/{k}"] = v.detach().cpu().double().numpy().copy()
+    return out
+
+
+def plabel_round(trainer, batch_list) -> tuple:
+    """BCL's pseudo-label round (``Trainer.bcl_update_plabels``, whole images
+    on every rank) and ``batch_list`` with the round's labels of the first
+    ``data.bs`` target images (by name) as every batch's ``plabel_t``; and
+    the round's record."""
+    kept = trainer.bcl_update_plabels(trainer.cfg.run.bcl_prop)
+    names = sorted(trainer.bcl_plabels)[:trainer.cfg.data.bs]
+    labels = np.stack([trainer.bcl_plabels[n] for n in names]).astype(np.int32)
+    return ([{**b, "plabel_t": labels} for b in batch_list],
+            {"kept": kept, "labels": labels})
 
 
 def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
                 weights: str = "", restore: str = "", save: str = "",
-                draws: dict = None, shallow: str = "") -> dict:
+                draws: dict = None, shallow: str = "", opt: bool = False,
+                round_first: bool = False) -> dict:
     """The Trainer of ``cfg`` (its nets loaded from the ``weights`` file of
     whole state dicts, or its full state from the ``restore`` checkpoint),
     one step on this rank's rows of each global batch, and after each the
@@ -112,7 +163,10 @@ def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
     checkpoint written after the last step (``ckpt``, its path). ``dtype``
     is torch's default throughout; ``draws`` (:func:`use_draws`) replaces
     the step's own random draws; ``shallow`` (:func:`shallow_segmentor`)
-    the segmentor."""
+    the segmentor; ``opt`` adds the optimizers' state after each step
+    (``opt``, :func:`opt_arrays`); ``round_first`` runs BCL's pseudo-label
+    round before the steps and takes its labels (``round``,
+    :func:`plabel_round`)."""
     before = torch.get_default_dtype()
     torch.set_default_dtype(dtype)
     try:
@@ -127,12 +181,16 @@ def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
                 trainer.restore_checkpoint(restore)
             if draws:
                 use_draws(trainer, draws)
+            rnd = None
+            if round_first:
+                batch_list, rnd = plabel_round(trainer, batch_list)
             out = []
             for b, sc in zip(batch_list, scheds):
                 # this rank's rows, and under spatial partitioning its band of
                 # the image rows (the Trainer's _spatial_rows)
                 local = {k: dp.spatial_rows(dp.local_rows(torch.from_numpy(v)), k)
-                         for k, v in b.items()}
+                         if k.split("_")[0] in _SPATIAL_KEYS
+                         else dp.local_rows(torch.from_numpy(v)) for k, v in b.items()}
                 local = {k: v.to(dtype) if v.is_floating_point() else v
                          for k, v in local.items()}
                 m = trainer.step_fn(s, local, sc)
@@ -140,18 +198,23 @@ def steps_entry(mesh, cfg, batch_list, scheds, work: str, dtype=torch.float32,
                             "state": D.state_arrays(trainer),
                             "sharded": sum(1 for p in s.seg.parameters()
                                            if dp.is_dtensor(p))})
+                if opt:
+                    out[-1]["opt"] = opt_arrays(trainer)
             path = trainer.save_checkpoint(save) if save else ""
-            return {"steps": out, "ckpt": str(path)}
+            return {"steps": out, "ckpt": str(path), "round": rnd}
     finally:
         torch.set_default_dtype(before)
 
 
 def methods_entry(mesh, specs, work: str) -> dict:
     """:func:`steps_entry` of each ``(name, cfg, batches, scheds, dtype,
-    draws, shallow)`` in turn (``draws`` and ``shallow`` may be left out)."""
+    draws, shallow, options)`` in turn (``draws``, ``shallow`` and
+    ``options``, a dict of :func:`steps_entry`'s ``opt`` and
+    ``round_first``, may be left out)."""
     return {spec[0]: steps_entry(mesh, *spec[1:4], f"{work}/{spec[0]}", spec[4],
                                  draws=spec[5] if len(spec) > 5 else None,
-                                 shallow=spec[6] if len(spec) > 6 else "")
+                                 shallow=spec[6] if len(spec) > 6 else "",
+                                 **(spec[7] if len(spec) > 7 else {}))
             for spec in specs}
 
 
@@ -339,12 +402,19 @@ def _spatial_op(mesh, case, sp, BatchNorm) -> dict:
 
 
 def _spatial_op_run(mesh, case, sp, BatchNorm) -> dict:
+    kind = case["kind"]
+    if kind == "resize_labels":
+        # NHW integer labels: no gradient
+        lab = torch.from_numpy(case["labels"])
+        rows, r, m = lab.shape[1], mesh.model_rank, mesh.model_size
+        b = sp.bounds(rows, m)
+        y = sp.resize_labels(lab[:, b[r]:b[r + 1]].contiguous(), case["size"], rows)
+        return {"y": y.numpy(), "dx": None, "dparams": {}}
     x = torch.from_numpy(case["x"])
     rows, r, m = x.shape[2], mesh.model_rank, mesh.model_size
     b = sp.bounds(rows, m)
     xl = x[:, :, b[r]:b[r + 1]].clone().requires_grad_(True)
     module = None
-    kind = case["kind"]
     if kind == "mean_std":
         # RAIN's AdaIN moments: replicated on the model ranks, each of which
         # backpropagates its share (as a step does)
@@ -367,9 +437,27 @@ def _spatial_op_run(mesh, case, sp, BatchNorm) -> dict:
         y = sp.max_pool3(xl, rows, case["ceil"])
     elif kind == "conv_transpose":
         w = torch.from_numpy(case["w"])
-        module = sp.ConvTranspose2d(w.shape[0], w.shape[1], 2, stride=2)
+        module = sp.ConvTranspose2d(w.shape[0], w.shape[1], w.shape[2],
+                                    stride=case.get("stride", 2),
+                                    padding=case.get("padding", 0),
+                                    output_padding=case.get("output_padding", 0))
         module.load_state_dict({"weight": w, "bias": torch.from_numpy(case["b"])})
         y = module(xl, rows)
+    elif kind == "instance_norm":
+        module = sp.InstanceNorm(x.shape[1], eps=case["eps"], affine="w" in case)
+        if "w" in case:
+            module.load_state_dict({"weight": torch.from_numpy(case["w"]),
+                                    "bias": torch.from_numpy(case["b"])})
+        y = module(xl)
+    elif kind in ("attention", "patchgan"):
+        module = extra_module(case)
+        if kind == "attention":
+            from slcl_torch.models.common import dropout_pass
+            with dropout_pass(mask_draw):
+                y = module(xl, rows)
+        else:
+            # (out, aux) NHWC -> one NCHW tensor
+            y = torch.cat(module(xl.permute(0, 2, 3, 1)), dim=-1).permute(0, 3, 1, 2)
     elif kind == "nearest":
         y = sp.upsample_nearest(xl, rows)
     elif kind == "bilinear":
@@ -387,6 +475,31 @@ def _spatial_op_run(mesh, case, sp, BatchNorm) -> dict:
                           for n, p in module.named_parameters()}
         res["buffers"] = {n: t.numpy().copy() for n, t in module.named_buffers()}
     return res
+
+
+def extra_module(case) -> torch.nn.Module:
+    """The module of an ``attention`` or ``patchgan`` operator case, from
+    its seed, in train mode: DDFSeg's ``_Attention`` at ``case["ch"]``
+    channels, dropout 0.25, its ``gamma`` at 0.5 (so that the attention
+    reaches the output; a float64 module takes its products in float64), or
+    a ``PatchGAN`` with its aux head."""
+    from slcl_torch.models.common import name_dropouts
+    from slcl_torch.models.ddfseg import _Attention
+    from slcl_torch.models.discriminators import PatchGAN
+    g = torch.Generator().manual_seed(case["seed"])
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float32)      # drawn alike in any process
+    try:
+        if case["kind"] == "attention":
+            module = _Attention(case["ch"], dropout=0.25, generator=g)
+            with torch.no_grad():
+                module.gamma.fill_(0.5)
+            name_dropouts(module)
+        else:
+            module = PatchGAN(case["x"].shape[1], ndf=case["ch"], aux=True, generator=g)
+    finally:
+        torch.set_default_dtype(before)
+    return module.double().train()
 
 
 def first_rows_entry(mesh) -> dict:
@@ -407,9 +520,9 @@ def spatial_rain_entry(mesh, runs, work: str, expected: dict = None) -> dict:
 
 def spatial_checks_entry(mesh, work: str) -> dict:
     """Under a spatial mesh: this rank's rMC pixels of a global draw; the
-    Trainer's refusal of each network and method it does not split, of an
-    image height the model ranks do not divide, and of a mesh that does not
-    match ``mesh.spatial``; and one ``mpscl`` step that runs."""
+    Trainer's refusal of DeepLabV2 under a contrastive method (as without a
+    mesh), of an image height the model ranks do not divide, and of a mesh
+    that does not match ``mesh.spatial``; and one ``mpscl`` step that runs."""
     out = {}
     with dp.use(mesh):
         shape = (B, H, H)
@@ -425,13 +538,9 @@ def spatial_checks_entry(mesh, work: str) -> dict:
             except Exception as e:  # the test checks the type and message
                 out[key] = (type(e).__name__, str(e))
 
-        cases = {"ddfseg": ("ddfseg", {}), "adaptevery": ("adaptevery", {}),
-                 "bcl": ("bcl", {}), "deeplabv2_slcl": ("slcl", {"backbone": "deeplabv2"})}
-        for name, (method, model) in cases.items():
-            cfg = spatial_cfg(method)
-            for k, v in model.items():
-                setattr(cfg.model, k, v)
-            attempt(name, lambda: D.make_trainer(cfg, work))
+        cfg = spatial_cfg("slcl")
+        cfg.model.backbone = "deeplabv2"
+        attempt("deeplabv2_slcl", lambda: D.make_trainer(cfg, work))
         plain = spatial_cfg("mpscl")
         plain.mesh.spatial = False
         attempt("mismatch", lambda: D.make_trainer(plain, work))
@@ -481,7 +590,10 @@ def compare_entry(mesh, specs, work: str, expected: dict = None) -> dict:
     (:func:`state_errors`); for a spec that ``expected`` names, also those
     from the steps on its file (``[(metrics, state_arrays)]`` a step: JAX's
     spatial step in the port's layout). The large states of the deep
-    backbones then stay in the ranks."""
+    backbones then stay in the ranks. A spec run with ``opt`` also has its
+    optimizers' states compared (``opt_errors``), and one with
+    ``round_first`` its pseudo-label round (``round_equal``: the same labels
+    and kept share as one process's)."""
     got = methods_entry(mesh, specs, f"{work}/mesh")
     want = methods_entry(None, [s for s in specs if not s[0].endswith("_fsdp")],
                          f"{work}/one")
@@ -495,6 +607,12 @@ def compare_entry(mesh, specs, work: str, expected: dict = None) -> dict:
             rec = {"metrics": g["metrics"], "want_metrics": w["metrics"],
                    "errors": state_errors(g["state"], w["state"], 1e-4, 1e-6),
                    "sharded": g["sharded"]}
+            if "opt" in w:
+                rec["opt_errors"] = state_errors(g["opt"], w["opt"], 1e-4, 1e-6)
+            rounds = got[name]["round"], want[name.removesuffix("_fsdp")]["round"]
+            if rounds[1] is not None:
+                rec["round_equal"] = (rounds[0]["kept"] == rounds[1]["kept"] and
+                                      np.array_equal(rounds[0]["labels"], rounds[1]["labels"]))
             if ref is not None:
                 rec["jax_metrics"] = ref[i][0]
                 rec["jax_errors"] = state_errors(g["state"], ref[i][1], 1e-4, 1e-6,
