@@ -47,7 +47,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      (dprobs at M <= 1000 against float64 within the rounding of its
      terms); and the std-free kernels' outputs
      on fixed inputs must hash to what the kernels gave before the std
-     variant existed (``STD_FREE_DIGEST``);
+     variant existed (``STD_FREE_DIGEST``). Then the general family (any
+     C, P, F: ``csrc/general.cuh``, ``csrc/centroids_gen.cuh``): each of
+     its nine kernels against its plain version at every ``GEN_SHAPES``
+     (C in {2, 5, 8}, P in {1, 3, 4}, F in {20, 24, 48, 128}; hard and soft,
+     std and not), bf16 and f32, a ragged M, launched twice for
+     bit-identity, through the wrappers' choice of family by shape (no
+     templated kernel may launch there); forced at the main shape against
+     the templated family (labels and masks equal, values within the
+     tolerances); two halves' partials summed through ``reduce`` against
+     the whole batch's; and each timed at its phase 4 cell's shape and
+     forced at the main shape beside the templated kernel;
   3. small steps: two ``slcl`` multilvl+CNR steps, two ``advent`` multilvl
      steps, two ``baseline`` steps and two ``mccl`` steps in each forward
      mode (stdmin and seg_pseudo on; one shared rMC draw) on DRUNet; two
@@ -56,6 +66,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``adaptseg`` multilvl steps on a shallow DeepLabV2 (the heads' 10x
      group included), one ``baseline`` step on UNet at base 8 and two
      ``slcl`` steps on the full UNet with ``model.filters=64`` (the F = 64
+     kernels on a step), and the two ``GEN_CELLS`` configs (the general
      kernels on a step): on the card (kernels) against the same steps on
      the CPU (plain versions), from the same weights and batches, in f32,
      with each run's launch counts; then RAIN at 64x64, the same way and
@@ -80,7 +91,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      a short cell of the preset with ``contrastive.stdmin=true
      contrastive.w_stdmin=0.1`` (this slice's path: img_t's centroids take
      the std kernels), one epoch and ten timed steps, with the std kernels'
-     launches per step and their share of the device time; then the
+     launches per step and their share of the device time; then
+     ``GEN_CELLS``, the general kernels' paths: ``slcl_c5_f24``
+     (``model.num_classes=5 model.filters=24``, multilvl) and
+     ``mccl_p4_c5_f48_std`` (the preset with ``contrastive.part=4
+     model.num_classes=5 model.filters=48 contrastive.stdmin=true
+     contrastive.w_stdmin=0.1``), each an epoch, ten timed and three
+     profiled steps like the cells above, then an epoch through ``python -m
+     slcl_torch.train``'s ``main`` with validation and the test; then the
      backbones at full width, each one epoch with its launch counts and
      parameter count, timed steps and three profiled: ``slcl`` multilvl on
      the ResNet-50 U-Net (the paper's train_SLCL.py cell; 20 timed steps),
@@ -273,8 +291,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      shallow DeepLabV2, ``advent``, ``mpscl``, ``slcl``, ``mccl`` with
      stdmin and on the shallow ResNet-50 U-Net, MCCL + RAIN before warm-up
      and with the ascent, ``rain``, ``pretrain_rain``, ``ddfseg``,
-     ``adaptevery``, ``bcl``): 2K steps captured against uncaptured, bit
-     for bit.
+     ``adaptevery``, ``bcl``, and GEN_CELLS' ``mccl`` at P = 4, C = 5, F =
+     48 on the general kernels): 2K steps captured against uncaptured, bit
+     for bit; the general-kernel run also against ``scan_steps=1`` at the
+     tolerances above (``SCAN_VS_PLAIN``).
 
 Prints the kernel table (with registers, spills, blocks per SM and shared
 memory per block of each kernel; the centroids' per instantiation; each
@@ -294,6 +314,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import gc
 import importlib
 import json
@@ -313,6 +334,9 @@ M, F, C = 16 * 224 * 224, 32, 4
 PER_STEP = {"mpcl_fwd": 1, "mpcl_bwd": 1, "mpcl_pseudo_fwd": 1, "mpcl_pseudo_bwd": 1,
             "pseudo_label": 0, "soft_centroids_fwd": 1, "soft_centroids_bwd": 1,
             "soft_centroids_fwd_std": 0, "soft_centroids_bwd_std": 0}
+# the general family (any C, P, F) runs no launch at the published shapes
+GENERAL = tuple(k + "_general" for k in PER_STEP)
+PER_STEP.update(dict.fromkeys(GENERAL, 0))
 # launches per mccl step: the rMC centroids at P = 2 on img_t and P = 1 on
 # img_t_aug, each 16 images (M rows)
 PER_STEP_MCCL = {**dict.fromkeys(PER_STEP, 0), "soft_centroids_fwd": 2,
@@ -329,11 +353,24 @@ PER_METHOD = {"slcl": PER_STEP, "mccl": PER_STEP_MCCL, "mccl_stdmin": PER_STEP_M
 # DDFSeg, AdaptEvery and BCL: no port kernel on their paths
 EXTRA_METHODS = ("ddfseg", "adaptevery", "bcl")
 PER_METHOD.update({m: dict.fromkeys(PER_STEP, 0) for m in EXTRA_METHODS})
+# the cells on the general kernels (GEN_CELLS): slcl at C = 5, F = 24 takes
+# the general family where slcl takes the templated one; mccl at P = 4, C =
+# 5, F = 48 with stdmin its std pair on img_t and std-free pair on img_t_aug
+PER_METHOD["slcl_c5_f24"] = {**dict.fromkeys(PER_STEP, 0),
+                             **{k + "_general": v for k, v in PER_STEP.items()
+                                if not k.endswith("_general")}}
+PER_METHOD["mccl_p4_c5_f48_std"] = {**dict.fromkeys(PER_STEP, 0),
+                                    **{k + "_general": v
+                                       for k, v in PER_STEP_MCCL_STD.items()
+                                       if not k.endswith("_general")}}
 # the full-width MCCL + RAIN cell's overrides (bench.py:148-160's JAX cell)
 MCCL_RAIN = {"enabled": True, "update_eps": True, "eps_iters": 2, "eps_clip": 3.0}
 # the step cell whose launch counts each kernel's row reports (its path)
 PATH_OF = {"soft_centroids_fwd_std": "train_mccl_stdmin",
-           "soft_centroids_bwd_std": "train_mccl_stdmin"}
+           "soft_centroids_bwd_std": "train_mccl_stdmin",
+           **{k: "train_slcl_c5_f24" for k in GENERAL},
+           "soft_centroids_fwd_std_general": "train_mccl_p4_c5_f48_std",
+           "soft_centroids_bwd_std_general": "train_mccl_p4_c5_f48_std"}
 # sha256 of the std-free centroid kernels' outputs on centroid_digest's
 # inputs, as the kernels of commit 98d6b0e (before the std variant) gave
 # them on an NVIDIA H100 80GB HBM3: the std variant must leave them bit for
@@ -358,7 +395,22 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "soft_centroids_fwd_std": (
                "soft_centroids", "centroids_fwd_std_partialI13__nv_bfloat16Li32ELi2ELi4EE"),
            "soft_centroids_bwd_std": ("soft_centroids",
-                                      "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE")}
+                                      "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE"),
+           # the general family: one instantiation a type (and std or not)
+           "mpcl_fwd_general": ("mpcl", "mpcl_gen_fwd_partialI13__nv_bfloat16E"),
+           "mpcl_bwd_general": ("mpcl", "mpcl_gen_bwdI13__nv_bfloat16E"),
+           "mpcl_pseudo_fwd_general": ("mpcl_pseudo",
+                                       "mpcl_pseudo_gen_fwd_partialI13__nv_bfloat16E"),
+           "mpcl_pseudo_bwd_general": ("mpcl_pseudo", "mpcl_pseudo_gen_bwdI13__nv_bfloat16E"),
+           "pseudo_label_general": ("pseudo_label", "pseudo_label_genI13__nv_bfloat16E"),
+           "soft_centroids_fwd_general": ("soft_centroids",
+                                          "centroids_gen_fwd_partialI13__nv_bfloat16Lb0EE"),
+           "soft_centroids_bwd_general": ("soft_centroids",
+                                          "centroids_gen_bwdI13__nv_bfloat16Lb0EE"),
+           "soft_centroids_fwd_std_general": (
+               "soft_centroids", "centroids_gen_fwd_partialI13__nv_bfloat16Lb1EE"),
+           "soft_centroids_bwd_std_general": ("soft_centroids",
+                                              "centroids_gen_bwdI13__nv_bfloat16Lb1EE")}
 # (C query, its arguments) for each kernel's blocks per SM and shared memory
 # at the main path's instantiation; the query lives in SYMBOLS' source
 OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
@@ -369,18 +421,33 @@ OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
              "soft_centroids_fwd": ("soft_centroids_occupancy", (0, 1, F, 1, 0)),
              "soft_centroids_bwd": ("soft_centroids_occupancy", (1, 1, F, 1, 0)),
              "soft_centroids_fwd_std": ("soft_centroids_occupancy", (0, 1, F, 2, 1)),
-             "soft_centroids_bwd_std": ("soft_centroids_occupancy", (1, 1, F, 2, 1))}
+             "soft_centroids_bwd_std": ("soft_centroids_occupancy", (1, 1, F, 2, 1)),
+             # the general family at its cells' shapes (GEN_CELLS): bf16, C = 5,
+             # F = 24 (slcl), F = 48 and P = 4 (mccl's std pair)
+             "mpcl_fwd_general": ("mpcl_gen_occupancy", (0, 1, 24, 5)),
+             "mpcl_bwd_general": ("mpcl_gen_occupancy", (1, 1, 24, 5)),
+             "mpcl_pseudo_fwd_general": ("mpcl_pseudo_gen_occupancy", (0, 1, 24, 5)),
+             "mpcl_pseudo_bwd_general": ("mpcl_pseudo_gen_occupancy", (1, 1, 24, 5)),
+             "pseudo_label_general": ("pseudo_label_gen_occupancy", (1, 24, 5)),
+             "soft_centroids_fwd_general": ("soft_centroids_gen_occupancy", (0, 1, 24, 5, 1, 0)),
+             "soft_centroids_bwd_general": ("soft_centroids_gen_occupancy", (1, 1, 24, 5, 1, 0)),
+             "soft_centroids_fwd_std_general": ("soft_centroids_gen_occupancy",
+                                                (0, 1, 48, 5, 4, 1)),
+             "soft_centroids_bwd_std_general": ("soft_centroids_gen_occupancy",
+                                                (1, 1, 48, 5, 4, 1))}
 # parts of a CUDA kernel's name by which the profiler counts it as the
 # port's, per source ("name<" for one kernel, a prefix for a family)
-PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<"), "mpcl_pseudo": ("mpcl_pseudo_",),
-                "pseudo_label": ("pseudo_label_kernel",),
+PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<", "mpcl_gen_"), "mpcl_pseudo": ("mpcl_pseudo_",),
+                "pseudo_label": ("pseudo_label_kernel", "pseudo_label_gen"),
                 "soft_centroids": ("centroids_fwd_partial<", "centroids_fwd_std_partial<",
                                    "centroids_fwd_final<", "centroids_bwd<",
-                                   "centroids_bwd_std<")}
+                                   "centroids_bwd_std<", "centroids_gen_")}
 # the std kernels of one stdmin step, as the profiler names them (every part
 # of one entry): both streaming kernels and the std instantiation's final pass
 STD_KERNELS = (("centroids_fwd_std_partial<",), ("centroids_bwd_std<",),
-               ("centroids_fwd_final<", ", true>"))
+               ("centroids_fwd_final<", ", true>"),
+               # the general family's: its streaming kernels and final pass
+               ("centroids_gen_", ", true>"), ("centroids_gen_fwd_final<true>",))
 
 
 def centroid_symbol(bwd: int, std: int, P: int, f: int = F,
@@ -857,8 +924,10 @@ def centroid_digest() -> str:
     return h.hexdigest()
 
 
-def check_kernels(peaks) -> list:
-    """Phase 2: every kernel against its plain version; returns the table."""
+def check_kernels(peaks) -> tuple:
+    """Phase 2: every kernel against its plain version; returns the table's
+    rows, a torch.sum's ms over the features and the general family's
+    comparisons with the templated one."""
     import torch
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
@@ -1122,8 +1191,16 @@ def check_kernels(peaks) -> list:
     read_only_ms = time_ms(lambda: torch.sum(feats, dtype=torch.float32))
     check_bwd_ring(g)
     check_fwd_shapes(g)
+    # the general family: its own stream of inputs, so that the checks above
+    # see the inputs they always had
+    t0 = time.perf_counter()
+    g_gen = torch.Generator(device=dev).manual_seed(11)
+    errs = check_general_shapes(g_gen)
+    forced = check_general_forced(g_gen)
+    rows.update(general_rows(errs, forced, peaks, g_gen))
+    general = {"forced": forced, "seconds": time.perf_counter() - t0}
     torch.cuda.synchronize()
-    return rows, read_only_ms
+    return rows, read_only_ms, general
 
 
 def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
@@ -1236,6 +1313,585 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
     rows["soft_centroids_bwd_std"] = bstd
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the general family (any C, P, F: csrc/general.cuh,
+# csrc/centroids_gen.cuh)
+# ---------------------------------------------------------------------------
+# the shapes (C, P, F) each general kernel is held to its plain version at,
+# in bf16 and f32 at a ragged M: every C in {2, 5, 8}, P in {1, 3, 4} and F
+# in {20, 24, 48, 128} (rows of 40, 48, 96 and 256 bf16 bytes)
+GEN_SHAPES = ((2, 1, 20), (5, 3, 24), (8, 4, 48), (5, 4, 128))
+GEN_M = 65_536 - 5
+# phase 4's cells on the general kernels: name -> (method, overrides by
+# section, timed steps); phase 3 runs each at its sizes
+GEN_CELLS = {
+    "slcl_c5_f24": ("slcl", {"model": dict(multilvl=True, num_classes=5, filters=24)}, 10),
+    "mccl_p4_c5_f48_std": ("mccl", {"model": dict(num_classes=5, filters=48),
+                                    "contrastive": dict(part=4, stdmin=True, w_stdmin=0.1)},
+                           10)}
+
+
+def general_counts_moved(before: dict, what: str) -> None:
+    """Raise if a templated kernel launched since ``before`` (launch_counts)
+    or no general one did: the shape's calls took the general family."""
+    from slcl_torch.ops.cuda import launch_counts
+    now = launch_counts()
+    moved = {k for k in now if now[k] != before[k]}
+    if not moved or any(not k.endswith("_general") for k in moved):
+        raise AssertionError(f"{what}: launches moved on {sorted(moved)}")
+
+
+def check_general_shapes(g) -> dict:
+    """Phase 2: every general kernel against its plain version at each of
+    GEN_SHAPES in bf16 and f32 at a ragged M, through the wrappers' choice
+    of family by shape (no templated kernel may launch), each launched twice
+    for bit-identity, at the main shape's tolerances: MPCL forward (sel and
+    none, labels out of range) and backward, the fused target branch
+    (near-tie slack, the backward away from near-tie rows), the pseudo-labels
+    (exact away from near ties), the soft centroids at P = 1 and the shape's
+    P, hard and soft, thd 0 and 0.4, ids out of range, and their std variant
+    at the shape's P. Returns the max abs errors by kernel and shape."""
+    import torch
+    from slcl_torch.ops.cuda import launch_counts
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
+    grad = torch.ones(1, device=dev)
+    errs: dict = {}
+
+    def keep(kname, tag, err):
+        errs.setdefault(kname, {})[tag] = max(err, errs.get(kname, {}).get(tag, 0.0))
+
+    def twice(fn, what):
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        if not all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: two launches differ")
+        return a if len(a) > 1 else a[0]
+
+    m = GEN_M
+    for C_, P_, f in GEN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"C={C_} P={P_} F={f} {str(dtype)[6:]}"
+            g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 2e-3
+            before = launch_counts()
+            feats = torch.randn(m, f, generator=g, device=dev).to(dtype)
+            centers = torch.randn(C_, f, generator=g, device=dev)
+            cen = K_pl.normalize_rows(centers).contiguous()
+            labels = torch.randint(0, C_, (m,), generator=g, device=dev, dtype=torch.int32)
+            labels[::1009] = C_          # out of range: mlpp 0, zero gradient
+            labels[m - 3:] = torch.tensor([-1, C_, C_ + 3], dtype=torch.int32, device=dev)
+            sel = torch.randint(0, 2, (m,), generator=g, device=dev).float()
+            sel[::7] = 0.5
+            x = feats.detach().requires_grad_(True)
+
+            # ---- MPCL ----
+            for s in (sel, None):
+                what = f"general {tag} mpcl sel={s is not None}"
+                stats = twice(lambda: K_mpcl.mpcl_fwd_cuda(feats, labels, cen, s, T, 0.4,
+                                                           False, scale), what + " fwd")
+                want = K_mpcl.mpcl_plain(x, labels, cen, s, temperature=T,
+                                         base_temperature=base_T, margin=0.4)
+                keep("mpcl_fwd_general", tag, close(stats[0], want.detach(), 1e-4, 0.0,
+                                                    what + " loss"))
+                (g_want,) = torch.autograd.grad(want, x)
+                d1 = twice(lambda: K_mpcl.mpcl_bwd_cuda(feats, labels, cen, s, T, 0.4, False,
+                                                        scale, grad, stats), what + " bwd")
+                keep("mpcl_bwd_general", tag, close(d1, g_want, g_rtol,
+                                                    1e-3 * float(g_want.abs().max()),
+                                                    what + " dfeats"))
+
+            # ---- fused target branch and pseudo-labels ----
+            what = f"general {tag} mpcl_pseudo"
+            near = near_tie_rows(feats, cen, th)
+            n_near = int(near.sum())
+            stats = twice(lambda: K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale,
+                                                            th), what + " fwd")
+            want = K_mp.mpcl_pseudo_plain(x, cen, temperature=T, base_temperature=base_T,
+                                          margin=tm, pixel_sel_th=th)
+            num, den = float(stats[1]), float(stats[2])
+            slack = scale * n_near * (2 * (3.0 / T + 10.0) / den + abs(num) / den ** 2)
+            keep("mpcl_pseudo_fwd_general", tag,
+                 close(stats[0], want.detach(), 1e-4, slack, what + " loss"))
+            (g_want,) = torch.autograd.grad(want, x)
+            d1 = twice(lambda: K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th,
+                                                         grad, stats), what + " bwd")
+            keep("mpcl_pseudo_bwd_general", tag,
+                 close(d1[~near], g_want[~near], g_rtol, 1e-3 * float(g_want.abs().max()),
+                       what + " dfeats"))
+            lab_k, mask_k = twice(lambda: K_pl.pseudo_label_cuda(feats, centers, th),
+                                  f"general {tag} pseudo_label")
+            lab_p, mask_p = K_pl.pseudo_label_plain(feats, centers, th)
+            differ = ((lab_k != lab_p) | (mask_k != mask_p)) & ~near_tie_rows(feats, centers,
+                                                                              th)
+            if bool(differ.any()):
+                raise AssertionError(f"general {tag} pseudo_label: {int(differ.sum())} rows "
+                                     "differ away from a tie")
+            keep("pseudo_label_general", tag, float(differ.any()))
+            # the fused backward zeroes exactly the rows pseudo_label masks,
+            # and its forward counted them: one cosine routine, one rule
+            # (pseudo_label_cuda normalises the raw centres to cen itself)
+            zero = (d1 == 0).all(dim=1)
+            if not torch.equal(zero, mask_k == 0) or round(den) != int((mask_k != 0).sum()):
+                raise AssertionError(f"{what}: the fused route's rows and pseudo_label's "
+                                     "mask disagree")
+
+            # ---- soft centroids, std-free and std ----
+            probs = torch.softmax(2.0 * torch.randn(m, C_, generator=g, device=dev), dim=-1)
+            assign = torch.randint(0, P_, (m,), generator=g, device=dev, dtype=torch.int32)
+            assign[::1013] = P_
+            assign[5::2027] = -1
+            for P in sorted({1, P_}):
+                a = assign if P > 1 else None
+                for weighted in (False, True):
+                    for thd in (0.0, 0.4):
+                        what = f"general {tag} soft_centroids P={P} soft={weighted} thd={thd}"
+                        cents, counts, ratio = twice(lambda: K_sc.soft_centroids_fwd_cuda(
+                            feats, probs, a, P, thd, weighted), what + " fwd")
+                        xc = feats.detach().requires_grad_(True)
+                        pr = probs.detach().requires_grad_(True)
+                        w_c, w_r = K_sc.soft_centroids_plain(xc, pr, a, partition=P,
+                                                             threshold=thd, weighted=weighted)
+                        keep("soft_centroids_fwd_general", tag,
+                             close(cents, w_c.detach(), 1e-4, 1e-5, what + " cents"))
+                        close(ratio, w_r, 1e-5, 0.0, what + " ratio")
+                        dc = torch.randn(P, C_, f, generator=g, device=dev)
+                        want_g = torch.autograd.grad(w_c, [xc, pr] if weighted else [xc], dc)
+                        d = twice(lambda: K_sc.soft_centroids_bwd_cuda(
+                            feats, probs, a, P, thd, weighted, dc, cents, counts, weighted),
+                            what + " bwd")
+                        keep("soft_centroids_bwd_general", tag,
+                             close(d[0], want_g[0], g_rtol,
+                                   1e-3 * float(want_g[0].abs().max()), what + " dfeats"))
+                        if weighted:
+                            close(d[1], want_g[1], 2e-3, 1e-3 * float(want_g[1].abs().max()),
+                                  what + " dprobs")
+                        if P != P_:
+                            continue
+                        # the std variant at the shape's P
+                        what = what.replace("soft_centroids", "std")
+                        out = twice(lambda: K_sc.soft_centroids_fwd_cuda(
+                            feats, probs, a, P, thd, weighted, with_std=True), what + " fwd")
+                        cents, counts, ratio, std, s2 = out
+                        w_c, w_r, w_s = K_sc.soft_centroids_plain(
+                            xc, pr, a, partition=P, threshold=thd, weighted=weighted,
+                            with_std=True)
+                        close(cents, w_c.detach(), 1e-4, 1e-5, what + " cents")
+                        close(ratio, w_r, 1e-5, 0.0, what + " ratio")
+                        keep("soft_centroids_fwd_std_general", tag,
+                             close(std, w_s.detach(), 1e-4, 1e-5, what + " std"))
+                        dstd = torch.randn(C_, generator=g, device=dev)
+                        want_g = torch.autograd.grad((w_c * dc).sum() + (w_s * dstd).sum(),
+                                                     [xc, pr] if weighted else [xc])
+                        d = twice(lambda: K_sc.soft_centroids_bwd_cuda(
+                            feats, probs, a, P, thd, weighted, dc, cents, counts, weighted,
+                            dstd=dstd, std=std, s2=s2), what + " bwd")
+                        keep("soft_centroids_bwd_std_general", tag,
+                             close(d[0], want_g[0], g_rtol,
+                                   1e-3 * float(want_g[0].abs().max()), what + " dfeats"))
+                        if weighted:
+                            close(d[1], want_g[1], 2e-3, 1e-3 * float(want_g[1].abs().max()),
+                                  what + " dprobs")
+            general_counts_moved(before, f"general {tag}")
+            log(f"general {tag}: ok")
+    return errs
+
+
+def check_general_forced(g) -> dict:
+    """Phase 2: the general family forced (``route="general"``) at the main
+    shape (M rows, F = 32, C = 4, P = 1 and 2) against the templated one on
+    the same inputs, bf16 and f32: pseudo-labels and masks equal, the fused
+    forward's den equal and its backward's zero rows the same, every value
+    within the main shape's tolerances of the templated kernel's; then each
+    general forward's streaming pass over two halves of the rows, their
+    partials summed through ``reduce`` (as under data parallelism), against
+    the whole batch's. Returns the max abs differences."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    T, scale, tm, th = 0.1, 0.1, 0.2, 0.25
+    grad = torch.ones(1, device=dev)
+    out: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 2e-3
+        feats = torch.randn(M, F, generator=g, device=dev).to(dtype)
+        centers = torch.randn(C, F, generator=g, device=dev)
+        cen = K_pl.normalize_rows(centers).contiguous()
+        labels = torch.randint(0, C, (M,), generator=g, device=dev, dtype=torch.int32)
+        sel = torch.randint(0, 2, (M,), generator=g, device=dev).float()
+        probs = torch.softmax(torch.randn(M, C, generator=g, device=dev), dim=-1)
+        assign = torch.randint(0, 2, (M,), generator=g, device=dev, dtype=torch.int32)
+        what = f"forced M={M} F={F} {dt}"
+        # labels and masks: one cosine routine, one rule
+        lt, mt = K_pl.pseudo_label_cuda(feats, centers, th, route="templated")
+        lg, mg = K_pl.pseudo_label_cuda(feats, centers, th, route="general")
+        if not (torch.equal(lt, lg) and torch.equal(mt, mg)):
+            raise AssertionError(f"{what}: pseudo-labels or masks differ between the "
+                                 f"families in {int(((lt != lg) | (mt != mg)).sum())} rows")
+        st = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th, route="templated")
+        sg = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th, route="general")
+        if float(st[2]) != float(sg[2]):
+            raise AssertionError(f"{what}: fused den {float(st[2])} vs {float(sg[2])}")
+        err = {"mpcl_pseudo_fwd": close(sg[0], st[0], 1e-4, 0.0, what + " fused loss")}
+        dt_ = K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad, st,
+                                        route="templated")
+        dg = K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad, sg,
+                                       route="general")
+        if not torch.equal((dt_ == 0).all(dim=1), (dg == 0).all(dim=1)):
+            raise AssertionError(f"{what}: the fused backwards zero different rows")
+        err["mpcl_pseudo_bwd"] = close(dg, dt_, g_rtol, 1e-3 * float(dt_.abs().max()),
+                                       what + " fused dfeats")
+        for s in (sel, None):
+            st = K_mpcl.mpcl_fwd_cuda(feats, labels, cen, s, T, 0.4, False, scale,
+                                      route="templated")
+            sg = K_mpcl.mpcl_fwd_cuda(feats, labels, cen, s, T, 0.4, False, scale,
+                                      route="general")
+            err["mpcl_fwd"] = close(sg[0], st[0], 1e-4, 0.0, what + " mpcl loss")
+            dt_ = K_mpcl.mpcl_bwd_cuda(feats, labels, cen, s, T, 0.4, False, scale, grad, st,
+                                       route="templated")
+            dg = K_mpcl.mpcl_bwd_cuda(feats, labels, cen, s, T, 0.4, False, scale, grad, sg,
+                                      route="general")
+            err["mpcl_bwd"] = close(dg, dt_, g_rtol, 1e-3 * float(dt_.abs().max()),
+                                    what + " mpcl dfeats")
+        for P, weighted, std in ((1, False, False), (1, True, False), (2, True, False),
+                                 (2, True, True)):
+            a = assign if P > 1 else None
+            tag = f"{what} centroids P={P} soft={weighted} std={std}"
+            ot = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, weighted, std,
+                                              route="templated")
+            og = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, weighted, std,
+                                              route="general")
+            key = "soft_centroids_" + ("fwd_std" if std else "fwd")
+            err[key] = max(err.get(key, 0.0), close(og[0], ot[0], 1e-4, 1e-5, tag))
+            close(og[2], ot[2], 1e-5, 0.0, tag + " ratio")
+            if std:
+                close(og[3], ot[3], 1e-4, 1e-5, tag + " std")
+            dc = torch.randn(P, C, F, generator=g, device=dev)
+            kw = {}
+            if std:
+                kw = dict(dstd=torch.randn(C, generator=g, device=dev))
+            bt = K_sc.soft_centroids_bwd_cuda(
+                feats, probs, a, P, 0.0, weighted, dc, ot[0], ot[1], weighted,
+                **({**kw, "std": ot[3], "s2": ot[4]} if std else {}), route="templated")
+            bg = K_sc.soft_centroids_bwd_cuda(
+                feats, probs, a, P, 0.0, weighted, dc, og[0], og[1], weighted,
+                **({**kw, "std": og[3], "s2": og[4]} if std else {}), route="general")
+            key = "soft_centroids_" + ("bwd_std" if std else "bwd")
+            err[key] = max(err.get(key, 0.0), close(bg[0], bt[0], g_rtol,
+                                                    1e-3 * float(bt[0].abs().max()),
+                                                    tag + " dfeats"))
+            if weighted:
+                close(bg[1], bt[1], 2e-3, 1e-3 * float(bt[1].abs().max()), tag + " dprobs")
+        out[dt] = err
+        log(f"{what}: general == templated labels and masks, values within tolerance")
+
+    # two halves' partials summed through reduce, as two data ranks' are
+    feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
+    cen = K_pl.normalize_rows(torch.randn(C, F, generator=g, device=dev)).contiguous()
+    labels = torch.randint(0, C, (M,), generator=g, device=dev, dtype=torch.int32)
+    probs = torch.softmax(torch.randn(M, C, generator=g, device=dev), dim=-1)
+    assign = torch.randint(0, 2, (M,), generator=g, device=dev, dtype=torch.int32)
+    h = M // 2
+    halves = (slice(0, h), slice(h, M))
+    saved = {}
+
+    def keep_parts(parts):
+        saved["a"] = parts.clone()
+
+    def add_parts(parts):
+        if parts.shape != saved["a"].shape:
+            raise AssertionError("the halves' partial buffers differ in size")
+        parts += saved["a"]
+
+    def split(fn):
+        fn(halves[0], keep_parts)
+        return fn(halves[1], add_parts)
+
+    red = {}
+    whole = K_mpcl.mpcl_fwd_cuda(feats, labels, cen, None, T, 0.4, False, scale,
+                                 route="general")
+    got = split(lambda r, hook: K_mpcl.mpcl_fwd_cuda(
+        feats[r], labels[r], cen, None, T, 0.4, False, scale, reduce=hook, m_total=M,
+        route="general"))
+    red["mpcl_fwd"] = close(got[0], whole[0], 1e-5, 0.0, "halves mpcl loss")
+    whole = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th, route="general")
+    got = split(lambda r, hook: K_mp.mpcl_pseudo_fwd_cuda(
+        feats[r], cen, T, tm, False, scale, th, reduce=hook, route="general"))
+    if float(got[2]) != float(whole[2]):
+        raise AssertionError(f"halves fused den {float(got[2])} vs {float(whole[2])}")
+    red["mpcl_pseudo_fwd"] = close(got[0], whole[0], 1e-5, 0.0, "halves fused loss")
+    for std in (False, True):
+        whole = K_sc.soft_centroids_fwd_cuda(feats, probs, assign, 2, 0.4, True, std,
+                                             route="general")
+        got = split(lambda r, hook: K_sc.soft_centroids_fwd_cuda(
+            feats[r], probs[r], assign[r], 2, 0.4, True, std, reduce=hook, m_total=M,
+            route="general"))
+        key = "soft_centroids_fwd" + ("_std" if std else "")
+        red[key] = close(got[0], whole[0], 1e-5, 1e-6, f"halves {key}")
+        close(got[2], whole[2], 1e-6, 0.0, f"halves {key} ratio")
+        if std:
+            red[key] = max(red[key], close(got[3], whole[3], 1e-5, 1e-6, f"halves {key} std"))
+    out["halves_reduced"] = red
+    log("general forwards: two halves' partials summed through reduce == the whole batch's")
+    return out
+
+
+def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
+    """Phase 2: each general kernel's row of the kernel table, timed at its
+    phase 4 cell's shape (bf16, M rows; GEN_CELLS): the ``slcl_c5_f24``
+    step's calls at C = 5, F = 24 (MPCL without sel, the fused target
+    branch, the pseudo-labels, hard centroids at P = 1), and the
+    ``mccl_p4_c5_f48_std`` step's at C = 5, F = 48 (the std pair, soft, P =
+    4; the std-free pair's img_t_aug call, soft, P = 1, under ``mccl``).
+    Beside each its plain version and, where one PyTorch call computes the
+    same function, that call (``library_ms``, as the templated rows take
+    it); its bound from the shape; its max abs error against the plain
+    version at the cell's shape and at each of GEN_SHAPES
+    (``max_abs_err_by_shape``); and ``forced_ms``, the general kernel forced
+    at the main shape (F = 32, C = 4; P = 1 hard, the std pair P = 2 soft)
+    beside ``templated_ms``, the templated kernel on the same inputs in the
+    same call, each with ``forced_vs_templated_max_abs_diff``."""
+    import torch
+    from slcl_torch.ops.cuda import mpcl as K_mpcl
+    from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
+    from slcl_torch.ops.cuda import pseudo_label as K_pl
+    from slcl_torch.ops.cuda import soft_centroids as K_sc
+
+    dev = torch.device("cuda")
+    T, base_T, scale, tm, th = 0.1, 1.0, 0.1, 0.2, 0.25
+    grad = torch.ones(1, device=dev)
+    rows: dict = {}
+
+    def row(kname, **kw):
+        r = rows.setdefault(kname, {"library_ms": None})
+        r.update(kw)
+        return r
+
+    # ---- the slcl_c5_f24 step's calls: C = 5, F = 24 ----
+    c, f = 5, 24
+    feats = torch.randn(M, f, generator=g, device=dev).to(torch.bfloat16)
+    es = feats.element_size()
+    centers = torch.randn(c, f, generator=g, device=dev)
+    cen = K_pl.normalize_rows(centers).contiguous()
+    labels = torch.randint(0, c, (M,), generator=g, device=dev, dtype=torch.int32)
+    x = feats.detach().requires_grad_(True)
+
+    def fwd():
+        return K_mpcl.mpcl_fwd_cuda(feats, labels, cen, None, T, 0.4, False, scale)
+
+    def plain():
+        return K_mpcl.mpcl_plain(feats, labels, cen, None, temperature=T,
+                                 base_temperature=base_T, margin=0.4)
+    stats = fwd()
+    y = K_mpcl.mpcl_plain(x, labels, cen, None, temperature=T, base_temperature=base_T,
+                          margin=0.4)
+    (gw,) = torch.autograd.grad(y, x, retain_graph=True)
+    fl_row = 2 * f + 2 * c * f + 12 * c
+    row("mpcl_fwd_general", cell_err=close(stats[0], y.detach(), 1e-4, 0.0, "cell mpcl loss"),
+        ms=time_ms(fwd), plain_ms=time_ms(plain),
+        bound=bound(M * (f * es + 4), M * fl_row, peaks),
+        **launch_split(fwd, {"partial_ms": "mpcl_gen_fwd_partial",
+                             "final_ms": "mpcl_fwd_final"}))
+
+    def bwd():
+        return K_mpcl.mpcl_bwd_cuda(feats, labels, cen, None, T, 0.4, False, scale, grad,
+                                    stats)
+    row("mpcl_bwd_general", cell_err=close(bwd(), gw, 1.6e-2, 1e-3 * float(gw.abs().max()),
+                                           "cell mpcl dfeats"),
+        ms=time_ms(bwd), plain_ms=time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True)),
+        bound=bound(M * (2 * f * es + 4), M * (fl_row + 2 * c * f + 4 * f), peaks))
+    del y
+
+    def ffwd():
+        return K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
+    stats = ffwd()
+    near = near_tie_rows(feats, cen, th)
+    y = K_mp.mpcl_pseudo_plain(x, cen, temperature=T, base_temperature=base_T, margin=tm,
+                               pixel_sel_th=th)
+    (gw,) = torch.autograd.grad(y, x, retain_graph=True)
+    num, den = float(stats[1]), float(stats[2])
+    slack = scale * int(near.sum()) * (2 * (3.0 / T + 10.0) / den + abs(num) / den ** 2)
+    fl_row = 2 * f + 2 * c * f + 16 * c
+    row("mpcl_pseudo_fwd_general",
+        cell_err=close(stats[0], y.detach(), 1e-4, slack, "cell fused loss"),
+        near_tie_rows=int(near.sum()), ms=time_ms(ffwd),
+        plain_ms=time_ms(lambda: K_mp.mpcl_pseudo_plain(
+            feats, cen, temperature=T, base_temperature=base_T, margin=tm, pixel_sel_th=th)),
+        bound=bound(M * f * es, M * fl_row, peaks),
+        **launch_split(ffwd, {"partial_ms": "mpcl_pseudo_gen_fwd_partial",
+                              "final_ms": "mpcl_fwd_final"}))
+
+    def fbwd():
+        return K_mp.mpcl_pseudo_bwd_cuda(feats, cen, T, tm, False, scale, th, grad, stats)
+    row("mpcl_pseudo_bwd_general",
+        cell_err=close(fbwd()[~near], gw[~near], 1.6e-2, 1e-3 * float(gw.abs().max()),
+                       "cell fused dfeats"),
+        ms=time_ms(fbwd), plain_ms=time_ms(lambda: torch.autograd.grad(y, x, retain_graph=True)),
+        bound=bound(2 * M * f * es, M * (fl_row + 2 * c * f + 4 * f), peaks))
+    del y
+    lab_k, mask_k = K_pl.pseudo_label_cuda(feats, centers, th)
+    lab_p, mask_p = K_pl.pseudo_label_plain(feats, centers, th)
+    differ = ((lab_k != lab_p) | (mask_k != mask_p)) & ~near_tie_rows(feats, centers, th)
+    if bool(differ.any()):
+        raise AssertionError(f"cell pseudo_label: {int(differ.sum())} rows differ away from "
+                             "a tie")
+    row("pseudo_label_general", cell_err=float(differ.any()),
+        ms=time_ms(lambda: K_pl.pseudo_label_cuda(feats, centers, th)),
+        plain_ms=time_ms(lambda: K_pl.pseudo_label_plain(feats, centers, th)),
+        bound=bound(M * (f * es + 4 + 4), M * (2 * f + 2 * c * f), peaks),
+        **launch_split(lambda: K_pl.pseudo_label_cuda(feats, centers, th),
+                       {"kernel_ms": "pseudo_label_gen"}))
+
+    # the CNR centroids: hard, P = 1
+    probs = torch.softmax(torch.randn(M, c, generator=g, device=dev), dim=-1)
+    labels_hard = probs.argmax(dim=1)
+    cents, counts, ratio = K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False)
+    xc = feats.detach().requires_grad_(True)
+    yc, _ = K_sc.soft_centroids_plain(xc, probs, None, partition=1, weighted=False)
+    dc = torch.randn(1, c, f, generator=g, device=dev)
+    (gw,) = torch.autograd.grad(yc, xc, dc, retain_graph=True)
+    sums = torch.zeros(c, f, device=dev, dtype=feats.dtype)
+    row("soft_centroids_fwd_general", cell_err=close(cents, yc.detach(), 1e-4, 1e-5,
+                                                     "cell centroids"),
+        ms=time_ms(lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False)),
+        plain_ms=time_ms(lambda: K_sc.soft_centroids_plain(feats, probs, None, partition=1,
+                                                           weighted=False)),
+        library_ms=time_ms(lambda: sums.index_add_(0, labels_hard, feats)),
+        bound=bound(M * (f * es + 4 * c), 2 * M * f, peaks),
+        **launch_split(lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False),
+                       {"partial_ms": "centroids_gen_fwd_partial",
+                        "final_ms": "centroids_gen_fwd_final"}))
+    dsums = (dc[0] / (counts[:, None] + 1e-7)).to(feats.dtype)
+
+    def cbwd():
+        return K_sc.soft_centroids_bwd_cuda(feats, probs, None, 1, 0.0, False, dc, cents,
+                                            counts, False)
+    row("soft_centroids_bwd_general",
+        cell_err=close(cbwd()[0], gw, 1.6e-2, 1e-3 * float(gw.abs().max()), "cell dfeats"),
+        ms=time_ms(cbwd),
+        plain_ms=time_ms(lambda: torch.autograd.grad(yc, xc, dc, retain_graph=True)),
+        library_ms=time_ms(lambda: dsums.index_select(0, labels_hard)),
+        bound=bound(M * (f * es + 4 * c), 2 * M * f, peaks))
+    del yc
+
+    # ---- the mccl_p4_c5_f48_std step's calls: C = 5, F = 48, soft ----
+    f = 48
+    feats = torch.randn(M, f, generator=g, device=dev).to(torch.bfloat16)
+    feats32 = feats.float()
+    probs = torch.softmax(torch.randn(M, c, generator=g, device=dev), dim=-1)
+    for P in (4, 1):
+        a = (torch.randint(0, P, (M,), generator=g, device=dev, dtype=torch.int32)
+             if P > 1 else None)
+        ids = 4 * M if P > 1 else 0
+        std = P > 1          # the std pair on img_t; the std-free pair on img_t_aug
+        dc = torch.randn(P, c, f, generator=g, device=dev)
+        dstd = torch.randn(c, generator=g, device=dev)
+        part = a.long() if a is not None else torch.zeros(M, dtype=torch.long, device=dev)
+        w32 = torch.zeros(M, P, c, device=dev).scatter_(
+            1, part[:, None, None].expand(M, 1, c), probs[:, None, :]).reshape(M, P * c)
+        w16, ds16 = w32.to(feats.dtype), dc.reshape(P * c, f).to(feats.dtype)
+        out = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True, std)
+        xc = feats.detach().requires_grad_(True)
+        pr = probs.detach().requires_grad_(True)
+        want = K_sc.soft_centroids_plain(xc, pr, a, partition=P, weighted=True, with_std=std)
+        yc = (want[0] * dc).sum() + ((want[2] * dstd).sum() if std else 0.0)
+        gx, gp = torch.autograd.grad(yc, [xc, pr], retain_graph=True)
+        kw = dict(dstd=dstd, std=out[3], s2=out[4]) if std else {}
+
+        def cf():
+            return K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True, std)
+
+        def cb():
+            return K_sc.soft_centroids_bwd_cuda(feats, probs, a, P, 0.0, True, dc, out[0],
+                                                out[1], True, **kw)
+        d = cb()
+        fwd_bytes = M * (f * es + 4 * c) + ids
+        bwd_bytes = 2 * M * (f * es + 4 * c) + ids
+        rec_f = dict(cell_err=close(out[0], want[0].detach(), 1e-4, 1e-5, f"cell P={P} cents"),
+                     ms=time_ms(cf),
+                     plain_ms=time_ms(lambda: K_sc.soft_centroids_plain(
+                         feats, probs, a, partition=P, weighted=True, with_std=std)),
+                     library_ms=time_ms(lambda: torch.mm(w16.t(), feats)),
+                     library_f32_ms=time_ms(lambda: torch.mm(w32.t(), feats32)),
+                     bound=bound(fwd_bytes, (5 if std else 2) * M * f * c, peaks),
+                     **launch_split(cf, {"partial_ms": "centroids_gen_fwd_partial",
+                                         "final_ms": "centroids_gen_fwd_final"}))
+        rec_b = dict(cell_err=close(d[0], gx, 1.6e-2, 1e-3 * float(gx.abs().max()),
+                                    f"cell P={P} dfeats"),
+                     ms=time_ms(cb),
+                     plain_ms=time_ms(lambda: torch.autograd.grad(yc, [xc, pr],
+                                                                  retain_graph=True)),
+                     library_ms=time_ms(lambda: torch.mm(w16, ds16)),
+                     bound=bound(bwd_bytes, (8 if std else 4) * M * f * c, peaks))
+        close(d[1], gp, 2e-3, 1e-3 * float(gp.abs().max()), f"cell P={P} dprobs")
+        if std:
+            close(out[3], want[2].detach(), 1e-4, 1e-5, f"cell P={P} std")
+            row("soft_centroids_fwd_std_general", **rec_f)
+            row("soft_centroids_bwd_std_general", **rec_b)
+        else:   # the std-free pair's rows are the slcl cell's: these go beside
+            rows["soft_centroids_fwd_general"]["mccl_p1_soft"] = {
+                k: v for k, v in rec_f.items() if k != "bound"} | {"bound_ms": rec_f["bound"][0]}
+            rows["soft_centroids_bwd_general"]["mccl_p1_soft"] = {
+                k: v for k, v in rec_b.items() if k != "bound"} | {"bound_ms": rec_b["bound"][0]}
+        del yc, w32, w16
+
+    # ---- forced at the main shape, beside the templated kernel ----
+    feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
+    centers = torch.randn(C, F, generator=g, device=dev)
+    cen = K_pl.normalize_rows(centers).contiguous()
+    labels = torch.randint(0, C, (M,), generator=g, device=dev, dtype=torch.int32)
+    probs = torch.softmax(torch.randn(M, C, generator=g, device=dev), dim=-1)
+    assign = torch.randint(0, 2, (M,), generator=g, device=dev, dtype=torch.int32)
+    dc1 = torch.randn(1, C, F, generator=g, device=dev)
+    dc2 = torch.randn(2, C, F, generator=g, device=dev)
+    dstd = torch.randn(C, generator=g, device=dev)
+    st = K_mpcl.mpcl_fwd_cuda(feats, labels, cen, None, T, 0.4, False, scale)
+    sp = K_mp.mpcl_pseudo_fwd_cuda(feats, cen, T, tm, False, scale, th)
+    c1 = K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False)
+    c2 = K_sc.soft_centroids_fwd_cuda(feats, probs, assign, 2, 0.0, True, True)
+    calls = {
+        "mpcl_fwd_general": lambda r: K_mpcl.mpcl_fwd_cuda(
+            feats, labels, cen, None, T, 0.4, False, scale, route=r),
+        "mpcl_bwd_general": lambda r: K_mpcl.mpcl_bwd_cuda(
+            feats, labels, cen, None, T, 0.4, False, scale, grad, st, route=r),
+        "mpcl_pseudo_fwd_general": lambda r: K_mp.mpcl_pseudo_fwd_cuda(
+            feats, cen, T, tm, False, scale, th, route=r),
+        "mpcl_pseudo_bwd_general": lambda r: K_mp.mpcl_pseudo_bwd_cuda(
+            feats, cen, T, tm, False, scale, th, grad, sp, route=r),
+        "pseudo_label_general": lambda r: K_pl.pseudo_label_cuda(feats, centers, th, route=r),
+        "soft_centroids_fwd_general": lambda r: K_sc.soft_centroids_fwd_cuda(
+            feats, probs, None, 1, 0.0, False, route=r),
+        "soft_centroids_bwd_general": lambda r: K_sc.soft_centroids_bwd_cuda(
+            feats, probs, None, 1, 0.0, False, dc1, c1[0], c1[1], False, route=r),
+        "soft_centroids_fwd_std_general": lambda r: K_sc.soft_centroids_fwd_cuda(
+            feats, probs, assign, 2, 0.0, True, True, route=r),
+        "soft_centroids_bwd_std_general": lambda r: K_sc.soft_centroids_bwd_cuda(
+            feats, probs, assign, 2, 0.0, True, dc2, c2[0], c2[1], True, dstd=dstd,
+            std=c2[3], s2=c2[4], route=r)}
+    for kname, call in calls.items():
+        rows[kname].update(forced_ms=time_ms(lambda: call("general")),
+                           templated_ms=time_ms(lambda: call("templated")))
+    for kname in rows:
+        base = kname[:-len("_general")]
+        by_shape = dict(errs.get(kname, {}), cell=rows[kname].pop("cell_err"))
+        rows[kname].update(max_abs_err=max(by_shape.values()),
+                           max_abs_err_by_shape=by_shape,
+                           forced_vs_templated_max_abs_diff=max(
+                               v.get(base, 0.0) for k, v in forced.items()
+                               if k in ("bfloat16", "float32")))
+    return rows
+
+
 def small_config(method: str = "slcl"):
     from slcl_torch.config import Config, apply_recipe
     cfg = Config()
@@ -1309,7 +1965,14 @@ SMALL_RUNS = (
     # the F = 64 kernel instantiations on a step: UNet's 64-channel tap
     ("unet slcl F=64", "slcl", dict(backbone="unet", filters=64, multilvl=False), 32, 2,
      None, "slcl"),
+    # the general kernels on a step: phase 4's two GEN_CELLS at these sizes
+    ("slcl c5 f24", "slcl", dict(num_classes=5, filters=24), 32, 2, None, "slcl_c5_f24"),
+    ("mccl p4 c5 f48 std", "mccl", dict(num_classes=5, filters=48), 32, 2, None,
+     "mccl_p4_c5_f48_std"),
 )
+# ... and their contrastive overrides (a DRUNet mccl run also takes stdmin
+# and seg_pseudo, as the runs above)
+SMALL_CONTRASTIVE = {"mccl p4 c5 f48 std": dict(part=4)}
 
 
 def check_small_steps() -> dict:
@@ -1325,6 +1988,7 @@ def check_small_steps() -> dict:
 
     out = {}
     for label, method, model, crop, steps, shallow, per in SMALL_RUNS:
+        t0 = time.perf_counter()
         cfg = small_config(method)
         cfg.data.crop = crop
         for k, v in model.items():
@@ -1333,6 +1997,8 @@ def check_small_steps() -> dict:
             cfg.contrastive.concat_forward = "concat" in label
             cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
             cfg.contrastive.seg_pseudo = True
+        for k, v in SMALL_CONTRASTIVE.get(label, {}).items():
+            setattr(cfg.contrastive, k, v)
         cpu = Trainer(cfg, device="cpu")
         gpu = Trainer(cfg, device="cuda")
         for t in (cpu, gpu):
@@ -1360,7 +2026,7 @@ def check_small_steps() -> dict:
         torch.cuda.synchronize()
         out[label] = {"steps": steps, "crop": crop, "feat_dim": gpu.state.seg.feat_dim,
                       "params": sum(p.numel() for p in gpu.state.seg.parameters()),
-                      "launches": counts}
+                      "launches": counts, "seconds": time.perf_counter() - t0}
         log(f"small {label}: card matches CPU over {steps} step(s)")
     return out
 
@@ -1573,7 +2239,10 @@ N_PARAMS = {"slcl": 13_484_104, "mccl": 13_488_036, "mccl_rain": 13_488_036,
             # DDFNet + SegDecoder (16/8/32, not slim); ResNetUNetPoint (the
             # ResNet-50 U-Net multilvl + the 300-vertex head); BCLDeepLab
             # (ResNet-101, one feature-returning ASPP head)
-            "ddfseg": 39_665_640, "adaptevery": 37_834_348, "bcl": 42_795_088}
+            "ddfseg": 39_665_640, "adaptevery": 37_834_348, "bcl": 42_795_088,
+            # GEN_CELLS: DRUNet multilvl at 24 filters, 5 classes; the mccl
+            # preset's DRUNet at 48 filters, 5 classes
+            "slcl_c5_f24": 7_586_818, "mccl_p4_c5_f48_std": 30_340_517}
 # phase 4's cells of DDFSeg, AdaptEvery and BCL: (method, timed steps)
 EXTRA_CELLS = (("ddfseg", 10), ("adaptevery", 10), ("bcl", 10))
 # phase 4's backbone cells: (name, method, backbone, timed steps); the paper's
@@ -1587,7 +2256,7 @@ BACKBONE_CELLS = (("resnet50_slcl", "slcl", "resnet50", 20),
 
 def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
                      n_timed: int = 20, backbone: str = "drunet",
-                     name: str = "", rain: dict = None) -> dict:
+                     name: str = "", rain: dict = None, over: dict = None) -> dict:
     """Phase 4: one full-width recipe through the port's Trainer: ``slcl``
     with multilvl (the main path), or the ``mccl`` preset, with ``stdmin``
     its std term (``contrastive.stdmin=true contrastive.w_stdmin=0.1``) or
@@ -1595,8 +2264,9 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
     sampling on the first); on ``backbone``, with ``advent``/``adaptseg``
     (multilvl) and ``baseline`` too; or ``pretrain_rain`` (bs16 content +
     16 style); or ``ddfseg``/``adaptevery``/``bcl`` on their recipes' own
-    networks (BCL's epoch begins with a pseudo-label round). ``name`` keys
-    N_PARAMS and PER_METHOD (default: the
+    networks (BCL's epoch begins with a pseudo-label round); ``over`` sets
+    config keys by section last (GEN_CELLS: other C, P and F, on the general
+    kernels). ``name`` keys N_PARAMS and PER_METHOD (default: the
     method). A step is one call of the step function: an epsilon iteration
     under RAIN."""
     import torch
@@ -1615,6 +2285,9 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
         cfg.contrastive.stdmin, cfg.contrastive.w_stdmin = True, 0.1
     for k, v in (rain or {}).items():
         setattr(cfg.rain, k, v)
+    for section, kv in (over or {}).items():
+        for k, v in kv.items():
+            setattr(getattr(cfg, section), k, v)
     if method == "pretrain_rain":
         cfg.optim.lr = 1e-4
     cfg.data.dataset = "synthetic"
@@ -1683,6 +2356,39 @@ def train_full_width(work: Path, method: str = "slcl", stdmin: bool = False,
                              trainer.state.centroids.norm(dim=1).tolist()),
             "launches": counts,
             "means": means}
+
+
+def general_cli(work: Path, name: str, steps: int) -> dict:
+    """Phase 4: a GEN_CELLS config for one epoch through ``python -m
+    slcl_torch.train``'s ``main`` (synthetic data, validation, the final
+    test): each kernel's launches in its ``steps`` steps as PER_METHOD[name]
+    says, every epoch mean and test metric finite."""
+    from slcl_torch.ops.cuda import launch_counts, reset_launch_counts
+    from slcl_torch.train import __main__ as train_cli
+
+    method, over, _ = GEN_CELLS[name]
+    args = [f"method={method}", "data.dataset=synthetic", "optim.epochs=1",
+            f"run.out_dir={work / ('cli_' + name)}"]
+    args += [f"{section}.{k}={str(v).lower() if isinstance(v, bool) else v}"
+             for section, kv in over.items() for k, v in kv.items()]
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rec = train_cli.main(args)
+    counts = launch_counts()
+    (epoch,) = rec["history"]
+    for kname, per in PER_METHOD[name].items():
+        if counts[kname] != steps * per:
+            raise AssertionError(f"cli {name}: {kname} launched {counts[kname]} times in "
+                                 f"{steps} steps, expected {steps * per}")
+    vals = [v for v in epoch.values() if isinstance(v, float)]
+    vals += [v for split in ("test",) for k in ("dc", "hd", "asd") for v in rec[split][k]]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"cli {name}: non-finite values {epoch} {rec['test']}")
+    out = {"args": args, "seconds": time.perf_counter() - t0, "steps": steps,
+           "launches": counts, "epoch": epoch,
+           "test_dice": rec["test"]["dc"]}
+    log(f"cli {name}: one epoch, {steps} steps in {out['seconds']:.1f} s")
+    return out
 
 
 def _same_state(a, b) -> None:
@@ -3576,7 +4282,13 @@ SCAN_SMALL = (
                                                  slim=True)}, None),
     ("adaptevery", "adaptevery", _SMALL_NETS, 64, {}, None),
     ("bcl", "bcl", _SMALL_NETS, 64, {}, None),
+    # the general kernels replayed: GEN_CELLS' mccl at P = 4, C = 5, F = 48
+    ("mccl p4 c5 f48 std", "mccl", dict(num_classes=5, filters=48), 32,
+     {"contrastive": dict(part=4, stdmin=True, w_stdmin=0.1, seg_pseudo=True)}, None),
 )
+# the runs also held to the Trainer at scan_steps=1 (JAX's scan test's
+# tolerances: the capturable optimizers round differently)
+SCAN_VS_PLAIN = ("mccl p4 c5 f48 std",)
 
 
 @contextlib.contextmanager
@@ -3781,6 +4493,7 @@ def scan_small_run(label, method, model, crop, over, shallow) -> dict:
     from slcl_torch.data import to_device
     from slcl_torch.train.trainer import Trainer
 
+    t0 = time.perf_counter()
     cfg = small_config(method)
     cfg.data.crop = crop
     for k, v in model.items():
@@ -3794,6 +4507,11 @@ def scan_small_run(label, method, model, crop, over, shallow) -> dict:
         if shallow:
             use_segmentor(t, small_segmentor(shallow, cfg, t.device))
     uncaptured.multi = uncaptured.build_multi_step(capture=False)
+    plain = None
+    if label in SCAN_VS_PLAIN:
+        cfg_1 = copy.deepcopy(cfg)
+        cfg_1.run.scan_steps = 1
+        plain = Trainer(cfg_1, device="cuda")
     if method == "bcl":
         graph.bcl_update_plabels(cfg.run.bcl_prop)
         uncaptured.bcl_plabels = graph.bcl_plabels
@@ -3803,6 +4521,8 @@ def scan_small_run(label, method, model, crop, over, shallow) -> dict:
     with deterministic():
         acc_g, n, _ = scan_epoch(graph, batches, sched)
         acc_u, _, _ = scan_epoch(uncaptured, batches, sched)
+        if plain is not None:
+            acc_p, _, _ = scan_epoch(plain, batches, sched)
     m = graph.multi
     if m is None or (m.captured_step, m.replays) != (3, SCAN_K + 1):
         raise AssertionError(f"scan small {label}: not replayed "
@@ -3812,9 +4532,21 @@ def scan_small_run(label, method, model, crop, over, shallow) -> dict:
     metrics = {k: float(v) / n for k, v in acc_g.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"scan small {label}: non-finite metrics")
-    log(f"scan small {label}: replayed == uncaptured bit for bit over {n} steps")
-    return {"steps": n, "crop": crop, "capture_s": m.capture_s, "replays": m.replays,
-            "sched": {k: v for k, v in sched.items()}, "metrics": metrics}
+    out = {"steps": n, "crop": crop, "capture_s": m.capture_s, "replays": m.replays,
+           "sched": {k: v for k, v in sched.items()}, "metrics": metrics}
+    if plain is not None:
+        out["max_abs_diff_vs_scan_steps_1"] = {
+            "metrics": scan_compare({k: v / n for k, v in acc_g.items()},
+                                    {k: v / n for k, v in acc_p.items()},
+                                    f"scan small {label} metrics vs scan_steps=1",
+                                    SCAN_METRICS_RTOL, SCAN_ATOL),
+            "state": scan_compare(scan_state(graph), scan_state(plain),
+                                  f"scan small {label} state vs scan_steps=1", SCAN_RTOL,
+                                  SCAN_ATOL)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"scan small {label}: replayed == uncaptured bit for bit over {n} steps"
+        + (", within JAX's scan test's tolerances of scan_steps=1" if plain else ""))
+    return out
 
 
 def scan_steps_phase(work: Path) -> dict:
@@ -3855,7 +4587,7 @@ def main() -> int:
     for src in ("mpcl", "mpcl_pseudo", "pseudo_label", "soft_centroids"):
         for fn, regs, spill in build.ptxas_report(src):
             if spill and ("fwd_partial" in fn or "pseudo_label_kernel" in fn
-                          or src == "soft_centroids"):
+                          or "_gen" in fn or src == "soft_centroids"):
                 raise AssertionError(f"{fn} spills {spill} bytes at {regs} registers")
     # ... the std kernels among them, every F, type and P
     built = [fn for fn, _, _ in build.ptxas_report("soft_centroids")]
@@ -3870,7 +4602,7 @@ def main() -> int:
     # the phases' own prints (the trainer's epoch lines and test tables) go
     # to stderr: stdout carries the result lines only
     with contextlib.redirect_stdout(sys.stderr):
-        rows, read_only_ms = check_kernels(peaks)
+        rows, read_only_ms, general_check = check_kernels(peaks)
         digest = centroid_digest()
         if digest != STD_FREE_DIGEST:
             raise AssertionError(f"the std-free centroid kernels' outputs changed: digest "
@@ -3887,6 +4619,15 @@ def main() -> int:
             train_mccl = train_full_width(work, "mccl")
             # the std kernels' path, in a short cell
             train_std = train_full_width(work, "mccl", stdmin=True, n_timed=10)
+            # the general kernels' paths: C, P and F the templated kernels
+            # do not take
+            t4 = time.perf_counter()
+            train_gen = {cell: train_full_width(work, method, n_timed=n, name=cell, over=over)
+                         for cell, (method, over, n) in GEN_CELLS.items()}
+            for cell in GEN_CELLS:
+                train_gen[cell]["cli"] = general_cli(work, cell,
+                                                     train_gen[cell]["steps_per_epoch"])
+            general_check["phase4_seconds"] = time.perf_counter() - t4
             # RAIN: MCCL + RAIN with the ascent (10 batches = 20 steps), and
             # the style net's pretraining
             rain_cells = {"mccl_rain": train_full_width(work, "mccl", n_timed=20,
@@ -3930,7 +4671,8 @@ def main() -> int:
                     proc.wait()
             shutil.rmtree(work, ignore_errors=True)
 
-    cells = {"train": train, "train_mccl": train_mccl, "train_mccl_stdmin": train_std}
+    cells = {"train": train, "train_mccl": train_mccl, "train_mccl_stdmin": train_std,
+             **{"train_" + cell: rec for cell, rec in train_gen.items()}}
     table = []
     for kname, rec in rows.items():
         k = KERNELS[kname]
@@ -3967,6 +4709,10 @@ def main() -> int:
                  # no wrapper)
                  "launches_scan_steps": {cell: scan["cells"][cell]["graph"]["launches"][kname]
                                          for cell in scan["cells"]},
+                 # phase 4's cells on the general kernels, per step
+                 "launches_per_step_general_cells": {
+                     cell: rec["launches"][kname] / rec["steps_per_epoch"]
+                     for cell, rec in train_gen.items()},
                  "max_abs_err": rec["max_abs_err"],
                  "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": rec["library_ms"]}
@@ -3975,7 +4721,9 @@ def main() -> int:
                       "sel_bound_ms", "sel_partial_ms", "sel_final_ms", "sel_max_abs_err",
                       "mccl", "p1_ms", "p1_plain_ms", "p1_bound", "p1_partial_ms",
                       "p1_final_ms", "library_f32_ms", "p1_library_ms",
-                      "p1_library_f32_ms", "copy_ms"):
+                      "p1_library_f32_ms", "copy_ms", "forced_ms", "templated_ms",
+                      "max_abs_err_by_shape", "forced_vs_templated_max_abs_diff",
+                      "mccl_p1_soft"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]
@@ -4007,6 +4755,10 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"train_mccl": train_mccl}))
     print(json.dumps({"train_mccl_stdmin": train_std}))
+    print(json.dumps({"train_general": {"cells": train_gen, "check": general_check,
+                                        "small_steps": {k: small[k] for k in small
+                                                        if k in ("slcl c5 f24",
+                                                                 "mccl p4 c5 f48 std")}}}))
     print(json.dumps({"train_rain": {"cells": rain_cells, "small_steps": small_rain}}))
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"train_real": real}))
@@ -4018,7 +4770,8 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"scan_steps": scan}))
     print(card_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -9,10 +9,20 @@
 namespace slcl {
 
 constexpr int kThreads = 256;    // threads per block, every kernel here
-constexpr int kC = 4;            // classes: every kernel is built for C = 4
-                                 // only, and its entry point rejects others
+constexpr int kC = 4;            // classes of the templated kernels, which
+                                 // reject others; the general kernels
+                                 // (general.cuh, centroids_gen.cuh) take any
 constexpr int kMaxBlocks = 1024; // cap of a forward's persistent grid: its
                                  // final pass adds at most this many partials
+
+// One value <-> f32 (bf16 rounds to nearest even on the way out).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(v);
+  else return v;
+}
 
 // 8 consecutive values -> f32 registers. p must be 16-byte aligned.
 __device__ __forceinline__ void load8(const float* p, float* x) {
@@ -59,6 +69,53 @@ int occupancy(Kern kern, int dyn_smem, int* blocks_per_sm, int* smem_bytes) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, kThreads, dyn_smem);
   if (e == cudaSuccess) *smem_bytes = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
+  return static_cast<int>(e);
+}
+
+// Blocks of a general kernel's grid (general.cuh, centroids_gen.cuh) over M
+// rows taken `per` a block-step: fixed whatever the device, so that the
+// order of the forwards' sums is too.
+inline int gen_grid(long long M, int per) {
+  const long long t = (M + per - 1) / per;
+  return t < 1 ? 1 : (t < kMaxBlocks ? static_cast<int>(t) : kMaxBlocks);
+}
+
+// Lets kKern take up to the device's opt-in shared memory a block (once per
+// kernel and device); returns 0 if smem dynamic bytes fit, -1 if not, or a
+// cudaError_t. Static, so that every library keeps its own flags.
+template <auto kKern>
+static int gen_prepare(int smem) {
+  constexpr int kMaxDevices = 64;
+  static int max_dyn[kMaxDevices];
+  int dev = 0;
+  int e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (max_dyn[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes a;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kKern);
+    const int dyn = optin - static_cast<int>(a.sharedSizeBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kKern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return e;
+    max_dyn[dev] = dyn;
+  }
+  return smem <= max_dyn[dev] ? 0 : -1;
+}
+
+// Blocks per SM and shared memory per block of a general kernel at smem
+// dynamic bytes, as occupancy() gives them for the templated ones.
+template <auto kKern>
+static int gen_occupancy(int smem, int* blocks_per_sm, int* smem_bytes) {
+  const int rc = gen_prepare<kKern>(smem);
+  if (rc != 0) return rc;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kKern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kKern, kThreads, smem);
+  if (e == cudaSuccess) *smem_bytes = static_cast<int>(a.sharedSizeBytes) + smem;
   return static_cast<int>(e);
 }
 

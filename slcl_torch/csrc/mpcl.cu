@@ -51,6 +51,11 @@
 // blocks (24 warps) per SM; each warp stores 512 contiguous bytes of
 // dfeats an instruction. Four lanes a row (one per class) measured slower:
 // each lane repeats the row's norm and unpacks the whole row.
+//
+// General family (general.cuh): mpcl_gen_fwd_partial and mpcl_gen_bwd take
+// any C and F at run time, a thread a row, for the shapes the templated
+// kernels above do not take; the forward ends in the same mpcl_fwd_final.
+#include "general.cuh"
 #include "mpcl_bwd_tile.cuh"
 #include "mpcl_fwd_tile.cuh"
 
@@ -152,6 +157,68 @@ int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
   return -1;
 }
 
+// ---- the general family: any C and F, at run time ----
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mpcl_gen_fwd_partial(const T* __restrict__ feats, const int* __restrict__ labels,
+                     const float* __restrict__ sel, const float* __restrict__ centers, int M,
+                     int F, int C, Margin mg, float* __restrict__ part) {
+  __shared__ float s_red[kThreads];
+  float num, den;
+  slcl::gen_mpcl_fwd_sums<T, false>(feats, labels, sel, centers, M, F, C, mg, 0.f, num, den);
+  num = slcl::block_sum(num, s_red);
+  den = slcl::block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = num;
+    part[2 * blockIdx.x + 1] = den;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mpcl_gen_bwd(const T* __restrict__ feats, const int* __restrict__ labels,
+             const float* __restrict__ sel, const float* __restrict__ centers, int M, int F,
+             int C, Margin mg, float scale, const float* __restrict__ grad_out,
+             const float* __restrict__ stats, T* __restrict__ dfeats) {
+  const float coef = -scale * grad_out[0] / stats[2];
+  slcl::gen_mpcl_bwd_dfeats<T, false>(feats, labels, sel, centers, M, F, C, mg, 0.f, coef,
+                                    dfeats);
+}
+
+template <typename T>
+int gen_launch_partial(const void* feats, const int* labels, const float* sel,
+                       const float* centers, int M, int F, int C, Margin mg, float* part,
+                       int* grid, cudaStream_t st) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  const int rc = slcl::gen_prepare<mpcl_gen_fwd_partial<T>>(smem);
+  if (rc != 0) return rc;
+  *grid = slcl::gen_grid(M, kThreads);
+  mpcl_gen_fwd_partial<T><<<*grid, kThreads, smem, st>>>(static_cast<const T*>(feats), labels,
+                                                          sel, centers, M, F, C, mg, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_launch_bwd(const void* feats, const int* labels, const float* sel,
+                   const float* centers, int M, int F, int C, Margin mg, float scale,
+                   const float* grad_out, const float* stats, void* dfeats, cudaStream_t st) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  const int rc = slcl::gen_prepare<mpcl_gen_bwd<T>>(smem);
+  if (rc != 0) return rc;
+  mpcl_gen_bwd<T><<<slcl::gen_grid(M, kThreads), kThreads, smem, st>>>(
+      static_cast<const T*>(feats), labels, sel, centers, M, F, C, mg, scale, grad_out, stats,
+      static_cast<T*>(dfeats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_occupancy_of(int bwd, int F, int C, int* blocks_per_sm, int* smem_bytes) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  return bwd ? slcl::gen_occupancy<mpcl_gen_bwd<T>>(smem, blocks_per_sm, smem_bytes)
+             : slcl::gen_occupancy<mpcl_gen_fwd_partial<T>>(smem, blocks_per_sm, smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -234,6 +301,60 @@ int mpcl_bwd(const void* feats, int feats_bf16, const void* labels,
 int mpcl_occupancy(int bwd, int feats_bf16, int F, int* blocks_per_sm, int* smem_bytes) {
   return feats_bf16 ? occupancy_of<__nv_bfloat16>(bwd, F, blocks_per_sm, smem_bytes)
                     : occupancy_of<float>(bwd, F, blocks_per_sm, smem_bytes);
+}
+
+// ---- the general family: the same calls at any C >= 1 and F >= 1; -1
+// where the shape's shared memory (general.cuh::gen_rows_smem) does not
+// fit a block of this device ----
+
+int mpcl_gen_num_partials(int feats_bf16, int M, int F, int* n) {
+  (void)feats_bf16;
+  (void)F;
+  *n = slcl::gen_grid(M, kThreads);
+  return 0;
+}
+
+int mpcl_gen_fwd_partial(const void* feats, int feats_bf16, const void* labels,
+                         const void* sel, const void* centers, int M, int F, int C, float T,
+                         float cos_m, float sin_m, float th, float mm, int easy,
+                         void* partials, int* nparts, void* stream) {
+  if (C < 1 || F < 1) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const int*>(labels);
+  auto s = static_cast<const float*>(sel);
+  auto cen = static_cast<const float*>(centers);
+  auto part = static_cast<float*>(partials);
+  return feats_bf16
+             ? gen_launch_partial<__nv_bfloat16>(feats, lab, s, cen, M, F, C, mg, part, nparts,
+                                                 st)
+             : gen_launch_partial<float>(feats, lab, s, cen, M, F, C, mg, part, nparts, st);
+}
+
+int mpcl_gen_bwd(const void* feats, int feats_bf16, const void* labels, const void* sel,
+                 const void* centers, int M, int F, int C, float T, float cos_m, float sin_m,
+                 float th, float mm, int easy, float scale, const void* grad_out,
+                 const void* stats, void* dfeats, void* stream) {
+  if (C < 1 || F < 1) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lab = static_cast<const int*>(labels);
+  auto s = static_cast<const float*>(sel);
+  auto cen = static_cast<const float*>(centers);
+  auto g = static_cast<const float*>(grad_out);
+  auto stt = static_cast<const float*>(stats);
+  return feats_bf16 ? gen_launch_bwd<__nv_bfloat16>(feats, lab, s, cen, M, F, C, mg, scale, g,
+                                                    stt, dfeats, st)
+                    : gen_launch_bwd<float>(feats, lab, s, cen, M, F, C, mg, scale, g, stt,
+                                            dfeats, st);
+}
+
+// Blocks per SM and shared memory per block of mpcl_gen_fwd_partial
+// (bwd = 0) or mpcl_gen_bwd (bwd = 1) at (C, F).
+int mpcl_gen_occupancy(int bwd, int feats_bf16, int F, int C, int* blocks_per_sm,
+                       int* smem_bytes) {
+  return feats_bf16 ? gen_occupancy_of<__nv_bfloat16>(bwd, F, C, blocks_per_sm, smem_bytes)
+                    : gen_occupancy_of<float>(bwd, F, C, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

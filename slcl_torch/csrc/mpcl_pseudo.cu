@@ -51,6 +51,12 @@
 // that fail the gap test write zeros, and each warp stores 512 contiguous
 // bytes an instruction. The cosines come from the forward's stream_cosines,
 // so every row gets the forward's label and sel.
+//
+// General family (general.cuh): mpcl_pseudo_gen_fwd_partial and
+// mpcl_pseudo_gen_bwd take any C and F at run time, a thread a row, with
+// the templated kernels' cosines and rule, for the shapes those do not
+// take; the forward ends in the same mpcl_fwd_final.
+#include "general.cuh"
 #include "mpcl_bwd_tile.cuh"
 #include "mpcl_fwd_tile.cuh"
 
@@ -149,6 +155,69 @@ int occupancy_of(int bwd, int F, int* blocks_per_sm, int* smem_bytes) {
   return -1;
 }
 
+// ---- the general family: any C and F, at run time ----
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mpcl_pseudo_gen_fwd_partial(const T* __restrict__ feats, const float* __restrict__ centers,
+                            int M, int F, int C, Margin mg, float sel_th,
+                            float* __restrict__ part) {
+  __shared__ float s_red[kThreads];
+  float num, den;
+  slcl::gen_mpcl_fwd_sums<T, true>(feats, nullptr, nullptr, centers, M, F, C, mg, sel_th, num,
+                                   den);
+  num = slcl::block_sum(num, s_red);
+  den = slcl::block_sum(den, s_red);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = num;
+    part[2 * blockIdx.x + 1] = den;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mpcl_pseudo_gen_bwd(const T* __restrict__ feats, const float* __restrict__ centers, int M,
+                    int F, int C, Margin mg, float sel_th, float scale,
+                    const float* __restrict__ grad_out, const float* __restrict__ stats,
+                    T* __restrict__ dfeats) {
+  const float coef = -scale * grad_out[0] / stats[2];
+  slcl::gen_mpcl_bwd_dfeats<T, true>(feats, nullptr, nullptr, centers, M, F, C, mg, sel_th, coef,
+                                   dfeats);
+}
+
+template <typename T>
+int gen_launch_partial(const void* feats, const float* centers, int M, int F, int C,
+                       Margin mg, float sel_th, float* part, int* grid, cudaStream_t st) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  const int rc = slcl::gen_prepare<mpcl_pseudo_gen_fwd_partial<T>>(smem);
+  if (rc != 0) return rc;
+  *grid = slcl::gen_grid(M, kThreads);
+  mpcl_pseudo_gen_fwd_partial<T><<<*grid, kThreads, smem, st>>>(
+      static_cast<const T*>(feats), centers, M, F, C, mg, sel_th, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_launch_bwd(const void* feats, const float* centers, int M, int F, int C, Margin mg,
+                   float sel_th, float scale, const float* grad_out, const float* stats,
+                   void* dfeats, cudaStream_t st) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  const int rc = slcl::gen_prepare<mpcl_pseudo_gen_bwd<T>>(smem);
+  if (rc != 0) return rc;
+  mpcl_pseudo_gen_bwd<T><<<slcl::gen_grid(M, kThreads), kThreads, smem, st>>>(
+      static_cast<const T*>(feats), centers, M, F, C, mg, sel_th, scale, grad_out, stats,
+      static_cast<T*>(dfeats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_occupancy_of(int bwd, int F, int C, int* blocks_per_sm, int* smem_bytes) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  return bwd ? slcl::gen_occupancy<mpcl_pseudo_gen_bwd<T>>(smem, blocks_per_sm, smem_bytes)
+             : slcl::gen_occupancy<mpcl_pseudo_gen_fwd_partial<T>>(smem, blocks_per_sm,
+                                                                  smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,6 +297,56 @@ int mpcl_pseudo_occupancy(int bwd, int feats_bf16, int F, int* blocks_per_sm,
                           int* smem_bytes) {
   return feats_bf16 ? occupancy_of<__nv_bfloat16>(bwd, F, blocks_per_sm, smem_bytes)
                     : occupancy_of<float>(bwd, F, blocks_per_sm, smem_bytes);
+}
+
+// ---- the general family: the same calls at any C >= 1 and F >= 1; -1
+// where the shape's shared memory (general.cuh::gen_rows_smem) does not
+// fit a block of this device ----
+
+int mpcl_pseudo_gen_num_partials(int feats_bf16, int M, int F, int* n) {
+  (void)feats_bf16;
+  (void)F;
+  *n = slcl::gen_grid(M, kThreads);
+  return 0;
+}
+
+int mpcl_pseudo_gen_fwd_partial(const void* feats, int feats_bf16, const void* centers, int M,
+                                int F, int C, float T, float cos_m, float sin_m, float th,
+                                float mm, int easy, float sel_th, void* partials, int* nparts,
+                                void* stream) {
+  if (C < 1 || F < 1) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cen = static_cast<const float*>(centers);
+  auto part = static_cast<float*>(partials);
+  return feats_bf16 ? gen_launch_partial<__nv_bfloat16>(feats, cen, M, F, C, mg, sel_th, part,
+                                                        nparts, st)
+                    : gen_launch_partial<float>(feats, cen, M, F, C, mg, sel_th, part, nparts,
+                                                st);
+}
+
+int mpcl_pseudo_gen_bwd(const void* feats, int feats_bf16, const void* centers, int M, int F,
+                        int C, float T, float cos_m, float sin_m, float th, float mm, int easy,
+                        float scale, float sel_th, const void* grad_out, const void* stats,
+                        void* dfeats, void* stream) {
+  if (C < 1 || F < 1) return -1;
+  const Margin mg{T, cos_m, sin_m, th, mm, easy};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cen = static_cast<const float*>(centers);
+  auto g = static_cast<const float*>(grad_out);
+  auto stt = static_cast<const float*>(stats);
+  return feats_bf16 ? gen_launch_bwd<__nv_bfloat16>(feats, cen, M, F, C, mg, sel_th, scale, g,
+                                                    stt, dfeats, st)
+                    : gen_launch_bwd<float>(feats, cen, M, F, C, mg, sel_th, scale, g, stt,
+                                            dfeats, st);
+}
+
+// Blocks per SM and shared memory per block of the general forward's
+// partial kernel (bwd = 0) or backward (bwd = 1) at (C, F).
+int mpcl_pseudo_gen_occupancy(int bwd, int feats_bf16, int F, int C, int* blocks_per_sm,
+                              int* smem_bytes) {
+  return feats_bf16 ? gen_occupancy_of<__nv_bfloat16>(bwd, F, C, blocks_per_sm, smem_bytes)
+                    : gen_occupancy_of<float>(bwd, F, C, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

@@ -15,6 +15,20 @@ struct Margin {
   int easy;
 };
 
+// A chunk of n <= 8 consecutive values -> f32 registers: with the width
+// known at compile time (F > 0) one 16-byte-aligned chunk of 8 (load8);
+// with F = 0 (the general kernels: any width, rows at any 2-byte address)
+// one value a load, zeros past n.
+template <int F, typename T>
+__device__ __forceinline__ void load_chunk(const T* p, float* x, int n) {
+  if constexpr (F > 0) {
+    load8(p, x);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = i < n ? to_f32(p[i]) : 0.f;
+  }
+}
+
 // cosv[c] = <x, cent[c]> / ||x||; inv = 1/||x||, of a row taken in 8-value
 // chunks: ss and each class's dot product are one sequential fmaf chain
 // over k, whoever calls and however the chunk loop is unrolled. The
@@ -25,29 +39,48 @@ struct Margin {
 // must take its cosines here and its rule from row_pseudo_label: the
 // pseudo-label kernel's mask, the fused forward's count of selected rows
 // and the fused backward's zero rows agree only because all do.
-template <typename T, int F, int kUnroll = 1>
+// The templated kernels give F and C = kC at compile time. The general
+// kernels (general.cuh) pass F = 0 and C = 0 and the width f and class
+// count nc at run time: the row is then read a value at a time (the last
+// chunk holds f mod 8 values) and its classes go in groups of kC, each
+// group one pass over the row that takes ss again, the same chain. The
+// chains are the same either way, so at C = 4 and F in {8, 16, 32, 64} both
+// families give every row the same cosines bit for bit.
+template <typename T, int F, int kUnroll = 1, int C = kC>
 __device__ __forceinline__ void stream_cosines(const T* row, const float* s_cent,
-                                               float* cosv, float& inv) {
-  float ss = 0.f, d[kC];
+                                               float* cosv, float& inv, int f = F,
+                                               int nc = C) {
+  static_assert((F > 0 && C == kC) || (F == 0 && C == 0), "both shapes fixed, or neither");
+  const int fw = F > 0 ? F : f;
+  const int nw = C > 0 ? C : nc;
+  for (int c0 = 0; c0 < nw; c0 += kC) {   // once at C = kC
+    float ss = 0.f, d[kC];
 #pragma unroll
-  for (int c = 0; c < kC; ++c) d[c] = 0.f;
+    for (int c = 0; c < kC; ++c) d[c] = 0.f;
 #pragma unroll(kUnroll)
-  for (int k = 0; k < F; k += 8) {
-    float x[8];
-    load8(row + k, x);
+    for (int k = 0; k < fw; k += 8) {
+      const int n = F > 0 ? 8 : min(8, fw - k);
+      float x[8];
+      load_chunk<F>(row + k, x, n);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ss = fmaf(x[i], x[i], ss);
+      for (int i = 0; i < 8; ++i)
+        if (i < n) ss = fmaf(x[i], x[i], ss);
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      float cc[8];
-      load8(s_cent + c * F + k, cc);
+      for (int c = 0; c < kC; ++c) {
+        if (c0 + c < nw) {
+          float cc[8];
+          load_chunk<F>(s_cent + (c0 + c) * fw + k, cc, n);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) d[c] = fmaf(x[i], cc[i], d[c]);
+          for (int i = 0; i < 8; ++i)
+            if (i < n) d[c] = fmaf(x[i], cc[i], d[c]);
+        }
+      }
     }
-  }
-  inv = rsqrtf(ss + 1e-24f);
+    inv = rsqrtf(ss + 1e-24f);
 #pragma unroll
-  for (int c = 0; c < kC; ++c) cosv[c] = d[c] * inv;
+    for (int c = 0; c < kC; ++c)
+      if (c0 + c < nw) cosv[c0 + c] = d[c] * inv;
+  }
 }
 
 // Margin softmax of one row from its cosines. Returns mlpp (the log-prob of
@@ -86,12 +119,14 @@ __device__ __forceinline__ float margin_softmax(const float* cosv, int lab,
 // Label and sel of one row from its cosines: first-occurrence argmax;
 // sel = 1 where top1 - second > sel_th, second being the largest cosine
 // among the other columns (a tie gives a gap of 0).
+// C = 0: nc classes, at run time (the general kernels).
 template <int C>
-__device__ __forceinline__ int row_pseudo_label(const float* cosv, float sel_th, float& sel) {
+__device__ __forceinline__ int row_pseudo_label(const float* cosv, float sel_th, float& sel,
+                                                int nc = C) {
   float best = -INFINITY, second = -INFINITY;
   int arg = 0;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
+  for (int c = 0; c < (C > 0 ? C : nc); ++c) {
     const float cs = cosv[c];
     if (cs > best) {
       second = best;

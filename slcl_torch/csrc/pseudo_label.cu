@@ -25,6 +25,11 @@
 // mpcl_row.cuh), so both routes give every row the same label and mask.
 // C = slcl::kC is fixed at compile time. No reduction across rows, so the
 // result does not depend on the launch shape.
+//
+// General family (general.cuh): pseudo_label_gen takes any C and F at run
+// time, a thread a row, with the same cosines and rule, for the shapes the
+// templated kernel does not take.
+#include "general.cuh"
 #include "mpcl_fwd_tile.cuh"
 
 namespace {
@@ -63,6 +68,32 @@ int occupancy_of(int F, int* blocks_per_sm, int* smem_bytes) {
   return -1;
 }
 
+// ---- the general family: any C and F, at run time ----
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pseudo_label_gen(const T* __restrict__ feats, const float* __restrict__ centers, int M, int F,
+                 int C, float th, int* __restrict__ labels, float* __restrict__ mask) {
+  slcl::gen_pseudo_label_rows<T>(feats, centers, M, F, C, th, labels, mask);
+}
+
+template <typename T>
+int gen_launch(const void* feats, const float* centers, int M, int F, int C, float th,
+               int* labels, float* mask, cudaStream_t st) {
+  const int smem = slcl::gen_rows_smem(C, F);
+  const int rc = slcl::gen_prepare<pseudo_label_gen<T>>(smem);
+  if (rc != 0) return rc;
+  pseudo_label_gen<T><<<slcl::gen_grid(M, kThreads), kThreads, smem, st>>>(
+      static_cast<const T*>(feats), centers, M, F, C, th, labels, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_occupancy_of(int F, int C, int* blocks_per_sm, int* smem_bytes) {
+  return slcl::gen_occupancy<pseudo_label_gen<T>>(slcl::gen_rows_smem(C, F), blocks_per_sm,
+                                                  smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -85,6 +116,26 @@ int pseudo_label(const void* feats, int feats_bf16, const void* centers, int M,
 int pseudo_label_occupancy(int feats_bf16, int F, int* blocks_per_sm, int* smem_bytes) {
   return feats_bf16 ? occupancy_of<__nv_bfloat16>(F, blocks_per_sm, smem_bytes)
                     : occupancy_of<float>(F, blocks_per_sm, smem_bytes);
+}
+
+// The general kernel: the same call at any C >= 1 and F >= 1; -1 where
+// the shape's shared memory (general.cuh::gen_rows_smem) does not fit a
+// block of this device.
+int pseudo_label_gen(const void* feats, int feats_bf16, const void* centers, int M, int F,
+                     int C, float th, void* labels, void* mask, void* stream) {
+  if (C < 1 || F < 1) return -1;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cen = static_cast<const float*>(centers);
+  auto lab = static_cast<int*>(labels);
+  auto msk = static_cast<float*>(mask);
+  return feats_bf16 ? gen_launch<__nv_bfloat16>(feats, cen, M, F, C, th, lab, msk, st)
+                    : gen_launch<float>(feats, cen, M, F, C, th, lab, msk, st);
+}
+
+int pseudo_label_gen_occupancy(int feats_bf16, int F, int C, int* blocks_per_sm,
+                               int* smem_bytes) {
+  return feats_bf16 ? gen_occupancy_of<__nv_bfloat16>(F, C, blocks_per_sm, smem_bytes)
+                    : gen_occupancy_of<float>(F, C, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

@@ -116,6 +116,12 @@
 // No float atomics, and the order of every sum is fixed by the launch shape:
 // two runs on the same inputs give bit-identical results. C is fixed at
 // compile time (slcl::kC).
+//
+// General family (centroids_gen.cuh): centroids_gen_fwd_partial /
+// _fwd_final and centroids_gen_bwd, with or without the std, take any C, P
+// and F at run time, for the shapes the templated kernels above do not
+// take (soft_centroids_gen_* below).
+#include "centroids_gen.cuh"
 #include "ring.cuh"
 
 namespace {
@@ -1225,6 +1231,70 @@ int occupancy_of(int bwd, int F, int P, int with_std, int* blocks_per_sm,
   return -1;
 }
 
+// ---- the general family (centroids_gen.cuh): any C, P and F ----
+
+template <typename T>
+int gen_launch_partial(const void* feats, const float* probs, const int* assign, int M, int F,
+                       int C, int P, float thd, int use_thd, int weighted, int with_std,
+                       float* partials, int* nparts, cudaStream_t st) {
+  const int grid = slcl::gen_grid(M, slcl::gen_cent_groups(F));
+  SLCL_DISPATCH_STD(with_std, {
+    const int smem = slcl::gen_cent_fwd_smem(C, P, F, kS);
+    const int rc = slcl::gen_prepare<slcl::centroids_gen_fwd_partial<T, kS>>(smem);
+    if (rc != 0) return rc;
+    slcl::centroids_gen_fwd_partial<T, kS><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted,
+        partials);
+  });
+  *nparts = grid;
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gen_launch_final(const float* partials, int nparts, int M, int F, int C, int P,
+                     float* cents, float* counts, float* ratio, float* s2, float* stdv,
+                     cudaStream_t st) {
+  const int nv = slcl::gen_cent_values(C, P, F, false);
+  const int blocks = (nv + slcl::kGenWarps - 1) / slcl::kGenWarps;
+  SLCL_DISPATCH_STD(s2 != nullptr, {
+    const int smem = kS ? slcl::gen_cent_final_smem(P, F) : 0;
+    const int rc = slcl::gen_prepare<slcl::centroids_gen_fwd_final<kS>>(smem);
+    if (rc != 0) return rc;
+    slcl::centroids_gen_fwd_final<kS><<<blocks + (kS ? C : 0), kThreads, smem, st>>>(
+        partials, nparts, M, F, C, P, cents, counts, ratio, s2, stdv);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_launch_bwd(const void* feats, const float* probs, const int* assign, int M, int F,
+                   int C, int P, float thd, int use_thd, int weighted, const float* dcents,
+                   const float* cents, const float* counts, void* dfeats, float* dprobs,
+                   const float* gstd, const float* s2, const float* stdv, cudaStream_t st) {
+  const int grid = slcl::gen_grid(M, slcl::kGenWarps);
+  SLCL_DISPATCH_STD(gstd != nullptr, {
+    const int smem = slcl::gen_cent_bwd_smem(C, P, F, kS);
+    const int rc = slcl::gen_prepare<slcl::centroids_gen_bwd<T, kS>>(smem);
+    if (rc != 0) return rc;
+    slcl::centroids_gen_bwd<T, kS><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted,
+        dcents, cents, counts, static_cast<T*>(dfeats), dprobs, gstd, s2, stdv);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int gen_occupancy_of(int bwd, int F, int C, int P, int with_std, int* blocks_per_sm,
+                     int* smem_bytes) {
+  SLCL_DISPATCH_STD(with_std, {
+    if (bwd)
+      return slcl::gen_occupancy<slcl::centroids_gen_bwd<T, kS>>(
+          slcl::gen_cent_bwd_smem(C, P, F, kS), blocks_per_sm, smem_bytes);
+    return slcl::gen_occupancy<slcl::centroids_gen_fwd_partial<T, kS>>(
+        slcl::gen_cent_fwd_smem(C, P, F, kS), blocks_per_sm, smem_bytes);
+  });
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1335,6 +1405,84 @@ int soft_centroids_occupancy(int bwd, int feats_bf16, int F, int P, int with_std
   return feats_bf16
              ? occupancy_of<__nv_bfloat16>(bwd, F, P, with_std, blocks_per_sm, smem_bytes)
              : occupancy_of<float>(bwd, F, P, with_std, blocks_per_sm, smem_bytes);
+}
+
+// ---- the general family: the same calls at any C, P >= 1 and F >= 1;
+// -1 where a kernel's shared memory (centroids_gen.cuh: gen_cent_fwd_smem,
+// gen_cent_final_smem, gen_cent_bwd_smem) does not fit a block of this
+// device ----
+
+int soft_centroids_gen_partials_size(int feats_bf16, int M, int F, int P, int C, int with_std,
+                                     int* n) {
+  (void)feats_bf16;
+  if (C < 1 || P < 1 || F < 1) return -1;
+  const long long size = static_cast<long long>(slcl::gen_cent_values(C, P, F, with_std)) *
+                         slcl::gen_grid(M, slcl::gen_cent_groups(F));
+  if (size > 0x7fffffffLL) return -1;
+  *n = static_cast<int>(size);
+  return 0;
+}
+
+int soft_centroids_gen_fwd_partial(const void* feats, int feats_bf16, const void* probs,
+                                   const void* assign, int M, int F, int C, int P,
+                                   float threshold, int weighted, int with_std, void* partials,
+                                   int* nparts, void* stream) {
+  if (C < 1 || P < 1 || F < 1) return -1;
+  const int use_thd = threshold > 0.f && threshold < 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pr = static_cast<const float*>(probs);
+  auto as = static_cast<const int*>(assign);
+  auto pt = static_cast<float*>(partials);
+  return feats_bf16 ? gen_launch_partial<__nv_bfloat16>(feats, pr, as, M, F, C, P, threshold,
+                                                        use_thd, weighted, with_std, pt,
+                                                        nparts, st)
+                    : gen_launch_partial<float>(feats, pr, as, M, F, C, P, threshold,
+                                                use_thd, weighted, with_std, pt, nparts, st);
+}
+
+int soft_centroids_gen_fwd_final(const void* partials, int nparts, int M, int F, int C, int P,
+                                 void* cents, void* counts, void* ratio, void* s2, void* stdv,
+                                 void* stream) {
+  if (C < 1 || P < 1 || F < 1 || (s2 == nullptr) != (stdv == nullptr)) return -1;
+  return gen_launch_final(static_cast<const float*>(partials), nparts, M, F, C, P,
+                          static_cast<float*>(cents), static_cast<float*>(counts),
+                          static_cast<float*>(ratio), static_cast<float*>(s2),
+                          static_cast<float*>(stdv), static_cast<cudaStream_t>(stream));
+}
+
+int soft_centroids_gen_bwd(const void* feats, int feats_bf16, const void* probs,
+                           const void* assign, int M, int F, int C, int P, float threshold,
+                           int weighted, const void* dcents, const void* cents,
+                           const void* counts, void* dfeats, void* dprobs, const void* dstd,
+                           const void* s2, const void* stdv, void* stream) {
+  if (C < 1 || P < 1 || F < 1 || (dstd != nullptr && (s2 == nullptr || stdv == nullptr)))
+    return -1;
+  const int use_thd = threshold > 0.f && threshold < 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pr = static_cast<const float*>(probs);
+  auto as = static_cast<const int*>(assign);
+  auto dc = static_cast<const float*>(dcents);
+  auto ce = static_cast<const float*>(cents);
+  auto co = static_cast<const float*>(counts);
+  auto dp = static_cast<float*>(dprobs);
+  auto gs = static_cast<const float*>(dstd);
+  auto q = static_cast<const float*>(s2);
+  auto sd = static_cast<const float*>(stdv);
+  return feats_bf16
+             ? gen_launch_bwd<__nv_bfloat16>(feats, pr, as, M, F, C, P, threshold, use_thd,
+                                             weighted, dc, ce, co, dfeats, dp, gs, q, sd, st)
+             : gen_launch_bwd<float>(feats, pr, as, M, F, C, P, threshold, use_thd, weighted,
+                                     dc, ce, co, dfeats, dp, gs, q, sd, st);
+}
+
+// Blocks per SM and shared memory per block of the general forward's
+// streaming kernel (bwd = 0) or backward (bwd = 1) at (C, P, F, std).
+int soft_centroids_gen_occupancy(int bwd, int feats_bf16, int F, int C, int P, int with_std,
+                                 int* blocks_per_sm, int* smem_bytes) {
+  return feats_bf16
+             ? gen_occupancy_of<__nv_bfloat16>(bwd, F, C, P, with_std, blocks_per_sm,
+                                               smem_bytes)
+             : gen_occupancy_of<float>(bwd, F, C, P, with_std, blocks_per_sm, smem_bytes);
 }
 
 }  // extern "C"

@@ -25,13 +25,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import (F32, I32, IP, VP, build, check, choose, ptr, raise_on_error, register,
+               stream_of)
 from ...parallel import mesh as dp
 
 FWD = register("mpcl_fwd", "slcl_torch/csrc/mpcl.cu",
                "slcl_tpu/ops/pallas/mpcl_kernel.py:134")
 BWD = register("mpcl_bwd", "slcl_torch/csrc/mpcl.cu",
                "slcl_tpu/ops/pallas/mpcl_kernel.py:195")
+# the general family (any C and F): csrc/general.cuh
+FWD_GEN = register("mpcl_fwd_general", "slcl_torch/csrc/mpcl.cu + csrc/general.cuh",
+                   "slcl_tpu/ops/pallas/mpcl_kernel.py:134")
+BWD_GEN = register("mpcl_bwd_general", "slcl_torch/csrc/mpcl.cu + csrc/general.cuh",
+                   "slcl_tpu/ops/pallas/mpcl_kernel.py:195")
 
 _MARGIN = [F32, F32, F32, F32, F32, I32, F32]  # T, cos_m, sin_m, th, mm, easy, scale
 _SIGS = {
@@ -43,6 +49,11 @@ _SIGS = {
     "mpcl_fwd_final": (I32, [VP, I32, I32, I32, F32, VP, VP]),
     "mpcl_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
+# the general family's entries take the templated ones' arguments (the
+# final pass is shared); its occupancy query also takes C
+_SIGS.update({k.replace("mpcl_", "mpcl_gen_", 1): v for k, v in _SIGS.items()
+              if k in ("mpcl_num_partials", "mpcl_fwd_partial", "mpcl_bwd")})
+_SIGS["mpcl_gen_occupancy"] = (I32, [I32, I32, I32, I32, IP, IP])
 
 
 def margin_consts(margin: float):
@@ -128,49 +139,66 @@ def _args(feats, labels, centers, sel, T, margin, easy, scale):
             int(easy), scale)
 
 
+def _route(feats, centers, route):
+    """(the C entries' prefix, the launch counters, the shape) of a call."""
+    r, shape = choose(route, centers.shape[0], 1, feats.shape[1], feats.dtype, ("rows",))
+    if r == "general":
+        return "mpcl_gen_", (FWD_GEN, BWD_GEN), shape
+    return "mpcl_", (FWD, BWD), shape
+
+
 def mpcl_fwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
-                  reduce=None, m_total: int = 0) -> torch.Tensor:
+                  reduce=None, m_total: int = 0, route=None) -> torch.Tensor:
     """Launch the forward's streaming pass and final pass (the C entries
     ``mpcl_fwd_partial`` / ``_final``, which together launch what
     ``mpcl_fwd`` does); returns ``stats`` = [loss, sum(sel*mlpp), den].
     ``reduce`` (data parallelism) takes the streaming pass's (num, den)
     pairs in place between the two (their sum over the ranks), and the
-    final pass averages over ``m_total`` rows when there is no ``sel``."""
+    final pass averages over ``m_total`` rows when there is no ``sel``.
+    ``route`` ("templated" / "general") overrides :func:`route`'s choice
+    by shape (the general family at a shape the templated one takes)."""
     _check_inputs(feats, labels, centers, sel)
+    pre, (counter, _), shape = _route(feats, centers, route)
     lib = build.load("mpcl", _SIGS)
     n_pairs = ctypes.c_int()
+    bf16 = int(feats.dtype == torch.bfloat16)
     with torch.cuda.device(feats.device):
-        raise_on_error(lib.mpcl_num_partials(
-            int(feats.dtype == torch.bfloat16), *feats.shape, ctypes.byref(n_pairs)),
-            "mpcl_num_partials")
+        if pre == "mpcl_":
+            rc = lib.mpcl_num_partials(bf16, *feats.shape, ctypes.byref(n_pairs))
+        else:
+            rc = lib.mpcl_gen_num_partials(bf16, *feats.shape, ctypes.byref(n_pairs))
+        raise_on_error(rc, pre + "num_partials", shape)
         parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
         stats = torch.empty(3, dtype=torch.float32, device=feats.device)
         args = _args(feats, labels, centers, sel, T, margin, easy, scale)
         grid = ctypes.c_int()
-        raise_on_error(lib.mpcl_fwd_partial(*args[:-1], ptr(parts), ctypes.byref(grid),
-                                            stream_of(feats)), "mpcl_fwd_partial")
+        raise_on_error(getattr(lib, pre + "fwd_partial")(
+            *args[:-1], ptr(parts), ctypes.byref(grid), stream_of(feats)),
+            pre + "fwd_partial", shape)
         if reduce is not None:
             reduce(parts)
         rc = lib.mpcl_fwd_final(ptr(parts), grid.value, int(m_total or feats.shape[0]),
                                 int(sel is not None), scale, ptr(stats), stream_of(feats))
     raise_on_error(rc, "mpcl_fwd_final")
-    FWD.launches += 1
+    counter.launches += 1
     return stats
 
 
 def mpcl_bwd_cuda(feats, labels, centers, sel, T, margin, easy, scale,
-                  grad_out, stats) -> torch.Tensor:
+                  grad_out, stats, route=None) -> torch.Tensor:
     """Launch the backward; returns dfeats in feats' dtype."""
     _check_inputs(feats, labels, centers, sel)
     check(grad_out, "grad_out", (torch.float32,), (1,), feats.device)
     check(stats, "stats", (torch.float32,), (3,), feats.device)
+    pre, (_, counter), shape = _route(feats, centers, route)
     lib = build.load("mpcl", _SIGS)
     dfeats = torch.empty_like(feats)
     with torch.cuda.device(feats.device):
-        rc = lib.mpcl_bwd(*_args(feats, labels, centers, sel, T, margin, easy, scale),
-                          ptr(grad_out), ptr(stats), ptr(dfeats), stream_of(feats))
-    raise_on_error(rc, "mpcl_bwd")
-    BWD.launches += 1
+        rc = getattr(lib, pre + "bwd")(
+            *_args(feats, labels, centers, sel, T, margin, easy, scale), ptr(grad_out),
+            ptr(stats), ptr(dfeats), stream_of(feats))
+    raise_on_error(rc, pre + "bwd", shape)
+    counter.launches += 1
     return dfeats
 
 

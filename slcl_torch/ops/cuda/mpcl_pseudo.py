@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import (F32, I32, IP, VP, build, check, choose, ptr, raise_on_error, register,
+               stream_of)
 from ...parallel import mesh as dp
 from .mpcl import _MARGIN, margin_consts, mpcl_plain
 from .pseudo_label import pseudo_label_plain
@@ -26,6 +27,13 @@ FWD = register("mpcl_pseudo_fwd", "slcl_torch/csrc/mpcl_pseudo.cu",
                "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:156")
 BWD = register("mpcl_pseudo_bwd", "slcl_torch/csrc/mpcl_pseudo.cu",
                "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:179")
+# the general family (any C and F): csrc/general.cuh
+FWD_GEN = register("mpcl_pseudo_fwd_general",
+                   "slcl_torch/csrc/mpcl_pseudo.cu + csrc/general.cuh",
+                   "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:156")
+BWD_GEN = register("mpcl_pseudo_bwd_general",
+                   "slcl_torch/csrc/mpcl_pseudo.cu + csrc/general.cuh",
+                   "slcl_tpu/ops/pallas/mpcl_pseudo_kernel.py:179")
 
 _SIGS = {
     "mpcl_pseudo_num_partials": (I32, [I32, I32, I32, IP]),
@@ -37,6 +45,12 @@ _SIGS = {
     "mpcl_pseudo_fwd_final": (I32, [VP, I32, I32, F32, VP, VP]),
     "mpcl_pseudo_occupancy": (I32, [I32, I32, I32, IP, IP]),
 }
+# the general family's entries take the templated ones' arguments (the
+# final pass is shared); its occupancy query also takes C
+_SIGS.update({k.replace("mpcl_pseudo_", "mpcl_pseudo_gen_", 1): v for k, v in _SIGS.items()
+              if k in ("mpcl_pseudo_num_partials", "mpcl_pseudo_fwd_partial",
+                       "mpcl_pseudo_bwd")})
+_SIGS["mpcl_pseudo_gen_occupancy"] = (I32, [I32, I32, I32, I32, IP, IP])
 
 
 def mpcl_pseudo_plain(feats: torch.Tensor, centers: torch.Tensor, *,
@@ -67,49 +81,64 @@ def _args(feats, centers, T, margin, easy, scale, sel_th):
             float(sel_th))
 
 
+def _route(feats, centers, route):
+    """(the C entries' prefix, the launch counters, the shape) of a call."""
+    r, shape = choose(route, centers.shape[0], 1, feats.shape[1], feats.dtype, ("rows",))
+    if r == "general":
+        return "mpcl_pseudo_gen_", (FWD_GEN, BWD_GEN), shape
+    return "mpcl_pseudo_", (FWD, BWD), shape
+
+
 def mpcl_pseudo_fwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
-                         reduce=None) -> torch.Tensor:
+                         reduce=None, route=None) -> torch.Tensor:
     """Launch the forward's streaming pass and final pass (the C entries
     ``mpcl_pseudo_fwd_partial`` / ``_final``, which together launch what
     ``mpcl_pseudo_fwd`` does); returns ``stats`` = [loss, sum(sel*mlpp),
     den]. ``reduce`` (data parallelism) takes the streaming pass's (num,
-    den) pairs in place between the two (their sum over the ranks)."""
+    den) pairs in place between the two (their sum over the ranks).
+    ``route`` overrides the choice of family by shape."""
     _check_inputs(feats, centers)
+    pre, (counter, _), shape = _route(feats, centers, route)
     lib = build.load("mpcl_pseudo", _SIGS)
     n_pairs = ctypes.c_int()
+    bf16 = int(feats.dtype == torch.bfloat16)
     with torch.cuda.device(feats.device):
-        raise_on_error(lib.mpcl_pseudo_num_partials(
-            int(feats.dtype == torch.bfloat16), *feats.shape, ctypes.byref(n_pairs)),
-            "mpcl_pseudo_num_partials")
+        if pre == "mpcl_pseudo_":
+            rc = lib.mpcl_pseudo_num_partials(bf16, *feats.shape, ctypes.byref(n_pairs))
+        else:
+            rc = lib.mpcl_pseudo_gen_num_partials(bf16, *feats.shape, ctypes.byref(n_pairs))
+        raise_on_error(rc, pre + "num_partials", shape)
         parts = torch.empty(2 * n_pairs.value, dtype=torch.float32, device=feats.device)
         stats = torch.empty(3, dtype=torch.float32, device=feats.device)
         args = _args(feats, centers, T, margin, easy, scale, sel_th)
         grid = ctypes.c_int()
-        raise_on_error(lib.mpcl_pseudo_fwd_partial(
+        raise_on_error(getattr(lib, pre + "fwd_partial")(
             *args[:-2], args[-1], ptr(parts), ctypes.byref(grid), stream_of(feats)),
-            "mpcl_pseudo_fwd_partial")
+            pre + "fwd_partial", shape)
         if reduce is not None:
             reduce(parts)
         rc = lib.mpcl_pseudo_fwd_final(ptr(parts), grid.value, feats.shape[0], scale,
                                        ptr(stats), stream_of(feats))
     raise_on_error(rc, "mpcl_pseudo_fwd_final")
-    FWD.launches += 1
+    counter.launches += 1
     return stats
 
 
 def mpcl_pseudo_bwd_cuda(feats, centers, T, margin, easy, scale, sel_th,
-                         grad_out, stats) -> torch.Tensor:
+                         grad_out, stats, route=None) -> torch.Tensor:
     """Launch the backward; returns dfeats in feats' dtype."""
     _check_inputs(feats, centers)
     check(grad_out, "grad_out", (torch.float32,), (1,), feats.device)
     check(stats, "stats", (torch.float32,), (3,), feats.device)
+    pre, (_, counter), shape = _route(feats, centers, route)
     lib = build.load("mpcl_pseudo", _SIGS)
     dfeats = torch.empty_like(feats)
     with torch.cuda.device(feats.device):
-        rc = lib.mpcl_pseudo_bwd(*_args(feats, centers, T, margin, easy, scale, sel_th),
-                                 ptr(grad_out), ptr(stats), ptr(dfeats), stream_of(feats))
-    raise_on_error(rc, "mpcl_pseudo_bwd")
-    BWD.launches += 1
+        rc = getattr(lib, pre + "bwd")(
+            *_args(feats, centers, T, margin, easy, scale, sel_th), ptr(grad_out),
+            ptr(stats), ptr(dfeats), stream_of(feats))
+    raise_on_error(rc, pre + "bwd", shape)
+    counter.launches += 1
     return dfeats
 
 

@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import F32, I32, IP, VP, build, check, ptr, raise_on_error, register, stream_of
+from . import (F32, I32, IP, VP, build, check, choose, ptr, raise_on_error, register,
+               stream_of)
 from ...parallel import mesh as dp
 
 FWD = register("soft_centroids_fwd", "slcl_torch/csrc/soft_centroids.cu",
@@ -42,6 +43,17 @@ BWD_STD = register("soft_centroids_bwd_std", "slcl_torch/csrc/soft_centroids.cu"
                    "slcl_tpu/ops/centroids.py:76,137-146 (jnp autodiff of the centroids "
                    "and stddevs; the Pallas kernel has no bwd)")
 
+# the general family (any C, P and F): csrc/centroids_gen.cuh, the same
+# four rows
+_GEN = "slcl_torch/csrc/soft_centroids.cu + csrc/centroids_gen.cuh"
+FWD_GEN = register("soft_centroids_fwd_general", _GEN, FWD.replaces)
+BWD_GEN = register("soft_centroids_bwd_general", _GEN, BWD.replaces)
+FWD_STD_GEN = register("soft_centroids_fwd_std_general", _GEN, FWD_STD.replaces)
+BWD_STD_GEN = register("soft_centroids_bwd_std_general", _GEN, BWD_STD.replaces)
+# (forward, backward) counters by (family, std)
+_COUNTERS = {("templated", False): (FWD, BWD), ("templated", True): (FWD_STD, BWD_STD),
+             ("general", False): (FWD_GEN, BWD_GEN), ("general", True): (FWD_STD_GEN, BWD_STD_GEN)}
+
 _EPS = 1e-7
 _SIGS = {
     "soft_centroids_partials_size": (I32, [I32, I32, I32, I32, I32, I32, IP]),
@@ -54,6 +66,13 @@ _SIGS = {
     "soft_centroids_fwd_final": (I32, [VP, I32, I32, I32, I32, I32, VP, VP, VP, VP, VP, VP]),
     "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, I32, IP, IP]),
 }
+# the general family's entries take the templated ones' arguments; its
+# occupancy query also takes C
+_SIGS.update({k.replace("soft_centroids_", "soft_centroids_gen_", 1): v
+              for k, v in _SIGS.items()
+              if k in ("soft_centroids_partials_size", "soft_centroids_fwd_partial",
+                       "soft_centroids_fwd_final", "soft_centroids_bwd")})
+_SIGS["soft_centroids_gen_occupancy"] = (I32, [I32, I32, I32, I32, I32, I32, IP, IP])
 
 
 def certain_mask(probs: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -139,8 +158,18 @@ def _check_inputs(feats, probs, assign, partition):
         check(assign, "assign", (torch.int32,), (m,), feats.device)
 
 
+def _route(feats, probs, partition, with_std, route):
+    """(the C entries' prefix, the (forward, backward) counters, the shape)
+    of a call."""
+    r, shape = choose(route, probs.shape[1], partition, feats.shape[1], feats.dtype,
+                      ("centroid_fwd", "centroid_final", "centroid_bwd"), bool(with_std))
+    pre = "soft_centroids_" if r == "templated" else "soft_centroids_gen_"
+    return pre, _COUNTERS[(r, bool(with_std))], shape
+
+
 def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted,
-                            with_std: bool = False, reduce=None, m_total: int = 0):
+                            with_std: bool = False, reduce=None, m_total: int = 0,
+                            route=None):
     """Launch the forward's two kernels, the streaming pass and the final
     pass (the C entries ``soft_centroids_fwd_partial`` / ``_final``, which
     together launch what ``soft_centroids_fwd`` does); returns (centroids
@@ -148,19 +177,23 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
     (C,), S2 (C, F)): the std variant. ``reduce`` (data parallelism) takes
     the streaming pass's partials in place between the two (their sum over
     the ranks), and the final pass divides by the totals of ``m_total``
-    rows."""
+    rows. ``route`` overrides the choice of family by shape."""
     _check_inputs(feats, probs, assign, partition)
     m, f = feats.shape
     C = probs.shape[1]
+    pre, (counter, _), shape = _route(feats, probs, partition, with_std, route)
     lib = build.load("soft_centroids", _SIGS)
     dev = feats.device
     bf16 = int(feats.dtype == torch.bfloat16)
     n_part = ctypes.c_int()
     with torch.cuda.device(dev):
-        raise_on_error(lib.soft_centroids_partials_size(bf16, m, f, partition, C,
-                                                        int(with_std),
-                                                        ctypes.byref(n_part)),
-                       "soft_centroids_partials_size")
+        if pre == "soft_centroids_":
+            rc = lib.soft_centroids_partials_size(bf16, m, f, partition, C, int(with_std),
+                                                  ctypes.byref(n_part))
+        else:
+            rc = lib.soft_centroids_gen_partials_size(bf16, m, f, partition, C,
+                                                      int(with_std), ctypes.byref(n_part))
+        raise_on_error(rc, pre + "partials_size", shape)
         parts = torch.empty(n_part.value, dtype=torch.float32, device=dev)
         cents = torch.empty((partition, C, f), dtype=torch.float32, device=dev)
         counts = torch.empty(partition * C, dtype=torch.float32, device=dev)
@@ -168,17 +201,17 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
         std = torch.empty(C, dtype=torch.float32, device=dev) if with_std else None
         s2 = torch.empty((C, f), dtype=torch.float32, device=dev) if with_std else None
         grid = ctypes.c_int()
-        raise_on_error(lib.soft_centroids_fwd_partial(
+        raise_on_error(getattr(lib, pre + "fwd_partial")(
             ptr(feats), bf16, ptr(probs), ptr(assign) if partition > 1 else None, m, f, C,
             partition, float(threshold), int(weighted), int(with_std), ptr(parts),
-            ctypes.byref(grid), stream_of(feats)), "soft_centroids_fwd_partial")
+            ctypes.byref(grid), stream_of(feats)), pre + "fwd_partial", shape)
         if reduce is not None:
             reduce(parts)
-        rc = lib.soft_centroids_fwd_final(
+        rc = getattr(lib, pre + "fwd_final")(
             ptr(parts), grid.value, int(m_total or m), f, C, partition, ptr(cents),
             ptr(counts), ptr(ratio), ptr(s2), ptr(std), stream_of(feats))
-    raise_on_error(rc, "soft_centroids_fwd_final")
-    (FWD_STD if with_std else FWD).launches += 1
+    raise_on_error(rc, pre + "fwd_final", shape)
+    counter.launches += 1
     if with_std:
         return cents, counts, ratio, std, s2
     return cents, counts, ratio
@@ -186,9 +219,10 @@ def soft_centroids_fwd_cuda(feats, probs, assign, partition, threshold, weighted
 
 def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted,
                             dcents, cents, counts, need_dprobs: bool,
-                            dstd=None, std=None, s2=None):
+                            dstd=None, std=None, s2=None, route=None):
     """Launch the backward; returns (dfeats in feats' dtype, dprobs or None).
-    ``dstd`` (C,) takes the std variant, with the forward's ``std`` and ``s2``."""
+    ``dstd`` (C,) takes the std variant, with the forward's ``std`` and ``s2``.
+    ``route`` overrides the choice of family by shape."""
     _check_inputs(feats, probs, assign, partition)
     m, f = feats.shape
     C = probs.shape[1]
@@ -200,19 +234,20 @@ def soft_centroids_bwd_cuda(feats, probs, assign, partition, threshold, weighted
         check(dstd, "dstd", (torch.float32,), (C,), dev)
         check(std, "std", (torch.float32,), (C,), dev)
         check(s2, "s2", (torch.float32,), (C, f), dev)
+    pre, (_, counter), shape = _route(feats, probs, partition, dstd is not None, route)
     lib = build.load("soft_centroids", _SIGS)
     dfeats = torch.empty_like(feats)
     dprobs = (torch.empty_like(probs) if (need_dprobs and weighted) else None)
     with torch.cuda.device(dev):
-        rc = lib.soft_centroids_bwd(
+        rc = getattr(lib, pre + "bwd")(
             ptr(feats), int(feats.dtype == torch.bfloat16), ptr(probs),
             ptr(assign) if partition > 1 else None, m, f, C, partition,
             float(threshold), int(weighted), ptr(dcents), ptr(cents), ptr(counts),
             ptr(dfeats), ptr(dprobs), ptr(dstd),
             ptr(s2) if dstd is not None else None,
             ptr(std) if dstd is not None else None, stream_of(feats))
-    raise_on_error(rc, "soft_centroids_bwd")
-    (BWD if dstd is None else BWD_STD).launches += 1
+    raise_on_error(rc, pre + "bwd", shape)
+    counter.launches += 1
     return dfeats, dprobs          # hard weights: None, no gradient to probs
 
 

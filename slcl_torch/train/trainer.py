@@ -125,6 +125,7 @@ from ..models.pointnet import PointNetCls
 from ..models.rain import LATENT, RAIN
 from ..models.resnet_unet import ResNetUNetPoint
 from ..ops.centroids import gene_thres
+from ..ops.cuda import check_shape
 from ..parallel import mesh as dp
 from ..utils.convert import read_rain_component, save_tree_npz, state_dict_to_flax
 from ..utils.pretrained import load_pretrained_encoder
@@ -226,6 +227,24 @@ class SegView(nn.Module):
         return self.fn(self.net, x)
 
 
+def check_kernel_shapes(cfg: Config) -> None:
+    """Raise ``ValueError`` (naming C, P, F and the limit) when a contrastive
+    method's shapes are beyond what the kernels take: ``model.num_classes``
+    (C), ``model.filters`` (F, the contrastive tap) and, for ``mccl``,
+    ``contrastive.part`` (P) with ``contrastive.stdmin``. Checked before
+    anything is built, on any device, so that a config the card cannot run
+    fails at once and a CPU run of it fails alike."""
+    if cfg.method not in _CONTRASTIVE:
+        return
+    C, F = int(cfg.model.num_classes), int(cfg.model.filters)
+    if cfg.method == "mccl":
+        c = cfg.contrastive
+        check_shape(C, F, max(int(c.part), 1), with_std=bool(c.stdmin),
+                    kernels=("centroid_fwd", "centroid_final", "centroid_bwd"))
+    else:   # MPCL and the fused target branch; slcl's CNR centroids at P = 1
+        check_shape(C, F)
+
+
 class Trainer:
     def __init__(self, cfg: Config, datasets: Optional[Dict[str, Any]] = None,
                  device: DeviceLike = None):
@@ -236,6 +255,7 @@ class Trainer:
             raise NotImplementedError(
                 f"method {cfg.method!r}: slcl_torch ports {_PORTED} only")
         check_ported_keys(cfg)
+        check_kernel_shapes(cfg)
         self.cfg = cfg
         # method-implied data: MCCL pairs each target image with a second
         # view (JAX trainer.py:89-90); before the datasets are built

@@ -92,9 +92,11 @@ def test_kernel_wrappers_on_cpu_run_the_plain_version_only():
         pseudo_label_cuda(feats, centers)
     reset_launch_counts()
     pseudo_label(feats, centers)
-    assert set(KERNELS) == {"mpcl_fwd", "mpcl_bwd", "mpcl_pseudo_fwd", "mpcl_pseudo_bwd",
-                            "pseudo_label", "soft_centroids_fwd", "soft_centroids_bwd",
-                            "soft_centroids_fwd_std", "soft_centroids_bwd_std"}
+    templated = {"mpcl_fwd", "mpcl_bwd", "mpcl_pseudo_fwd", "mpcl_pseudo_bwd",
+                 "pseudo_label", "soft_centroids_fwd", "soft_centroids_bwd",
+                 "soft_centroids_fwd_std", "soft_centroids_bwd_std"}
+    # each with its general (runtime-shape) counterpart
+    assert set(KERNELS) == templated | {k + "_general" for k in templated}
     assert all(v == 0 for v in launch_counts().values())
 
 

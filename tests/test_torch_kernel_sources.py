@@ -30,7 +30,13 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
   with a persistent grid from ``ring_grid`` and its tile type's shared
   memory (the first grid-stride body is gone), and every shared -> global
   bulk store is fenced for the async proxy before it and read out of its
-  stage before the stage is filled again.
+  stage before the stage is filled again;
+- the general (runtime-shape) family keeps the same rules: its
+  ``__global__``s are launched through extern "C" entries that ``_SIGS``
+  binds, named in ``chip_smoke.py`` and counted by the profiler; its
+  headers name the Pallas functions they replace; its cosines come from
+  the one ``stream_cosines`` (with the width and class count at run time);
+  and no source holds a float atomic.
 
 Reads files only: no CUDA, no nvcc.
 """
@@ -161,7 +167,10 @@ def test_bulk_copies_come_from_ring_header(name):
 
 @pytest.mark.parametrize("lib,entry", [("mpcl", "mpcl_num_partials"),
                                        ("mpcl_pseudo", "mpcl_pseudo_num_partials"),
-                                       ("soft_centroids", "soft_centroids_partials_size")])
+                                       ("soft_centroids", "soft_centroids_partials_size"),
+                                       ("mpcl", "mpcl_gen_num_partials"),
+                                       ("mpcl_pseudo", "mpcl_pseudo_gen_num_partials"),
+                                       ("soft_centroids", "soft_centroids_gen_partials_size")])
 def test_partials_entry_points_are_bound(lib, entry):
     """The wrappers size the forwards' partial buffers from the ring's grid:
     the entry point is in _SIGS, returns its count through a pointer, and
@@ -357,3 +366,78 @@ def test_bulk_stores_are_fenced_and_read_out_before_the_next_fill(name):
 def test_centroid_sums_use_no_float_atomics():
     src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
     assert "atomic" not in src
+
+
+# ---- the general (runtime-shape) family ----
+GENERAL_HEADERS = {
+    "general.cuh": ("mpcl_kernel.py::mpcl_loss_fused", "mpcl_pseudo_kernel.py::mpcl_pseudo_fused",
+                    "pseudo_label_kernel.py::pseudo_label_fused"),
+    "centroids_gen.cuh": ("centroid_kernel.py::soft_centroids_fused",)}
+
+
+@pytest.mark.parametrize("header", sorted(GENERAL_HEADERS))
+def test_general_headers_name_the_pallas_functions_they_replace(header):
+    lines = (CSRC / header).read_text().splitlines()
+    text = " ".join(line[2:].strip()
+                    for line in itertools.takewhile(lambda ln: ln.startswith("//"), lines))
+    for ref in GENERAL_HEADERS[header]:
+        assert f"slcl_tpu/ops/pallas/{ref}" in text, f"{header} does not name {ref}"
+        path, fn = ref.split("::")
+        src = (ROOT / "slcl_tpu" / "ops" / "pallas" / path).read_text()
+        assert re.search(rf"^def {fn}\(", src, re.M), f"{fn} not in {path}"
+    # every library that includes the header is one whose .cu names the same
+    for lib in LIBS:
+        if f'#include "{header}"' in (CSRC / f"{lib}.cu").read_text():
+            head = (CSRC / f"{lib}.cu").read_text().split("#include", 1)[0]
+            assert any(ref.split("::")[1] in head for ref in GENERAL_HEADERS[header]), lib
+
+
+@pytest.mark.parametrize("name", LIBS)
+def test_general_kernels_are_bound_named_and_counted(name):
+    """Each general ``__global__`` of the library is named in chip_smoke.py
+    and counted by one of the library's profiler name parts; each general
+    extern "C" entry is bound in the wrapper's ``_SIGS``; and each general
+    launch counter has its SYMBOLS entry in this library."""
+    src = _source_with_includes(name)
+    general = {k for k in _global_kernels(src) if "_gen" in k}
+    assert general, f"no general kernel in csrc/{name}.cu"
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    for k in general:
+        assert k in smoke, f"chip_smoke.py does not name {k}"
+        assert any(k.startswith(p.rstrip("<")) for p in chip_smoke.PORT_KERNELS[name]), k
+    wrapper = importlib.import_module(f"slcl_torch.ops.cuda.{name}")
+    entries = {fn for fn in _extern_c_functions((CSRC / f"{name}.cu").read_text())
+               if "_gen" in fn}
+    assert entries and entries <= set(wrapper._SIGS), entries - set(wrapper._SIGS)
+    counters = {k.name for k in vars(wrapper).values()
+                if type(k).__name__ == "Kernel" and k.name.endswith("_general")}
+    assert counters, f"no general launch counter in ops/cuda/{name}.py"
+    for kname in counters:
+        assert chip_smoke.SYMBOLS[kname][0] == name, kname
+        assert chip_smoke.SYMBOLS[kname][1].split("I", 1)[0] in general, kname
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")), ids=lambda p: p.name)
+def test_no_float_atomics_in_any_kernel(path):
+    """Every sum, the general family's too, is in a fixed order: no
+    atomics, so two launches give bit-identical results."""
+    assert "atomic" not in _strip_comments(path.read_text()), path.name
+
+
+def test_general_cosines_come_from_the_one_stream_cosines():
+    """The general row loop takes each row's cosines from stream_cosines
+    with the width and class count at run time (F = C = 0), once a row, and
+    nothing in the general headers normalises a row or dots it with a
+    prototype by itself; stream_cosines keeps one definition, whose
+    compile-time form is the templated kernels'."""
+    row = _strip_comments((CSRC / "mpcl_row.cuh").read_text())
+    assert re.search(r"int F, int kUnroll = 1, int C = kC>\s*__device__ __forceinline__ void "
+                     r"stream_cosines\(", row)
+    assert "int f = F," in row and "int nc = C)" in row
+    gen = _strip_comments((CSRC / "general.cuh").read_text())
+    assert len(re.findall(r"\bstream_cosines<T, 0, 1, 0>\(", gen)) == 1
+    assert "stream_cosines<" in gen and "row_pseudo_label<0>(" in gen
+    for text in (gen, _strip_comments((CSRC / "centroids_gen.cuh").read_text())):
+        assert "1e-24f" not in text and "rsqrtf(ss" not in text
+        assert "s_cent[c * F + k] * " not in text
+

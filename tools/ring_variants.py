@@ -37,8 +37,9 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
   ``bwd_soft_dsum_smem`` reads a row's dsums from shared memory instead of
   picking them from every partition's in registers.
   With ``--parent DIR`` (a checkout of an earlier commit), the variant
-  ``parent`` builds that checkout's sources unedited and times the std
-  kernels and the three std-free backward forms: the designs they replaced.
+  ``parent`` builds that checkout's sources unedited and times every
+  kernel ``base`` times (``base --parent DIR``: the two trees' templated
+  kernels in one call, in turns, their outputs held to each other).
   A ptxas report is looked up by the current source's symbols.
 
 A variant that does not compile is reported and left out; the others run.
@@ -81,7 +82,7 @@ MPCL_FWD = ("mpcl_fwd", "mpcl_fwd_sel")   # labels given: without sel, with sel
 ROW_FWD = ("mpcl_pseudo_fwd", *MPCL_FWD, "pseudo_label")   # on mpcl_fwd_tile.cuh
 CEN_FWD = ("soft_centroids_fwd", "soft_centroids_fwd_p2")
 FWD_KERNELS = ROW_FWD + CEN_FWD
-PARENT_KERNELS = STD_KERNELS + CEN_BWD   # what --parent times
+PARENT_KERNELS = BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD   # what --parent times
 LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
           "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
           "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
@@ -461,8 +462,8 @@ VARIANTS = {
     # the cosine loop cut to its first chunk: what the cosine phase costs
     # (it is shared with the forwards, so this variant concerns them too)
     "nocos": (BWD_KERNELS + ROW_FWD, [
-        ("mpcl_row.cuh", "#pragma unroll(kUnroll)\n  for (int k = 0; k < F; k += 8) {",
-         "#pragma unroll(kUnroll)\n  for (int k = 0; k < 8; k += 8) {")]),
+        ("mpcl_row.cuh", "#pragma unroll(kUnroll)\n    for (int k = 0; k < fw; k += 8) {",
+         "#pragma unroll(kUnroll)\n    for (int k = 0; k < 8; k += 8) {")]),
     "stages3": (BWD_KERNELS, [(BWD, _STAGES, "3;")]),
     "stages4": (BWD_KERNELS, [(BWD, _STAGES, "4;")]),
     "blocks4": (BWD_KERNELS, [(BWD, "constexpr int kRingBlocksPerSM = 3;",
