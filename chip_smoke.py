@@ -405,12 +405,14 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
            "pseudo_label_general": ("pseudo_label", "pseudo_label_genI13__nv_bfloat16E"),
            "soft_centroids_fwd_general": ("soft_centroids",
                                           "centroids_gen_fwd_partialI13__nv_bfloat16Lb0EE"),
+           # (the backward: its form at the cell's shape, V = 8 features a
+           # chunk with the chunk's coefficients in registers)
            "soft_centroids_bwd_general": ("soft_centroids",
-                                          "centroids_gen_bwdI13__nv_bfloat16Lb0EE"),
+                                          "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE"),
            "soft_centroids_fwd_std_general": (
                "soft_centroids", "centroids_gen_fwd_partialI13__nv_bfloat16Lb1EE"),
            "soft_centroids_bwd_std_general": ("soft_centroids",
-                                              "centroids_gen_bwdI13__nv_bfloat16Lb1EE")}
+                                              "centroids_gen_bwdI13__nv_bfloat16Lb1ELi8ELi1EE")}
 # (C query, its arguments) for each kernel's blocks per SM and shared memory
 # at the main path's instantiation; the query lives in SYMBOLS' source
 OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
@@ -429,12 +431,16 @@ OCCUPANCY = {"mpcl_fwd": ("mpcl_occupancy", (0, 1, F)),
              "mpcl_pseudo_fwd_general": ("mpcl_pseudo_gen_occupancy", (0, 1, 24, 5)),
              "mpcl_pseudo_bwd_general": ("mpcl_pseudo_gen_occupancy", (1, 1, 24, 5)),
              "pseudo_label_general": ("pseudo_label_gen_occupancy", (1, 24, 5)),
-             "soft_centroids_fwd_general": ("soft_centroids_gen_occupancy", (0, 1, 24, 5, 1, 0)),
-             "soft_centroids_bwd_general": ("soft_centroids_gen_occupancy", (1, 1, 24, 5, 1, 0)),
+             # (the centroid queries' last argument: with dprobs, which sets
+             # the backward's form; the slcl cell's hard call takes none)
+             "soft_centroids_fwd_general": ("soft_centroids_gen_occupancy",
+                                            (0, 1, 24, 5, 1, 0, 0)),
+             "soft_centroids_bwd_general": ("soft_centroids_gen_occupancy",
+                                            (1, 1, 24, 5, 1, 0, 0)),
              "soft_centroids_fwd_std_general": ("soft_centroids_gen_occupancy",
-                                                (0, 1, 48, 5, 4, 1)),
+                                                (0, 1, 48, 5, 4, 1, 0)),
              "soft_centroids_bwd_std_general": ("soft_centroids_gen_occupancy",
-                                                (1, 1, 48, 5, 4, 1))}
+                                                (1, 1, 48, 5, 4, 1, 1))}
 # parts of a CUDA kernel's name by which the profiler counts it as the
 # port's, per source ("name<" for one kernel, a prefix for a family)
 PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<", "mpcl_gen_"), "mpcl_pseudo": ("mpcl_pseudo_",),
@@ -447,7 +453,7 @@ PORT_KERNELS = {"mpcl": ("mpcl_fwd_", "mpcl_bwd<", "mpcl_gen_"), "mpcl_pseudo": 
 STD_KERNELS = (("centroids_fwd_std_partial<",), ("centroids_bwd_std<",),
                ("centroids_fwd_final<", ", true>"),
                # the general family's: its streaming kernels and final pass
-               ("centroids_gen_", ", true>"), ("centroids_gen_fwd_final<true>",))
+               ("centroids_gen_", ", true"), ("centroids_gen_fwd_final<true>",))
 
 
 def centroid_symbol(bwd: int, std: int, P: int, f: int = F,
@@ -1319,8 +1325,12 @@ def mccl_rows(rows, feats, probs, assign, g, peaks, std_errs) -> None:
 # ---------------------------------------------------------------------------
 # the shapes (C, P, F) each general kernel is held to its plain version at,
 # in bf16 and f32 at a ragged M: every C in {2, 5, 8}, P in {1, 3, 4} and F
-# in {20, 24, 48, 128} (rows of 40, 48, 96 and 256 bf16 bytes)
-GEN_SHAPES = ((2, 1, 20), (5, 3, 24), (8, 4, 48), (5, 4, 128))
+# in {20, 24, 48, 128} (rows of 40, 48, 96 and 256 bf16 bytes); an odd F
+# (13: bf16 rows of 26 bytes, one feature a thread-chunk in the centroid
+# backward); and a shape whose centroid backward with the std and dprobs
+# takes the direct form (P*C = 64 at F = 656: no two ring stages fit beside
+# its coefficients; gen_bwd_plan)
+GEN_SHAPES = ((2, 1, 20), (5, 3, 24), (8, 4, 48), (5, 4, 128), (3, 2, 13), (8, 8, 656))
 GEN_M = 65_536 - 5
 # phase 4's cells on the general kernels: name -> (method, overrides by
 # section, timed steps); phase 3 runs each at its sizes
@@ -1350,9 +1360,11 @@ def check_general_shapes(g) -> dict:
     (near-tie slack, the backward away from near-tie rows), the pseudo-labels
     (exact away from near ties), the soft centroids at P = 1 and the shape's
     P, hard and soft, thd 0 and 0.4, ids out of range, and their std variant
-    at the shape's P. Returns the max abs errors by kernel and shape."""
+    at the shape's P; the centroid backward in both its forms (the ring and,
+    at one shape, the direct form; gen_bwd_plan). Returns the max abs errors
+    by kernel and shape."""
     import torch
-    from slcl_torch.ops.cuda import launch_counts
+    from slcl_torch.ops.cuda import gen_bwd_plan, launch_counts
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
     from slcl_torch.ops.cuda import pseudo_label as K_pl
@@ -1375,6 +1387,7 @@ def check_general_shapes(g) -> dict:
         return a if len(a) > 1 else a[0]
 
     m = GEN_M
+    forms = set()        # the centroid backward's forms these calls took
     for C_, P_, f in GEN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"C={C_} P={P_} F={f} {str(dtype)[6:]}"
@@ -1465,6 +1478,8 @@ def check_general_shapes(g) -> dict:
                         d = twice(lambda: K_sc.soft_centroids_bwd_cuda(
                             feats, probs, a, P, thd, weighted, dc, cents, counts, weighted),
                             what + " bwd")
+                        forms.add(gen_bwd_plan(C_, P, f, False, feats.element_size(),
+                                               weighted)["form"])
                         keep("soft_centroids_bwd_general", tag,
                              close(d[0], want_g[0], g_rtol,
                                    1e-3 * float(want_g[0].abs().max()), what + " dfeats"))
@@ -1491,6 +1506,8 @@ def check_general_shapes(g) -> dict:
                         d = twice(lambda: K_sc.soft_centroids_bwd_cuda(
                             feats, probs, a, P, thd, weighted, dc, cents, counts, weighted,
                             dstd=dstd, std=std, s2=s2), what + " bwd")
+                        forms.add(gen_bwd_plan(C_, P, f, True, feats.element_size(),
+                                               weighted)["form"])
                         keep("soft_centroids_bwd_std_general", tag,
                              close(d[0], want_g[0], g_rtol,
                                    1e-3 * float(want_g[0].abs().max()), what + " dfeats"))
@@ -1499,6 +1516,8 @@ def check_general_shapes(g) -> dict:
                                   what + " dprobs")
             general_counts_moved(before, f"general {tag}")
             log(f"general {tag}: ok")
+    if forms != {"ring", "direct"}:
+        raise AssertionError(f"the general centroid backward took the forms {forms} only")
     return errs
 
 
@@ -1660,8 +1679,13 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
     (``max_abs_err_by_shape``); and ``forced_ms``, the general kernel forced
     at the main shape (F = 32, C = 4; P = 1 hard, the std pair P = 2 soft)
     beside ``templated_ms``, the templated kernel on the same inputs in the
-    same call, each with ``forced_vs_templated_max_abs_diff``."""
+    same call, each with ``forced_vs_templated_max_abs_diff``. The backward
+    rows also take the pair of mm's that gives both their outputs
+    (``p{P}_library_pair_ms``, as the templated rows do) and their launch
+    plan at the cell's shape (``bwd_plan``: form, features a chunk, rows a
+    tile, stages, shared memory)."""
     import torch
+    from slcl_torch.ops.cuda import gen_bwd_plan
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
     from slcl_torch.ops.cuda import pseudo_label as K_pl
@@ -1781,7 +1805,8 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
         ms=time_ms(cbwd),
         plain_ms=time_ms(lambda: torch.autograd.grad(yc, xc, dc, retain_graph=True)),
         library_ms=time_ms(lambda: dsums.index_select(0, labels_hard)),
-        bound=bound(M * (f * es + 4 * c), 2 * M * f, peaks))
+        bound=bound(M * (f * es + 4 * c), 2 * M * f, peaks),
+        bwd_plan=gen_bwd_plan(c, 1, f, False, es, False))
     del yc
 
     # ---- the mccl_p4_c5_f48_std step's calls: C = 5, F = 48, soft ----
@@ -1832,7 +1857,12 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
                      plain_ms=time_ms(lambda: torch.autograd.grad(yc, [xc, pr],
                                                                   retain_graph=True)),
                      library_ms=time_ms(lambda: torch.mm(w16, ds16)),
-                     bound=bound(bwd_bytes, (8 if std else 4) * M * f * c, peaks))
+                     # both outputs: dfeats, and the (M, P*C) dot products
+                     # of the rows with the dsums that dprobs is made from
+                     **{f"p{P}_library_pair_ms": time_ms(
+                         lambda: (torch.mm(w16, ds16), torch.mm(feats, ds16.t())))},
+                     bound=bound(bwd_bytes, (8 if std else 4) * M * f * c, peaks),
+                     bwd_plan=gen_bwd_plan(c, P, f, std, es, True))
         close(d[1], gp, 2e-3, 1e-3 * float(gp.abs().max()), f"cell P={P} dprobs")
         if std:
             close(out[3], want[2].detach(), 1e-4, 1e-5, f"cell P={P} std")
@@ -4723,7 +4753,7 @@ def main() -> int:
                       "p1_final_ms", "library_f32_ms", "p1_library_ms",
                       "p1_library_f32_ms", "copy_ms", "forced_ms", "templated_ms",
                       "max_abs_err_by_shape", "forced_vs_templated_max_abs_diff",
-                      "mccl_p1_soft"):
+                      "mccl_p1_soft", "p4_library_pair_ms", "bwd_plan"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]

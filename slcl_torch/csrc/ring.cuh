@@ -127,4 +127,43 @@ static int ring_grid(int M, int* grid) {
   return cudaSuccess;
 }
 
+// The same for a kernel whose tile rows and dynamic shared memory are set at
+// run time (the general centroid backward's plan): tiles of `rows` rows,
+// `smem_bytes` of dynamic shared memory, which gen_prepare lets the kernel
+// take (-1 if it does not fit a block of this device). The slot count is
+// queried once per device and shared memory size and cached per kernel, a
+// few sizes at a time.
+template <auto kKern>
+static int ring_grid(long long M, int rows, int smem_bytes, int* grid) {
+  constexpr int kMaxDevices = 64, kWays = 4;
+  static int key[kMaxDevices][kWays];   // smem_bytes + 1 of an entry; 0: none
+  static int slots[kMaxDevices][kWays];
+  static int next[kMaxDevices];
+  int dev = 0;
+  int e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int n = 0;
+  for (int i = 0; i < kWays; ++i)
+    if (key[dev][i] == smem_bytes + 1) n = slots[dev][i];
+  if (n == 0) {
+    e = gen_prepare<kKern>(smem_bytes);
+    if (e != 0) return e;
+    int sms = 0, per = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kKern, kThreads, smem_bytes);
+    if (e != cudaSuccess) return e;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    n = sms * per;
+    const int i = next[dev];
+    next[dev] = (i + 1) % kWays;
+    key[dev][i] = smem_bytes + 1;
+    slots[dev][i] = n;
+  }
+  const long long tiles = (M + rows - 1) / rows;
+  *grid = tiles < 1 ? 1 : (tiles < n ? static_cast<int>(tiles) : n);
+  return cudaSuccess;
+}
+
 }  // namespace slcl

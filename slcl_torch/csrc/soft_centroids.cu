@@ -1265,30 +1265,67 @@ int gen_launch_final(const float* partials, int nparts, int M, int F, int C, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// The general backward's instantiation of a plan: its form (kForm) and
+// the features a chunk owns (kV), from gen_bwd_plan (centroids_gen_plan.cuh)
+#define SLCL_GEN_BWD_FORM(plan, ...)                                                        \
+  if ((plan).form == slcl::kGenDirect) {                                                   \
+    constexpr int kV = 1, kForm = slcl::kGenDirectRows; __VA_ARGS__;                      \
+  } else if ((plan).V == 8 && (plan).regs) {                                               \
+    constexpr int kV = 8, kForm = slcl::kGenRegCoefs; __VA_ARGS__;                        \
+  } else if ((plan).V == 8) {                                                              \
+    constexpr int kV = 8, kForm = slcl::kGenSmemCoefs; __VA_ARGS__;                       \
+  } else if ((plan).V == 4) {                                                              \
+    constexpr int kV = 4, kForm = slcl::kGenSmemCoefs; __VA_ARGS__;                       \
+  } else {                                                                                 \
+    constexpr int kV = 1, kForm = slcl::kGenSmemCoefs; __VA_ARGS__;                       \
+  }
+
+// One general backward launch: its persistent grid from ring_grid (a tile
+// of plan.rows rows, or a thread a row in the direct form) at the plan's
+// shared memory.
+template <typename T, bool kS, int kV, int kForm>
+int gen_bwd_launch(const slcl::GenBwdPlan& plan, const void* feats, const float* probs,
+                   const int* assign, int M, int F, int C, int P, float thd, int use_thd,
+                   int weighted, const float* dcents, const float* cents, const float* counts,
+                   void* dfeats, float* dprobs, const float* gstd, const float* s2,
+                   const float* stdv, cudaStream_t st) {
+  int grid = 0;
+  const int rc = slcl::ring_grid<slcl::centroids_gen_bwd<T, kS, kV, kForm>>(
+      M, plan.rows, plan.smem, &grid);
+  if (rc != 0) return rc;
+  slcl::centroids_gen_bwd<T, kS, kV, kForm><<<grid, kThreads, plan.smem, st>>>(
+      static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted, dcents,
+      cents, counts, static_cast<T*>(dfeats), dprobs, gstd, s2, stdv, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int gen_launch_bwd(const void* feats, const float* probs, const int* assign, int M, int F,
                    int C, int P, float thd, int use_thd, int weighted, const float* dcents,
                    const float* cents, const float* counts, void* dfeats, float* dprobs,
                    const float* gstd, const float* s2, const float* stdv, cudaStream_t st) {
-  const int grid = slcl::gen_grid(M, slcl::kGenWarps);
   SLCL_DISPATCH_STD(gstd != nullptr, {
-    const int smem = slcl::gen_cent_bwd_smem(C, P, F, kS);
-    const int rc = slcl::gen_prepare<slcl::centroids_gen_bwd<T, kS>>(smem);
-    if (rc != 0) return rc;
-    slcl::centroids_gen_bwd<T, kS><<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted,
-        dcents, cents, counts, static_cast<T*>(dfeats), dprobs, gstd, s2, stdv);
+    const slcl::GenBwdPlan plan = slcl::gen_bwd_plan(C, P, F, kS, sizeof(T), dprobs != nullptr);
+    SLCL_GEN_BWD_FORM(plan, {
+      return gen_bwd_launch<T, kS, kV, kForm>(plan, feats, probs, assign, M, F, C, P, thd,
+                                              use_thd, weighted, dcents, cents, counts, dfeats,
+                                              dprobs, gstd, s2, stdv, st);
+    });
   });
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }
 
 template <typename T>
-int gen_occupancy_of(int bwd, int F, int C, int P, int with_std, int* blocks_per_sm,
-                     int* smem_bytes) {
+int gen_occupancy_of(int bwd, int F, int C, int P, int with_std, int with_dprobs,
+                     int* blocks_per_sm, int* smem_bytes) {
   SLCL_DISPATCH_STD(with_std, {
-    if (bwd)
-      return slcl::gen_occupancy<slcl::centroids_gen_bwd<T, kS>>(
-          slcl::gen_cent_bwd_smem(C, P, F, kS), blocks_per_sm, smem_bytes);
+    if (bwd) {
+      const slcl::GenBwdPlan plan = slcl::gen_bwd_plan(C, P, F, kS, sizeof(T), with_dprobs);
+      SLCL_GEN_BWD_FORM(plan, {
+        return slcl::gen_occupancy<slcl::centroids_gen_bwd<T, kS, kV, kForm>>(
+            plan.smem, blocks_per_sm, smem_bytes);
+      });
+    }
     return slcl::gen_occupancy<slcl::centroids_gen_fwd_partial<T, kS>>(
         slcl::gen_cent_fwd_smem(C, P, F, kS), blocks_per_sm, smem_bytes);
   });
@@ -1409,8 +1446,8 @@ int soft_centroids_occupancy(int bwd, int feats_bf16, int F, int P, int with_std
 
 // ---- the general family: the same calls at any C, P >= 1 and F >= 1;
 // -1 where a kernel's shared memory (centroids_gen.cuh: gen_cent_fwd_smem,
-// gen_cent_final_smem, gen_cent_bwd_smem) does not fit a block of this
-// device ----
+// gen_cent_final_smem; centroids_gen_plan.cuh: gen_bwd_plan) does not fit
+// a block of this device ----
 
 int soft_centroids_gen_partials_size(int feats_bf16, int M, int F, int P, int C, int with_std,
                                      int* n) {
@@ -1476,13 +1513,16 @@ int soft_centroids_gen_bwd(const void* feats, int feats_bf16, const void* probs,
 }
 
 // Blocks per SM and shared memory per block of the general forward's
-// streaming kernel (bwd = 0) or backward (bwd = 1) at (C, P, F, std).
+// streaming kernel (bwd = 0) or backward (bwd = 1) at (C, P, F, std); the
+// backward's form and shared memory also depend on whether it takes dprobs.
 int soft_centroids_gen_occupancy(int bwd, int feats_bf16, int F, int C, int P, int with_std,
-                                 int* blocks_per_sm, int* smem_bytes) {
+                                 int with_dprobs, int* blocks_per_sm, int* smem_bytes) {
+  if (C < 1 || P < 1 || F < 1) return -1;
   return feats_bf16
-             ? gen_occupancy_of<__nv_bfloat16>(bwd, F, C, P, with_std, blocks_per_sm,
-                                               smem_bytes)
-             : gen_occupancy_of<float>(bwd, F, C, P, with_std, blocks_per_sm, smem_bytes);
+             ? gen_occupancy_of<__nv_bfloat16>(bwd, F, C, P, with_std, with_dprobs,
+                                               blocks_per_sm, smem_bytes)
+             : gen_occupancy_of<float>(bwd, F, C, P, with_std, with_dprobs, blocks_per_sm,
+                                       smem_bytes);
 }
 
 }  // extern "C"

@@ -91,7 +91,19 @@ SMEM_LIMIT = 227 * 1024 - 1024
 SMEM_FORMULAS = ("rows (MPCL, fused target, pseudo-labels): 4*(C*F + 256*(C|1)); "
                  "centroid forward: 4*G*(P*C*F + P*C + 1 + std*C*F), G = max(1, 256 // F); "
                  "centroid final pass: 4*(2*F + P); "
-                 "centroid backward: 4*(P*C*F + P*C + std*2*C*F)")
+                 "centroid backward: a ring of 2 stages of R rows, coefficients "
+                 "4*(P*C*F + P*C + std*2*C*F) + barriers 32 + row tables R*(C+2)*4 "
+                 "+ dprobs partials R*(C|1)*ceil4(min(F/V, 32))*4 "
+                 "+ 2*R*(F*itemsize (std or dprobs) + 4*C + 4*(P>1)) (gen_bwd_plan), "
+                 "else the direct form: 4*(P*C*F + P*C + std*2*C*F)")
+# the general centroid backward's plan (csrc/centroids_gen_plan.cuh): a
+# ring's budget when it fits (two blocks an SM), the tile bytes it aims at,
+# the classes whose coefficients a lane may keep in registers (std-free,
+# std)
+GEN_BWD_BUDGET = 110 * 1024
+GEN_TILE_BYTES = 20 * 1024
+GEN_REG_CLASSES = 6
+GEN_REG_CLASSES_STD = 5
 
 
 def route(C: int, P: int, F: int, dtype: torch.dtype = torch.float32) -> str:
@@ -103,15 +115,72 @@ def route(C: int, P: int, F: int, dtype: torch.dtype = torch.float32) -> str:
     return "templated" if C == 4 and 1 <= P <= 2 and F in TEMPLATED_F else "general"
 
 
+def gen_bwd_plan(C: int, P: int, F: int, with_std: bool = False, itemsize: int = 2,
+                 dprobs: bool = True) -> Dict[str, int]:
+    """The general centroid backward's launch plan at (C, P, F, std), feature
+    bytes ``itemsize`` and with or without dprobs: ``csrc/centroids_gen_plan.cuh``'s
+    ``gen_bwd_plan``, which ``tests/test_torch_general_shapes.py`` compiles
+    and holds this to. ``form`` is ``"ring"`` or ``"direct"``; ``V`` the
+    features a thread-chunk owns, ``nch`` the chunks a row, ``tpr`` / ``rpw``
+    / ``npw`` / ``rw`` lanes a row / rows a warp-pass / passes a warp a tile
+    / rows a warp a tile, ``regs`` whether a lane keeps its chunk's
+    coefficients in registers, ``rows`` / ``stages`` a ring tile's rows and
+    the ring's stages, each array's bytes in a stage, the tables' offsets
+    and ``smem``, the dynamic shared memory of a block."""
+    V = 8 if F % 8 == 0 else (4 if F % 4 == 0 else 1)
+    nch = F // V
+    tpr = min(nch, 32)
+    rpw = 32 // tpr
+    cs = C | 1
+    feats = bool(with_std or dprobs)
+    plan = dict(form="ring", V=V, nch=nch, tpr=tpr, rpw=rpw, cs=cs,
+                regs=int(nch <= 32 and V == 8 and (C <= GEN_REG_CLASSES_STD if with_std
+                                                   else P == 1 and C <= GEN_REG_CLASSES)),
+                feats=int(feats), bulk=0)
+    coef = 4 * (P * C * F + P * C + (2 * C * F if with_std else 0))
+    row_bytes = (F * itemsize if feats else 0) + 4 * C + (4 if P > 1 else 0)
+    npw0 = 8
+    while npw0 > 1 and 8 * rpw * npw0 * row_bytes > GEN_TILE_BYTES:
+        npw0 //= 2
+    for budget in (GEN_BWD_BUDGET, SMEM_LIMIT):
+        npw = npw0
+        while npw >= 1:
+            R = 8 * rpw * npw
+            fb, pb, ib = (R * F * itemsize if feats else 0), R * C * 4, (R * 4 if P > 1 else 0)
+            stage = fb + pb + ib
+            pt = R * cs * (-(-tpr // 4) * 4) * 4 if dprobs else 0
+            S = 2   # the C++ plan's max_stages
+            bar_at = -(-coef // 16) * 16
+            w_at = bar_at + 16 * S
+            pt_at = w_at + R * C * 4 + R * 4 + R * 4
+            ring_at = -(-(pt_at + pt) // 128) * 128
+            smem = ring_at + S * stage
+            if smem <= budget:
+                plan.update(npw=npw, rw=rpw * npw, rows=R, stages=S, feat_bytes=fb,
+                            prob_bytes=pb, id_bytes=ib, stage_bytes=stage, bar_at=bar_at,
+                            w_at=w_at, part_at=w_at + R * C * 4,
+                            g_at=w_at + R * C * 4 + R * 4, pt_at=pt_at, ring_at=ring_at,
+                            smem=smem)
+                return plan
+            npw //= 2
+    plan.update(form="direct", regs=0, bulk=0, npw=0, rw=0, rows=256, stages=0, feat_bytes=0,
+                prob_bytes=0, id_bytes=0, stage_bytes=0, bar_at=0, w_at=0, part_at=0,
+                g_at=0, pt_at=0, ring_at=0, smem=min(coef, 0x7fffffff))
+    return plan
+
+
 def general_smem(C: int, P: int, F: int, with_std: bool = False) -> Dict[str, int]:
     """Dynamic shared memory (bytes) of each general kernel at (C, P, F):
-    the formulas of ``csrc/general.cuh`` and ``csrc/centroids_gen.cuh``."""
+    the formulas of ``csrc/general.cuh`` and ``csrc/centroids_gen.cuh``; the
+    backward's is its plan's (:func:`gen_bwd_plan`, bf16 features with
+    dprobs), which takes the direct form's coefficients alone where no ring
+    fits, so it fits wherever they do."""
     s = int(bool(with_std))
     groups = 1 if F >= 256 else 256 // F
     return {"rows": 4 * (C * F + 256 * (C | 1)),
             "centroid_fwd": 4 * groups * (P * C * F + P * C + 1 + s * C * F),
             "centroid_final": 4 * (2 * F + P),
-            "centroid_bwd": 4 * (P * C * F + P * C + s * 2 * C * F)}
+            "centroid_bwd": gen_bwd_plan(C, P, F, with_std)["smem"]}
 
 
 def shape_limit(C: int, P: int = 1, F: int = 0, with_std: bool = False) -> str:

@@ -67,12 +67,12 @@ _SIGS = {
     "soft_centroids_occupancy": (I32, [I32, I32, I32, I32, I32, IP, IP]),
 }
 # the general family's entries take the templated ones' arguments; its
-# occupancy query also takes C
+# occupancy query also takes C and, for the backward's form, with_dprobs
 _SIGS.update({k.replace("soft_centroids_", "soft_centroids_gen_", 1): v
               for k, v in _SIGS.items()
               if k in ("soft_centroids_partials_size", "soft_centroids_fwd_partial",
                        "soft_centroids_fwd_final", "soft_centroids_bwd")})
-_SIGS["soft_centroids_gen_occupancy"] = (I32, [I32, I32, I32, I32, I32, I32, IP, IP])
+_SIGS["soft_centroids_gen_occupancy"] = (I32, [I32, I32, I32, I32, I32, I32, I32, IP, IP])
 
 
 def certain_mask(probs: torch.Tensor, threshold: float) -> torch.Tensor:

@@ -25,6 +25,9 @@ plain versions (``chip_smoke.py`` phase 2). Here, on the CPU:
   the Trainer's refusal at construction.
 M = 2491 = 47 * 53 rows: no multiple of 4, of a warp or of a tile.
 """
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -366,10 +369,26 @@ def test_shape_limit_and_its_message():
     K.check_shape(8, 128, 4, with_std=True)          # well within
     K.check_shape(4, 2048)                           # DeepLabV2's width
     need = K.general_smem(5, 4, 48, True)
+    # the backward's ring at the mccl_p4_c5_f48_std cell's shape (bf16,
+    # dprobs): the coefficients, rounded up to 16; S stages' barriers; the
+    # row tables of a 160-row tile (8 warps of 4 passes of 5 rows: weights,
+    # partition, g); the dprobs partials of its rows (5 classes a row, 6
+    # chunks a class padded to 8); rounded up to 128; then S stages of 160
+    # rows' features, probs and ids, as many as the 110 KB budget holds (at
+    # most 2)
+    coef = 4 * (4 * 5 * 48 + 4 * 5 + 2 * 5 * 48)
+    stage = 160 * (48 * 2 + 5 * 4 + 4)
+    S = max(n for n in range(2, 3)
+            if -(-(coef + 16 * n + 160 * (5 + 2) * 4 + 160 * 5 * 8 * 4) // 128) * 128
+            + n * stage <= K.GEN_BWD_BUDGET)
+    ring_at = -(-(coef + 16 * S + 160 * (5 + 2) * 4 + 160 * 5 * 8 * 4) // 128) * 128
     assert need == {"rows": 4 * (5 * 48 + 256 * 5),
                     "centroid_fwd": 4 * 5 * (4 * 5 * 48 + 4 * 5 + 1 + 5 * 48),
                     "centroid_final": 4 * (2 * 48 + 4),
-                    "centroid_bwd": 4 * (4 * 5 * 48 + 4 * 5 + 2 * 5 * 48)}
+                    "centroid_bwd": ring_at + S * stage}
+    assert S == 2
+    # the direct form where no ring fits: the coefficients alone
+    assert K.general_smem(8, 8, 656, True)["centroid_bwd"] == 4 * (64 * 656 + 64 + 2 * 8 * 656)
     with pytest.raises(ValueError) as e:
         K.check_shape(64, 1024, 8, with_std=True)
     msg = str(e.value)
@@ -433,3 +452,193 @@ def test_trainer_shape_check_passes_the_general_and_ignores_other_methods():
         cfg = t_apply_recipe(cfg)
         cfg.model.num_classes, cfg.model.filters, cfg.contrastive.part = c, f, part
         check_kernel_shapes(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the general centroid backward's plan (csrc/centroids_gen_plan.cuh)
+# ---------------------------------------------------------------------------
+CSRC = Path(__file__).resolve().parents[1] / "slcl_torch" / "csrc"
+PLAN_KEYS = ("form", "V", "nch", "tpr", "rpw", "npw", "rw", "cs", "regs", "feats", "bulk",
+             "rows", "stages",
+             "feat_bytes", "prob_bytes", "id_bytes", "stage_bytes", "bar_at", "w_at",
+             "part_at", "g_at", "pt_at", "ring_at", "smem")
+PLAN_MAIN = r"""
+#include <cstdio>
+#include "centroids_gen_plan.cuh"
+int main() {
+  int C, P, F, s, es, dp;
+  while (std::scanf("%d %d %d %d %d %d", &C, &P, &F, &s, &es, &dp) == 6) {
+    const slcl::GenBwdPlan p = slcl::gen_bwd_plan(C, P, F, s != 0, es, dp != 0);
+    std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n",
+                p.form, p.V, p.nch, p.tpr, p.rpw, p.npw, p.rw, p.cs, p.regs, p.feats, p.bulk,
+                p.rows,
+                p.stages, p.feat_bytes, p.prob_bytes, p.id_bytes, p.stage_bytes, p.bar_at,
+                p.w_at, p.part_at, p.g_at, p.pt_at, p.ring_at, p.smem);
+  }
+}
+"""
+PLAN_F = (1, 7, 13, 20, 24, 48, 128, 2048)
+PLAN_C = (1, 2, 3, 4, 5, 8, 16)
+PLAN_P = (1, 2, 3, 4, 8)
+
+
+def _parent_smem(C, P, F, with_std):
+    """The four formulas the general kernels were admitted by before the
+    backward's ring (``general_smem`` as it stood): the backward took its
+    coefficients alone."""
+    s = int(bool(with_std))
+    groups = 1 if F >= 256 else 256 // F
+    return {"rows": 4 * (C * F + 256 * (C | 1)),
+            "centroid_fwd": 4 * groups * (P * C * F + P * C + 1 + s * C * F),
+            "centroid_final": 4 * (2 * F + P),
+            "centroid_bwd": 4 * (P * C * F + P * C + s * 2 * C * F)}
+
+
+def _limit_shapes():
+    """(C, P, F, std) at the edge of the parent's limit: for each C, F and
+    std the largest P whose backward coefficients fit, and one more; the
+    widest F at C = P = 1."""
+    out = []
+    for with_std in (False, True):
+        for C in (1, 2, 4, 5, 8, 16):
+            for F in (256, 300, 640, 656, 1024, 2048, 4096):
+                per_p = 4 * (C * F + C)
+                rest = 4 * 2 * C * F if with_std else 0
+                p_max = (K.SMEM_LIMIT - rest) // per_p
+                out += [(C, p, F, with_std) for p in (p_max, p_max + 1) if p >= 1]
+        f_max = (K.SMEM_LIMIT // 4 - 1) // (3 if with_std else 1) - 1
+        out += [(1, 1, f, with_std) for f in (f_max, f_max + 1, f_max + 2)]
+    return out
+
+
+def _plan_grid():
+    return ([(C, P, F, s) for F in PLAN_F for C in PLAN_C for P in PLAN_P
+             for s in (False, True)] + _limit_shapes())
+
+
+@pytest.fixture(scope="module")
+def cpp_plans(tmp_path_factory):
+    """Every (C, P, F, std, itemsize, dprobs) of _plan_grid through the C++
+    plan, compiled here with g++ from the kernels' own header."""
+    tmp = tmp_path_factory.mktemp("plan")
+    (tmp / "plan_main.cpp").write_text(PLAN_MAIN)
+    exe = tmp / "plan_main"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-Wall", "-Werror", "-I", str(CSRC),
+                    str(tmp / "plan_main.cpp"), "-o", str(exe)], check=True,
+                   capture_output=True, text=True)
+    calls = list(dict.fromkeys((C, P, F, s, es, dp) for C, P, F, s in _plan_grid()
+                               for es in (2, 4) for dp in (False, True)))
+    text = "".join(f"{C} {P} {F} {int(s)} {es} {int(dp)}\n" for C, P, F, s, es, dp in calls)
+    out = subprocess.run([str(exe)], input=text, check=True, capture_output=True,
+                         text=True).stdout.split("\n")
+    plans = {}
+    for call, line in zip(calls, out):
+        vals = [int(v) for v in line.split()]
+        plan = dict(zip(PLAN_KEYS, vals))
+        plan["form"] = ("ring", "direct")[plan["form"]]
+        plans[call] = plan
+    assert len(plans) == len(calls)
+    return plans
+
+
+@pytest.mark.parametrize("f", PLAN_F + ("limit",))
+def test_gen_bwd_plan_matches_the_cpp_plan(cpp_plans, f):
+    """ops/cuda/__init__.py::gen_bwd_plan (which general_smem and the shape
+    check read) is the kernel's own plan, field for field, in bf16 and f32,
+    with and without dprobs; where the plan is direct, the fields a ring
+    sets do not enter the launch."""
+    calls = [c for c in cpp_plans if (c[2] == f if f != "limit" else c[2] not in PLAN_F)]
+    assert calls
+    for C, P, F, s, es, dp in calls:
+        want = cpp_plans[(C, P, F, s, es, dp)]
+        got = K.gen_bwd_plan(C, P, F, s, es, dp)
+        if want["form"] == "direct":
+            keys = ("form", "regs", "bulk", "rows", "smem")
+        else:
+            keys = PLAN_KEYS
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}, (C, P, F, s, es, dp)
+
+
+@pytest.mark.parametrize("with_std", [False, True])
+@pytest.mark.parametrize("kernels", [("centroid_fwd", "centroid_final", "centroid_bwd"),
+                                     ("rows", "centroid_fwd", "centroid_final",
+                                      "centroid_bwd"),
+                                     ("centroid_bwd",)])
+def test_backward_admits_every_shape_the_parent_admitted(kernels, with_std):
+    """Every (C, P, F, std) that the parent's formulas admit (by the
+    kernels the wrappers and the Trainer check together, and by the
+    backward's alone) is admitted, and no other: the ring is taken only
+    where it fits, and the direct form needs what the parent's backward
+    did. Includes the shapes at the limit, and F = 2048 at C = 4, P <= 2
+    (DeepLabV2's width), admitted in bf16 and f32, on the ring in bf16."""
+    shapes = [(C, P, F) for C, P, F, s in _plan_grid() if s == with_std]
+    assert len(shapes) > 300
+    admitted = 0
+    for C, P, F in shapes:
+        old = _parent_smem(C, P, F, with_std)
+        parent_ok = all(old[k] <= K.SMEM_LIMIT for k in kernels)
+        try:
+            K.check_shape(C, F, P, with_std, kernels)
+            ok = True
+        except ValueError:
+            ok = False
+        assert ok == parent_ok, (C, P, F, with_std, kernels)
+        admitted += ok
+        for es in (2, 4):
+            for dp in (False, True):
+                plan = K.gen_bwd_plan(C, P, F, with_std, es, dp)
+                if plan["form"] == "direct":
+                    assert plan["smem"] == old["centroid_bwd"]
+                else:
+                    assert plan["smem"] <= K.SMEM_LIMIT
+    assert 0 < admitted < len(shapes)
+    for P in (1, 2):
+        K.check_shape(4, 2048, P, with_std, kernels)
+        for dp in (False, True):
+            assert K.gen_bwd_plan(4, P, 2048, with_std, 2, dp)["form"] == "ring"
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("dprobs", [False, True])
+def test_ring_stages_are_whole_bulk_copies(itemsize, dprobs):
+    """Each ring stage's bulk copies (features when read, probs, ids with P
+    > 1) start and end on 16 bytes for a whole tile and sit at 16-byte
+    offsets of a 128-byte-aligned ring; the tables lie between the
+    coefficients and the ring without overlap; a thread-chunk's vector
+    divides the row; the register form holds 8 features a chunk and at
+    most GEN_REG_FLOATS floats."""
+    rings = 0
+    for C, P, F, s in _plan_grid():
+        p = K.gen_bwd_plan(C, P, F, s, itemsize, dprobs)
+        assert F % p["V"] == 0 and p["nch"] * p["V"] == F
+        assert p["tpr"] * p["rpw"] <= 32 and p["tpr"] == min(p["nch"], 32)
+        coef = 4 * (P * C * F + P * C + (2 * C * F if s else 0))
+        if p["form"] == "direct":
+            assert p["smem"] == coef and not p["regs"]
+            continue
+        rings += 1
+        R = p["rows"]
+        assert R == 8 * p["rw"] == 8 * p["rpw"] * p["npw"] and p["npw"] in (1, 2, 4, 8)
+        assert p["feat_bytes"] == (R * F * itemsize if (s or dprobs) else 0)
+        assert p["prob_bytes"] == R * C * 4 and p["id_bytes"] == (R * 4 if P > 1 else 0)
+        for b in ("feat_bytes", "prob_bytes", "id_bytes", "stage_bytes"):
+            assert p[b] % 16 == 0, (C, P, F, s, b, p[b])
+        assert p["stage_bytes"] == p["feat_bytes"] + p["prob_bytes"] + p["id_bytes"]
+        assert p["ring_at"] % 128 == 0 and p["bar_at"] % 16 == 0 and p["bar_at"] >= coef
+        assert (p["bar_at"] + 16 * p["stages"] <= p["w_at"] < p["part_at"] < p["g_at"]
+                < p["pt_at"] <= p["ring_at"])
+        pt = R * p["cs"] * (-(-p["tpr"] // 4) * 4) * 4 if dprobs else 0
+        assert p["pt_at"] + pt <= p["ring_at"]
+        assert p["smem"] == p["ring_at"] + p["stages"] * p["stage_bytes"] <= K.SMEM_LIMIT
+        assert p["stages"] == 2 and not p["bulk"]
+        if p["regs"]:
+            assert p["V"] == 8 and p["nch"] <= 32
+            assert C <= K.GEN_REG_CLASSES_STD if s else (C <= K.GEN_REG_CLASSES and P == 1)
+    assert rings > 400
+    # the general cells' calls: within two blocks' budget, the chunk's
+    # coefficients in registers
+    for C, P, F, s, dp, regs in ((5, 4, 48, True, True, 1), (5, 1, 48, False, True, 1),
+                                 (5, 1, 24, False, False, 1), (4, 2, 32, True, True, 1)):
+        p = K.gen_bwd_plan(C, P, F, s, itemsize, dp)
+        assert p["form"] == "ring" and p["regs"] == regs
+        assert p["smem"] <= K.GEN_BWD_BUDGET

@@ -31,6 +31,9 @@ For each of the four kernel libraries (``slcl_torch/csrc/<name>.cu``):
   memory (the first grid-stride body is gone), and every shared -> global
   bulk store is fenced for the async proxy before it and read out of its
   stage before the stage is filled again;
+- the general centroid backward reads its rows through ``ring.cuh``'s bulk
+  copies on a ``ring_grid`` grid at its plan's shared memory, sums no row
+  with shuffles, and its plan's constants are the Python side's;
 - the general (runtime-shape) family keeps the same rules: its
   ``__global__``s are launched through extern "C" entries that ``_SIGS``
   binds, named in ``chip_smoke.py`` and counted by the profiler; its
@@ -347,7 +350,9 @@ def test_bulk_stores_are_fenced_and_read_out_before_the_next_fill(name):
     assert "cp.async.bulk.global.shared::cta.bulk_group" in ring
     assert "cp.async.bulk.wait_group.read" in ring and "fence.proxy.async.shared::cta" in ring
     if name == "soft_centroids":
-        assert len(stores) == 3   # the helper's definition, dfeats and dprobs
+        # the helper's definition; dfeats and dprobs of the templated
+        # backward's ring and of the general one's
+        assert len(stores) == 5
     for at in stores:
         if re.match(r"bulk_store\(void\* dst", src[at:]):
             continue   # the helper itself, in ring.cuh
@@ -441,3 +446,54 @@ def test_general_cosines_come_from_the_one_stream_cosines():
         assert "1e-24f" not in text and "rsqrtf(ss" not in text
         assert "s_cent[c * F + k] * " not in text
 
+
+
+def _body(src: str, head: str) -> str:
+    """The brace-matched body of the first definition that starts with
+    ``head``."""
+    i = src.index("{", src.index(head))
+    depth, j = 1, i + 1
+    while depth:
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        j += 1
+    return src[i:j]
+
+
+def test_general_centroid_backward_reads_its_rows_through_the_ring():
+    """centroids_gen_bwd fills its stages with ring.cuh's bulk copies on
+    a full barrier, takes its grid from ring_grid at its plan's rows and
+    shared memory (not gen_grid), and no thread sums a row with shuffles:
+    a row's partials are added through shared memory. The plan's
+    constants are the ones ops/cuda/__init__.py mirrors."""
+    gen = _strip_comments((CSRC / "centroids_gen.cuh").read_text())
+    assert '#include "ring.cuh"' in gen and '#include "centroids_gen_plan.cuh"' in gen
+    kernel = _body(gen, "centroids_gen_bwd(const T* __restrict__ feats")
+    for part in ("slcl::bulk_copy(", "slcl::mbar_expect_tx(&full[stage]",
+                 "slcl::mbar_wait(&full[stage], parity)", "gen_bwd_coefs<kStd>("):
+        assert part in kernel, part
+    assert "__shfl" not in kernel and "gen_warp_sum" not in kernel
+    # each warp takes its own rows of a tile: no block-wide barrier a tile
+    tiles = _body(kernel, "for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)")
+    assert "__syncthreads" not in tiles and "__syncwarp();" in tiles
+    rows = _body(tiles, "for (int q = 0; q < plan.npw; ++q)")
+    assert "gen_load<V>(s_feat + r * F + k * V, x)" in rows
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    launch = _body(src, "int gen_bwd_launch(")
+    assert re.search(r"slcl::ring_grid<slcl::centroids_gen_bwd<T, kS, kV, kForm>>\(\s*"
+                     r"M, plan\.rows, plan\.smem, &grid\)", launch)
+    assert "<<<grid, kThreads, plan.smem, st>>>" in launch and "gen_grid" not in launch
+    assert "slcl::gen_bwd_plan(C, P, F, kS, sizeof(T), dprobs != nullptr)" in _body(
+        src, "int gen_launch_bwd(")
+    occ = _body(src, "int gen_occupancy_of(")
+    assert "gen_occupancy<slcl::centroids_gen_bwd<T, kS, kV, kForm>>(" in occ
+    assert "plan.smem" in occ
+    ring = _strip_comments((CSRC / "ring.cuh").read_text())
+    assert re.search(r"template <auto kKern>\s+static int ring_grid\(long long M, int rows, "
+                     r"int smem_bytes, int\* grid\)", ring)
+    plan = _strip_comments((CSRC / "centroids_gen_plan.cuh").read_text())
+    from slcl_torch.ops import cuda as K
+    assert f"kGenSmemLimit = 227 * 1024 - 1024;" in plan and K.SMEM_LIMIT == 227 * 1024 - 1024
+    assert "kGenBwdBudget = 110 * 1024;" in plan and K.GEN_BWD_BUDGET == 110 * 1024
+    assert "kGenTileBytes = 20 * 1024;" in plan and K.GEN_TILE_BYTES == 20 * 1024
+    assert f"kGenRegClasses = {K.GEN_REG_CLASSES};" in plan
+    assert f"kGenRegClassesStd = {K.GEN_REG_CLASSES_STD};" in plan

@@ -36,10 +36,30 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
   at P = 2 too, ``bwd_soft_thick`` gives the hard form its features' stages, and
   ``bwd_soft_dsum_smem`` reads a row's dsums from shared memory instead of
   picking them from every partition's in registers.
+- ``gen_bwd_*`` variants edit ``centroids_gen_plan.cuh`` and time the
+  general centroid backward (``centroids_gen_bwd``) at its cells' three
+  calls, C = 5, bf16: ``mccl_p4_c5_f48_std``'s std call (soft, P = 4, F =
+  48) and ``img_t_aug`` call (soft, P = 1, F = 48), ``slcl_c5_f24``'s hard
+  call (P = 1, F = 24): ``gen_bwd_smem_coefs`` reads the coefficients from
+  shared memory instead of registers, ``gen_bwd_bulk`` holds a stage until
+  its tile is done and stores dfeats and dprobs from it with one bulk copy
+  each (``gen_bwd_bulk_at_once``: filling it again as soon as the store has
+  read it, not one tile later), ``gen_bwd_tile10k`` / ``gen_bwd_tile40k``
+  aim tiles at half / twice the bytes, ``gen_bwd_four_stages`` /
+  ``gen_bwd_three_stages`` keep four / three stages (two here),
+  ``gen_bwd_v4_three_blocks`` takes four features a chunk, their
+  coefficients in registers, at three blocks an SM,
+  ``gen_bwd_three_blocks`` takes three blocks an SM; ``gen_bwd_memonly``,
+  ``gen_bwd_no_store`` and
+  ``gen_bwd_no_reduce`` drop the class terms, the bulk stores or the sum
+  of a row's partials (wrong outputs: they show where the time goes).
   With ``--parent DIR`` (a checkout of an earlier commit), the variant
   ``parent`` builds that checkout's sources unedited and times every
   kernel ``base`` times (``base --parent DIR``: the two trees' templated
-  kernels in one call, in turns, their outputs held to each other).
+  kernels and the general backward's three calls in one call, in turns,
+  their outputs held to each other: the templated kernels' and the general
+  backward's dfeats bit for bit, the general dprobs within the plain
+  version's tolerance; the script exits 1 if they are not).
   A ptxas report is looked up by the current source's symbols.
 
 A variant that does not compile is reported and left out; the others run.
@@ -63,6 +83,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 BWD, FWD, CEN = "mpcl_bwd_tile.cuh", "mpcl_fwd_tile.cuh", "soft_centroids.cu"
+_PLAN, _GEN = "centroids_gen_plan.cuh", "centroids_gen.cuh"
+_TILE = "kGenTileBytes = 20 * 1024;"
+_STAGES2 = "const int max_stages = 2;"
 _STAGES = ("32768 / kFeatBytes < 2 ? 2 : (32768 / kFeatBytes > 4 ? 4 : 32768 / kFeatBytes);")
 _FWD_BLOCKS = "kBlocksPerSM = kRowBytes <= 128 ? 3 : 2;"
 _CEN_ROWS = "constexpr int kRowsInFlight = P == 1 ? 4 : 2;"
@@ -82,12 +105,18 @@ MPCL_FWD = ("mpcl_fwd", "mpcl_fwd_sel")   # labels given: without sel, with sel
 ROW_FWD = ("mpcl_pseudo_fwd", *MPCL_FWD, "pseudo_label")   # on mpcl_fwd_tile.cuh
 CEN_FWD = ("soft_centroids_fwd", "soft_centroids_fwd_p2")
 FWD_KERNELS = ROW_FWD + CEN_FWD
-PARENT_KERNELS = BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD   # what --parent times
+# the general centroid backward's calls: (P, F, soft, std) at C = 5
+GEN_BWD_CALLS = {"soft_centroids_bwd_std_general": (4, 48, True, True),
+                 "soft_centroids_bwd_general_soft": (1, 48, True, False),
+                 "soft_centroids_bwd_general": (1, 24, False, False)}
+GEN_BWD = tuple(GEN_BWD_CALLS)
+GEN_C = 5
+PARENT_KERNELS = BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD + GEN_BWD   # --parent
 LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
           "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
           "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
           "soft_centroids_fwd_p2": "soft_centroids",
-          **dict.fromkeys(STD_KERNELS + CEN_BWD, "soft_centroids")}
+          **dict.fromkeys(STD_KERNELS + CEN_BWD + GEN_BWD, "soft_centroids")}
 # ptxas entry-function name parts of each timed kernel's instantiation
 SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
@@ -104,7 +133,11 @@ SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "soft_centroids_bwd_std_p2": "centroids_bwd_stdI13__nv_bfloat16Li32ELi2ELi4EE",
              "soft_centroids_bwd": "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE",
              "soft_centroids_bwd_soft": "centroids_bwdI13__nv_bfloat16Li32ELi1ELi4EE",
-             "soft_centroids_bwd_p2": "centroids_bwdI13__nv_bfloat16Li32ELi2ELi4EE"}
+             "soft_centroids_bwd_p2": "centroids_bwdI13__nv_bfloat16Li32ELi2ELi4EE",
+             # the general backward's form at these calls: V = 8, registers
+             "soft_centroids_bwd_std_general": "centroids_gen_bwdI13__nv_bfloat16Lb1ELi8ELi1EE",
+             "soft_centroids_bwd_general_soft": "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE",
+             "soft_centroids_bwd_general": "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE"}
 
 
 def _section(f: str, start: str, end: str) -> str:
@@ -452,7 +485,7 @@ _STD_SQ = ("#pragma unroll\n  for (int j = 0; j < V; ++j) {\n    const float x2 
 
 # name -> (kernels it concerns, [(file, old text, new text)])
 VARIANTS = {
-    "base": (BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD, []),
+    "base": (PARENT_KERNELS, []),
     # the ring alone: each row is scaled and written back, no MPCL math
     "memonly": (BWD_KERNELS, [
         (BWD, "  // one chunk at a time, and the row and prototypes read again below: held\n",
@@ -535,6 +568,66 @@ VARIANTS = {
     "bwd_soft_thick": (CEN_BWD[:1], [(CEN, "const bool thin = !read_feats && !bulk;",
                                       "const bool thin = false;")]),
     "bwd_soft_dsum_smem": (CEN_BWD, _BWD_DSUM_SMEM),
+    # the general centroid backward's plan (csrc/centroids_gen_plan.cuh):
+    # coefficients from shared memory; direct stores; tiles of half and
+    # twice the bytes; two stages
+    "gen_bwd_smem_coefs": (GEN_BWD, [(_PLAN, "  p.regs = p.nch <= 32 && p.V == 8 &&",
+                                      "  p.regs = false && p.nch <= 32 && p.V == 8 &&")]),
+    # the stage held until the tile is done and stored with one bulk copy an
+    # array (the stage filled again one tile later, or at once)
+    "gen_bwd_bulk": (GEN_BWD[:2], [(_PLAN, "  p.bulk = 0;", "  p.bulk = p.feats;")]),
+    "gen_bwd_bulk_at_once": (GEN_BWD[:2], [
+        (_PLAN, "  p.bulk = 0;", "  p.bulk = p.feats;"),
+        (_GEN, "constexpr bool kGenDeferFill = true;", "constexpr bool kGenDeferFill = false;")]),
+    "gen_bwd_tile10k": (GEN_BWD, [(_PLAN, _TILE, "kGenTileBytes = 10 * 1024;")]),
+    "gen_bwd_tile40k": (GEN_BWD, [(_PLAN, _TILE, "kGenTileBytes = 40 * 1024;")]),
+    # the dsums of up to eight classes in registers (six here); the argmax
+    # taken for soft weights without a threshold too
+    "gen_bwd_reg8": (GEN_BWD[1:], [(_PLAN, "constexpr int kGenRegClasses = 6;",
+                                    "constexpr int kGenRegClasses = 8;")]),
+    "gen_bwd_argmax": (GEN_BWD[:2], [(_GEN, "      const bool argmax = !weighted || use_thd;",
+                                      "      const bool argmax = true;")]),
+    "gen_bwd_four_stages": (GEN_BWD, [(_PLAN, _STAGES2, "const int max_stages = 4;")]),
+    "gen_bwd_three_stages": (GEN_BWD, [(_PLAN, _STAGES2, "const int max_stages = 3;")]),
+    # four features a chunk with the chunk's coefficients in registers, at
+    # three blocks an SM (fewer registers a lane, more warps)
+    "gen_bwd_v4_three_blocks": (GEN_BWD, [
+        (_PLAN, "  return F % 8 == 0 ? 8 : (F % 4 == 0 ? 4", "  return F % 4 == 0 ? 4 : (F % 8 == 0 ? 8"),
+        (_PLAN, "  p.regs = p.nch <= 32 && p.V == 8 &&", "  p.regs = p.nch <= 32 && p.V == 4 &&"),
+        (_PLAN, "kGenBwdBudget = 110 * 1024;", "kGenBwdBudget = 72 * 1024;"),
+        (_GEN, "__global__ void __launch_bounds__(kThreads, 2)\ncentroids_gen_bwd(",
+         "__global__ void __launch_bounds__(kThreads, 3)\ncentroids_gen_bwd("),
+        (CEN, "  } else if ((plan).V == 4) {",
+         "  } else if ((plan).V == 4 && (plan).regs) {                                               \\\n"
+         "    constexpr int kV = 4, kForm = slcl::kGenRegCoefs; __VA_ARGS__;                        \\\n"
+         "  } else if ((plan).V == 4) {")]),
+    # three blocks an SM: a smaller budget and a tighter register cap
+    "gen_bwd_three_blocks": (GEN_BWD, [
+        (_PLAN, "kGenBwdBudget = 110 * 1024;", "kGenBwdBudget = 72 * 1024;"),
+        (_GEN, "__global__ void __launch_bounds__(kThreads, 2)\ncentroids_gen_bwd(",
+         "__global__ void __launch_bounds__(kThreads, 3)\ncentroids_gen_bwd(")]),
+    # where the time goes (wrong outputs): no class terms at all (the ring,
+    # the weights and the stores alone); no stores of dfeats and dprobs; the
+    # probs for weights (no argmax, certain flag or partition); dprobs from
+    # a row's first four partials
+    "gen_bwd_memonly": (GEN_BWD, [
+        (_GEN, "        if constexpr (kForm == kGenRegCoefs) {\n#pragma unroll\n"
+               "          for (int c = 0; c < kRegClasses; ++c) {",
+         "        if constexpr (false && kForm == kGenRegCoefs) {\n#pragma unroll\n"
+         "          for (int c = 0; c < kRegClasses; ++c) {"),
+        (_GEN, "          for (int c = 0; c < C; ++c) {\n            float ds[V];",
+         "          for (int c = 0; c < 0; ++c) {\n            float ds[V];")]),
+    "gen_bwd_no_store": (GEN_BWD[:2], [
+        (_GEN, "        gen_store<V>(out, dx);", "        if (dx[0] == 1.25e-30f) gen_store<V>(out, dx);"),
+        (_GEN, "          else dprobs[row0 * C + i] = dp;",
+         "          else if (dp == 1.25e-30f) dprobs[row0 * C + i] = dp;")]),
+    "gen_bwd_no_weights": (GEN_BWD, [
+        (_GEN, "        for (int c = 0; c < C; ++c) s_w[r * C + c] = gen_weight(pr, c, w, weighted);\n"
+               "        s_part[r] = w.part;\n        s_g[r] = w.g;",
+         "        for (int c = 0; c < C; ++c) s_w[r * C + c] = pr[c];\n"
+         "        s_part[r] = 0;\n        s_g[r] = 1.f;")]),
+    "gen_bwd_no_reduce": (GEN_BWD[:2], [
+        (_GEN, "          for (int k = 1; k < tp4 / 4; ++k) {", "          for (int k = 1; k < 1; ++k) {")]),
 }
 
 
@@ -605,10 +698,10 @@ def main() -> int:
         i = args.index("--parent")
         parent = args[i + 1]
         del args[i:i + 2]
-    group = {"fwd": "fwd_", "std": "std_", "bwd_soft": "bwd_soft_"}
+    group = {"fwd": "fwd_", "std": "std_", "bwd_soft": "bwd_soft_", "gen_bwd": "gen_bwd_"}
     names = []
     for arg in args or list(VARIANTS):
-        if arg in ("bwd", "fwd", "std", "bwd_soft"):
+        if arg in ("bwd", "fwd", "std", "bwd_soft", "gen_bwd"):
             names += [n for n in VARIANTS if n != "base" and (
                 n.startswith(group[arg]) if arg in group
                 else not n.startswith(tuple(group.values())))]
@@ -662,6 +755,21 @@ def main() -> int:
                                                       P, 0.0, soft)
         bwd_in[kernel] = (P, soft, cents, counts, torch.randn(P, C, F, generator=g, device=dev),
                           torch.empty_like(feats), torch.empty_like(probs) if soft else None)
+    # the general backward's: C = 5 rows of their own, the forward's results
+    # (the general family, by shape), dcents and dstd from the seed
+    gen_in = {}
+    for kernel, (P, f, soft, std) in GEN_BWD_CALLS.items():
+        fe = torch.randn(M, f, generator=g, device=dev).to(torch.bfloat16)
+        pr = torch.softmax(torch.randn(M, GEN_C, generator=g, device=dev), dim=-1)
+        a = (torch.randint(0, P, (M,), generator=g, device=dev, dtype=torch.int32)
+             if P > 1 else None)
+        fo = KC.soft_centroids_fwd_cuda(fe, pr, a, P, 0.0, soft, std)
+        gen_in[kernel] = dict(
+            P=P, f=f, soft=soft, feats=fe, probs=pr, assign=a, cents=fo[0], counts=fo[1],
+            std=fo[3] if std else None, s2=fo[4] if std else None,
+            dc=torch.randn(P, GEN_C, f, generator=g, device=dev),
+            dstd=torch.randn(GEN_C, generator=g, device=dev) if std else None,
+            dfeats=torch.empty_like(fe), dprobs=torch.empty_like(pr) if soft else None)
     # what each kernel leaves behind, to hold a variant against base
     result = {"mpcl_bwd": lambda: d1, "mpcl_pseudo_bwd": lambda: d2,
               "mpcl_pseudo_fwd": lambda: fstats, "mpcl_fwd": lambda: mstats["mpcl_fwd"],
@@ -674,7 +782,10 @@ def main() -> int:
               "soft_centroids_bwd_std_p2": lambda: std_d[2][0],
               **{k: (lambda k=k: torch.cat([bwd_in[k][5].float().flatten(), *(
                   [] if bwd_in[k][6] is None else [bwd_in[k][6].flatten()])]))
-                 for k in CEN_BWD}}
+                 for k in CEN_BWD},
+              **{k: (lambda k=k: torch.cat([gen_in[k]["dfeats"].float().flatten(), *(
+                  [] if gen_in[k]["dprobs"] is None else [gen_in[k]["dprobs"].flatten()])]))
+                 for k in GEN_BWD}}
 
     def loaded(path, sigs):
         lib = ctypes.CDLL(str(path))
@@ -741,6 +852,13 @@ def main() -> int:
                         ptr(feats), 1, ptr(probs), ptr(assign) if P > 1 else None, M, F, C,
                         P, 0.0, int(soft), ptr(dc), ptr(cents), ptr(counts), ptr(dfe),
                         ptr(dpr), None, None, None, stream)
+            elif kernel in GEN_BWD:
+                r = gen_in[kernel]
+                call = lambda lib=lib, r=r: lib.soft_centroids_gen_bwd(  # noqa: E731
+                    ptr(r["feats"]), 1, ptr(r["probs"]), ptr(r["assign"]), M, r["f"], GEN_C,
+                    r["P"], 0.0, int(r["soft"]), ptr(r["dc"]), ptr(r["cents"]),
+                    ptr(r["counts"]), ptr(r["dfeats"]), ptr(r["dprobs"]), ptr(r["dstd"]),
+                    ptr(r["s2"]), ptr(r["std"]), stream)
             elif kernel.startswith("soft_centroids_bwd_std"):
                 P = 2 if kernel.endswith("_p2") else 1
                 cents, counts, std, s2, dc, dstd = std_in[P]
@@ -775,10 +893,21 @@ def main() -> int:
                           "ms": [time_ms(lambda: dst.copy_(src), iters=50) for _ in range(3)]}),
               flush=True)
         del src, dst
+    for kernel, r in gen_in.items():   # the general backward's calls' bytes
+        # the hard call reads probs and writes dfeats; the soft ones also
+        # read the features and write dprobs (and at P > 1 read the ids)
+        nbytes = (M * (r["f"] * 2 + 4 * GEN_C) * (2 if r["soft"] else 1)
+                  + (4 * M if r["P"] > 1 else 0))
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        print(json.dumps({"variant": f"copy_ yardstick of {kernel}'s bytes",
+                          "ms": [time_ms(lambda: dst.copy_(src), iters=50) for _ in range(3)]}),
+              flush=True)
+        del src, dst
     print(json.dumps({"variant": "torch.sum yardstick (read only)",
                       "ms": [time_ms(lambda: torch.sum(feats, dtype=torch.float32), iters=50)
                              for _ in range(3)]}), flush=True)
-    ref = {}
+    ref, faults = {}, []
     for name in names:
         rec = {"variant": name}
         for kernel, run in calls[name].items():
@@ -791,6 +920,24 @@ def main() -> int:
                 "ms": [time_ms(run, iters=50) for _ in range(3)],
                 "max_diff_from_base": float((got.float() - ref[kernel].float()).abs().max()),
                 "registers_spills": ptxas_of(log, SYMBOL_OF[kernel])}
+            if kernel in GEN_BWD:
+                # dfeats bit for bit; dprobs, whose sum over f may take
+                # another order, within the plain version's tolerance
+                n = M * gen_in[kernel]["f"]
+                dx, dp = got[:n], got[n:]
+                dx_ref, dp_ref = ref[kernel][:n], ref[kernel][n:]
+                rec[kernel]["dfeats_max_diff_from_base"] = float((dx - dx_ref).abs().max())
+                if dp.numel():
+                    lim = 2e-3 * dp_ref.abs() + 1e-3 * float(dp_ref.abs().max())
+                    rec[kernel]["dprobs_max_diff_from_base"] = float((dp - dp_ref).abs().max())
+                    rec[kernel]["dprobs_within_tolerance"] = bool(
+                        ((dp - dp_ref).abs() <= lim).all())
+                if name == "parent" and (rec[kernel]["dfeats_max_diff_from_base"] != 0.0
+                                         or not rec[kernel].get("dprobs_within_tolerance",
+                                                                True)):
+                    faults.append(kernel)
+            elif name == "parent" and rec[kernel]["max_diff_from_base"] != 0.0:
+                faults.append(kernel)
         print(json.dumps(rec), flush=True)
     for name in reversed(names):
         print(json.dumps({"variant": name, "again_ms": {
@@ -799,6 +946,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
+    if faults:
+        print(json.dumps({"parent_outputs_differ": faults}), flush=True)
+        return 1
     return 0
 
 
