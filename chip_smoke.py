@@ -403,14 +403,16 @@ SYMBOLS = {"mpcl_fwd": ("mpcl", "mpcl_fwd_partialI13__nv_bfloat16Li32E"),
                                        "mpcl_pseudo_gen_fwd_partialI13__nv_bfloat16E"),
            "mpcl_pseudo_bwd_general": ("mpcl_pseudo", "mpcl_pseudo_gen_bwdI13__nv_bfloat16E"),
            "pseudo_label_general": ("pseudo_label", "pseudo_label_genI13__nv_bfloat16E"),
+           # (the forwards at the cells' shapes: the narrow form, kForm = 2,
+           # std-free; the ring form, kForm = 0, with the std)
            "soft_centroids_fwd_general": ("soft_centroids",
-                                          "centroids_gen_fwd_partialI13__nv_bfloat16Lb0EE"),
+                                          "centroids_gen_fwd_partialI13__nv_bfloat16Lb0ELi2EE"),
            # (the backward: its form at the cell's shape, V = 8 features a
            # chunk with the chunk's coefficients in registers)
            "soft_centroids_bwd_general": ("soft_centroids",
                                           "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE"),
            "soft_centroids_fwd_std_general": (
-               "soft_centroids", "centroids_gen_fwd_partialI13__nv_bfloat16Lb1EE"),
+               "soft_centroids", "centroids_gen_fwd_partialI13__nv_bfloat16Lb1ELi0EE"),
            "soft_centroids_bwd_std_general": ("soft_centroids",
                                               "centroids_gen_bwdI13__nv_bfloat16Lb1ELi8ELi1EE")}
 # (C query, its arguments) for each kernel's blocks per SM and shared memory
@@ -568,6 +570,31 @@ def near_tie_rows(feats, centers, th: float):
     top2 = torch.topk(cos64, 2, dim=1).values
     gap = top2[:, 0] - top2[:, 1]
     return (gap.abs() < 1e-6) | ((gap - th).abs() < 1e-6)
+
+
+def centroids_f64(feats, probs, assign, P: int, thd: float, weighted: bool, std: bool) -> dict:
+    """The centroids (P, C, F) and, with ``std``, the stddevs (C,) of
+    ``soft_centroids_plain``'s function in float64 on the same inputs: the
+    sums the kernels' errors are taken against (``err_f64``)."""
+    import torch
+    import torch.nn.functional as Fn
+    x, pr = feats.double(), probs.double()
+    m, c = pr.shape
+    cert = ((pr.max(1).values >= thd).double() if 0.0 < thd < 1.0
+            else torch.ones(m, dtype=torch.float64, device=pr.device))
+    w = (pr if weighted else Fn.one_hot(pr.argmax(1), c).double()) * cert[:, None]
+    a = (assign.long() if P > 1 and assign is not None
+         else torch.zeros(m, dtype=torch.long, device=pr.device))
+    ok = (a >= 0) & (a < P)
+    part = Fn.one_hot(torch.where(ok, a, 0), P).double() * ok[:, None].double()
+    wpc = (w[:, None, :] * part[:, :, None]).reshape(m, P * c)
+    cents = (wpc.T @ x).reshape(P, c, -1) / (wpc.sum(0).reshape(P, c, 1) + 1e-7)
+    out = {"cents": cents}
+    if std:
+        wt = w * ok[:, None].double()
+        var = torch.clamp((wt.T @ (x * x)) / (wt.sum(0)[:, None] + 1e-7) - cents[0] ** 2, min=0)
+        out["std"] = torch.sqrt(var.mean(-1) + 1e-7)
+    return out
 
 
 def check_bwd_ring(g) -> None:
@@ -1388,6 +1415,7 @@ def check_general_shapes(g) -> dict:
 
     m = GEN_M
     forms = set()        # the centroid backward's forms these calls took
+    fwd_forms = set()    # the forward's: form, a warp split, how A is read
     for C_, P_, f in GEN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"C={C_} P={P_} F={f} {str(dtype)[6:]}"
@@ -1466,6 +1494,7 @@ def check_general_shapes(g) -> dict:
                         what = f"general {tag} soft_centroids P={P} soft={weighted} thd={thd}"
                         cents, counts, ratio = twice(lambda: K_sc.soft_centroids_fwd_cuda(
                             feats, probs, a, P, thd, weighted), what + " fwd")
+                        fwd_forms.add(fwd_form(C_, P, f, False, feats.element_size()))
                         xc = feats.detach().requires_grad_(True)
                         pr = probs.detach().requires_grad_(True)
                         w_c, w_r = K_sc.soft_centroids_plain(xc, pr, a, partition=P,
@@ -1492,6 +1521,7 @@ def check_general_shapes(g) -> dict:
                         what = what.replace("soft_centroids", "std")
                         out = twice(lambda: K_sc.soft_centroids_fwd_cuda(
                             feats, probs, a, P, thd, weighted, with_std=True), what + " fwd")
+                        fwd_forms.add(fwd_form(C_, P, f, True, feats.element_size()))
                         cents, counts, ratio, std, s2 = out
                         w_c, w_r, w_s = K_sc.soft_centroids_plain(
                             xc, pr, a, partition=P, threshold=thd, weighted=weighted,
@@ -1518,7 +1548,35 @@ def check_general_shapes(g) -> dict:
             log(f"general {tag}: ok")
     if forms != {"ring", "direct"}:
         raise AssertionError(f"the general centroid backward took the forms {forms} only")
+    want = {"grouped", "ring", "ring, narrow", "ring, warps split over m",
+            "ring, warps split over n", "ring, A by ldmatrix", "ring, A by element",
+            "ring, f32 features", "ring, the std"}
+    if not want <= set().union(*fwd_forms):
+        raise AssertionError(f"the general centroid forward took the forms {fwd_forms} only")
     return errs
+
+
+def fwd_form(C: int, P: int, F: int, std: bool, itemsize: int) -> frozenset:
+    """What a general centroid forward call at this shape runs
+    (gen_fwd_plan): its form and, on the ring, whether its warps split the
+    m- or n-tiles, whether it is the narrow form (one n-tile), how it reads
+    A, its feature type and the std."""
+    from slcl_torch.ops.cuda import gen_fwd_plan
+    plan = gen_fwd_plan(C, P, F, std, itemsize)
+    if plan["form"] == "grouped":
+        return frozenset({"grouped"})
+    out = {"ring", "ring, A by " + ("ldmatrix" if itemsize == 2 and F % 8 == 0 else "element")}
+    if plan["form"] == "narrow":
+        out.add("ring, narrow")
+    if plan["wm"] > 1:
+        out.add("ring, warps split over m")
+    if plan["wn"] > 1:
+        out.add("ring, warps split over n")
+    if itemsize == 4:
+        out.add("ring, f32 features")
+    if std:
+        out.add("ring, the std")
+    return frozenset(out)
 
 
 def check_general_forced(g) -> dict:
@@ -1685,7 +1743,7 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
     plan at the cell's shape (``bwd_plan``: form, features a chunk, rows a
     tile, stages, shared memory)."""
     import torch
-    from slcl_torch.ops.cuda import gen_bwd_plan
+    from slcl_torch.ops.cuda import gen_bwd_plan, gen_fwd_plan
     from slcl_torch.ops.cuda import mpcl as K_mpcl
     from slcl_torch.ops.cuda import mpcl_pseudo as K_mp
     from slcl_torch.ops.cuda import pseudo_label as K_pl
@@ -1787,11 +1845,14 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
     sums = torch.zeros(c, f, device=dev, dtype=feats.dtype)
     row("soft_centroids_fwd_general", cell_err=close(cents, yc.detach(), 1e-4, 1e-5,
                                                      "cell centroids"),
+        err_f64=float((cents.double() - centroids_f64(feats, probs, None, 1, 0.0, False,
+                                                      False)["cents"]).abs().max()),
         ms=time_ms(lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False)),
         plain_ms=time_ms(lambda: K_sc.soft_centroids_plain(feats, probs, None, partition=1,
                                                            weighted=False)),
         library_ms=time_ms(lambda: sums.index_add_(0, labels_hard, feats)),
         bound=bound(M * (f * es + 4 * c), 2 * M * f, peaks),
+        fwd_plan=gen_fwd_plan(c, 1, f, False, es),
         **launch_split(lambda: K_sc.soft_centroids_fwd_cuda(feats, probs, None, 1, 0.0, False),
                        {"partial_ms": "centroids_gen_fwd_partial",
                         "final_ms": "centroids_gen_fwd_final"}))
@@ -1825,6 +1886,9 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
         w32 = torch.zeros(M, P, c, device=dev).scatter_(
             1, part[:, None, None].expand(M, 1, c), probs[:, None, :]).reshape(M, P * c)
         w16, ds16 = w32.to(feats.dtype), dc.reshape(P * c, f).to(feats.dtype)
+        # the std's S2 operands: the weights summed over the partitions and
+        # the squared features, bf16
+        wc16, sq16 = w32.reshape(M, P, c).sum(1).to(feats.dtype), feats * feats
         out = K_sc.soft_centroids_fwd_cuda(feats, probs, a, P, 0.0, True, std)
         xc = feats.detach().requires_grad_(True)
         pr = probs.detach().requires_grad_(True)
@@ -1842,13 +1906,21 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
         d = cb()
         fwd_bytes = M * (f * es + 4 * c) + ids
         bwd_bytes = 2 * M * (f * es + 4 * c) + ids
+        ref64 = centroids_f64(feats, probs, a, P, 0.0, True, std)
         rec_f = dict(cell_err=close(out[0], want[0].detach(), 1e-4, 1e-5, f"cell P={P} cents"),
+                     err_f64=float((out[0].double() - ref64["cents"]).abs().max()),
+                     **({"err_f64_std": float((out[3].double() - ref64["std"]).abs().max()),
+                         # both products of the std forward: the sums and S2
+                         "library_pair_ms": time_ms(lambda: (torch.mm(w16.t(), feats),
+                                                             torch.mm(wc16.t(), sq16)))}
+                        if std else {}),
                      ms=time_ms(cf),
                      plain_ms=time_ms(lambda: K_sc.soft_centroids_plain(
                          feats, probs, a, partition=P, weighted=True, with_std=std)),
                      library_ms=time_ms(lambda: torch.mm(w16.t(), feats)),
                      library_f32_ms=time_ms(lambda: torch.mm(w32.t(), feats32)),
                      bound=bound(fwd_bytes, (5 if std else 2) * M * f * c, peaks),
+                     fwd_plan=gen_fwd_plan(c, P, f, std, es),
                      **launch_split(cf, {"partial_ms": "centroids_gen_fwd_partial",
                                          "final_ms": "centroids_gen_fwd_final"}))
         rec_b = dict(cell_err=close(d[0], gx, 1.6e-2, 1e-3 * float(gx.abs().max()),
@@ -1873,7 +1945,7 @@ def general_rows(errs: dict, forced: dict, peaks, g) -> dict:
                 k: v for k, v in rec_f.items() if k != "bound"} | {"bound_ms": rec_f["bound"][0]}
             rows["soft_centroids_bwd_general"]["mccl_p1_soft"] = {
                 k: v for k, v in rec_b.items() if k != "bound"} | {"bound_ms": rec_b["bound"][0]}
-        del yc, w32, w16
+        del yc, w32, w16, wc16, sq16
 
     # ---- forced at the main shape, beside the templated kernel ----
     feats = torch.randn(M, F, generator=g, device=dev).to(torch.bfloat16)
@@ -4753,7 +4825,8 @@ def main() -> int:
                       "p1_final_ms", "library_f32_ms", "p1_library_ms",
                       "p1_library_f32_ms", "copy_ms", "forced_ms", "templated_ms",
                       "max_abs_err_by_shape", "forced_vs_templated_max_abs_diff",
-                      "mccl_p1_soft", "p4_library_pair_ms", "bwd_plan"):
+                      "mccl_p1_soft", "p4_library_pair_ms", "bwd_plan", "library_pair_ms",
+                      "err_f64", "err_f64_std", "fwd_plan"):
             if extra in rec:
                 entry[extra] = rec[extra]
         src, sym = SYMBOLS[kname]

@@ -1,9 +1,11 @@
-// The general centroid backward's launch plan (centroids_gen.cuh,
-// centroids_gen_bwd): its form, the features a thread owns, the rows of a
-// ring tile, the stages and the shared memory of every table, from the shape
-// alone (C, P, F, std, the feature type's size and whether dprobs is taken).
+// The general centroid backward's and forward's launch plans
+// (centroids_gen.cuh). The backward's (centroids_gen_bwd): its form, the
+// features a thread owns, the rows of a ring tile, the stages and the
+// shared memory of every table, from the shape alone (C, P, F, std, the
+// feature type's size and whether dprobs is taken).
 // Plain C++ with no CUDA header, so that the CPU tests compile it and hold
-// ops/cuda/__init__.py::gen_bwd_plan, its Python mirror, to it.
+// ops/cuda/__init__.py::gen_bwd_plan and gen_fwd_plan, its Python
+// mirrors, to it.
 //
 // - V, the features a thread-chunk owns: 8 where F % 8 == 0, else 4 where
 //   F % 4 == 0, else 1 (no form of 2: fewer instantiations to build). A
@@ -40,6 +42,44 @@
 // - Where not even two stages of 8 rows fit under kGenSmemLimit, the
 //   direct form: a thread a row straight from device memory, its shared
 //   memory the coefficients alone, gen_bwd_coef_bytes.
+//
+// The general centroid forward's plan (centroids_gen_fwd_partial), from
+// (C, P, F, std, the feature type's size) alone:
+// - The product. A tile's sums are X^T W on tensor cores (mma.sync
+//   m16n8k16, bf16 in, f32 accumulators): X^T is (F, rows), 16 features an
+//   m-tile, with one more row of ones at feature F (its products are the
+//   counts), so mt = F / 16 + 1 m-tiles; W is (rows, columns): P*C weights
+//   (zero outside the row's partition), the certain flag, zeros up to ns =
+//   a multiple of 8, then with the std the C weights summed over the
+//   partitions (their product with x^2 is S2), zeros up to a multiple of
+//   8: nt_s = ns / 8 n-tiles of sums, nt n-tiles in all.
+// - The warps. A warp holds the f32 totals of at most gen_fwd_mt_cap
+//   m-tiles (4; 2 in the bf16 ring form) by kGenFwdNT n-tiles in registers
+//   (by 1 in the narrow form): the
+//   8 warps are wm x wn x wk, the fewest wm * wn (then the most wm) with
+//   mw = ceil(mt / wm) <= that cap and nw = ceil(nt / wn) <= kGenFwdNT; warp (a, b, c) owns m-tiles a,
+//   a + wm, ..., n-tiles b, b + wn, ... and the tile's k-steps (16 rows)
+//   c, c + wk, ...: kpw of them, so R = 16 * wk * kpw rows a tile (a
+//   multiple of 16: every bulk copy starts and ends on 16 bytes).
+// - The narrow form: where nt = 1 (P*C + 1 <= 8, no std) a warp's
+//   register tile is 4 x 1, so the kernel takes three blocks an SM: its
+//   budget is kGenFwdNarrowBudget first.
+// - kpw: the largest of 4, 2, 1 whose tile (features, probs, ids) lies
+//   within kGenFwdTileBytes (else 1), then halved until the shared memory
+//   fits, with 3 stages, then 2, first under the narrow budget (narrow
+//   form), then kGenFwdBudget (two blocks an SM), then kGenSmemLimit.
+// - Shared memory, in this order: the stages' full and empty barriers (16
+//   * S); each table's row partitions (2 * R ints), rounded up to 128; two weight
+//   tables (a tile's rows are written into one while the other may still
+//   be read), each 3 bf16 terms x nt * 8 columns x b_stride = R + 8 (a
+//   column's rows side by side; 8 more so that ldmatrix reads no bank
+//   twice), then S stages of R rows' features, probs and, with P > 1, ids.
+//   After the last tile the block's totals (mt * 16 features x nt * 8
+//   columns, f32) are summed over its warps in the tables' place: smem is
+//   at least b_at + that.
+// - Where no warp split or no two stages fit, the grouped form (the first
+//   design: groups of F threads a row, sums in shared memory), whose
+//   shared memory is gen_fwd_grouped_bytes.
 #pragma once
 
 namespace slcl {
@@ -145,6 +185,124 @@ inline GenBwdPlan gen_bwd_plan(int C, int P, int F, bool with_std, int es, bool 
   p.rows = kGenBwdThreads;   // a thread a row
   p.smem = coef > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(coef);
   return p;
+}
+
+// ---- the forward ----
+
+// m-tiles and n-tiles whose totals a warp holds in registers; the bf16 ring
+// form (two blocks an SM) holds fewer m-tiles: at 4 x 4 it spills under
+// their 128 registers
+constexpr int kGenFwdMT = 4;
+constexpr int kGenFwdMTWide = 2;
+constexpr int kGenFwdNT = 4;
+inline constexpr int gen_fwd_mt_cap(bool narrow, int es) {
+  return es == 2 && !narrow ? kGenFwdMTWide : kGenFwdMT;
+}
+// the ring form's blocks an SM (its register cap) and its budget of shared
+// memory, if it fits: two blocks an SM
+constexpr int kGenFwdBlocks = 2;
+constexpr int kGenFwdBudget = 110 * 1024;
+// the same for the narrow form (one n-tile: a 4 x 1 register tile): three
+// blocks an SM
+constexpr int kGenFwdNarrowBlocks = 3;
+constexpr int kGenFwdNarrowBudget = 72 * 1024;
+constexpr int kGenFwdMaxStages = 3;   // at most 4 (the kernel's)
+// a tile's bytes of rows the forward's plan aims at
+constexpr int kGenFwdTileBytes = 20 * 1024;
+
+enum GenFwdForm { kGenFwdRing = 0, kGenFwdGrouped = 1, kGenFwdNarrow = 2 };
+
+struct GenFwdPlan {
+  int form;                   // kGenFwdRing, kGenFwdNarrow or kGenFwdGrouped
+  int mt, ns, nt_s, nt;       // m-tiles; sum columns, their n-tiles; all n-tiles
+  int wm, wn, wk, mw, nw;     // warps along m, n, k; m- and n-tiles a warp owns
+  int kpw, rows, stages;      // k-steps a warp a tile; R rows a tile; S stages
+  int feat_bytes, prob_bytes, id_bytes, stage_bytes;   // of a whole tile
+  int b_stride, b_bytes;      // bf16 between two columns of a table; one table
+  int red_bytes;              // the block's totals (f32)
+  int bar_at, part_at, b_at, ring_at, smem;
+};
+
+// the grouped form's shared memory: G = max(1, 256 / F) groups' sums
+// (P*C*F), counts (P*C), certain rows (1) and with the std S2 (C*F), f32
+inline constexpr long long gen_fwd_grouped_bytes(int C, int P, int F, bool with_std) {
+  return 4LL * (F >= kGenBwdThreads ? 1 : kGenBwdThreads / F) *
+         (static_cast<long long>(P) * C * F + P * C + 1 + (with_std ? static_cast<long long>(C) * F : 0));
+}
+
+// The plan of one forward call; es = sizeof(T) (2 or 4).
+inline GenFwdPlan gen_fwd_plan(int C, int P, int F, bool with_std, int es) {
+  GenFwdPlan p{};
+  p.mt = F / 16 + 1;
+  p.ns = static_cast<int>(gen_round_up(static_cast<long long>(P) * C + 1, 8));
+  p.nt_s = p.ns / 8;
+  p.nt = p.nt_s + (with_std ? static_cast<int>(gen_round_up(C, 8)) / 8 : 0);
+  // one n-tile: the narrow form, its register tile 4 x 1
+  const bool narrow = p.nt == 1;
+  const int mt_cap = gen_fwd_mt_cap(narrow, es);
+  bool split = false;
+  for (int prod = 1; prod <= kGenWarpsPerBlock && !split; prod *= 2) {
+    for (int wm = prod; wm >= 1; wm /= 2) {
+      const int wn = prod / wm;
+      if ((p.mt + wm - 1) / wm <= mt_cap && (p.nt + wn - 1) / wn <= kGenFwdNT) {
+        p.wm = wm;
+        p.wn = wn;
+        split = true;
+        break;
+      }
+    }
+  }
+  if (split) {
+    p.wk = kGenWarpsPerBlock / (p.wm * p.wn);
+    p.mw = (p.mt + p.wm - 1) / p.wm;
+    p.nw = (p.nt + p.wn - 1) / p.wn;
+    const long long row_bytes = static_cast<long long>(F) * es + 4LL * C + (P > 1 ? 4 : 0);
+    int kpw0 = 4;
+    while (kpw0 > 1 && 16LL * p.wk * kpw0 * row_bytes > kGenFwdTileBytes) kpw0 /= 2;
+    // the narrow form: three blocks an SM if they fit
+    const int budgets[3] = {narrow ? kGenFwdNarrowBudget : kGenFwdBudget, kGenFwdBudget,
+                            kGenSmemLimit};
+    for (int budget : budgets) {
+      for (int kpw = kpw0; kpw >= 1; kpw /= 2) {
+        const long long R = 16LL * p.wk * kpw;
+        const long long fb = R * F * es, pb = R * C * 4, ib = P > 1 ? R * 4 : 0;
+        const long long stage = fb + pb + ib;
+        const long long table = 3LL * p.nt * 8 * (R + 8) * 2;
+        const long long red = 4LL * p.mt * 16 * p.nt * 8;
+        for (int S = kGenFwdMaxStages; S >= 2; --S) {
+          const long long part_at = 16LL * S;
+          const long long b_at = gen_round_up(part_at + 8 * R, 128);
+          const long long ring_at = gen_round_up(b_at + 2 * table, 128);
+          long long smem = ring_at + S * stage;
+          if (b_at + red > smem) smem = b_at + red;
+          if (smem > budget) continue;
+          p.form = narrow ? kGenFwdNarrow : kGenFwdRing;
+          p.kpw = kpw;
+          p.rows = static_cast<int>(R);
+          p.stages = S;
+          p.feat_bytes = static_cast<int>(fb);
+          p.prob_bytes = static_cast<int>(pb);
+          p.id_bytes = static_cast<int>(ib);
+          p.stage_bytes = static_cast<int>(stage);
+          p.b_stride = static_cast<int>(R + 8);
+          p.b_bytes = static_cast<int>(table);
+          p.red_bytes = static_cast<int>(red);
+          p.bar_at = 0;
+          p.part_at = static_cast<int>(part_at);
+          p.b_at = static_cast<int>(b_at);
+          p.ring_at = static_cast<int>(ring_at);
+          p.smem = static_cast<int>(smem);
+          return p;
+        }
+      }
+    }
+  }
+  GenFwdPlan g{};
+  g.form = kGenFwdGrouped;
+  g.rows = F >= kGenBwdThreads ? 1 : kGenBwdThreads / F;   // a group a row
+  const long long smem = gen_fwd_grouped_bytes(C, P, F, with_std);
+  g.smem = smem > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(smem);
+  return g;
 }
 
 }  // namespace slcl

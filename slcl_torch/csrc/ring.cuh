@@ -57,6 +57,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Whether the phase of this parity has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // global -> shared, `bytes` (a multiple of 16) completing on `bar`.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {

@@ -1233,21 +1233,72 @@ int occupancy_of(int bwd, int F, int P, int with_std, int* blocks_per_sm,
 
 // ---- the general family (centroids_gen.cuh): any C, P and F ----
 
+// The general forward's instantiation of a plan: its form (kForm), from
+// gen_fwd_plan (centroids_gen_plan.cuh)
+#define SLCL_GEN_FWD_FORM(plan, ...)                                                        \
+  if ((plan).form == slcl::kGenFwdRing) {                                                  \
+    constexpr int kForm = slcl::kGenFwdRing; __VA_ARGS__;                                 \
+  } else if ((plan).form == slcl::kGenFwdNarrow) {                                         \
+    constexpr int kForm = slcl::kGenFwdNarrow; __VA_ARGS__;                               \
+  } else {                                                                                 \
+    constexpr int kForm = slcl::kGenFwdGrouped; __VA_ARGS__;                              \
+  }
+
+// The general forward's grid: the ring forms' persistent grid from
+// ring_grid (tiles of plan.rows rows at the plan's shared memory), capped
+// as the templated forwards' at kMaxBlocks; the grouped form's gen_grid, a
+// group a row.
+template <typename T, bool kS, int kForm>
+int gen_fwd_grid(const slcl::GenFwdPlan& plan, int M, int F, int* grid) {
+  if constexpr (kForm != slcl::kGenFwdGrouped) {
+    const int rc = slcl::ring_grid<slcl::centroids_gen_fwd_partial<T, kS, kForm>>(
+        M, plan.rows, plan.smem, grid);
+    if (rc == 0 && *grid > slcl::kMaxBlocks) *grid = slcl::kMaxBlocks;
+    return rc;
+  } else {
+    *grid = slcl::gen_grid(M, slcl::gen_cent_groups(F));
+    return slcl::gen_prepare<slcl::centroids_gen_fwd_partial<T, kS, kForm>>(plan.smem);
+  }
+}
+
 template <typename T>
 int gen_launch_partial(const void* feats, const float* probs, const int* assign, int M, int F,
                        int C, int P, float thd, int use_thd, int weighted, int with_std,
                        float* partials, int* nparts, cudaStream_t st) {
-  const int grid = slcl::gen_grid(M, slcl::gen_cent_groups(F));
   SLCL_DISPATCH_STD(with_std, {
-    const int smem = slcl::gen_cent_fwd_smem(C, P, F, kS);
-    const int rc = slcl::gen_prepare<slcl::centroids_gen_fwd_partial<T, kS>>(smem);
-    if (rc != 0) return rc;
-    slcl::centroids_gen_fwd_partial<T, kS><<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted,
-        partials);
+    const slcl::GenFwdPlan plan = slcl::gen_fwd_plan(C, P, F, kS, sizeof(T));
+    SLCL_GEN_FWD_FORM(plan, {
+      int grid = 0;
+      const int rc = gen_fwd_grid<T, kS, kForm>(plan, M, F, &grid);
+      if (rc != 0) return rc;
+      slcl::centroids_gen_fwd_partial<T, kS, kForm><<<grid, kThreads, plan.smem, st>>>(
+          static_cast<const T*>(feats), probs, assign, M, F, C, P, thd, use_thd, weighted,
+          partials, plan);
+      *nparts = grid;
+      return static_cast<int>(cudaGetLastError());
+    });
   });
-  *nparts = grid;
-  return static_cast<int>(cudaGetLastError());
+  return -1;
+}
+
+// The floats of the general forward's partial buffer: values a block x the
+// blocks of its grid on the current device.
+template <typename T>
+int gen_partials_size(int M, int F, int C, int P, int with_std, int* n) {
+  SLCL_DISPATCH_STD(with_std, {
+    const slcl::GenFwdPlan plan = slcl::gen_fwd_plan(C, P, F, kS, sizeof(T));
+    SLCL_GEN_FWD_FORM(plan, {
+      int grid = 0;
+      const int rc = gen_fwd_grid<T, kS, kForm>(plan, M, F, &grid);
+      if (rc != 0) return rc;
+      const long long size =
+          static_cast<long long>(slcl::gen_cent_values(C, P, F, kS)) * grid;
+      if (size > 0x7fffffffLL) return -1;
+      *n = static_cast<int>(size);
+      return 0;
+    });
+  });
+  return -1;
 }
 
 int gen_launch_final(const float* partials, int nparts, int M, int F, int C, int P,
@@ -1326,8 +1377,11 @@ int gen_occupancy_of(int bwd, int F, int C, int P, int with_std, int with_dprobs
             plan.smem, blocks_per_sm, smem_bytes);
       });
     }
-    return slcl::gen_occupancy<slcl::centroids_gen_fwd_partial<T, kS>>(
-        slcl::gen_cent_fwd_smem(C, P, F, kS), blocks_per_sm, smem_bytes);
+    const slcl::GenFwdPlan plan = slcl::gen_fwd_plan(C, P, F, kS, sizeof(T));
+    SLCL_GEN_FWD_FORM(plan, {
+      return slcl::gen_occupancy<slcl::centroids_gen_fwd_partial<T, kS, kForm>>(
+          plan.smem, blocks_per_sm, smem_bytes);
+    });
   });
   return -1;
 }
@@ -1445,19 +1499,15 @@ int soft_centroids_occupancy(int bwd, int feats_bf16, int F, int P, int with_std
 }
 
 // ---- the general family: the same calls at any C, P >= 1 and F >= 1;
-// -1 where a kernel's shared memory (centroids_gen.cuh: gen_cent_fwd_smem,
-// gen_cent_final_smem; centroids_gen_plan.cuh: gen_bwd_plan) does not fit
-// a block of this device ----
+// -1 where a kernel's shared memory (centroids_gen_plan.cuh: gen_fwd_plan,
+// gen_bwd_plan; centroids_gen.cuh: gen_cent_final_smem) does not fit a
+// block of this device ----
 
 int soft_centroids_gen_partials_size(int feats_bf16, int M, int F, int P, int C, int with_std,
                                      int* n) {
-  (void)feats_bf16;
   if (C < 1 || P < 1 || F < 1) return -1;
-  const long long size = static_cast<long long>(slcl::gen_cent_values(C, P, F, with_std)) *
-                         slcl::gen_grid(M, slcl::gen_cent_groups(F));
-  if (size > 0x7fffffffLL) return -1;
-  *n = static_cast<int>(size);
-  return 0;
+  return feats_bf16 ? gen_partials_size<__nv_bfloat16>(M, F, C, P, with_std, n)
+                    : gen_partials_size<float>(M, F, C, P, with_std, n);
 }
 
 int soft_centroids_gen_fwd_partial(const void* feats, int feats_bf16, const void* probs,

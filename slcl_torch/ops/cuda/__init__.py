@@ -89,7 +89,12 @@ TEMPLATED_F = (8, 16, 32, 64)
 # kernel's static shared memory; the C entry points check the device's own
 SMEM_LIMIT = 227 * 1024 - 1024
 SMEM_FORMULAS = ("rows (MPCL, fused target, pseudo-labels): 4*(C*F + 256*(C|1)); "
-                 "centroid forward: 4*G*(P*C*F + P*C + 1 + std*C*F), G = max(1, 256 // F); "
+                 "centroid forward: a ring of S (3, else 2) stages of R rows, barriers "
+                 "ceil128(16*S + 8*R) + two weight tables 2*3*nt*8*(R+8)*2 "
+                 "+ S*R*(F*itemsize + 4*C + 4*(P>1)), nt = ceil8(P*C+1)/8 + std*ceil8(C)/8, "
+                 "at least the totals 4*(F//16+1)*16*nt*8 (gen_fwd_plan, bf16 and f32), "
+                 "else the grouped form: 4*G*(P*C*F + P*C + 1 + std*C*F), "
+                 "G = max(1, 256 // F); "
                  "centroid final pass: 4*(2*F + P); "
                  "centroid backward: a ring of 2 stages of R rows, coefficients "
                  "4*(P*C*F + P*C + std*2*C*F) + barriers 32 + row tables R*(C+2)*4 "
@@ -104,6 +109,18 @@ GEN_BWD_BUDGET = 110 * 1024
 GEN_TILE_BYTES = 20 * 1024
 GEN_REG_CLASSES = 6
 GEN_REG_CLASSES_STD = 5
+# the general centroid forward's plan (the same header): the m- and n-tiles
+# whose totals a warp holds (fewer m-tiles in the bf16 ring form), the ring form's blocks an SM and its budget
+# (two blocks an SM), its most stages, the tile bytes it aims at
+GEN_FWD_MT = 4
+GEN_FWD_MT_WIDE = 2     # the bf16 ring form's (two blocks an SM)
+GEN_FWD_NT = 4
+GEN_FWD_BLOCKS = 2
+GEN_FWD_BUDGET = 110 * 1024
+GEN_FWD_NARROW_BLOCKS = 3      # the narrow form's (one n-tile)
+GEN_FWD_NARROW_BUDGET = 72 * 1024
+GEN_FWD_MAX_STAGES = 3
+GEN_FWD_TILE_BYTES = 20 * 1024
 
 
 def route(C: int, P: int, F: int, dtype: torch.dtype = torch.float32) -> str:
@@ -169,16 +186,91 @@ def gen_bwd_plan(C: int, P: int, F: int, with_std: bool = False, itemsize: int =
     return plan
 
 
+def gen_fwd_plan(C: int, P: int, F: int, with_std: bool = False,
+                 itemsize: int = 2) -> Dict[str, int]:
+    """The general centroid forward's launch plan at (C, P, F, std) and
+    feature bytes ``itemsize``: ``csrc/centroids_gen_plan.cuh``'s
+    ``gen_fwd_plan``, which ``tests/test_torch_general_shapes.py`` compiles
+    and holds this to. ``form`` is ``"ring"`` (the tensor-core product on a
+    bulk-copy ring), ``"narrow"`` (the same with one n-tile, three blocks
+    an SM) or ``"grouped"``; ``mt`` the m-tiles (16 features each,
+    the row of ones at F included), ``ns`` / ``nt_s`` the sum columns and
+    their n-tiles, ``nt`` all n-tiles; ``wm`` / ``wn`` / ``wk`` the warps
+    along m, n and k, ``mw`` / ``nw`` the tiles a warp owns, ``kpw`` its
+    k-steps a tile, ``rows`` / ``stages`` a ring tile's rows and the
+    ring's stages, each array's bytes in a stage, a weight table's column
+    stride and bytes, the totals' bytes, the offsets and ``smem``, the
+    dynamic shared memory of a block."""
+    mt = F // 16 + 1
+    ns = -(-(P * C + 1) // 8) * 8
+    nt = ns // 8 + (-(-C // 8) if with_std else 0)
+    plan = dict(form="ring", mt=mt, ns=ns, nt_s=ns // 8, nt=nt)
+    narrow = nt == 1
+    mt_cap = GEN_FWD_MT_WIDE if itemsize == 2 and not narrow else GEN_FWD_MT
+    split = None
+    prod = 1
+    while prod <= 8 and split is None:
+        wm = prod
+        while wm >= 1:
+            wn = prod // wm
+            if -(-mt // wm) <= mt_cap and -(-nt // wn) <= GEN_FWD_NT:
+                split = (wm, wn)
+                break
+            wm //= 2
+        prod *= 2
+    if split is not None:
+        wm, wn = split
+        wk = 8 // (wm * wn)
+        plan.update(wm=wm, wn=wn, wk=wk, mw=-(-mt // wm), nw=-(-nt // wn))
+        row_bytes = F * itemsize + 4 * C + (4 if P > 1 else 0)
+        kpw0 = 4
+        while kpw0 > 1 and 16 * wk * kpw0 * row_bytes > GEN_FWD_TILE_BYTES:
+            kpw0 //= 2
+        for budget in ((GEN_FWD_NARROW_BUDGET if narrow else GEN_FWD_BUDGET), GEN_FWD_BUDGET,
+                       SMEM_LIMIT):
+            kpw = kpw0
+            while kpw >= 1:
+                R = 16 * wk * kpw
+                fb, pb, ib = R * F * itemsize, R * C * 4, (R * 4 if P > 1 else 0)
+                stage = fb + pb + ib
+                table = 3 * nt * 8 * (R + 8) * 2
+                red = 4 * mt * 16 * nt * 8
+                for S in range(GEN_FWD_MAX_STAGES, 1, -1):
+                    part_at = 16 * S
+                    b_at = -(-(part_at + 8 * R) // 128) * 128
+                    ring_at = -(-(b_at + 2 * table) // 128) * 128
+                    smem = max(ring_at + S * stage, b_at + red)
+                    if smem <= budget:
+                        plan.update(form="narrow" if narrow else "ring", kpw=kpw, rows=R,
+                                    stages=S, feat_bytes=fb, prob_bytes=pb, id_bytes=ib, stage_bytes=stage, b_stride=R + 8,
+                                    b_bytes=table, red_bytes=red, bar_at=0, part_at=part_at,
+                                    b_at=b_at,
+                                    ring_at=ring_at, smem=smem)
+                        return plan
+                kpw //= 2
+    groups = 1 if F >= 256 else 256 // F
+    grouped = 4 * groups * (P * C * F + P * C + 1 + (C * F if with_std else 0))
+    return dict.fromkeys(GEN_FWD_KEYS, 0) | dict(form="grouped", rows=groups,
+                                                 smem=min(grouped, 0x7fffffff))
+
+
+# the fields of gen_fwd_plan, in the C++ struct's order
+GEN_FWD_KEYS = ("form", "mt", "ns", "nt_s", "nt", "wm", "wn", "wk", "mw", "nw", "kpw", "rows",
+                "stages", "feat_bytes", "prob_bytes", "id_bytes", "stage_bytes", "b_stride",
+                "b_bytes", "red_bytes", "bar_at", "part_at", "b_at", "ring_at", "smem")
+
+
 def general_smem(C: int, P: int, F: int, with_std: bool = False) -> Dict[str, int]:
     """Dynamic shared memory (bytes) of each general kernel at (C, P, F):
     the formulas of ``csrc/general.cuh`` and ``csrc/centroids_gen.cuh``; the
-    backward's is its plan's (:func:`gen_bwd_plan`, bf16 features with
-    dprobs), which takes the direct form's coefficients alone where no ring
-    fits, so it fits wherever they do."""
+    centroid forward's is its plan's (:func:`gen_fwd_plan`), the larger of
+    bf16's and f32's, the backward's its plan's (:func:`gen_bwd_plan`,
+    bf16 features with dprobs). Each plan takes a form whose shared memory
+    is the first design's (the forward's grouped form, the backward's
+    direct one) where no ring fits, so it fits wherever that did."""
     s = int(bool(with_std))
-    groups = 1 if F >= 256 else 256 // F
     return {"rows": 4 * (C * F + 256 * (C | 1)),
-            "centroid_fwd": 4 * groups * (P * C * F + P * C + 1 + s * C * F),
+            "centroid_fwd": max(gen_fwd_plan(C, P, F, with_std, es)["smem"] for es in (2, 4)),
             "centroid_final": 4 * (2 * F + P),
             "centroid_bwd": gen_bwd_plan(C, P, F, with_std)["smem"]}
 

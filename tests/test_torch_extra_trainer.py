@@ -3,7 +3,9 @@ one epoch of each on the fixture trees (AdaptEvery on the MMWHS PNG tree
 with its ``vertCT``/``vertMR`` point clouds; DDFSeg and BCL on MS-CMRSeg)
 with validation, the final test and a checkpoint that the evaluation CLI
 restores; BCL's pseudo-labels after a round against the JAX trainer's
-``_bcl_update_plabels`` on the same weights and images (exactly); and a
+``_bcl_update_plabels`` on the same weights and images (the round's logic
+bit for bit on JAX's probabilities, the probabilities within a float32
+tolerance, the maps equal away from threshold ties); and a
 checkpoint of each method's extra networks (``d_seg``, ``d_ent``,
 ``d_point``) restored bit for bit, the next step after the restore equal to
 the uninterrupted one (dropout masks included: they follow the seed and
@@ -97,13 +99,70 @@ def _bcl_cfg(cls, recipe):
     return cfg
 
 
+# the port's and JAX's float32 softmaxes on the same weights part by about
+# one ulp (max 2.98e-8 here, at 0.2512; under 7 ulps there)
+PROB_ATOL = 2e-7
+# at most this many ties of the round's 6 x 32 x 32 pixels: pixels where a
+# class threshold (a quantile of the confidences, so often a pixel's own
+# value) lies between the two packages' confidences, or whose argmax
+# differs between them
+TIE_BOUND = 16
+
+
+def _port_probs(port):
+    """The port's round's softmax of every train_t image, as
+    ``Trainer.bcl_update_plabels`` takes it: (N, H, W, C) and the names."""
+    from slcl_torch.data import Loader
+    from slcl_torch.parallel import mesh as dp
+    from slcl_torch.train.steps import autocast
+    cfg = port.cfg
+    loader = Loader(port.datasets["train_t"], cfg.data.eval_bs, shuffle=False,
+                    drop_last=False, num_threads=cfg.data.num_workers)
+    probs, names = [], []
+    with dp.use(None), port.evaluator.eval_mode():
+        for img, _lab, batch_names in loader:
+            with autocast(cfg.model.dtype, port.device):
+                logits, _ = port.state.seg(port.evaluator.to_device(img), source=False)
+            probs.append(torch.softmax(logits.float(), dim=-1).numpy())
+            names.extend(batch_names)
+    return np.concatenate(probs), names
+
+
+def _jax_probs(jt):
+    """The JAX trainer's round's softmax (``_bcl_update_plabels``' infer)."""
+    from slcl_tpu.data.loader import Loader
+    cfg = jt.cfg
+    loader = Loader(jt.datasets["train_t"], cfg.data.eval_bs, shuffle=False,
+                    drop_last=False, num_threads=cfg.data.num_workers)
+    variables = {"params": jt.state.seg.params, "batch_stats": jt.state.seg.batch_stats}
+    probs, names = [], []
+    for img, _lab, batch_names in loader:
+        pred, _ = jt.model.apply(variables, jnp.asarray(img), False, False)
+        probs.append(np.asarray(jax.nn.softmax(pred.astype(jnp.float32), axis=-1)))
+        names.extend(batch_names)
+    return np.concatenate(probs), names
+
+
 @pytest.mark.parametrize("prop", [0.2, 0.5])
 def test_bcl_pseudo_labels_match_the_jax_trainer(prop):
     """The port's round on its own random weights, then the JAX trainer's
     ``_bcl_update_plabels`` on the same weights (its model in float32 as the
-    port's) and images: every image's pseudo-label map equal."""
+    port's) and images:
+    - the port's round logic (its ``gene_thres`` and the threshold rule of
+      ``Trainer.bcl_update_plabels``) on JAX's own probabilities gives JAX's
+      thresholds and pseudo-label maps bit for bit;
+    - the port's probabilities are JAX's within PROB_ATOL, its thresholds
+      too;
+    - the port's own maps equal JAX's at every pixel that is not a tie (a
+      threshold of either package between the two packages' confidences,
+      or an argmax that differs, which only a top-two gap within 2
+      PROB_ATOL may do), and there are at most TIE_BOUND ties."""
     from slcl_tpu.config import Config, apply_recipe
+    from slcl_tpu.ops.centroids import gene_thres as j_gene_thres
+    from slcl_tpu.ops.centroids import thres_cb_plabel
     from slcl_tpu.train.trainer import Trainer
+
+    from slcl_torch.ops.centroids import gene_thres as t_gene_thres
 
     data = {"train_s": _Images(4, 1), "train_t": _Images(6, 2), "valid_t": _Images(2, 3),
             "test_t": _Images(2, 4)}
@@ -121,9 +180,44 @@ def test_bcl_pseudo_labels_match_the_jax_trainer(prop):
         batch_stats=jax.tree.map(jnp.asarray, flax["batch_stats"])))
     jt._bcl_update_plabels(prop)
     assert set(port.bcl_plabels) == set(jt._bcl_plabels) == {n for *_, n in data["train_t"].items}
+    nc = port.cfg.model.num_classes
+
+    # the round logic, on JAX's probabilities: bit for bit
+    pj, names = _jax_probs(jt)
+    conf_j, pred_j = pj.max(-1), pj.argmax(-1)
+    th_j = np.asarray(j_gene_thres(conf_j.ravel(), pred_j.ravel(), prop, nc))
+    th = t_gene_thres(conf_j.ravel(), pred_j.ravel(), prop, nc)
+    np.testing.assert_array_equal(th, th_j)
+    logic = np.where(conf_j >= th[pred_j], pred_j, 255).astype(np.int32)
+    for i, name in enumerate(names):
+        want = np.asarray(thres_cb_plabel(jnp.asarray(pj[i]), th_j, nc)[0], np.int32)
+        np.testing.assert_array_equal(want, jt._bcl_plabels[name], err_msg=name)
+        np.testing.assert_array_equal(logic[i], want, err_msg=name)
+
+    # the probabilities
+    pt, names_t = _port_probs(port)
+    assert names_t == names
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=PROB_ATOL)
+
+    # the port's own round, away from ties
+    conf_t, pred_t = pt.max(-1), pt.argmax(-1)
+    th_t = t_gene_thres(conf_t.ravel(), pred_t.ravel(), prop, nc)
+    np.testing.assert_allclose(th_t, th_j, rtol=0, atol=PROB_ATOL)
+    flip = pred_t != pred_j
+    top2 = np.sort(pj, axis=-1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0])[flip].max(initial=0.0) <= 2 * PROB_ATOL
+    lo, hi = np.minimum(conf_t, conf_j), np.maximum(conf_t, conf_j)
+    th_lo = np.minimum(th_t[pred_j], th_j[pred_j])
+    th_hi = np.maximum(th_t[pred_j], th_j[pred_j])
+    apart = (conf_t != conf_j) | (th_t[pred_j] != th_j[pred_j])
+    tie = flip | (apart & (np.maximum(lo, th_lo) <= np.minimum(hi, th_hi)))
+    ties = int(tie.sum())
+    print(f"prop {prop}: {ties} tie pixels of {tie.size}")
+    assert ties <= TIE_BOUND, ties
     kept = 0
-    for name, want in jt._bcl_plabels.items():
-        np.testing.assert_array_equal(port.bcl_plabels[name], want, err_msg=name)
+    for i, name in enumerate(names):
+        got, want = port.bcl_plabels[name], jt._bcl_plabels[name]
+        np.testing.assert_array_equal(got[~tie[i]], want[~tie[i]], err_msg=name)
         kept += int((want != 255).sum())
     assert 0 < kept < 6 * 32 * 32
 

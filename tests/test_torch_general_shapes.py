@@ -382,8 +382,19 @@ def test_shape_limit_and_its_message():
             if -(-(coef + 16 * n + 160 * (5 + 2) * 4 + 160 * 5 * 8 * 4) // 128) * 128
             + n * stage <= K.GEN_BWD_BUDGET)
     ring_at = -(-(coef + 16 * S + 160 * (5 + 2) * 4 + 160 * 5 * 8 * 4) // 128) * 128
+    # the forward's ring there: 128-row tiles (15,360 bf16 bytes, within the
+    # 20 KB aimed at); 4 n-tiles (P*C + 1 = 21 columns rounded up to 24,
+    # then the std's 5 to 8); the stages' full and empty barriers (16 bytes
+    # a stage) and the two tables' row partitions (2 x 128 ints), rounded
+    # up to 128: 1,152 bytes; two weight tables of 3 terms x 32
+    # columns x 136 (128 rows and 8 more), bf16; then 3 stages in bf16 (4
+    # groups of two warps), 2 in f32 (3 would pass the 110 KB budget): the
+    # larger, f32's
+    head = 1152 + 2 * 3 * 32 * 136 * 2
+    assert K.gen_fwd_plan(5, 4, 48, True, 2)["smem"] == head + 3 * 128 * (48 * 2 + 24)
+    assert head + 3 * 128 * (48 * 4 + 24) > K.GEN_FWD_BUDGET
     assert need == {"rows": 4 * (5 * 48 + 256 * 5),
-                    "centroid_fwd": 4 * 5 * (4 * 5 * 48 + 4 * 5 + 1 + 5 * 48),
+                    "centroid_fwd": head + 2 * 128 * (48 * 4 + 5 * 4 + 4),
                     "centroid_final": 4 * (2 * 48 + 4),
                     "centroid_bwd": ring_at + S * stage}
     assert S == 2
@@ -567,22 +578,29 @@ def test_gen_bwd_plan_matches_the_cpp_plan(cpp_plans, f):
 def test_backward_admits_every_shape_the_parent_admitted(kernels, with_std):
     """Every (C, P, F, std) that the parent's formulas admit (by the
     kernels the wrappers and the Trainer check together, and by the
-    backward's alone) is admitted, and no other: the ring is taken only
-    where it fits, and the direct form needs what the parent's backward
-    did. Includes the shapes at the limit, and F = 2048 at C = 4, P <= 2
-    (DeepLabV2's width), admitted in bf16 and f32, on the ring in bf16."""
+    backward's alone) is admitted, and no other but those the forward's
+    ring now takes where the parent's grouped forward did not fit: the
+    backward's ring is taken only where it fits, and the direct form needs
+    what the parent's backward did. Includes the shapes at the limit, and F
+    = 2048 at C = 4, P <= 2 (DeepLabV2's width), admitted in bf16 and f32,
+    on the ring in bf16."""
     shapes = [(C, P, F) for C, P, F, s in _plan_grid() if s == with_std]
     assert len(shapes) > 300
     admitted = 0
     for C, P, F in shapes:
         old = _parent_smem(C, P, F, with_std)
         parent_ok = all(old[k] <= K.SMEM_LIMIT for k in kernels)
+        fwd_ring = all(K.gen_fwd_plan(C, P, F, with_std, es)["form"] != "grouped"
+                       for es in (2, 4))
+        want = all(old[k] <= K.SMEM_LIMIT or (k == "centroid_fwd" and fwd_ring)
+                   for k in kernels)
         try:
             K.check_shape(C, F, P, with_std, kernels)
             ok = True
         except ValueError:
             ok = False
-        assert ok == parent_ok, (C, P, F, with_std, kernels)
+        assert ok == want, (C, P, F, with_std, kernels)
+        assert ok or not parent_ok, (C, P, F, with_std, kernels)
         admitted += ok
         for es in (2, 4):
             for dp in (False, True):
@@ -642,3 +660,215 @@ def test_ring_stages_are_whole_bulk_copies(itemsize, dprobs):
         p = K.gen_bwd_plan(C, P, F, s, itemsize, dp)
         assert p["form"] == "ring" and p["regs"] == regs
         assert p["smem"] <= K.GEN_BWD_BUDGET
+
+
+# ---------------------------------------------------------------------------
+# the general centroid forward's plan (csrc/centroids_gen_plan.cuh)
+# ---------------------------------------------------------------------------
+FWD_PLAN_MAIN = r"""
+#include <cstdio>
+#include "centroids_gen_plan.cuh"
+int main() {
+  int C, P, F, s, es;
+  while (std::scanf("%d %d %d %d %d", &C, &P, &F, &s, &es) == 5) {
+    const slcl::GenFwdPlan p = slcl::gen_fwd_plan(C, P, F, s != 0, es);
+    std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n",
+                p.form, p.mt, p.ns, p.nt_s, p.nt, p.wm, p.wn, p.wk, p.mw, p.nw, p.kpw,
+                p.rows, p.stages, p.feat_bytes, p.prob_bytes, p.id_bytes, p.stage_bytes,
+                p.b_stride, p.b_bytes, p.red_bytes, p.bar_at, p.part_at, p.b_at, p.ring_at,
+                p.smem);
+  }
+}
+"""
+
+
+def _fwd_limit_shapes():
+    """(C, P, F, std) at the edge of the parent's forward limit (its
+    grouped form's 4 * G * values): for each C, F and std the largest P
+    that fits, and one more."""
+    out = []
+    for with_std in (False, True):
+        for C in (1, 2, 4, 5, 8, 16):
+            for F in (1, 3, 8, 20, 40, 100, 256, 656, 1024):
+                groups = 1 if F >= 256 else 256 // F
+                per_p = 4 * groups * (C * F + C)
+                rest = 4 * groups * (1 + (C * F if with_std else 0))
+                p_max = (K.SMEM_LIMIT - rest) // per_p
+                out += [(C, p, F, with_std) for p in (p_max, p_max + 1) if p >= 1]
+    return out
+
+
+def _fwd_grid():
+    return list(dict.fromkeys(_plan_grid() + _fwd_limit_shapes()))
+
+
+@pytest.fixture(scope="module")
+def cpp_fwd_plans(tmp_path_factory):
+    """Every (C, P, F, std, itemsize) of _fwd_grid through the C++ forward
+    plan, compiled here with g++ from the kernels' own header."""
+    tmp = tmp_path_factory.mktemp("fwd_plan")
+    (tmp / "fwd_plan_main.cpp").write_text(FWD_PLAN_MAIN)
+    exe = tmp / "fwd_plan_main"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-Wall", "-Werror", "-I", str(CSRC),
+                    str(tmp / "fwd_plan_main.cpp"), "-o", str(exe)], check=True,
+                   capture_output=True, text=True)
+    calls = [(C, P, F, s, es) for C, P, F, s in _fwd_grid() for es in (2, 4)]
+    text = "".join(f"{C} {P} {F} {int(s)} {es}\n" for C, P, F, s, es in calls)
+    out = subprocess.run([str(exe)], input=text, check=True, capture_output=True,
+                         text=True).stdout.split("\n")
+    plans = {}
+    for call, line in zip(calls, out):
+        plan = dict(zip(K.GEN_FWD_KEYS, (int(v) for v in line.split())))
+        plan["form"] = ("ring", "grouped", "narrow")[plan["form"]]
+        plans[call] = plan
+    assert len(plans) == len(calls)
+    return plans
+
+
+@pytest.mark.parametrize("f", PLAN_F + ("limit",))
+def test_gen_fwd_plan_matches_the_cpp_plan(cpp_fwd_plans, f):
+    """ops/cuda/__init__.py::gen_fwd_plan (which general_smem and the shape
+    check read) is the kernel's own plan, field for field, in bf16 and f32;
+    general_smem's "centroid_fwd" is the larger of the two plans' smem,
+    the C++ expression's."""
+    calls = [c for c in cpp_fwd_plans if (c[2] == f if f != "limit" else c[2] not in PLAN_F)]
+    assert calls
+    for C, P, F, s, es in calls:
+        want = cpp_fwd_plans[(C, P, F, s, es)]
+        assert K.gen_fwd_plan(C, P, F, s, es) == want, (C, P, F, s, es)
+        assert K.general_smem(C, P, F, s)["centroid_fwd"] == max(
+            cpp_fwd_plans[(C, P, F, s, 2)]["smem"], cpp_fwd_plans[(C, P, F, s, 4)]["smem"])
+
+
+@pytest.mark.parametrize("with_std", [False, True])
+def test_forward_admits_every_shape_the_parent_admitted(with_std):
+    """Every (C, P, F, std) whose forward the parent admitted (its grouped
+    form's 4 * G * (P*C*F + P*C + 1 + std*C*F) within the limit) is
+    admitted, in bf16 and f32: the ring where it fits, else the grouped
+    form, which needs what the parent did. F in {1, 7, 13, 20, 24, 48, 128,
+    2048}, the shapes at the parent's limit, and DeepLabV2's F = 2048 at C
+    = 4, P <= 2."""
+    shapes = [(C, P, F) for C, P, F, s in _fwd_grid() if s == with_std]
+    assert len(shapes) > 300
+    kept = rings = 0
+    for C, P, F in shapes:
+        parent = _parent_smem(C, P, F, with_std)["centroid_fwd"]
+        for es in (2, 4):
+            plan = K.gen_fwd_plan(C, P, F, with_std, es)
+            if plan["form"] == "grouped":
+                assert plan["smem"] == parent
+            else:
+                assert plan["smem"] <= K.SMEM_LIMIT
+                rings += 1
+        new_ok = K.general_smem(C, P, F, with_std)["centroid_fwd"] <= K.SMEM_LIMIT
+        if parent <= K.SMEM_LIMIT:
+            assert new_ok, (C, P, F, with_std)
+            kept += 1
+    assert kept > 300 and rings > 300
+    for P in (1, 2):
+        K.check_shape(4, 2048, P, with_std, ("centroid_fwd", "centroid_final"))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_forward_ring_stages_are_whole_bulk_copies(itemsize):
+    """Each ring stage's bulk copies (features, probs, ids with P > 1)
+    start and end on 16 bytes for a whole tile and sit at 16-byte offsets of
+    a 128-byte-aligned ring; the weight tables lie between the barriers and
+    the ring, their rows 16-byte aligned and an odd number of 16-byte units
+    apart (ldmatrix reads no bank twice); the warps' split covers
+    every (m-tile, n-tile) with at most GEN_FWD_MT x GEN_FWD_NT a warp (the
+    narrow form, one n-tile, exactly where nt = 1); the block's totals fit
+    where the tables were."""
+    rings = 0
+    for C, P, F, s in _fwd_grid():
+        p = K.gen_fwd_plan(C, P, F, s, itemsize)
+        if p["form"] == "grouped":
+            continue
+        rings += 1
+        assert (p["form"] == "narrow") == (p["nt"] == 1)
+        assert p["mt"] == F // 16 + 1 and 16 * p["mt"] > F
+        assert p["ns"] % 8 == 0 and p["ns"] >= P * C + 1 and p["nt_s"] == p["ns"] // 8
+        assert 8 * p["nt"] == p["ns"] + (-(-C // 8) * 8 if s else 0)
+        assert p["wm"] * p["wn"] * p["wk"] == 8
+        cap = K.GEN_FWD_MT_WIDE if itemsize == 2 and p["form"] == "ring" else K.GEN_FWD_MT
+        assert p["mw"] * p["wm"] >= p["mt"] and p["mw"] <= cap
+        assert p["nw"] * p["wn"] >= p["nt"] and p["nw"] <= K.GEN_FWD_NT
+        R = p["rows"]
+        assert R == 16 * p["wk"] * p["kpw"] and p["kpw"] in (1, 2, 4)
+        assert R & (R - 1) == 0     # the row step takes r and q by mask and shift
+        assert p["feat_bytes"] == R * F * itemsize and p["prob_bytes"] == R * C * 4
+        assert p["id_bytes"] == (R * 4 if P > 1 else 0)
+        for b in ("feat_bytes", "prob_bytes", "id_bytes", "stage_bytes"):
+            assert p[b] % 16 == 0, (C, P, F, s, b, p[b])
+        assert p["stage_bytes"] == p["feat_bytes"] + p["prob_bytes"] + p["id_bytes"]
+        assert p["b_stride"] == R + 8 and (2 * p["b_stride"]) % 32 == 16
+        assert p["b_bytes"] == 3 * p["nt"] * 8 * p["b_stride"] * 2
+        assert p["bar_at"] == 0 and p["part_at"] == 16 * p["stages"]
+        assert p["part_at"] % 16 == 0 and p["b_at"] >= p["part_at"] + 8 * R
+        assert p["b_at"] % 128 == 0
+        # a k-group's slice of a stage: RG = R / wk rows, whole 16-byte copies
+        RG = R // p["wk"]
+        assert RG % 16 == 0 and RG & (RG - 1) == 0
+        assert p["ring_at"] % 128 == 0 and p["ring_at"] >= p["b_at"] + 2 * p["b_bytes"]
+        assert p["red_bytes"] == 4 * p["mt"] * 16 * p["nt"] * 8
+        assert p["smem"] == max(p["ring_at"] + p["stages"] * p["stage_bytes"],
+                                p["b_at"] + p["red_bytes"]) <= K.SMEM_LIMIT
+        assert p["stages"] in (2, 3)
+    assert rings > 500
+    # the general cells' calls and the forced ones: every warp on its own
+    # k-steps of all the tile's sums (the bf16 std: of half its m-tiles), in
+    # bf16 within two blocks' budget
+    for C, P, F, s in ((5, 4, 48, True), (5, 1, 48, False), (5, 1, 24, False),
+                       (4, 1, 32, False), (4, 2, 32, True)):
+        p = K.gen_fwd_plan(C, P, F, s, itemsize)
+        split = (2, 1, 4) if s and itemsize == 2 else (1, 1, 8)
+        assert p["form"] == ("ring" if s else "narrow") and (p["wm"], p["wn"], p["wk"]) == split
+        budget = K.GEN_FWD_BUDGET if s else K.GEN_FWD_NARROW_BUDGET
+        assert p["smem"] <= (budget if itemsize == 2 else K.SMEM_LIMIT)
+
+
+def _bf16_terms(v: torch.Tensor):
+    """The kernel's split of f32 values into three bf16 terms
+    (centroids_gen.cuh::bf16_terms): each the rest rounded to nearest."""
+    t0 = v.to(torch.bfloat16)
+    r1 = v - t0.float()
+    t1 = r1.to(torch.bfloat16)
+    t2 = (r1 - t1.float()).to(torch.bfloat16)
+    return t0, t1, t2
+
+
+def test_bf16_terms_rebuild_weights_and_squares_exactly():
+    """Every product of the forward's tensor-core sums is exact: a weight
+    w in [0, 1] (w = 0 or w >= 2^-110) is hi + mid + lo, three bf16
+    terms, exactly; x^2 of a bf16 x (every bf16 with 2^-50 <= |x| <= 2^50,
+    and 0) is hi + lo, two bf16 terms, as fma.rn.bf16x2 gives them (x^2
+    rounded to bf16, then x^2 - hi rounded to bf16); and a bf16 term times
+    a bf16 value is exact in f32."""
+    rng = np.random.default_rng(0)
+    w = np.concatenate([rng.random(1 << 20, dtype=np.float32),
+                        np.float32(2.0) ** -rng.integers(0, 111, 1 << 16).astype(np.float32)
+                        * rng.uniform(1, 2, 1 << 16).astype(np.float32),
+                        np.array([0.0, 1.0, np.nextafter(np.float32(1), np.float32(0)),
+                                  2.0 ** -110], np.float32)])
+    w = torch.from_numpy(np.clip(w, 0, 1).astype(np.float32))
+    t = _bf16_terms(w)
+    assert torch.equal(t[0].double() + t[1].double() + t[2].double(), w.double())
+    # f32 features take three terms too, at any sign
+    x32 = torch.from_numpy(rng.normal(size=1 << 18).astype(np.float32) * 1e3)
+    t = _bf16_terms(x32)
+    assert torch.equal(t[0].double() + t[1].double() + t[2].double(), x32.double())
+    # every bf16: its square in two terms
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    mag = x.float().abs()
+    x = x[(mag == 0) | ((mag >= 2.0 ** -50) & (mag <= 2.0 ** 50))]
+    sq = x.float() * x.float()            # exact: 16 significant bits
+    hi = sq.to(torch.bfloat16)
+    lo = (sq - hi.float()).to(torch.bfloat16)
+    assert x.numel() > 25_000
+    assert torch.equal(hi.double() + lo.double(), x.double() * x.double())
+    # a term times a feature: 8 x 8 significant bits, exact in f32
+    xs = x[torch.from_numpy(rng.integers(0, x.numel(), 1 << 16))]
+    for term in _bf16_terms(w[:1 << 16]):
+        assert torch.equal((term.float() * xs.float()).double(),
+                           term.double() * xs.double())

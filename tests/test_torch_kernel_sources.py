@@ -497,3 +497,70 @@ def test_general_centroid_backward_reads_its_rows_through_the_ring():
     assert "kGenTileBytes = 20 * 1024;" in plan and K.GEN_TILE_BYTES == 20 * 1024
     assert f"kGenRegClasses = {K.GEN_REG_CLASSES};" in plan
     assert f"kGenRegClassesStd = {K.GEN_REG_CLASSES_STD};" in plan
+
+
+def test_general_centroid_forward_reads_its_rows_through_the_ring():
+    """centroids_gen_fwd_partial's ring form fills its stages with ring.cuh's
+    bulk copies on a full barrier, takes its grid from ring_grid at its
+    plan's rows and shared memory (the partials' size from the same grid),
+    sums on the tensor cores (ldmatrix and mma.sync into registers) and
+    makes no read-modify-write of shared memory an element: the only
+    shared-memory sums are the warps' totals, once a block. The grouped
+    form (the first design) is kept for the shapes with no ring, chosen by
+    the plan alone. The plan's constants are the ones ops/cuda/__init__.py
+    mirrors."""
+    gen = _strip_comments((CSRC / "centroids_gen.cuh").read_text())
+    kernel = _body(gen, "centroids_gen_fwd_partial(const T* __restrict__ feats")
+    grouped = _body(kernel, "if constexpr (kForm == kGenFwdGrouped)")
+    ring = kernel[kernel.index(grouped) + len(grouped):]
+    for part in ("slcl::bulk_copy(", "slcl::mbar_expect_tx(&full[stage]",
+                 "slcl::mbar_wait(&full[stage], parity)", "ldsm_x4_trans(", "ldsm_x2(",
+                 "mma_bf16(d, a[x]", "mma_bf16(x == 0 ? d : d2, q2[x]", "tot[i][j][e] += d[e]",
+                 "bf16_terms("):
+        assert part in ring, part
+    tiles = _body(ring, "for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)")
+    # a warp arrives on the stage's empty barrier once its product is done;
+    # thread 0 refills a stage when every warp has, testing the barriers
+    # without waiting on them (between its own steps and while it waits on
+    # a full barrier); no barrier of the whole block a tile, the warps that
+    # share rows sync among themselves
+    assert tiles.index("slcl::mbar_arrive(&empty[stage])") > tiles.rindex("mma_bf16(")
+    assert "slcl::mbar_test(&empty[s], epar[s])" in ring and "mbar_wait(&empty" not in ring
+    assert tiles.count("poll();") == 2
+    assert "__syncthreads" not in tiles and '"bar.sync %0, %1;"' in ring
+    # no shared accumulator a row or an element: no fmaf, no += into an
+    # array other than the register totals
+    assert "fmaf(" not in tiles and "atomic" not in tiles
+    assert set(re.findall(r"(\w+)\[[^\]]*\](?:\[[^\]]*\])*\s*\+=", tiles)) == {"tot"}
+    assert "fmaf(" in grouped    # the first design's arithmetic, kept
+    src = _strip_comments((CSRC / "soft_centroids.cu").read_text())
+    grid = _body(src, "int gen_fwd_grid(")
+    assert re.search(r"slcl::ring_grid<slcl::centroids_gen_fwd_partial<T, kS, kForm>>\(\s*"
+                     r"M, plan\.rows, plan\.smem, grid\)", grid)
+    assert "slcl::gen_grid(M, slcl::gen_cent_groups(F))" in grid
+    for fn in ("int gen_launch_partial(", "int gen_partials_size("):
+        body = _body(src, fn)
+        assert "slcl::gen_fwd_plan(C, P, F, kS, sizeof(T))" in body
+        assert "gen_fwd_grid<T, kS, kForm>(plan, M, F, &grid)" in body
+    assert "<<<grid, kThreads, plan.smem, st>>>" in _body(src, "int gen_launch_partial(")
+    occ = _body(src, "int gen_occupancy_of(")
+    assert "gen_occupancy<slcl::centroids_gen_fwd_partial<T, kS, kForm>>(" in occ
+    plan = _strip_comments((CSRC / "centroids_gen_plan.cuh").read_text())
+    from slcl_torch.ops import cuda as K
+    assert f"kGenFwdMT = {K.GEN_FWD_MT};" in plan and f"kGenFwdNT = {K.GEN_FWD_NT};" in plan
+    assert f"kGenFwdMTWide = {K.GEN_FWD_MT_WIDE};" in plan
+    # the kernel's register tile is the plan's cap (gen_fwd_mt_cap)
+    assert "constexpr int kMT = kBf16 && kForm == kGenFwdRing ? kGenFwdMTWide : kGenFwdMT;" in ring
+    assert "return es == 2 && !narrow ? kGenFwdMTWide : kGenFwdMT;" in plan
+    assert f"kGenFwdBlocks = {K.GEN_FWD_BLOCKS};" in plan
+    assert "kGenFwdBudget = 110 * 1024;" in plan and K.GEN_FWD_BUDGET == 110 * 1024
+    assert f"kGenFwdMaxStages = {K.GEN_FWD_MAX_STAGES};" in plan
+    assert "kGenFwdTileBytes = 20 * 1024;" in plan and K.GEN_FWD_TILE_BYTES == 20 * 1024
+    launch = re.search(r"__launch_bounds__\(kThreads, (.*?)\)\ncentroids_gen_fwd_partial\(", gen,
+                       re.S).group(1)
+    assert " ".join(launch.split()) == (
+        "kForm == kGenFwdGrouped || sizeof(T) == 4 ? 1 : (kForm == kGenFwdNarrow ? "
+        "kGenFwdNarrowBlocks : kGenFwdBlocks)")
+    assert f"kGenFwdNarrowBlocks = {K.GEN_FWD_NARROW_BLOCKS};" in plan
+    assert "kGenFwdNarrowBudget = 72 * 1024;" in plan and K.GEN_FWD_NARROW_BUDGET == 72 * 1024
+    assert "constexpr int kNT = kForm == kGenFwdNarrow ? 1 : kGenFwdNT;" in ring

@@ -3,8 +3,8 @@
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 tools/ring_variants.py [bwd | fwd | std | bwd_soft | variant ...]
-                                   [--parent DIR]
+    python3 tools/ring_variants.py [bwd | fwd | std | bwd_soft | gen_bwd | gen_fwd |
+                                    variant ...] [--parent DIR]
 
 Each variant is a set of text edits of ``slcl_torch/csrc``; the script
 copies the sources into ``slcl_torch/_build/variants/<name>`` (git-ignored),
@@ -53,13 +53,33 @@ path's shapes (M = 16*224*224, F = 32, C = 4, bf16) with
   ``gen_bwd_no_store`` and
   ``gen_bwd_no_reduce`` drop the class terms, the bulk stores or the sum
   of a row's partials (wrong outputs: they show where the time goes).
+- ``gen_fwd_*`` variants edit ``centroids_gen_plan.cuh`` and
+  ``centroids_gen.cuh`` and time the general centroid forward
+  (``centroids_gen_fwd_partial``'s ring form and its final pass) at its
+  cells' three calls (the std, soft P = 4, F = 48 and soft P = 1, F = 48 at
+  C = 5; hard P = 1, F = 24) and at the main shape's two forced calls (hard
+  P = 1 and the std at P = 2, C = 4, F = 32): ``gen_fwd_two_stages`` /
+  ``gen_fwd_four_stages`` keep two / four stages (three here),
+  ``gen_fwd_tile10k`` / ``gen_fwd_tile40k`` aim tiles at half / twice the
+  bytes, ``gen_fwd_one_block`` takes one block an SM (two here),
+  ``gen_fwd_narrow_two_blocks`` the narrow form (the std-free calls, one
+  n-tile) at two blocks an SM (three here), ``gen_fwd_wide4`` the bf16
+  ring form's warps holding 4 m-tiles (2 here; the std calls),
+  ``gen_fwd_no_promote`` keeps the sums in the tensor cores' accumulators
+  across k-steps instead of adding each k-step's to f32 totals;
+  ``gen_fwd_memonly``, ``gen_fwd_no_rows`` and ``gen_fwd_no_product`` drop
+  the row step and the product, the row step, or the product (wrong
+  outputs: they show where the time goes). Each call's record has its
+  max |kernel - float64 sums| of the centroids (and stddevs), and a
+  ``torch.sum`` of its bytes is the read-only yardstick.
   With ``--parent DIR`` (a checkout of an earlier commit), the variant
   ``parent`` builds that checkout's sources unedited and times every
   kernel ``base`` times (``base --parent DIR``: the two trees' templated
-  kernels and the general backward's three calls in one call, in turns,
-  their outputs held to each other: the templated kernels' and the general
-  backward's dfeats bit for bit, the general dprobs within the plain
-  version's tolerance; the script exits 1 if they are not).
+  kernels and the general backward's and forward's calls in one call, in
+  turns, their outputs held to each other: the templated kernels' and the
+  general backward's dfeats bit for bit, the general dprobs within the plain
+  version's tolerance, the general forward's centroids and stddevs within
+  phase 2's; the script exits 1 if they are not).
   A ptxas report is looked up by the current source's symbols.
 
 A variant that does not compile is reported and left out; the others run.
@@ -85,6 +105,13 @@ sys.path.insert(0, str(ROOT))
 BWD, FWD, CEN = "mpcl_bwd_tile.cuh", "mpcl_fwd_tile.cuh", "soft_centroids.cu"
 _PLAN, _GEN = "centroids_gen_plan.cuh", "centroids_gen.cuh"
 _TILE = "kGenTileBytes = 20 * 1024;"
+_GFWD_TILE = "kGenFwdTileBytes = 20 * 1024;"
+_GFWD_STAGES = "constexpr int kGenFwdMaxStages = 3;"
+_GFWD_BLOCKS = "constexpr int kGenFwdBlocks = 2;"
+_GFWD_ROWS = "      for (int rl = gt; rl < RG; rl += gsize) {"
+_GFWD_PRODUCT = "      for (int l = 0; l < plan.kpw; ++l) {"
+_GFWD_NO_ROWS = (_GEN, _GFWD_ROWS, _GFWD_ROWS.replace("rl < RG;", "rl < 0;"))
+_GFWD_NO_PRODUCT = (_GEN, _GFWD_PRODUCT, _GFWD_PRODUCT.replace("l < plan.kpw", "l < 0"))
 _STAGES2 = "const int max_stages = 2;"
 _STAGES = ("32768 / kFeatBytes < 2 ? 2 : (32768 / kFeatBytes > 4 ? 4 : 32768 / kFeatBytes);")
 _FWD_BLOCKS = "kBlocksPerSM = kRowBytes <= 128 ? 3 : 2;"
@@ -111,12 +138,21 @@ GEN_BWD_CALLS = {"soft_centroids_bwd_std_general": (4, 48, True, True),
                  "soft_centroids_bwd_general": (1, 24, False, False)}
 GEN_BWD = tuple(GEN_BWD_CALLS)
 GEN_C = 5
-PARENT_KERNELS = BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD + GEN_BWD   # --parent
+# the general centroid forward's calls: (C, P, F, soft, std): the two general
+# cells' three, then the forced main-shape pair of chip_smoke.py phase 2
+GEN_FWD_CALLS = {"soft_centroids_fwd_std_general": (5, 4, 48, True, True),
+                 "soft_centroids_fwd_general_soft": (5, 1, 48, True, False),
+                 "soft_centroids_fwd_general": (5, 1, 24, False, False),
+                 "soft_centroids_fwd_general_forced": (4, 1, 32, False, False),
+                 "soft_centroids_fwd_std_general_forced": (4, 2, 32, True, True)}
+GEN_FWD = tuple(GEN_FWD_CALLS)
+PARENT_KERNELS = (BWD_KERNELS + FWD_KERNELS + STD_KERNELS + CEN_BWD + GEN_BWD
+                  + GEN_FWD)   # --parent
 LIB_OF = {"mpcl_bwd": "mpcl", "mpcl_pseudo_bwd": "mpcl_pseudo",
           "mpcl_pseudo_fwd": "mpcl_pseudo", "mpcl_fwd": "mpcl", "mpcl_fwd_sel": "mpcl",
           "pseudo_label": "pseudo_label", "soft_centroids_fwd": "soft_centroids",
           "soft_centroids_fwd_p2": "soft_centroids",
-          **dict.fromkeys(STD_KERNELS + CEN_BWD + GEN_BWD, "soft_centroids")}
+          **dict.fromkeys(STD_KERNELS + CEN_BWD + GEN_BWD + GEN_FWD, "soft_centroids")}
 # ptxas entry-function name parts of each timed kernel's instantiation
 SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              "mpcl_pseudo_bwd": "mpcl_pseudo_bwdI13__nv_bfloat16Li32E",
@@ -137,7 +173,10 @@ SYMBOL_OF = {"mpcl_bwd": "mpcl_bwdI13__nv_bfloat16Li32E",
              # the general backward's form at these calls: V = 8, registers
              "soft_centroids_bwd_std_general": "centroids_gen_bwdI13__nv_bfloat16Lb1ELi8ELi1EE",
              "soft_centroids_bwd_general_soft": "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE",
-             "soft_centroids_bwd_general": "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE"}
+             "soft_centroids_bwd_general": "centroids_gen_bwdI13__nv_bfloat16Lb0ELi8ELi1EE",
+             # the general forward's form: the ring with the std, else narrow
+             **{k: "centroids_gen_fwd_partialI13__nv_bfloat16Lb%dELi%dEE" % (v[4], 0 if v[4] else 2)
+                for k, v in GEN_FWD_CALLS.items()}}
 
 
 def _section(f: str, start: str, end: str) -> str:
@@ -631,17 +670,51 @@ VARIANTS = {
 }
 
 
+VARIANTS.update({
+    # the general centroid forward's plan (csrc/centroids_gen_plan.cuh) and
+    # ring form: two or four stages (three here); tiles of half and twice
+    # the bytes; one block an SM (two here; registers up to 255)
+    "gen_fwd_two_stages": (GEN_FWD, [(_PLAN, _GFWD_STAGES, "constexpr int kGenFwdMaxStages = 2;")]),
+    "gen_fwd_four_stages": (GEN_FWD, [(_PLAN, _GFWD_STAGES, "constexpr int kGenFwdMaxStages = 4;")]),
+    "gen_fwd_tile10k": (GEN_FWD, [(_PLAN, _GFWD_TILE, "kGenFwdTileBytes = 10 * 1024;")]),
+    "gen_fwd_tile40k": (GEN_FWD, [(_PLAN, _GFWD_TILE, "kGenFwdTileBytes = 40 * 1024;")]),
+    "gen_fwd_one_block": (GEN_FWD, [(_PLAN, _GFWD_BLOCKS, "constexpr int kGenFwdBlocks = 1;")]),
+    # the narrow form at two blocks an SM (three here), the ring's budget
+    "gen_fwd_narrow_two_blocks": (GEN_FWD[1:4], [
+        (_PLAN, "constexpr int kGenFwdNarrowBlocks = 3;", "constexpr int kGenFwdNarrowBlocks = 2;"),
+        (_PLAN, "constexpr int kGenFwdNarrowBudget = 72 * 1024;",
+         "constexpr int kGenFwdNarrowBudget = 110 * 1024;")]),
+    # the bf16 ring form's warps holding 4 m-tiles (2 here): fewer warps
+    # split over m, more registers
+    "gen_fwd_wide4": (GEN_FWD[0:1] + GEN_FWD[4:5], [
+        (_PLAN, "constexpr int kGenFwdMTWide = 2;", "constexpr int kGenFwdMTWide = 4;")]),
+    # the tensor cores' accumulators kept across k-steps (no f32 totals on
+    # the CUDA cores)
+    "gen_fwd_no_promote": (GEN_FWD, [
+        (_GEN, "                float d[4] = {0.f, 0.f, 0.f, 0.f};",
+         "                float (&d)[4] = tot[i][j];"),
+        (_GEN, "#pragma unroll\n                for (int e = 0; e < 4; ++e) tot[i][j][e] += d[e];\n",
+         "")]),
+    # where the time goes (wrong outputs): the ring alone; without the
+    # product; without the row step
+    "gen_fwd_memonly": (GEN_FWD, [_GFWD_NO_ROWS, _GFWD_NO_PRODUCT]),
+    "gen_fwd_no_product": (GEN_FWD, [_GFWD_NO_PRODUCT]),
+    "gen_fwd_no_rows": (GEN_FWD, [_GFWD_NO_ROWS]),
+})
+
+
 def ptxas_of(log: str, symbol: str) -> list:
-    """[registers, spill-store bytes] of the entry function whose name holds
-    ``symbol`` in one nvcc log."""
-    fn, spill = "", 0
+    """[registers, spill-store bytes, stack-frame bytes] of the entry
+    function whose name holds ``symbol`` in one nvcc log."""
+    fn, spill, stack = "", 0, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line
         elif "bytes spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            stack = int(line.split("bytes stack frame")[0].split()[-1])
         elif "Used" in line and symbol in fn:
-            return [int(line.split("Used")[1].split()[0]), spill]
+            return [int(line.split("Used")[1].split()[0]), spill, stack]
     return []
 
 
@@ -698,10 +771,11 @@ def main() -> int:
         i = args.index("--parent")
         parent = args[i + 1]
         del args[i:i + 2]
-    group = {"fwd": "fwd_", "std": "std_", "bwd_soft": "bwd_soft_", "gen_bwd": "gen_bwd_"}
+    group = {"fwd": "fwd_", "std": "std_", "bwd_soft": "bwd_soft_", "gen_bwd": "gen_bwd_",
+             "gen_fwd": "gen_fwd_"}
     names = []
     for arg in args or list(VARIANTS):
-        if arg in ("bwd", "fwd", "std", "bwd_soft", "gen_bwd"):
+        if arg in ("bwd", "fwd", "std", "bwd_soft", "gen_bwd", "gen_fwd"):
             names += [n for n in VARIANTS if n != "base" and (
                 n.startswith(group[arg]) if arg in group
                 else not n.startswith(tuple(group.values())))]
@@ -770,6 +844,22 @@ def main() -> int:
             dc=torch.randn(P, GEN_C, f, generator=g, device=dev),
             dstd=torch.randn(GEN_C, generator=g, device=dev) if std else None,
             dfeats=torch.empty_like(fe), dprobs=torch.empty_like(pr) if soft else None)
+    # the general forward's: rows of their own, its outputs, and the sums in
+    # float64 (chip_smoke.centroids_f64) its error is taken against
+    from chip_smoke import centroids_f64
+    gen_fwd_in = {}
+    for kernel, (c_, P, f, soft, std) in GEN_FWD_CALLS.items():
+        fe = torch.randn(M, f, generator=g, device=dev).to(torch.bfloat16)
+        pr = torch.softmax(torch.randn(M, c_, generator=g, device=dev), dim=-1)
+        a = (torch.randint(0, P, (M,), generator=g, device=dev, dtype=torch.int32)
+             if P > 1 else None)
+        gen_fwd_in[kernel] = dict(
+            C=c_, P=P, f=f, soft=soft, std=std, feats=fe, probs=pr, assign=a,
+            ref=centroids_f64(fe, pr, a, P, 0.0, soft, std),
+            cents=torch.empty(P, c_, f, device=dev), counts=torch.empty(P * c_, device=dev),
+            ratio=torch.empty((), device=dev),
+            stdv=torch.empty(c_, device=dev) if std else None,
+            s2=torch.empty(c_, f, device=dev) if std else None)
     # what each kernel leaves behind, to hold a variant against base
     result = {"mpcl_bwd": lambda: d1, "mpcl_pseudo_bwd": lambda: d2,
               "mpcl_pseudo_fwd": lambda: fstats, "mpcl_fwd": lambda: mstats["mpcl_fwd"],
@@ -785,7 +875,10 @@ def main() -> int:
                  for k in CEN_BWD},
               **{k: (lambda k=k: torch.cat([gen_in[k]["dfeats"].float().flatten(), *(
                   [] if gen_in[k]["dprobs"] is None else [gen_in[k]["dprobs"].flatten()])]))
-                 for k in GEN_BWD}}
+                 for k in GEN_BWD},
+              **{k: (lambda k=k: torch.cat([gen_fwd_in[k]["cents"].flatten(), *(
+                  [gen_fwd_in[k]["stdv"]] if gen_fwd_in[k]["std"] else [])]))
+                 for k in GEN_FWD}}
 
     def loaded(path, sigs):
         lib = ctypes.CDLL(str(path))
@@ -834,6 +927,21 @@ def main() -> int:
             elif kernel == "pseudo_label":
                 call = lambda lib=lib: lib.pseudo_label(  # noqa: E731
                     ptr(feats), 1, ptr(centers), M, F, C, th, ptr(plab), ptr(pmask), stream)
+            elif kernel in GEN_FWD:
+                r = gen_fwd_in[kernel]
+                n, grid = ctypes.c_int(), ctypes.c_int()
+                raise_on_error(lib.soft_centroids_gen_partials_size(
+                    1, M, r["f"], r["P"], r["C"], int(r["std"]), ctypes.byref(n)), name)
+                parts = torch.empty(n.value, device=dev)
+                call = lambda lib=lib, r=r, parts=parts, grid=grid: (  # noqa: E731
+                    lib.soft_centroids_gen_fwd_partial(
+                        ptr(r["feats"]), 1, ptr(r["probs"]), ptr(r["assign"]), M, r["f"],
+                        r["C"], r["P"], 0.0, int(r["soft"]), int(r["std"]), ptr(parts),
+                        ctypes.byref(grid), stream)
+                    or lib.soft_centroids_gen_fwd_final(
+                        ptr(parts), grid.value, M, r["f"], r["C"], r["P"], ptr(r["cents"]),
+                        ptr(r["counts"]), ptr(r["ratio"]), ptr(r["s2"]), ptr(r["stdv"]),
+                        stream))
             elif kernel.startswith("soft_centroids_fwd_std"):
                 P = 2 if kernel.endswith("_p2") else 1
                 n = ctypes.c_int()
@@ -904,6 +1012,13 @@ def main() -> int:
                           "ms": [time_ms(lambda: dst.copy_(src), iters=50) for _ in range(3)]}),
               flush=True)
         del src, dst
+    for kernel, r in gen_fwd_in.items():   # the general forward's calls' bytes, read
+        nbytes = M * (r["f"] * 2 + 4 * r["C"] + (4 if r["P"] > 1 else 0))
+        src = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        print(json.dumps({"variant": f"torch.sum yardstick of {kernel}'s bytes (read only)",
+                          "ms": [time_ms(lambda: torch.sum(src), iters=50) for _ in range(3)]}),
+              flush=True)
+        del src
     print(json.dumps({"variant": "torch.sum yardstick (read only)",
                       "ms": [time_ms(lambda: torch.sum(feats, dtype=torch.float32), iters=50)
                              for _ in range(3)]}), flush=True)
@@ -919,7 +1034,7 @@ def main() -> int:
             rec[kernel] = {
                 "ms": [time_ms(run, iters=50) for _ in range(3)],
                 "max_diff_from_base": float((got.float() - ref[kernel].float()).abs().max()),
-                "registers_spills": ptxas_of(log, SYMBOL_OF[kernel])}
+                "registers_spills_stack": ptxas_of(log, SYMBOL_OF[kernel])}
             if kernel in GEN_BWD:
                 # dfeats bit for bit; dprobs, whose sum over f may take
                 # another order, within the plain version's tolerance
@@ -935,6 +1050,21 @@ def main() -> int:
                 if name == "parent" and (rec[kernel]["dfeats_max_diff_from_base"] != 0.0
                                          or not rec[kernel].get("dprobs_within_tolerance",
                                                                 True)):
+                    faults.append(kernel)
+            elif kernel in GEN_FWD:
+                # another order of the sums: within phase 2's tolerance of
+                # base, and each one's error against the float64 sums
+                r = gen_fwd_in[kernel]
+                nc = r["cents"].numel()
+                rec[kernel]["err_f64_cents"] = float(
+                    (got[:nc].double() - r["ref"]["cents"].flatten()).abs().max())
+                if r["std"]:
+                    rec[kernel]["err_f64_std"] = float(
+                        (got[nc:].double() - r["ref"]["std"]).abs().max())
+                base = ref[kernel]
+                rec[kernel]["within_tolerance_of_base"] = bool(
+                    ((got - base).abs() <= 1e-5 + 1e-4 * base.abs()).all())
+                if name == "parent" and not rec[kernel]["within_tolerance_of_base"]:
                     faults.append(kernel)
             elif name == "parent" and rec[kernel]["max_diff_from_base"] != 0.0:
                 faults.append(kernel)
